@@ -1,0 +1,399 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (ganq_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (exit code != 0) on failure:
+
+1. environment: torch / CUDA versions and the card's name and power limit;
+   no CUDA device is an error.
+2. build: compile every kernel of the serving path from ganq_tpu_torch/csrc
+   with nvcc (one process per source, all at once) into build/.
+3. kernels: each kernel against its plain PyTorch version on the card, at the
+   Llama-3.2-1B shapes the serving path gives it, with its time, the plain
+   version's time, one PyTorch library call's time and the least time the
+   card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
+4. main path: a random-weight Llama-3.2-1B at its published widths, made a
+   4-bit GANQ ``lut`` model, saved with the port's checkpoint writer, loaded
+   with ``GanqModel.load`` (default device: the card) and asked four requests
+   through ``generate``; the kernels' launch counters must match the path's
+   expected launches exactly.
+5. reference check: one teacher-forced decode step through the "cuda" and
+   the "reference" backends on the card; the logits must agree.
+
+The second-to-last line is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
+LLAMA_1B_LINEARS = {"q/o": (2048, 2048), "k/v": (512, 2048),
+                    "gate/up": (8192, 2048), "down": (2048, 8192)}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ helpers
+def time_ms(fn, arg_sets, iters: int) -> float:
+    """Mean device time of one call of fn: ``iters`` calls, cycling through
+    ``arg_sets`` so inputs come cold from memory as they do in a decode
+    step, are captured in one CUDA graph and the graph's replay is timed
+    with CUDA events, so the host's launch cost does not hide in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the capture stream
+        for i in range(3):
+            fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int, cap: int = 256) -> int:
+    return max(1, min(cap, math.ceil(L2_FLUSH_BYTES / max(nbytes, 1))))
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    mag = t.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# ------------------------------------------------------------------ phases
+def phase_environment() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: torch.cuda.is_available() is false")
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"(count {torch.cuda.device_count()})")
+    return smi
+
+
+def phase_build() -> None:
+    from ganq_tpu_torch.ops import cuda_lib
+
+    t0 = time.time()
+    logs = cuda_lib.build_all()
+    log(f"build: {sorted(logs)} in {time.time() - t0:.1f} s")
+    for name, out in logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+def check_lut_matmul(gen) -> dict:
+    from ganq_tpu_torch.ops.lut_matmul import lut_matmul, lut_matmul_reference
+    from ganq_tpu_torch.ops.packing import pack_int_rows, unpack_int_rows
+
+    bits = 4
+    worst = 0.0
+    rows = {}
+    for label, (M, K) in LLAMA_1B_LINEARS.items():
+        wbytes = M * K * bits // 8
+        n = copies_for(wbytes)
+        weights = []
+        for _ in range(n):
+            lut = torch.sort(torch.randn((M, 16), generator=gen, device="cuda")
+                             * 0.006, dim=1).values.to(torch.bfloat16)
+            idx = torch.randint(0, 16, (M, K), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            weights.append((lut, pack_int_rows(idx, bits)))
+        dense = [torch.take_along_dim(
+            lut.float(), unpack_int_rows(p, bits, K).long(), dim=1
+        ).to(torch.bfloat16) for lut, p in weights[:copies_for(2 * M * K)]]
+        for B in (1, 8, 512):
+            x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+            lut, packed = weights[0]
+            got = lut_matmul(x, lut, packed, bits)
+            plain = lut_matmul_reference(x, lut, packed, bits)
+            torch.cuda.synchronize()
+            err = (got.float() - plain.float()).abs()
+            tol = (torch.maximum(bf16_ulp(got), bf16_ulp(plain))
+                   + 2e-5 * plain.float().abs().max())
+            if not bool((err <= tol).all()):
+                raise AssertionError(
+                    f"lut_matmul {label} B={B}: max |kernel - plain| = "
+                    f"{float(err.max()):.3e} exceeds one bf16 ulp")
+            lib = torch.matmul(x, dense[0].T)
+            if not torch.allclose(lib.float(), plain.float(), rtol=2e-2,
+                                  atol=2e-2 * float(plain.float().abs().max())):
+                raise AssertionError(f"library yardstick disagrees at {label}")
+            iters = max(2 * n, 30)
+            args = [(x, lu, p, bits) for lu, p in weights]
+            k_ms = time_ms(lut_matmul, args, iters)
+            p_ms = time_ms(lut_matmul_reference, args, max(len(args), 10))
+            l_ms = time_ms(lambda xx, w: torch.matmul(xx, w.T),
+                           [(x, w) for w in dense], iters)
+            nbytes = B * K * 2 + M * 16 * 2 + wbytes + B * M * 2
+            b_ms, b_by = bound(nbytes, 2.0 * B * M * K)
+            worst = max(worst, float(err.max()))
+            rows[(label, B)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    max_abs_err=float(err.max()))
+            log(f"lut_matmul bits=4 {label} M={M} K={K} B={B}: "
+                f"max_abs_err={float(err.max()):.3e} (tol: 1 bf16 ulp + 2e-5 "
+                f"of max|out|) kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
+                f"library_ms={l_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
+                f"bound_share={b_ms / k_ms:.3f}")
+        del weights, dense
+    entry = dict(rows[("down", 1)])
+    entry.update(name="lut_matmul", max_abs_err=worst,
+                 shape="bits=4 M=2048 K=8192 B=1 (down projection, decode)")
+    return entry
+
+
+def check_flash_decode(gen) -> dict:
+    import torch.nn.functional as F
+
+    from ganq_tpu_torch.ops.fused_attention import (
+        flash_decode_attention, flash_decode_reference,
+        flash_decode_split_bound, flash_decode_split_reference)
+
+    Hq, Hkv, d, T = 32, 8, 64, 2048
+    scale = 1.0 / math.sqrt(d)
+    worst = 0.0
+    rows = {}
+    for B in (1, 8):
+        for pos in (0, 300, T - 1):
+            n = copies_for(2 * B * (pos + 1) * Hkv * d * 2, cap=64)
+            caches = [(torch.randn((B, T, Hkv, d), generator=gen, device="cuda")
+                       .to(torch.bfloat16),
+                       torch.randn((B, T, Hkv, d), generator=gen, device="cuda")
+                       .to(torch.bfloat16)) for _ in range(n)]
+            q = torch.randn((B, Hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            k, v = caches[0]
+            got = flash_decode_attention(q, k, v, pos_t, scale)
+            split = flash_decode_split_reference(q, k, v, pos_t, scale)
+            plain = flash_decode_reference(q, k, v, pos_t, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - split.float()).abs()
+            tol = flash_decode_split_bound(q, k, v, pos, scale, got, split)
+            if not bool((err <= tol).all()):
+                raise AssertionError(
+                    f"flash_decode B={B} pos={pos}: |kernel - split version| "
+                    f"= {float(err.max()):.3e} exceeds its bound by "
+                    f"{float((err / tol).max()):.2f}x")
+            err_plain = float((got.float() - plain.float()).abs().max())
+
+            def library(qq, kk, vv):
+                return F.scaled_dot_product_attention(
+                    qq[:, :, None], kk[:, :pos + 1].transpose(1, 2),
+                    vv[:, :pos + 1].transpose(1, 2), scale=scale,
+                    enable_gqa=True)
+
+            iters = max(2 * n, 30)
+            args = [(q, kk, vv, pos_t, scale) for kk, vv in caches]
+            k_ms = time_ms(flash_decode_attention, args, iters)
+            p_ms = time_ms(flash_decode_reference, args, max(n, 10))
+            l_ms = time_ms(library, [(q, kk, vv) for kk, vv in caches], iters)
+            nbytes = 2 * B * Hq * d * 2 + 2 * B * (pos + 1) * Hkv * d * 2
+            b_ms, b_by = bound(nbytes, 4.0 * B * Hq * (pos + 1) * d)
+            worst = max(worst, float(err.max()))
+            rows[(B, pos)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  max_abs_err=float(err.max()))
+            log(f"flash_decode B={B} Hq={Hq} Hkv={Hkv} d={d} T={T} pos={pos}: "
+                f"max_abs_err={float(err.max()):.3e} against the split version "
+                f"(tol: 1 bf16 ulp + 2^-7 max p|v| + 3e-5 sum p|v|, mean "
+                f"{float(tol.mean()):.3e}, worst err/tol "
+                f"{float((err / tol).max()):.2f}); {err_plain:.3e} against the "
+                f"float32 softmax; kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
+                f"library_ms={l_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
+                f"bound_share={b_ms / k_ms:.3f}")
+            del caches
+    entry = dict(rows[(1, T - 1)])
+    entry.update(name="flash_decode", max_abs_err=worst,
+                 shape="B=1 Hq=32 Hkv=8 d=64 T=2048 pos=2047")
+    return entry
+
+
+def phase_kernels() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # full-precision sums in the plain versions' and library's GEMMs
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            return [check_lut_matmul(gen), check_flash_decode(gen)]
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def phase_main_path():
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.ops.fused_attention import flash_decode_attention
+    from ganq_tpu_torch.ops.lut_matmul import lut_matmul
+
+    cfg = synthetic.llama_3_2_1b_config()
+    t0 = time.time()
+    with torch.inference_mode():
+        model = synthetic.make_lut_model(cfg, bits=4, seed=0, device="cuda",
+                                         dtype=torch.bfloat16)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        save_quantized(tmp.name, hf_import.config_to_hf(cfg),
+                       QuantizeConfig(bits=4, quant_method="ganq"), model)
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.time()
+        q = GanqModel.load(tmp.name, dtype=torch.bfloat16)
+        log(f"main path: built+saved 1B lut checkpoint in {t1 - t0:.1f} s, "
+            f"loaded in {time.time() - t1:.1f} s on {q.device}, "
+            f"backend={q.backend}")
+    finally:
+        tmp.cleanup()
+    if q.backend != "cuda" or q.device.type != "cuda":
+        raise AssertionError("GanqModel.load did not select the card")
+
+    rng = torch.Generator().manual_seed(1)
+    layers = cfg.num_hidden_layers
+    linears = 7 * layers
+    expected = {"lut_matmul": 0, "flash_decode": 0}
+
+    def generate(ids, new, **kw):
+        """One request through the user entry point; adds the launches the
+        path must make: one LUT matmul per linear for the prompt when it has
+        fewer than 1024 token rows (else the dequantize-once GEMM), and one
+        per linear plus one flash decode per layer for every decode step."""
+        B, S = ids.shape
+        expected["lut_matmul"] += (linears if B * S < 1024 else 0) \
+            + (new - 1) * linears
+        expected["flash_decode"] += (new - 1) * layers
+        t0 = time.time()
+        out = q.generate(ids, max_new_tokens=new, **kw)
+        return out, time.time() - t0
+
+    requests = [("b1 prompt128 new64 greedy", 1, 128, 64, {}),
+                ("b8 prompt256 new32 greedy", 8, 256, 32, {}),
+                ("b1 prompt1100 new8 greedy (GEMM prefill)", 1, 1100, 8, {}),
+                ("b1 prompt64 new32 sampled", 1, 64, 32,
+                 dict(temperature=0.8, top_k=50, top_p=0.95, seed=1234))]
+    lut_matmul.launches = 0
+    flash_decode_attention.launches = 0
+    generate(torch.randint(0, cfg.vocab_size, (1, 16), generator=rng).numpy(),
+             4)                                           # warm-up request
+    metrics = {}
+    for name, B, S, new, kw in requests:
+        ids = torch.randint(0, cfg.vocab_size, (B, S), generator=rng).numpy()
+        generate(ids, 1, **kw)              # first use of this prompt shape
+        _, t_prefill = generate(ids, 1, **kw)
+        out, t_total = generate(ids, new, **kw)
+        if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{name}: bad tokens {out.shape} "
+                                 f"[{out.min()}, {out.max()}]")
+        if kw and not (generate(ids, new, **kw)[0] == out).all():
+            raise AssertionError("seeded sampling is not reproducible")
+        tok_s = B * (new - 1) / max(t_total - t_prefill, 1e-9)
+        metrics[name] = dict(prefill_ms=t_prefill * 1e3, decode_tok_s=tok_s)
+        log(f"request {name}: prefill_ms={t_prefill * 1e3:.2f} "
+            f"total_ms={t_total * 1e3:.2f} decode_tok_s={tok_s:.1f} "
+            f"first tokens {out[0, :6].tolist()}")
+    launches = {"lut_matmul": lut_matmul.launches,
+                "flash_decode": flash_decode_attention.launches}
+    log(f"launches during generate: {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError("kernel launch counts differ from the path's")
+    return q, launches, metrics
+
+
+def phase_reference_check(q) -> float:
+    """Teacher-force one decode step through both backends from the same
+    cache; relative L2 difference of the logits must stay below 5e-2 (bf16
+    activations: the paths round at different points, see PERF.md)."""
+    from ganq_tpu_torch.serve import engine
+
+    ids = torch.randint(0, q.cfg.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    with torch.inference_mode():
+        cache = engine.init_cache(q.cfg, 2, 256, q.device)
+        logits0 = engine.prefill(q.cfg, q.model, cache, ids, "reference")
+        tok = logits0.argmax(-1)
+        cache2 = [{k: v.clone() for k, v in c.items()} for c in cache]
+        pos = torch.tensor(128, dtype=torch.int32, device=q.device)
+        a = engine.decode_step(q.cfg, q.model, cache, tok, pos, "cuda").float()
+        b = engine.decode_step(q.cfg, q.model, cache2, tok, pos,
+                               "reference").float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("non-finite logits")
+    rel = float((a - b).norm() / b.norm())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"reference check: teacher-forced decode step, logits "
+        f"{tuple(a.shape)}, rel_l2(cuda, reference)={rel:.3e} "
+        f"max_abs={float((a - b).abs().max()):.3e} "
+        f"max|ref|={float(b.abs().max()):.3e} top1_agree={agree:.2f} "
+        f"(tol rel_l2 <= 5e-2)")
+    if rel > 5e-2:
+        raise AssertionError("cuda and reference backends disagree")
+    return rel
+
+
+def main() -> int:
+    t_start = time.time()
+    smi = phase_environment()
+    phase_build()
+    kernels = phase_kernels()
+    q, launches, _ = phase_main_path()
+    phase_reference_check(q)
+    src = {"lut_matmul": ("ganq_tpu_torch/csrc/lut_matmul.cu",
+                          "ganq_tpu/ops/lut_matmul.py:129"),
+           "flash_decode": ("ganq_tpu_torch/csrc/flash_decode.cu",
+                            "ganq_tpu/ops/fused_attention.py:343")}
+    line = {"kernels": [
+        {"name": k["name"], "route": "cuda", "source": src[k["name"]][0],
+         "replaces": src[k["name"]][1], "launches": launches[k["name"]],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+         "shape": k["shape"]} for k in kernels]}
+    log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
+    log(json.dumps(line))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,212 @@
+"""Quantized checkpoint save/load for the ``lut`` format.
+
+The port of the ``lut`` part of ``ganq_tpu/formats/checkpoint.py``: a
+directory of (possibly sharded) safetensors files plus
+``quantize_config.json``, ``config.json`` (with ``quantization_config``
+mirrored in) and ``quant_log.csv``. Each quantized linear is stored as
+``{module}.lut`` fp16 [out, 2^bits] (sorted per row) and
+``{module}.idx_packed`` int32 [out, in/packfactor] (planar codes). A
+directory written by either package loads in the other.
+"""
+
+from __future__ import annotations
+
+import csv
+import hashlib
+import json
+import os
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from ..core.config import META_QUANTIZER_GANQ_TPU, QuantizeConfig
+from ..models import hf_import
+from ..models.registry import ArchSpec, get_spec
+from ..models.transformer import Model, ModelConfig
+from ..ops import qlinear
+from ..ops.packing import pack_factor, pack_int_rows, unpack_int_rows
+from ..utils.logger import get_logger
+from .safetensors_io import save_file
+
+log = get_logger(__name__)
+
+MAX_SHARD_BYTES = 4 * 1024**3
+
+
+def _hf_module_prefix(spec: ArchSpec, layer_idx: int, module_name: str) -> str:
+    """HF module prefix ("model.layers.0.self_attn.q_proj") of a layer's
+    quantizable module, from the name_map entry of its slot's weight."""
+    slot = spec.module_slots[module_name]
+    tpl = spec.name_map[f"layers.{{i}}.{slot}.weight"]
+    return tpl.format(i=layer_idx).rsplit(".weight", 1)[0]
+
+
+def _linear_state(prefix: str, p: qlinear.QLinear) -> Dict[str, torch.Tensor]:
+    """Checkpoint tensors of one linear: the weight of a dense one, the
+    sorted fp16 codebook and unpadded planar codes of a ``lut`` one."""
+    out: Dict[str, torch.Tensor] = {}
+    if p.kind == "dense":
+        out[f"{prefix}.weight"] = p["weight"]
+    elif p.kind == "lut":
+        lut = p["lut"].to(torch.float16)
+        packed = p["idx_packed"]
+        padded = packed.shape[1] * pack_factor(p.bits) != p.in_features
+        unsorted = bool(torch.any(lut[:, 1:] < lut[:, :-1]))
+        if padded or unsorted:
+            codes = unpack_int_rows(packed, p.bits, p.in_features).to(torch.int64)
+            order = torch.argsort(lut, dim=1, stable=True)
+            rank = torch.argsort(order, dim=1, stable=True)
+            lut = torch.take_along_dim(lut, order, dim=1)
+            packed = pack_int_rows(torch.take_along_dim(rank, codes, dim=1),
+                                   p.bits)
+        out[f"{prefix}.lut"] = lut
+        out[f"{prefix}.idx_packed"] = packed
+    else:
+        raise NotImplementedError(
+            f"saving kind={p.kind} is not ported yet (GPTQ format: slice 3)")
+    if "bias" in p:
+        out[f"{prefix}.bias"] = p["bias"]
+    return out
+
+
+def save_quantized(save_dir: str, hf_config: Dict[str, Any],
+                   qcfg: QuantizeConfig, model: Model,
+                   quant_log: Optional[Iterable[Any]] = None,
+                   max_shard_bytes: int = MAX_SHARD_BYTES) -> None:
+    """Write a self-contained quantized checkpoint directory.
+
+    ``quant_log``: entries with ``layer``, ``module``, ``method``, ``loss``,
+    ``damp`` and ``duration`` attributes, written to ``quant_log.csv``."""
+    spec = get_spec(hf_config["model_type"])
+    cfg = spec.make_config(hf_config)
+    os.makedirs(save_dir, exist_ok=True)
+
+    state: Dict[str, torch.Tensor] = {
+        spec.name_map["embed_tokens.weight"]: model.embed_tokens.weight,
+        spec.name_map["final_norm.weight"]: model.final_norm.weight,
+    }
+    for i, lp in enumerate(model.layers):
+        for ours in ("input_norm", "post_norm"):
+            key = spec.name_map[f"layers.{{i}}.{ours}.weight"].format(i=i)
+            state[key] = getattr(lp, ours).weight
+        for mod, slot in spec.module_slots.items():
+            p = hf_import.get_module(model, i, slot)
+            if p is not None:
+                state.update(_linear_state(_hf_module_prefix(spec, i, mod), p))
+    if model.lm_head is not None:
+        state.update(_linear_state(spec.lm_head_name, model.lm_head))
+    if len(model.layers) != cfg.num_hidden_layers:
+        raise ValueError("model depth does not match hf_config")
+    _write_sharded(save_dir, state, max_shard_bytes)
+
+    qcfg_dict = qcfg.to_dict()
+    qcfg_dict.setdefault("meta", {})
+    qcfg_dict["meta"]["quantizer"] = META_QUANTIZER_GANQ_TPU
+    with open(os.path.join(save_dir, "quantize_config.json"), "w") as f:
+        json.dump(qcfg_dict, f, indent=2)
+    hf_out = dict(hf_config)
+    hf_out["quantization_config"] = qcfg_dict
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(hf_out, f, indent=2)
+    if quant_log:
+        _write_quant_log(save_dir, quant_log)
+    log.info(f"saved quantized checkpoint to {save_dir}")
+
+
+def _write_quant_log(save_dir: str, quant_log: Iterable[Any]) -> None:
+    with open(os.path.join(save_dir, "quant_log.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["layer", "module", "method", "loss", "damp", "time"])
+        for e in quant_log:
+            w.writerow([e.layer, e.module, e.method,
+                        f"{e.loss:.6f}", f"{e.damp:.5f}", f"{e.duration:.3f}"])
+
+
+def _write_sharded(save_dir: str, state: Dict[str, torch.Tensor],
+                   max_shard_bytes: int) -> None:
+    shards: List[Dict[str, torch.Tensor]] = [{}]
+    sizes = [0]
+    for k, v in state.items():
+        nbytes = v.numel() * v.element_size()
+        if sizes[-1] + nbytes > max_shard_bytes and shards[-1]:
+            shards.append({})
+            sizes.append(0)
+        shards[-1][k] = v
+        sizes[-1] += nbytes
+    if len(shards) == 1:
+        save_file(shards[0], os.path.join(save_dir, "model.safetensors"))
+        return
+    index = {"metadata": {"total_size": sum(sizes)}, "weight_map": {}}
+    n = len(shards)
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{n:05d}.safetensors"
+        save_file(shard, os.path.join(save_dir, fname))
+        for k in shard:
+            index["weight_map"][k] = fname
+    with open(os.path.join(save_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump(index, f, indent=2)
+
+
+def sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def load_quantized(model_dir: str, device="cpu",
+                   dtype: torch.dtype = torch.float32,
+                   verify_hash: Optional[Dict[str, str]] = None
+                   ) -> Tuple[ModelConfig, Model, QuantizeConfig]:
+    """Load a quantized checkpoint into (ModelConfig, Model, QuantizeConfig)
+    on ``device``. Unquantized tensors take ``dtype``; codebooks are held in
+    bf16 and codes as int32, as the JAX package holds them. ``verify_hash``
+    maps file name -> expected sha256."""
+    hf_config = hf_import.load_hf_config(model_dir)
+    qcfg = QuantizeConfig.from_pretrained(model_dir)
+    spec = get_spec(hf_config["model_type"])
+
+    if verify_hash:
+        for fname, expected in verify_hash.items():
+            actual = sha256_file(os.path.join(model_dir, fname))
+            if actual != expected:
+                raise ValueError(f"hash mismatch for {fname}: {actual} != {expected}")
+    if os.path.isfile(os.path.join(model_dir, "adapter_model.safetensors")):
+        raise NotImplementedError("EoRA adapters are not ported yet")
+
+    state = dict(hf_import.iter_safetensors(model_dir))
+    cfg, model = hf_import.params_from_state_dict(state, hf_config, dtype, device)
+
+    def build_qlinear(prefix: str, bits: int) -> Optional[qlinear.QLinear]:
+        if f"{prefix}.lut" not in state:
+            if f"{prefix}.qweight" in state or f"{prefix}.B" in state:
+                raise NotImplementedError(
+                    f"{prefix}: GPTQ/QQQ formats are not ported yet (slice 3)")
+            return None
+        packed = state[f"{prefix}.idx_packed"].to(device)
+        arrays = {"lut": state[f"{prefix}.lut"].to(device, torch.bfloat16),
+                  "idx_packed": packed}
+        bias = state.get(f"{prefix}.bias")
+        if bias is not None:
+            arrays["bias"] = bias.to(device, dtype)
+        return qlinear.QLinear("lut", arrays, bits=bits,
+                               in_features=packed.shape[1] * pack_factor(bits))
+
+    for li in range(cfg.num_hidden_layers):
+        for mod, slot in spec.module_slots.items():
+            eff = qcfg.for_module(f"{spec.layers_prefix}.{li}.{mod}")
+            ql = build_qlinear(_hf_module_prefix(spec, li, mod),
+                               eff.bits if eff else qcfg.bits)
+            if ql is not None:
+                hf_import.set_module(model, li, slot, ql)
+            elif hf_import.get_module(model, li, slot) is None:
+                raise ValueError(f"{model_dir}: no weights for layer {li} {mod}")
+    eff = qcfg.for_module(spec.lm_head_name)
+    ql = build_qlinear(spec.lm_head_name, eff.bits if eff else qcfg.bits)
+    if ql is not None:
+        model.lm_head = ql
+    return cfg, model, qcfg
+
+
+__all__ = ["save_quantized", "load_quantized", "sha256_file", "MAX_SHARD_BYTES"]

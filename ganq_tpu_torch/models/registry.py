@@ -1,0 +1,103 @@
+"""Architecture registry: the llama ``ArchSpec``.
+
+The port of the llama entry of ``ganq_tpu/models/registry.py``: how a HF
+config becomes a :class:`ModelConfig`, how HF tensor names map onto the
+model's parameter paths, and which linears are quantized (their checkpoint
+module names and the slots they fill). The other architectures come with
+later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict
+
+from .transformer import ModelConfig
+
+
+@dataclass
+class ArchSpec:
+    model_type: str
+    make_config: Callable[[Dict[str, Any]], ModelConfig]
+    # our parameter path -> HF tensor name; {i} = layer index
+    name_map: Dict[str, str] = field(default_factory=dict)
+    # HF module name inside a layer -> our slot ("attn.q", "mlp.down", ...)
+    module_slots: Dict[str, str] = field(default_factory=dict)
+    lm_head_name: str = "lm_head"
+    layers_prefix: str = "model.layers"
+
+
+REGISTRY: Dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    REGISTRY[spec.model_type] = spec
+    return spec
+
+
+def get_spec(model_type: str) -> ArchSpec:
+    if model_type not in REGISTRY:
+        raise KeyError(f"Unsupported architecture '{model_type}'. "
+                       f"Registered: {sorted(REGISTRY)}")
+    return REGISTRY[model_type]
+
+
+def _llama_config(hf: Dict[str, Any]) -> ModelConfig:
+    heads = hf["num_attention_heads"]
+    return ModelConfig(
+        model_type=hf.get("model_type", "llama"),
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_hidden_layers=hf["num_hidden_layers"],
+        num_attention_heads=heads,
+        num_key_value_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        norm_eps=hf.get("rms_norm_eps", 1e-5),
+        act=hf.get("hidden_act", "silu"),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rope_scaling=hf.get("rope_scaling"),
+        attn_bias=hf.get("attention_bias", False),
+        mlp_bias=hf.get("mlp_bias", False),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+    )
+
+
+LLAMA_NAME_MAP = {
+    "embed_tokens.weight": "model.embed_tokens.weight",
+    "final_norm.weight": "model.norm.weight",
+    "lm_head.weight": "lm_head.weight",
+    "layers.{i}.input_norm.weight": "model.layers.{i}.input_layernorm.weight",
+    "layers.{i}.post_norm.weight": "model.layers.{i}.post_attention_layernorm.weight",
+    "layers.{i}.attn.q.weight": "model.layers.{i}.self_attn.q_proj.weight",
+    "layers.{i}.attn.k.weight": "model.layers.{i}.self_attn.k_proj.weight",
+    "layers.{i}.attn.v.weight": "model.layers.{i}.self_attn.v_proj.weight",
+    "layers.{i}.attn.o.weight": "model.layers.{i}.self_attn.o_proj.weight",
+    "layers.{i}.attn.q.bias": "model.layers.{i}.self_attn.q_proj.bias",
+    "layers.{i}.attn.k.bias": "model.layers.{i}.self_attn.k_proj.bias",
+    "layers.{i}.attn.v.bias": "model.layers.{i}.self_attn.v_proj.bias",
+    "layers.{i}.mlp.gate.weight": "model.layers.{i}.mlp.gate_proj.weight",
+    "layers.{i}.mlp.up.weight": "model.layers.{i}.mlp.up_proj.weight",
+    "layers.{i}.mlp.down.weight": "model.layers.{i}.mlp.down_proj.weight",
+}
+
+LLAMA_SLOTS = {
+    "self_attn.q_proj": "attn.q",
+    "self_attn.k_proj": "attn.k",
+    "self_attn.v_proj": "attn.v",
+    "self_attn.o_proj": "attn.o",
+    "mlp.gate_proj": "mlp.gate",
+    "mlp.up_proj": "mlp.up",
+    "mlp.down_proj": "mlp.down",
+}
+
+register(ArchSpec(
+    model_type="llama",
+    make_config=_llama_config,
+    name_map=LLAMA_NAME_MAP,
+    module_slots=LLAMA_SLOTS,
+))
+
+
+__all__ = ["ArchSpec", "REGISTRY", "register", "get_spec"]

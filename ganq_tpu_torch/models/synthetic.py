@@ -1,0 +1,82 @@
+"""Synthetic models: random weights at real architecture widths.
+
+The port of ``llama_config`` and the ``lut`` builder of
+``ganq_tpu/models/synthetic.py``. Random weights have the compute and memory
+behaviour of trained ones, so serving runs and kernel timings need no
+download. Everything is made on the target device from a seeded
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..ops import qlinear
+from ..ops.packing import pack_int_rows
+from .transformer import Layer, Model, ModelConfig
+
+
+def llama_config(hidden: int = 2048, inter: int = 5504, layers: int = 16,
+                 heads: int = 16, kv_heads: int = 8, vocab: int = 32000,
+                 max_pos: int = 4096, rope_theta: float = 10000.0,
+                 rope_scaling: Optional[Dict[str, Any]] = None) -> ModelConfig:
+    return ModelConfig(
+        model_type="llama", vocab_size=vocab, hidden_size=hidden,
+        intermediate_size=inter, num_hidden_layers=layers,
+        num_attention_heads=heads, num_key_value_heads=kv_heads,
+        head_dim=hidden // heads, max_position_embeddings=max_pos,
+        act="silu", rope_theta=rope_theta, rope_scaling=rope_scaling,
+        tie_word_embeddings=True)
+
+
+def llama_3_2_1b_config(layers: int = 16) -> ModelConfig:
+    """Llama-3.2-1B at its published widths (huggingface.co/meta-llama/
+    Llama-3.2-1B config.json); ``layers`` may cut the depth."""
+    return llama_config(
+        hidden=2048, inter=8192, layers=layers, heads=32, kv_heads=8,
+        vocab=128256, max_pos=131072, rope_theta=500000.0,
+        rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 8192})
+
+
+def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
+                     device) -> qlinear.QLinear:
+    """A random ``lut`` linear: sorted bf16 codebooks with std 0.006 (the
+    JAX builder's scale) and uniform random codes."""
+    v = 1 << bits
+    lut = torch.sort(torch.randn((out_f, v), generator=gen, device=device)
+                     * 0.006, dim=1).values.to(torch.bfloat16)
+    idx = torch.randint(0, v, (out_f, in_f), generator=gen, device=device,
+                        dtype=torch.int32)
+    return qlinear.QLinear("lut", {"lut": lut,
+                                   "idx_packed": pack_int_rows(idx, bits)},
+                           bits=bits, in_features=in_f)
+
+
+def make_lut_model(cfg: ModelConfig, bits: int = 4, seed: int = 0,
+                   device="cpu", dtype: torch.dtype = torch.bfloat16) -> Model:
+    """Random model with every layer linear in the ``lut`` format, unit norm
+    weights and an embedding of std 0.02 (tied, as ``llama_config`` sets)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, q, kv, it = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
+                    cfg.intermediate_size)
+
+    def lin(out_f, in_f):
+        return _rand_lut_linear(gen, out_f, in_f, bits, device)
+
+    layers = [Layer(torch.ones(h, dtype=dtype, device=device),
+                    torch.ones(h, dtype=dtype, device=device),
+                    attn={"q": lin(q, h), "k": lin(kv, h), "v": lin(kv, h),
+                          "o": lin(h, q)},
+                    mlp={"gate": lin(it, h), "up": lin(it, h),
+                         "down": lin(h, it)})
+              for _ in range(cfg.num_hidden_layers)]
+    embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device)
+             * 0.02).to(dtype)
+    return Model(embed, torch.ones(h, dtype=dtype, device=device), layers)
+
+
+__all__ = ["llama_config", "llama_3_2_1b_config", "make_lut_model"]

@@ -1,0 +1,269 @@
+"""Decoder-only llama-family transformer: modules for the weights, plain
+functions for the math.
+
+The port of the llama subset of ``ganq_tpu/models/transformer.py``: RMSNorm,
+rope with linear or llama3 frequency scaling, grouped-query attention, the
+gated SiLU MLP and tied embeddings. The weights live in ``nn.Module``s whose
+buffer paths are the JAX package's parameter paths
+(``layers.0.attn.q.weight``, ``final_norm.weight``, ...); the forward math is
+a set of plain functions over them, as in the JAX package.
+
+The KV cache is updated in place (the JAX version returns new buffers).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import qlinear
+from ..ops.attention import causal_attention
+from ..ops.fused_attention import flash_decode_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    model_type: str                   # "llama"
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_hidden_layers: int
+    num_attention_heads: int
+    num_key_value_heads: int
+    head_dim: int
+    max_position_embeddings: int = 2048
+    norm_eps: float = 1e-5
+    act: str = "silu"
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[Dict[str, Any]] = None
+    attn_bias: bool = False
+    mlp_bias: bool = False
+    tie_word_embeddings: bool = False
+    attn_scale: Optional[float] = None  # default 1/sqrt(head_dim)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_attention_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_key_value_heads * self.head_dim
+
+
+# -------------------------------------------------------------------- weights
+class Weights(nn.Module):
+    """A ``weight`` (and optional ``bias``) buffer, so that module paths
+    spell the checkpoint's parameter names."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        if bias is not None:
+            self.register_buffer("bias", bias)
+
+
+class Layer(nn.Module):
+    """One decoder layer's weights: two norms, attention q/k/v/o and the
+    gated MLP gate/up/down, each a :class:`~ganq_tpu_torch.ops.qlinear.QLinear`."""
+
+    def __init__(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
+                 attn: Dict[str, nn.Module], mlp: Dict[str, nn.Module]):
+        super().__init__()
+        self.input_norm = Weights(input_norm)
+        self.post_norm = Weights(post_norm)
+        self.attn = nn.ModuleDict(attn)
+        self.mlp = nn.ModuleDict(mlp)
+
+
+class Model(nn.Module):
+    """The whole model's weights. ``lm_head`` is None for tied embeddings."""
+
+    def __init__(self, embed_tokens: torch.Tensor, final_norm: torch.Tensor,
+                 layers: List[Layer], lm_head: Optional[nn.Module] = None):
+        super().__init__()
+        self.embed_tokens = Weights(embed_tokens)
+        self.final_norm = Weights(final_norm)
+        self.layers = nn.ModuleList(layers)
+        self.register_module("lm_head", lm_head)
+
+
+# ---------------------------------------------------------------------- norms
+def apply_norm(weight: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in float32, result in x's type."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------------- rope
+def _rope_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
+    """Inverse frequencies [head_dim/2], float32, with the config's scaling."""
+    rd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd))
+    rs = cfg.rope_scaling
+    kind = rs.get("rope_type", rs.get("type")) if rs else None
+    if kind == "linear":
+        return inv_freq / rs["factor"]
+    if kind == "yarn":
+        raise NotImplementedError("yarn rope scaling is not ported yet")
+    if kind == "llama3":
+        # HF llama3 frequency-dependent scaling (Llama-3.x checkpoints)
+        factor = rs["factor"]
+        lo = rs.get("low_freq_factor", 1.0)
+        hi = rs.get("high_freq_factor", 4.0)
+        orig = rs.get("original_max_position_embeddings", 8192)
+        wavelen = 2 * math.pi / inv_freq
+        scaled = inv_freq / factor
+        smooth = (orig / wavelen - lo) / (hi - lo)
+        mid = (1 - smooth) * scaled + smooth * inv_freq
+        return torch.where(wavelen > orig / lo, scaled,
+                           torch.where(wavelen < orig / hi, inv_freq, mid))
+    return inv_freq         # other kinds leave the frequencies unscaled
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., head_dim] (half-split layout) for positions."""
+    inv_freq = _rope_inv_freq(cfg, positions.device)
+    freqs = positions[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [b, s, heads, hd]; cos/sin: [b, s, hd] (HF rotate_half)."""
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x * cos[:, :, None, :] + rot * sin[:, :, None, :]).to(x.dtype)
+
+
+# ------------------------------------------------------------------ attention
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """q: [b, s, hq, d]; k, v: [b, t, hkv, d] -> [b, s, hq, d]. GQA through
+    grouped einsums (no repeated copy of the cache)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits,
+                             torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    return out.reshape(b, s, hq, v.shape[-1])
+
+
+def causal_mask(s: int, t: int, device, offset: int = 0) -> torch.Tensor:
+    """[1, 1, s, t] boolean mask; query i attends keys <= i + offset."""
+    qi = torch.arange(s, device=device)[:, None] + offset
+    ki = torch.arange(t, device=device)[None, :]
+    return (ki <= qi)[None, None]
+
+
+def _activation(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        return nn.functional.silu(x)
+    raise NotImplementedError(f"activation {act!r} is not ported yet")
+
+
+def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write ``new`` [b, s, ...] into ``buf`` [b, T, ...] at rows pos.. in
+    place; ``pos`` is a python int or a 0-d device tensor (no host sync)."""
+    new = new.to(buf.dtype)
+    if isinstance(pos, int):
+        buf[:, pos:pos + new.shape[1]] = new
+    else:
+        rows = pos.reshape(1) + torch.arange(new.shape[1], device=buf.device)
+        buf.index_copy_(1, rows, new)
+
+
+# ---------------------------------------------------------------------- layer
+def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
+                  mask: Optional[torch.Tensor],
+                  rope: Tuple[torch.Tensor, torch.Tensor],
+                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  cache_pos=None, backend: str = "reference") -> torch.Tensor:
+    """One decoder layer; writes this layer's k/v into ``cache`` (in place).
+
+    ``cache_pos`` is the python int 0 for prefill and a 0-d tensor for a
+    decode step. Prefilling from position 0 attends over the fresh k/v only.
+    A decode step on the ``"cuda"`` backend always runs the flash decode
+    kernel over the cache (which launches or raises); on the reference
+    backend it runs the masked plain attention."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
+    is_prefill = cache is None or (isinstance(cache_pos, int) and cache_pos == 0
+                                   and s > 1)
+    use_flash_decode = (backend == "cuda" and cache is not None
+                        and isinstance(cache_pos, torch.Tensor))
+    if use_flash_decode and s != 1:
+        raise ValueError(f"a decode step on the cuda backend takes one token "
+                         f"per sequence, got {s}")
+
+    residual = x
+    h = apply_norm(lp.input_norm.weight, x, cfg.norm_eps)
+    attn = lp.attn
+    q = qlinear.apply(attn["q"], h, backend).reshape(b, s, -1, hd)
+    k = qlinear.apply(attn["k"], h, backend).reshape(b, s, -1, hd)
+    v = qlinear.apply(attn["v"], h, backend).reshape(b, s, -1, hd)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cache is not None:
+        _cache_write(cache["k"], k, cache_pos)
+        _cache_write(cache["v"], v, cache_pos)
+
+    if use_flash_decode:
+        attn_out = flash_decode_attention(q[:, 0], cache["k"], cache["v"],
+                                          cache_pos, scale)[:, None]
+    elif is_prefill:
+        attn_out = causal_attention(q, k.to(q.dtype), v.to(q.dtype), scale)
+    else:
+        attn_out = attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                             mask, scale)
+    attn_out = qlinear.apply(attn["o"], attn_out.reshape(b, s, -1), backend)
+    x = residual + attn_out
+
+    h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
+    mlp = lp.mlp
+    g = qlinear.apply(mlp["gate"], h, backend)
+    u = qlinear.apply(mlp["up"], h, backend)
+    a = _activation(g, cfg.act) * u
+    return x + qlinear.apply(mlp["down"], a, backend)
+
+
+# ------------------------------------------------------------------ embedding
+def embed(model: Model, input_ids: torch.Tensor) -> torch.Tensor:
+    return model.embed_tokens.weight[input_ids]
+
+
+def unembed(cfg: ModelConfig, model: Model, x: torch.Tensor,
+            backend: str = "reference") -> torch.Tensor:
+    x = apply_norm(model.final_norm.weight, x, cfg.norm_eps)
+    if model.lm_head is None:
+        return x @ model.embed_tokens.weight.T.to(x.dtype)
+    return qlinear.apply(model.lm_head, x, backend)
+
+
+def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,
+            backend: str = "reference") -> torch.Tensor:
+    """Full forward without a cache: input_ids [b, s] -> logits [b, s, vocab]."""
+    b, s = input_ids.shape
+    positions = torch.arange(s, device=input_ids.device).expand(b, s)
+    x = embed(model, input_ids)
+    rope = rope_tables(cfg, positions)
+    for lp in model.layers:
+        x = layer_forward(cfg, lp, x, None, rope, backend=backend)
+    return unembed(cfg, model, x)
+
+
+__all__ = ["ModelConfig", "Weights", "Layer", "Model", "layer_forward",
+           "forward", "embed", "unembed", "apply_norm", "rope_tables",
+           "apply_rope", "attention", "causal_mask"]

@@ -1,0 +1,125 @@
+"""Backend selection of the PyTorch port, and the decode step's route to the
+flash decode kernel on the "cuda" backend.
+
+Selection only inspects the model and the device's type, so a
+``torch.device("cuda")`` is enough here without a GPU."""
+
+import pytest
+import torch
+
+from ganq_tpu_torch.core.backend import select_backend
+from ganq_tpu_torch.models import synthetic
+from ganq_tpu_torch.models import transformer as ttr
+from ganq_tpu_torch.ops import qlinear as tql
+from ganq_tpu_torch.ops.packing import pack_int_rows
+from ganq_tpu_torch.serve import engine as teng
+
+CPU, GPU = torch.device("cpu"), torch.device("cuda")
+
+
+def _uniform_linear(bits=4, out_f=8, in_f=32):
+    gen = torch.Generator().manual_seed(0)
+    codes = torch.randint(0, 2**bits, (out_f, in_f), generator=gen,
+                          dtype=torch.int32)
+    return tql.QLinear("uniform", {
+        "qweight": pack_int_rows(codes, bits),
+        "scales": torch.full((out_f, 1), 0.01)}, bits=bits, in_features=in_f)
+
+
+def _lut_linear(bits):
+    gen = torch.Generator().manual_seed(0)
+    lut = torch.randn((8, 2**bits), generator=gen)
+    idx = torch.randint(0, 2**bits, (8, 32), generator=gen)
+    return tql.lut_linear(lut, idx, bits)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_cpu_takes_reference_and_card_takes_cuda(bits):
+    model = torch.nn.ModuleList([_lut_linear(bits), tql.dense_linear(
+        torch.ones(4, 4))])
+    assert select_backend(model, CPU) == "reference"
+    assert select_backend(model, GPU) == "cuda"
+    # the plain path on the card only when asked for
+    assert select_backend(model, GPU, "reference") == "reference"
+
+
+@pytest.mark.parametrize("make,match", [
+    (_uniform_linear, "slice 3"),
+    (lambda: _lut_linear(8), "2, 3 or 4 bits"),
+])
+def test_card_raises_for_a_linear_without_kernel(make, match):
+    model = torch.nn.ModuleList([_lut_linear(4), make()])
+    with pytest.raises(NotImplementedError, match=match):
+        select_backend(model, GPU)
+    assert select_backend(model, CPU) == "reference"
+
+
+def test_bad_requests_raise():
+    model = torch.nn.ModuleList([_lut_linear(4)])
+    with pytest.raises(ValueError, match="requires a CUDA device"):
+        select_backend(model, CPU, "cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        select_backend(model, CPU, "pallas")
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads", [(1, 2, 1), (65, 2, 2),
+                                                  (3, 4, 1)])
+def test_cuda_decode_step_always_takes_flash_decode(monkeypatch, batch, heads,
+                                                    kv_heads):
+    """Every layer of a "cuda" decode step calls flash decode, whatever the
+    batch (65 is past the JAX gate's 64) or the head width (12 is no multiple
+    of 8: the kernel's wrapper, not the caller, decides to launch or raise)."""
+    cfg = synthetic.llama_config(hidden=12 * heads, inter=32, layers=2,
+                                 heads=heads, kv_heads=kv_heads, vocab=64)
+    model = synthetic.make_lut_model(cfg, seed=0)
+    calls = []
+    flash = ttr.flash_decode_attention
+
+    def spy(q, k_cache, v_cache, pos, scale):
+        calls.append(tuple(q.shape))
+        return flash(q, k_cache, v_cache, pos, scale)
+
+    monkeypatch.setattr(ttr, "flash_decode_attention", spy)
+    ids = torch.randint(0, 64, (batch, 5), generator=torch.Generator()
+                        .manual_seed(1))
+    with torch.inference_mode():
+        cache = teng.init_cache(cfg, batch, 16, "cpu")
+        tok = teng.prefill(cfg, model, cache, ids, "cuda").argmax(-1)
+        assert calls == []                       # prefill: plain attention
+        pos = torch.tensor(5, dtype=torch.int32)
+        teng.decode_step(cfg, model, cache, tok, pos, "cuda")
+        assert calls == [(batch, heads, 12)] * cfg.num_hidden_layers
+        teng.decode_step(cfg, model, cache, tok, pos + 1, "reference")
+    assert len(calls) == cfg.num_hidden_layers   # reference: plain attention
+
+
+def test_cuda_decode_step_takes_one_token():
+    cfg = synthetic.llama_config(hidden=32, inter=32, layers=1, heads=2,
+                                 kv_heads=1, vocab=64)
+    model = synthetic.make_lut_model(cfg, seed=0)
+    cache = teng.init_cache(cfg, 1, 16, "cpu")
+    x = torch.zeros((1, 2, 32), dtype=torch.bfloat16)
+    rope = ttr.rope_tables(cfg, torch.arange(2)[None])
+    with pytest.raises(ValueError, match="one token"):
+        ttr.layer_forward(cfg, model.layers[0], x, None, rope, cache=cache[0],
+                          cache_pos=torch.tensor(3), backend="cuda")
+
+
+def test_load_takes_a_backend(tmp_path):
+    """``GanqModel.load(..., backend=...)`` passes the choice through
+    ``select_backend``: the plain path when asked for, and a refusal for the
+    kernels on a device that has none."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import
+
+    cfg = synthetic.llama_config(hidden=32, inter=32, layers=1, heads=2,
+                                 kv_heads=1, vocab=64)
+    save_quantized(str(tmp_path), hf_import.config_to_hf(cfg),
+                   QuantizeConfig(bits=4, quant_method="ganq"),
+                   synthetic.make_lut_model(cfg, seed=0))
+    g = GanqModel.load(str(tmp_path), device="cpu", backend="reference")
+    assert g.backend == "reference"
+    assert g.generate([[1, 2, 3]], max_new_tokens=2, max_seq=8).shape == (1, 2)
+    with pytest.raises(ValueError, match="requires a CUDA device"):
+        GanqModel.load(str(tmp_path), device="cpu", backend="cuda")

@@ -1,0 +1,82 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points never fall back to the CPU on their own."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ganq_tpu_torch
+from ganq_tpu_torch import GanqModel
+from ganq_tpu_torch.models import synthetic
+from ganq_tpu_torch.serve.engine import Engine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import ganq_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ganq_tpu_torch.__path__,
+                                                "ganq_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "ganq_tpu"
+             or k.startswith("ganq_tpu."))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def test_no_jax_and_no_jax_package_in_a_fresh_process():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("[]")
+
+
+def test_sources_do_not_name_the_jax_package():
+    root = os.path.dirname(ganq_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                assert "import jax" not in text and "from jax" not in text, f
+                assert "from ganq_tpu." not in text, f
+                assert "import ganq_tpu." not in text, f
+
+
+def test_entry_points_do_not_silently_run_on_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GanqModel.load(str(tmp_path))
+    cfg = synthetic.llama_config(hidden=32, inter=64, layers=1, heads=2,
+                                 kv_heads=1, vocab=64)
+    model = synthetic.make_lut_model(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, model)
+    # an explicit CPU request runs
+    out = Engine(cfg, model, device="cpu", max_seq=16).generate(
+        [[1, 2, 3]], max_new_tokens=2)
+    assert out.shape == (1, 2)
+
+
+def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
+    """On a CUDA tensor the wrappers launch or raise: their only branch to
+    the plain version tests for a CPU tensor."""
+    import inspect
+
+    from ganq_tpu_torch.ops import fused_attention, lut_matmul
+
+    for fn, plain in ((lut_matmul.lut_matmul, "lut_matmul_reference"),
+                      (fused_attention.flash_decode_attention,
+                       "flash_decode_reference")):
+        src = inspect.getsource(fn)
+        assert src.count(plain) == 1
+        assert 'device.type == "cpu":\n        return ' + plain in src
+        assert "except" not in src

@@ -7,19 +7,33 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. environment: torch / CUDA versions and the card's name and power limit;
    no CUDA device is an error.
-2. build: compile every kernel of the serving path from ganq_tpu_torch/csrc
-   with nvcc (one process per source, all at once) into build/.
+2. build: compile every kernel of the port from ganq_tpu_torch/csrc with
+   nvcc (one process per source, all at once) into build/, and the exact
+   k-means library with g++.
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   Llama-3.2-1B shapes the serving path gives it, with its time, the plain
-   version's time, one PyTorch library call's time and the least time the
-   card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
-4. main path: a random-weight Llama-3.2-1B at its published widths, made a
-   4-bit GANQ ``lut`` model, saved with the port's checkpoint writer, loaded
-   with ``GanqModel.load`` (default device: the card) and asked four requests
-   through ``generate``; the kernels' launch counters must match the path's
-   expected launches exactly.
+   Llama-3.2-1B shapes its path gives it, with its time, the plain
+   version's time, one PyTorch library call's time (or, for the S-step, a
+   float32 matmul of the same operation count as a yardstick) and the least
+   time the card could take (bytes over 3.35 TB/s, or operations over 989
+   TFLOP/s in bf16 and 67 TFLOP/s in float32).
+4. serving path: a random-weight Llama-3.2-1B at its published widths, made
+   a 4-bit GANQ ``lut`` model, saved with the port's checkpoint writer,
+   loaded with ``GanqModel.load`` (default device: the card) and asked four
+   requests through ``generate``; the kernels' launch counters must match
+   the path's expected launches exactly.
 5. reference check: one teacher-forced decode step through the "cuda" and
    the "reference" backends on the card; the logits must agree.
+6. quantize path: a dense random-weight model at Llama-3.2-1B's published
+   widths (depth ``QUANTIZE_LAYERS``) written as a safetensors
+   directory, ``GanqModel.load(dir, qcfg)``, ``quantize`` on 16 random token
+   rows of 512 (the README recipe, 5 GANQ iterations, exact k-means init),
+   ``save``, ``GanqModel.load`` on the card and two ``generate`` requests.
+   The blocked S-step kernel must have run once per module and iteration
+   (plus each fallback pass), every module's loss and codebook must be
+   finite, and the saved checkpoint must reproduce the fake-quantized
+   weights and logits. The same path then runs at 2 layers with
+   ``solver_backend="pallas"``, which must launch the per-column kernel
+   instead.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -34,10 +48,14 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
+QUANTIZE_LAYERS = 16               # depth of the quantize path (see PERF.md)
+PALLAS_PATH_LAYERS = 2             # depth of its solver_backend="pallas" run
 L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
 LLAMA_1B_LINEARS = {"q/o": (2048, 2048), "k/v": (512, 2048),
                     "gate/up": (8192, 2048), "down": (2048, 8192)}
@@ -80,10 +98,26 @@ def copies_for(nbytes: int, cap: int = 256) -> int:
     return max(1, min(cap, math.ceil(L2_FLUSH_BYTES / max(nbytes, 1))))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def event_ms(fn, args, iters: int) -> float:
+    """Mean device time of one call of fn(*args) over ``iters`` calls, timed
+    with CUDA events after a warm-up call (for calls of a millisecond and
+    more, where the host's launches run ahead of the device)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
@@ -110,6 +144,8 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from ganq_tpu_torch.ops import cuda_lib
 
+    from ganq_tpu_torch.ops import kmeans_exact
+
     t0 = time.time()
     logs = cuda_lib.build_all()
     log(f"build: {sorted(logs)} in {time.time() - t0:.1f} s")
@@ -117,6 +153,9 @@ def phase_build() -> None:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
+    t0 = time.time()
+    kmeans_exact.build()
+    log(f"build: exact k-means (g++) in {time.time() - t0:.1f} s")
 
 
 def check_lut_matmul(gen) -> dict:
@@ -246,6 +285,83 @@ def check_flash_decode(gen) -> dict:
     return entry
 
 
+SSTEP_CASES = [(label, m, n, 16) for label, (m, n) in LLAMA_1B_LINEARS.items()] \
+    + [("q/o", 2048, 2048, 8), ("q/o", 2048, 2048, 4), ("small", 256, 512, 256)]
+
+
+def check_s_step(gen) -> list:
+    """Kernels 3 and 4 against their plain versions at the Llama-3.2-1B
+    shapes (V = 16), V = 8 and 4 on q/o and V = 256 on a small shape. W and
+    sorted codebooks of std 0.02, H = X^T X / 2n from a seeded X, L its GANQ
+    factor. Held to: index agreement >= 0.999, Werr within 1e-4 (abs and
+    rel) where the indices agree, quad loss tr(E H E^T) within 1e-5
+    relative of the plain version's."""
+    from ganq_tpu_torch.core.backend import full_f32_matmul
+    from ganq_tpu_torch.ops.ganq_solver import (s_step, s_step_blocked,
+                                                s_step_blocked_kernel,
+                                                s_step_kernel)
+    from ganq_tpu_torch.quant.ganq import quad_loss
+    from ganq_tpu_torch.quant.preamble import _ganq_L
+
+    kernels = {"s_step_blocked": (s_step_blocked_kernel, s_step_blocked),
+               "s_step": (s_step_kernel, s_step)}
+    rows = {name: {} for name in kernels}
+    for label, m, n, V in SSTEP_CASES:
+        W = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+        X = torch.randn((2 * n, n), generator=gen, device="cuda")
+        with full_f32_matmul():
+            H = X.T @ X / (2 * n)
+        del X
+        L = _ganq_L(H)
+        T = torch.sort(torch.randn((m, V), generator=gen, device="cuda"),
+                       dim=1).values * 0.02
+        for name, (kernel, plain) in kernels.items():
+            Q, E = kernel(W, L, T)
+            Qp, Ep = plain(W, L, T)
+            torch.cuda.synchronize()
+            same = Q == Qp
+            agree = float(same.float().mean())
+            werr_err = float((E[same] - Ep[same]).abs().max())
+            loss = float(quad_loss(W, torch.take_along_dim(T, Q.long(), dim=1), H))
+            ref = float(quad_loss(W, torch.take_along_dim(T, Qp.long(), dim=1), H))
+            loss_rel = abs(loss - ref) / abs(ref)
+            if (agree < 0.999 or not torch.allclose(E[same], Ep[same], rtol=1e-4,
+                                                    atol=1e-4)
+                    or loss_rel > 1e-5):
+                raise AssertionError(
+                    f"{name} {label} m={m} n={n} V={V}: agreement {agree:.6f}, "
+                    f"max |dWerr| {werr_err:.3e}, quad loss rel {loss_rel:.3e}")
+            slow = name == "s_step" or n > 4096
+            k_ms = event_ms(kernel, (W, L, T), 2 if slow else 5)
+            p_ms = event_ms(plain, (W, L, T), 1)
+            B = torch.randn((n, n // 2), generator=gen, device="cuda")
+            with full_f32_matmul():
+                y_ms = event_ms(torch.matmul, (W, B), 5)
+            del B
+            flops = m * n * (n - 1) + 3 * m * n * V
+            nbytes = 4 * (3 * m * n + n * n + m * V)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            rows[name][(label, V)] = dict(
+                ms=k_ms, plain_ms=p_ms, yardstick_ms=y_ms, bound_ms=b_ms,
+                bound_by=b_by, agreement=agree, max_abs_err=werr_err,
+                quad_loss_rel=loss_rel)
+            log(f"{name} {label} m={m} n={n} V={V}: agreement={agree:.6f} "
+                f"max|dWerr| where agreeing={werr_err:.3e} quad_loss_rel="
+                f"{loss_rel:.3e} (tol 0.999 / 1e-4 / 1e-5) kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} yardstick_f32_matmul_ms={y_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / k_ms:.3f}")
+        del W, H, L, T
+    entries = []
+    for name, by_case in rows.items():
+        entry = dict(by_case[("down", 16)])
+        entry.update(name=name, library_ms=None,
+                     agreement=min(r["agreement"] for r in by_case.values()),
+                     max_abs_err=max(r["max_abs_err"] for r in by_case.values()),
+                     shape="m=2048 n=8192 V=16 (down projection)")
+        entries.append(entry)
+    return entries
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # full-precision sums in the plain versions' and library's GEMMs
@@ -254,7 +370,8 @@ def phase_kernels() -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.inference_mode():
-            return [check_lut_matmul(gen), check_flash_decode(gen)]
+            return [check_lut_matmul(gen), check_flash_decode(gen),
+                    *check_s_step(gen)]
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
 
@@ -269,8 +386,8 @@ def phase_main_path():
     cfg = synthetic.llama_3_2_1b_config()
     t0 = time.time()
     with torch.inference_mode():
-        model = synthetic.make_lut_model(cfg, bits=4, seed=0, device="cuda",
-                                         dtype=torch.bfloat16)
+        model = synthetic.make_model(cfg, kind="lut", bits=4, seed=0,
+                                     device="cuda", dtype=torch.bfloat16)
     tmp = tempfile.TemporaryDirectory()
     try:
         save_quantized(tmp.name, hf_import.config_to_hf(cfg),
@@ -369,6 +486,151 @@ def phase_reference_check(q) -> float:
     return rel
 
 
+def _kernel_counters():
+    from ganq_tpu_torch.ops.fused_attention import flash_decode_attention
+    from ganq_tpu_torch.ops.ganq_solver import (s_step_blocked_kernel,
+                                                s_step_kernel)
+    from ganq_tpu_torch.ops.lut_matmul import lut_matmul
+
+    return {"lut_matmul": lut_matmul, "flash_decode": flash_decode_attention,
+            "s_step_blocked": s_step_blocked_kernel, "s_step": s_step_kernel}
+
+
+def phase_quantize_path(layers: int, solver_backend: str = "auto"):
+    """The README quick start on the port, at Llama-3.2-1B's widths with
+    ``layers`` layers: dense safetensors directory -> GanqModel.load(dir,
+    qcfg) -> quantize(16 rows of 512 tokens) -> save -> GanqModel.load on the
+    card -> generate at batch 1 and 8. ``solver_backend="auto"`` runs the
+    blocked S-step kernel, ``"pallas"`` the per-column one. Returns the
+    kernel launch counts of the whole path (counters set to 0 just before
+    it)."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.ops.qlinear import dequantize_weight
+
+    cfg = synthetic.llama_3_2_1b_config(layers=layers)
+    qcfg = QuantizeConfig(bits=4, quant_method="ganq", act_sort="asc",
+                          l_damp_style="ganq", dead="mean", ganq_iterations=5,
+                          codebook_init="kmeans_exact",
+                          solver_backend=solver_backend)
+    rows = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(16, 512))
+    counters = _kernel_counters()
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as qdir:
+        t0 = time.time()
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=5,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        del dense
+        torch.cuda.empty_cache()
+        log(f"quantize path: wrote a dense {layers}-layer Llama-3.2-1B-width "
+            f"checkpoint in {time.time() - t0:.1f} s")
+
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        g = GanqModel.load(dense_dir, qcfg)
+        if g.device.type != "cuda":
+            raise AssertionError("GanqModel.load did not select the card")
+        t1 = time.time()
+        qlog = g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t_quant = time.time() - t1
+        t1 = time.time()
+        g.save(qdir)
+        t_save = time.time() - t1
+        q = GanqModel.load(qdir)
+        gen_launches = {}
+        outs = []
+        for B, S, new in ((1, 128, 32), (8, 128, 16)):
+            before = {k: c.launches for k, c in counters.items()}
+            ids = rows[:B, :S]
+            t1 = time.time()
+            out = q.generate(ids, max_new_tokens=new, max_seq=256)
+            dt = time.time() - t1
+            if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab_size:
+                raise AssertionError(f"quantize path: bad tokens {out.shape}")
+            outs.append(out)
+            gen_launches[B] = {k: c.launches - before[k] for k, c in counters.items()}
+            log(f"quantize path: generate batch {B} prompt {S} new {new}: "
+                f"{dt * 1e3:.1f} ms, first tokens {out[0, :6].tolist()}")
+        launches = {k: c.launches for k, c in counters.items()}
+        t_path = time.time() - t0
+
+        # every module: finite loss and codebook; the S-step ran through
+        # kernel 3 once per iteration, plus each fallback pass
+        modules = len(qlog)
+        fallbacks = sum(bool(e.extra["fallback"]) for e in qlog)
+        expected = modules * qcfg.ganq_iterations + fallbacks
+        arts = g._quant_output.artifacts
+        bad = [n for n, a in arts.items() if not bool(torch.isfinite(a.lut).all())]
+        bad += [f"{e.layer}.{e.module}" for e in qlog if not math.isfinite(e.loss)]
+        if modules != 7 * layers or bad:
+            raise AssertionError(f"quantize path: {modules} modules, "
+                                 f"non-finite: {bad}")
+        ran, idle = (("s_step_blocked", "s_step") if solver_backend == "auto"
+                     else ("s_step", "s_step_blocked"))
+        if (launches[ran] != expected or launches[idle] != 0
+                or min(gen_launches[8]["lut_matmul"],
+                       gen_launches[8]["flash_decode"]) == 0):
+            raise AssertionError(f"quantize path launches {launches}, "
+                                 f"expected {expected} {ran} S-steps")
+
+        # the saved checkpoint reproduces the fake-quantized weights: the
+        # codebook is rounded to fp16 (2^-11 relative, 2^-25 absolute below
+        # fp16's normal range) and then to bf16 (2^-8 relative), so each
+        # weight stays within (2^-8 + 2^-10) |w| + 2^-24 of its value
+        worst = 0.0
+        for li in range(layers):
+            for slot in ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.gate",
+                         "mlp.up", "mlp.down"):
+                fake = hf_import.get_module(g.model, li, slot)["weight"].float()
+                packed = dequantize_weight(hf_import.get_module(q.model, li, slot))
+                ratio = (packed - fake).abs() / ((2.0**-8 + 2.0**-10) * fake.abs()
+                                                 + 2.0**-24)
+                worst = max(worst, float(ratio.max()))
+        if worst > 1.0:
+            raise AssertionError(f"saved weights differ from the fake-quantized "
+                                 f"ones by {worst:.3f} of the tolerance")
+        from ganq_tpu_torch.models.transformer import forward
+        ids = torch.as_tensor(rows[:2, :64], device="cuda")
+        with torch.inference_mode():
+            a = forward(q.cfg, q.model, ids, q.backend).float()
+            b = forward(g.cfg, g.model, ids, "reference").float()
+        rel_l2 = float((a - b).norm() / b.norm())
+        log(f"quantize path: saved weights within {worst:.3f} of the "
+            f"tolerance (2^-8 + 2^-10) |w| + 2^-24 of the fake-quantized "
+            f"ones; logits "
+            f"of the loaded checkpoint "
+            f"(cuda backend) vs the fake-quantized model: rel_l2={rel_l2:.3e} "
+            f"(tol 5e-2)")
+        if not bool(torch.isfinite(a).all()) or rel_l2 > 5e-2:
+            raise AssertionError("loaded checkpoint disagrees with the "
+                                 "fake-quantized model")
+
+    split = {}
+    for e in qlog:
+        if e.layer == 0:
+            for k, v in e.extra.items():
+                if k != "fallback":
+                    split[k] = split.get(k, 0.0) + v
+    per_layer = {li: sum(e.duration for e in qlog if e.layer == li)
+                 for li in range(layers)}
+    log(f"quantize path ({solver_backend}): quantize {t_quant:.1f} s for "
+        f"{layers} layers "
+        f"({t_quant / layers:.2f} s per layer, module time per layer "
+        f"{[round(v, 2) for v in per_layer.values()]}); layer 0 split (s): "
+        + json.dumps({k: round(v, 4) for k, v in split.items()})
+        + f"; save {t_save:.1f} s; whole path {t_path:.1f} s")
+    log(f"quantize path ({solver_backend}) launches: {launches} (S-step "
+        f"expected {expected}: "
+        f"{modules} modules x {qcfg.ganq_iterations} iterations + "
+        f"{fallbacks} fallback passes); during generate {gen_launches}")
+    return launches
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
@@ -376,16 +638,29 @@ def main() -> int:
     kernels = phase_kernels()
     q, launches, _ = phase_main_path()
     phase_reference_check(q)
+    del q
+    torch.cuda.empty_cache()
+    # the default S-step (kernel 3) on the README path; then the same path
+    # with solver_backend="pallas" (kernel 4) at a cut depth
+    launches["s_step_blocked"] = phase_quantize_path(
+        QUANTIZE_LAYERS)["s_step_blocked"]
+    launches["s_step"] = phase_quantize_path(
+        PALLAS_PATH_LAYERS, "pallas")["s_step"]
     src = {"lut_matmul": ("ganq_tpu_torch/csrc/lut_matmul.cu",
                           "ganq_tpu/ops/lut_matmul.py:129"),
            "flash_decode": ("ganq_tpu_torch/csrc/flash_decode.cu",
-                            "ganq_tpu/ops/fused_attention.py:343")}
+                            "ganq_tpu/ops/fused_attention.py:343"),
+           "s_step_blocked": ("ganq_tpu_torch/csrc/ganq_sstep.cu",
+                              "ganq_tpu/ops/ganq_solver.py:306"),
+           "s_step": ("ganq_tpu_torch/csrc/ganq_sstep.cu",
+                      "ganq_tpu/ops/ganq_solver.py:142")}
     line = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": src[k["name"]][0],
          "replaces": src[k["name"]][1], "launches": launches[k["name"]],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+         **{x: k[x] for x in ("agreement", "yardstick_ms") if x in k},
          "shape": k["shape"]} for k in kernels]}
     log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
     log(json.dumps(line))

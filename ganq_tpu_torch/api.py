@@ -1,16 +1,17 @@
 """Top-level user API: ``GanqModel``.
 
-The port of the serving half of ``ganq_tpu/api.py``: ``GanqModel.load`` a
-packed quantized checkpoint, then ``generate``. The model runs on the card
-unless the caller passes ``device="cpu"``. Quantizing, saving, optimize(),
-the server and the evals come with later slices of the port and raise
-``NotImplementedError`` until then.
+The port of ``ganq_tpu/api.py``'s main path: ``GanqModel.load`` a dense
+checkpoint with a ``QuantizeConfig``, ``quantize`` it (GANQ, layer by layer),
+``save`` the packed ``lut`` checkpoint, ``GanqModel.load`` that and
+``generate``. The model runs on the card unless the caller passes
+``device="cpu"``. optimize(), the server and the evals come with later slices
+of the port and raise ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -18,7 +19,10 @@ import torch
 from .core.backend import resolve_device, select_backend
 from .core.config import QuantizeConfig
 from .formats import checkpoint
+from .models import hf_import
+from .models.registry import get_spec
 from .models.transformer import Model, ModelConfig
+from .quant.looper import ModuleQuantLog, QuantizeOutput, quantize_model
 from .serve.engine import Engine
 from .utils.logger import get_logger
 
@@ -48,34 +52,40 @@ class GanqModel:
     def __init__(self, cfg: ModelConfig, model: Model,
                  qcfg: Optional[QuantizeConfig] = None, tokenizer=None,
                  model_dir: Optional[str] = None, device="cuda",
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, quantized: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device)
         self.qcfg = qcfg
         self.tokenizer = tokenizer
         self.model_dir = model_dir
+        self.quantized = quantized
         self.backend = select_backend(self.model, self.device, backend)
         self._engines: Dict[int, Engine] = {}
+        self._quant_output: Optional[QuantizeOutput] = None
 
     # ------------------------------------------------------------------ load
     @classmethod
-    def load(cls, model_dir: str, device="cuda",
-             dtype: torch.dtype = torch.float32,
+    def load(cls, model_dir: str,
+             quantize_config: Optional[QuantizeConfig] = None,
+             device="cuda", dtype: torch.dtype = torch.float32,
              backend: Optional[str] = None) -> "GanqModel":
-        """Load a quantized checkpoint onto ``device`` (the card by default).
-        Unquantized tensors take ``dtype``. ``backend`` defaults to
-        :func:`~ganq_tpu_torch.core.backend.select_backend`'s choice;
+        """Load a quantized checkpoint (for serving) or a dense one (for
+        :meth:`quantize` with ``quantize_config``) onto ``device``, the card
+        by default. Unquantized tensors take ``dtype``. ``backend`` defaults
+        to :func:`~ganq_tpu_torch.core.backend.select_backend`'s choice;
         ``"reference"`` runs the plain PyTorch path on the card."""
         dev = resolve_device(device)
-        if not _has_quantize_config(model_dir):
-            raise _not_ported("load of an unquantized checkpoint",
-                              "slice 2 (quantize)")
-        cfg, model, qcfg = checkpoint.load_quantized(model_dir, dev, dtype)
-        log.info(f"loaded quantized checkpoint ({qcfg.quant_method}/"
-                 f"{qcfg.format}) from {model_dir}")
-        return cls(cfg, model, qcfg, cls._try_tokenizer(model_dir), model_dir,
-                   dev, backend)
+        tokenizer = cls._try_tokenizer(model_dir)
+        if _has_quantize_config(model_dir):
+            cfg, model, qcfg = checkpoint.load_quantized(model_dir, dev, dtype)
+            log.info(f"loaded quantized checkpoint ({qcfg.quant_method}/"
+                     f"{qcfg.format}) from {model_dir}")
+            return cls(cfg, model, qcfg, tokenizer, model_dir, dev, backend)
+        cfg, model = hf_import.params_from_dir(model_dir, dtype, dev)
+        log.info(f"loaded dense checkpoint from {model_dir}")
+        return cls(cfg, model, quantize_config, tokenizer, model_dir, dev,
+                   backend, quantized=False)
 
     @staticmethod
     def _try_tokenizer(model_dir: str):
@@ -125,13 +135,50 @@ class GanqModel:
             return self.tokenizer.decode([t for t in out[0].tolist() if t != eos])
         return out
 
+    # -------------------------------------------------------------- quantize
+    def quantize(self, calibration_dataset: Sequence[Any],
+                 batch_size: int = 1,
+                 calibration_concat_size: Optional[int] = None,
+                 resume_dir: Optional[str] = None) -> List[ModuleQuantLog]:
+        """Run layer-wise GANQ on the model's device. ``calibration_dataset``:
+        token-id arrays, ``{"input_ids": ...}`` dicts or strings (tokenizer
+        required). ``resume_dir``: checkpoint each layer's artifacts there
+        and resume a crashed run after the last completed layer. Afterwards
+        the model holds the fake-quantized weights and generates with them,
+        as the JAX package does right after quantizing."""
+        if self.quantized:
+            raise RuntimeError("model is already quantized")
+        self.qcfg = self.qcfg or QuantizeConfig()
+        batches = prepare_dataset(calibration_dataset, self.tokenizer,
+                                  batch_size, calibration_concat_size)
+        out = quantize_model(self.cfg, self.model,
+                             get_spec(self.cfg.model_type), self.qcfg,
+                             batches, resume_dir=resume_dir)
+        self._quant_output = out
+        self.model = out.model
+        self.quantized = True
+        self._engines = {}
+        return out.log
+
+    # ------------------------------------------------------------------ save
+    def save(self, save_dir: str) -> None:
+        """Write the packed ``lut`` checkpoint of a freshly quantized model,
+        from the solver's artifacts."""
+        if self._quant_output is None:
+            raise RuntimeError("nothing to save: call quantize() first")
+        checkpoint.save_quantized(save_dir, self._hf_config_dict(), self.qcfg,
+                                  self.model, self._quant_output.log,
+                                  artifacts=self._quant_output.artifacts)
+        if self.tokenizer is not None:
+            self.tokenizer.save_pretrained(save_dir)
+
+    def _hf_config_dict(self) -> Dict[str, Any]:
+        if self.model_dir and os.path.isfile(os.path.join(self.model_dir,
+                                                          "config.json")):
+            return hf_import.load_hf_config(self.model_dir)
+        return hf_import.config_to_hf(self.cfg)
+
     # ------------------------------------------------ later slices of the port
-    def quantize(self, *args: Any, **kw: Any):
-        raise _not_ported("quantize", "slice 2 (quantize)")
-
-    def save(self, *args: Any, **kw: Any):
-        raise _not_ported("save", "slice 2 (quantize)")
-
     def optimize(self, *args: Any, **kw: Any):
         raise _not_ported("optimize", "the optimize() kernel slices")
 
@@ -142,4 +189,49 @@ class GanqModel:
         raise _not_ported("eval", "the evals slice")
 
 
-__all__ = ["GanqModel"]
+def prepare_dataset(dataset: Sequence[Any], tokenizer, batch_size: int = 1,
+                    concat_size: Optional[int] = None) -> List[np.ndarray]:
+    """Calibration data as int32 [batch, seq] token-id arrays: strings
+    (tokenized), ``{"input_ids": ...}`` dicts or id arrays. Rows of equal
+    length are batched together; ``concat_size`` packs all rows into
+    fixed-length blocks (the reference's ``calibration_dataset_concat_size``,
+    base.py:243-307)."""
+    rows: List[np.ndarray] = []
+    for item in dataset:
+        if isinstance(item, str):
+            if tokenizer is None:
+                raise ValueError("string calibration data requires a tokenizer")
+            ids = np.asarray(tokenizer(item)["input_ids"], np.int32)
+        elif isinstance(item, dict):
+            if "inputs_embeds" in item:
+                raise NotImplementedError(
+                    "pre-embedded calibration rows are not ported yet (the "
+                    "VL slice, ROADMAP.md queue A item 7)")
+            ids = np.asarray(item["input_ids"], np.int32).reshape(-1)
+        else:
+            arr = np.asarray(item)
+            if np.issubdtype(arr.dtype, np.floating):
+                raise NotImplementedError(
+                    "pre-embedded calibration rows are not ported yet (the "
+                    "VL slice, ROADMAP.md queue A item 7)")
+            ids = arr.astype(np.int32).reshape(-1)
+        if ids.size:
+            rows.append(ids)
+    if not rows:
+        raise ValueError("empty calibration dataset")
+    if len(rows) < 256:
+        log.warning(f"calibration dataset is small ({len(rows)} rows); the "
+                    "reference recommends >=256 (loop_processor.py:95-127)")
+    if concat_size is not None:
+        stream = np.concatenate(rows)
+        n = (len(stream) // concat_size) * concat_size
+        rows = list(stream[:n].reshape(-1, concat_size))
+    by_len: Dict[int, List[np.ndarray]] = {}
+    for r in rows:
+        by_len.setdefault(len(r), []).append(r)
+    return [np.stack(group[i:i + batch_size])
+            for group in by_len.values()
+            for i in range(0, len(group), batch_size)]
+
+
+__all__ = ["GanqModel", "prepare_dataset"]

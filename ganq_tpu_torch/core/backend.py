@@ -4,6 +4,8 @@ The port's counterpart of ``ganq_tpu/core/backend.py``. Two backends:
 
 - ``"cuda"``: the hand-written Hopper kernels (``ops/lut_matmul.py``,
   ``ops/fused_attention.py``) for every quantized linear and decode attention.
+  (The GANQ S-step picks its kernel from the device and
+  ``QuantizeConfig.solver_backend``, ``quant/ganq.py``.)
 - ``"reference"``: the plain PyTorch versions (dequantize + matmul, masked
   softmax attention) — the oracle, and the CPU path.
 
@@ -15,6 +17,7 @@ plain path on the card unless the caller asks for ``backend="reference"``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -35,6 +38,19 @@ def resolve_device(device: Optional[str | torch.device] = "cuda") -> torch.devic
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matrix products in full float32 (no TF32) inside the block,
+    whatever the caller's global setting; it is restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.fp32_precision
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = prev
 
 
 def _missing_kernel(kind: str, bits: int) -> str:
@@ -70,4 +86,5 @@ def select_backend(model: torch.nn.Module, device: torch.device,
     return backend
 
 
-__all__ = ["CUDA", "REFERENCE", "resolve_device", "select_backend"]
+__all__ = ["CUDA", "REFERENCE", "resolve_device", "select_backend",
+           "full_f32_matmul"]

@@ -5,8 +5,11 @@ directory of (possibly sharded) safetensors files plus
 ``quantize_config.json``, ``config.json`` (with ``quantization_config``
 mirrored in) and ``quant_log.csv``. Each quantized linear is stored as
 ``{module}.lut`` fp16 [out, 2^bits] (sorted per row) and
-``{module}.idx_packed`` int32 [out, in/packfactor] (planar codes). A
-directory written by either package loads in the other.
+``{module}.idx_packed`` int32 [out, in/packfactor] (planar codes). A freshly
+quantized model is written from its solver artifacts, as the JAX writer
+does; a packed model from its bf16 codebooks. A directory written by either
+package loads in the other. :func:`save_dense` writes an unquantized model
+as an HF checkpoint directory.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..core.backend import resolve_device
 from ..core.config import META_QUANTIZER_GANQ_TPU, QuantizeConfig
 from ..models import hf_import
 from ..models.registry import ArchSpec, get_spec
@@ -69,17 +73,32 @@ def _linear_state(prefix: str, p: qlinear.QLinear) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_quantized(save_dir: str, hf_config: Dict[str, Any],
-                   qcfg: QuantizeConfig, model: Model,
-                   quant_log: Optional[Iterable[Any]] = None,
-                   max_shard_bytes: int = MAX_SHARD_BYTES) -> None:
-    """Write a self-contained quantized checkpoint directory.
+def _artifact_state(prefix: str, art: Any) -> Dict[str, torch.Tensor]:
+    """Checkpoint tensors of one freshly quantized linear, from its solver
+    artifact as the JAX writer takes them: the float32 codebook goes
+    straight to fp16, is sorted per row (stable) and the codes remapped."""
+    lut = art.lut.to(torch.float16)
+    order = torch.argsort(lut, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    idx = torch.take_along_dim(rank, art.idx.to(torch.int64), dim=1)
+    return {f"{prefix}.lut": torch.take_along_dim(lut, order, dim=1),
+            f"{prefix}.idx_packed": pack_int_rows(idx, art.bits)}
 
-    ``quant_log``: entries with ``layer``, ``module``, ``method``, ``loss``,
-    ``damp`` and ``duration`` attributes, written to ``quant_log.csv``."""
-    spec = get_spec(hf_config["model_type"])
-    cfg = spec.make_config(hf_config)
-    os.makedirs(save_dir, exist_ok=True)
+
+def _hf_state(spec: ArchSpec, model: Model,
+              artifacts: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Every tensor of ``model`` under its HF name. Linears named in
+    ``artifacts`` are written from their solver artifacts, every other
+    linear from the model."""
+
+    def linear_state(prefix: str, full_name: str, p) -> Dict[str, torch.Tensor]:
+        art = artifacts.get(full_name)
+        if art is None:
+            return _linear_state(prefix, p)
+        out = _artifact_state(prefix, art)
+        if "bias" in p:
+            out[f"{prefix}.bias"] = p["bias"]
+        return out
 
     state: Dict[str, torch.Tensor] = {
         spec.name_map["embed_tokens.weight"]: model.embed_tokens.weight,
@@ -92,12 +111,48 @@ def save_quantized(save_dir: str, hf_config: Dict[str, Any],
         for mod, slot in spec.module_slots.items():
             p = hf_import.get_module(model, i, slot)
             if p is not None:
-                state.update(_linear_state(_hf_module_prefix(spec, i, mod), p))
+                state.update(linear_state(_hf_module_prefix(spec, i, mod),
+                                          f"{spec.layers_prefix}.{i}.{mod}", p))
     if model.lm_head is not None:
-        state.update(_linear_state(spec.lm_head_name, model.lm_head))
-    if len(model.layers) != cfg.num_hidden_layers:
+        state.update(linear_state(spec.lm_head_name, spec.lm_head_name,
+                                  model.lm_head))
+    return state
+
+
+def save_dense(save_dir: str, hf_config: Dict[str, Any], model: Model,
+               max_shard_bytes: int = MAX_SHARD_BYTES) -> None:
+    """Write an unquantized model as an HF checkpoint directory
+    (``config.json`` plus sharded safetensors), the input of
+    ``GanqModel.load(dir, quantize_config)``."""
+    spec = get_spec(hf_config["model_type"])
+    if len(model.layers) != spec.make_config(hf_config).num_hidden_layers:
         raise ValueError("model depth does not match hf_config")
-    _write_sharded(save_dir, state, max_shard_bytes)
+    os.makedirs(save_dir, exist_ok=True)
+    _write_sharded(save_dir, _hf_state(spec, model, {}), max_shard_bytes)
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(hf_config, f, indent=2)
+
+
+def save_quantized(save_dir: str, hf_config: Dict[str, Any],
+                   qcfg: QuantizeConfig, model: Model,
+                   quant_log: Optional[Iterable[Any]] = None,
+                   max_shard_bytes: int = MAX_SHARD_BYTES,
+                   artifacts: Optional[Dict[str, Any]] = None) -> None:
+    """Write a self-contained quantized checkpoint directory.
+
+    ``artifacts`` maps full module names (``model.layers.0.self_attn.q_proj``,
+    ``lm_head``) to the solver artifacts of a freshly quantized model
+    (``quant/looper.QuantizedModule``); those linears are written from their
+    artifacts, every other linear from the model (packed ``lut`` linears
+    keep their bf16 codebooks). ``quant_log``: entries with ``layer``,
+    ``module``, ``method``, ``loss``, ``damp`` and ``duration`` attributes,
+    written to ``quant_log.csv``."""
+    spec = get_spec(hf_config["model_type"])
+    if len(model.layers) != spec.make_config(hf_config).num_hidden_layers:
+        raise ValueError("model depth does not match hf_config")
+    os.makedirs(save_dir, exist_ok=True)
+    _write_sharded(save_dir, _hf_state(spec, model, artifacts or {}),
+                   max_shard_bytes)
 
     qcfg_dict = qcfg.to_dict()
     qcfg_dict.setdefault("meta", {})
@@ -155,14 +210,16 @@ def sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
-def load_quantized(model_dir: str, device="cpu",
+def load_quantized(model_dir: str, device="cuda",
                    dtype: torch.dtype = torch.float32,
                    verify_hash: Optional[Dict[str, str]] = None
                    ) -> Tuple[ModelConfig, Model, QuantizeConfig]:
     """Load a quantized checkpoint into (ModelConfig, Model, QuantizeConfig)
-    on ``device``. Unquantized tensors take ``dtype``; codebooks are held in
-    bf16 and codes as int32, as the JAX package holds them. ``verify_hash``
-    maps file name -> expected sha256."""
+    on ``device`` (the card unless the caller passes ``"cpu"``). Unquantized
+    tensors take ``dtype``; codebooks are held in bf16 and codes as int32,
+    as the JAX package holds them. ``verify_hash`` maps file name ->
+    expected sha256."""
+    device = resolve_device(device)
     hf_config = hf_import.load_hf_config(model_dir)
     qcfg = QuantizeConfig.from_pretrained(model_dir)
     spec = get_spec(hf_config["model_type"])
@@ -209,4 +266,4 @@ def load_quantized(model_dir: str, device="cpu",
     return cfg, model, qcfg
 
 
-__all__ = ["save_quantized", "load_quantized", "sha256_file", "MAX_SHARD_BYTES"]
+__all__ = ["save_quantized", "save_dense", "load_quantized", "sha256_file", "MAX_SHARD_BYTES"]

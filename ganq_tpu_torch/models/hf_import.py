@@ -3,8 +3,11 @@
 The port of ``ganq_tpu/models/hf_import.py`` for the llama family: the HF
 config dict becomes a :class:`ModelConfig`, and HF tensor names map onto the
 model's parameter paths through the registry's ``name_map``.
+:func:`params_from_dir` reads a dense checkpoint directory;
 :func:`params_from_numpy` builds a model from the JAX package's parameters
 flattened to numpy, so that both packages compute on the same weights.
+Every function that builds a model places it on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.backend import resolve_device
 from ..formats.safetensors_io import load_file
 from ..ops import qlinear
 from .registry import get_spec
@@ -66,6 +70,19 @@ def iter_safetensors(model_dir: str) -> Iterator[Tuple[str, torch.Tensor]]:
         yield from load_file(path).items()
 
 
+def params_from_dir(model_dir: str, dtype: torch.dtype = torch.float32,
+                    device="cuda") -> Tuple[ModelConfig, Model]:
+    """Build (ModelConfig, Model) on ``device`` from a dense HF checkpoint
+    directory (``config.json`` plus safetensors files), read with the port's
+    own safetensors reader."""
+    device = resolve_device(device)
+    hf_config = load_hf_config(model_dir)
+    state = dict(iter_safetensors(model_dir))
+    if not state:
+        raise FileNotFoundError(f"no *.safetensors found in {model_dir}")
+    return params_from_state_dict(state, hf_config, dtype, device)
+
+
 def get_module(model: Model, layer_idx: int, slot: str) -> Optional[torch.nn.Module]:
     """The linear at slot ``attn.q`` / ``mlp.down`` of layer ``layer_idx``."""
     group, name = slot.split(".")
@@ -81,9 +98,11 @@ def set_module(model: Model, layer_idx: int, slot: str, value) -> None:
 def params_from_state_dict(state: Dict[str, torch.Tensor],
                            hf_config: Dict[str, Any],
                            dtype: torch.dtype = torch.float32,
-                           device="cpu") -> Tuple[ModelConfig, Model]:
-    """Build (ModelConfig, Model) from HF-named tensors. Linear slots whose
-    weight is absent stay empty (a quantized checkpoint fills them)."""
+                           device="cuda") -> Tuple[ModelConfig, Model]:
+    """Build (ModelConfig, Model) on ``device`` (the card unless the caller
+    passes ``"cpu"``) from HF-named tensors. Linear slots whose weight is
+    absent stay empty (a quantized checkpoint fills them)."""
+    device = resolve_device(device)
     spec = get_spec(hf_config["model_type"])
     cfg = spec.make_config(hf_config)
 
@@ -116,14 +135,16 @@ def params_from_state_dict(state: Dict[str, torch.Tensor],
 
 
 def params_from_numpy(cfg_dict: Dict[str, Any], arrays: Dict[str, Any],
-                      device="cpu") -> Tuple[ModelConfig, Model]:
-    """Build (ModelConfig, Model) from the JAX package's parameters flattened
-    to numpy: ``arrays`` maps parameter paths (``embed_tokens.weight``,
-    ``layers.0.input_norm.weight``, ...) to arrays, and describes each
-    quantized linear at path P by ``P.kind`` / ``P.bits`` / ``P.in_features``
-    plus ``P.<array>`` for its arrays (``lut``, ``idx_packed``, ``weight``,
-    ``bias``, ...). Codebooks are stored bf16, as the JAX package holds them;
-    every other array keeps its dtype."""
+                      device="cuda") -> Tuple[ModelConfig, Model]:
+    """Build (ModelConfig, Model) on ``device`` from the JAX package's
+    parameters flattened to numpy: ``arrays`` maps parameter paths
+    (``embed_tokens.weight``, ``layers.0.input_norm.weight``, ...) to arrays.
+    Each linear at path P, dense (the fake-quantized weights of a freshly
+    quantized model) or quantized, is described by ``P.kind`` / ``P.bits`` /
+    ``P.in_features`` plus ``P.<array>`` for its arrays (``weight``,
+    ``lut``, ``idx_packed``, ``bias``, ...). Codebooks are stored bf16, as
+    the JAX package holds them; every other array keeps its dtype."""
+    device = resolve_device(device)
     cfg = config_from_hf(cfg_dict)
 
     def tensor(a) -> torch.Tensor:
@@ -159,4 +180,5 @@ def params_from_numpy(cfg_dict: Dict[str, Any], arrays: Dict[str, Any],
 
 __all__ = ["load_hf_config", "config_from_hf", "config_to_hf",
            "iter_safetensors", "params_from_state_dict", "params_from_numpy",
+           "params_from_dir",
            "get_module", "set_module"]

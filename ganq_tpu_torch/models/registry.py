@@ -3,14 +3,15 @@
 The port of the llama entry of ``ganq_tpu/models/registry.py``: how a HF
 config becomes a :class:`ModelConfig`, how HF tensor names map onto the
 model's parameter paths, and which linears are quantized (their checkpoint
-module names and the slots they fill). The other architectures come with
+module names, the slots they fill and the order of the quantization
+subsets). The other architectures come with
 later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 from .transformer import ModelConfig
 
@@ -21,6 +22,8 @@ class ArchSpec:
     make_config: Callable[[Dict[str, Any]], ModelConfig]
     # our parameter path -> HF tensor name; {i} = layer index
     name_map: Dict[str, str] = field(default_factory=dict)
+    # quantization subsets in true_sequential order (reference layer_modules)
+    layer_modules: List[List[str]] = field(default_factory=list)
     # HF module name inside a layer -> our slot ("attn.q", "mlp.down", ...)
     module_slots: Dict[str, str] = field(default_factory=dict)
     lm_head_name: str = "lm_head"
@@ -82,6 +85,13 @@ LLAMA_NAME_MAP = {
     "layers.{i}.mlp.down.weight": "model.layers.{i}.mlp.down_proj.weight",
 }
 
+LLAMA_LAYER_MODULES = [
+    ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"],
+    ["self_attn.o_proj"],
+    ["mlp.up_proj", "mlp.gate_proj"],
+    ["mlp.down_proj"],
+]
+
 LLAMA_SLOTS = {
     "self_attn.q_proj": "attn.q",
     "self_attn.k_proj": "attn.k",
@@ -96,6 +106,7 @@ register(ArchSpec(
     model_type="llama",
     make_config=_llama_config,
     name_map=LLAMA_NAME_MAP,
+    layer_modules=LLAMA_LAYER_MODULES,
     module_slots=LLAMA_SLOTS,
 ))
 

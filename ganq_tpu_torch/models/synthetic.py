@@ -1,9 +1,10 @@
 """Synthetic models: random weights at real architecture widths.
 
-The port of ``llama_config`` and the ``lut`` builder of
-``ganq_tpu/models/synthetic.py``. Random weights have the compute and memory
-behaviour of trained ones, so serving runs and kernel timings need no
-download. Everything is made on the target device from a seeded
+The port of ``llama_config`` and ``make_model`` (``dense`` and ``lut``
+kinds) of ``ganq_tpu/models/synthetic.py``. Random weights have the compute
+and memory behaviour of trained ones, so quantization runs, serving runs and
+kernel timings need no download. Everything is made on the target device
+(the card unless the caller passes ``device="cpu"``) from a seeded
 ``torch.Generator``.
 """
 
@@ -13,6 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..core.backend import resolve_device
 from ..ops import qlinear
 from ..ops.packing import pack_int_rows
 from .transformer import Layer, Model, ModelConfig
@@ -45,7 +47,7 @@ def llama_3_2_1b_config(layers: int = 16) -> ModelConfig:
 def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
                      device) -> qlinear.QLinear:
     """A random ``lut`` linear: sorted bf16 codebooks with std 0.006 (the
-    JAX builder's scale) and uniform random codes."""
+    JAX package's synthetic scale) and uniform random codes."""
     v = 1 << bits
     lut = torch.sort(torch.randn((out_f, v), generator=gen, device=device)
                      * 0.006, dim=1).values.to(torch.bfloat16)
@@ -56,16 +58,31 @@ def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
                            bits=bits, in_features=in_f)
 
 
-def make_lut_model(cfg: ModelConfig, bits: int = 4, seed: int = 0,
-                   device="cpu", dtype: torch.dtype = torch.bfloat16) -> Model:
-    """Random model with every layer linear in the ``lut`` format, unit norm
-    weights and an embedding of std 0.02 (tied, as ``llama_config`` sets)."""
+def _rand_dense_linear(gen: torch.Generator, out_f: int, in_f: int, device,
+                       dtype: torch.dtype) -> qlinear.QLinear:
+    """A random dense linear of std 0.02 (the JAX package's synthetic scale)."""
+    w = torch.randn((out_f, in_f), generator=gen, device=device) * 0.02
+    return qlinear.dense_linear(w.to(dtype))
+
+
+def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
+               seed: int = 0, device="cuda",
+               dtype: torch.dtype = torch.bfloat16) -> Model:
+    """Random model with every layer linear of ``kind`` (``"dense"``: std
+    0.02 weights in ``dtype``; ``"lut"``: ``bits``-bit codebooks and codes),
+    unit norm weights and an embedding of std 0.02 (tied, as
+    ``llama_config`` sets)."""
+    if kind not in ("dense", "lut"):
+        raise NotImplementedError(f"synthetic kind={kind!r} is not ported yet")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, q, kv, it = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
                     cfg.intermediate_size)
 
     def lin(out_f, in_f):
-        return _rand_lut_linear(gen, out_f, in_f, bits, device)
+        if kind == "lut":
+            return _rand_lut_linear(gen, out_f, in_f, bits, device)
+        return _rand_dense_linear(gen, out_f, in_f, device, dtype)
 
     layers = [Layer(torch.ones(h, dtype=dtype, device=device),
                     torch.ones(h, dtype=dtype, device=device),
@@ -79,4 +96,4 @@ def make_lut_model(cfg: ModelConfig, bits: int = 4, seed: int = 0,
     return Model(embed, torch.ones(h, dtype=dtype, device=device), layers)
 
 
-__all__ = ["llama_config", "llama_3_2_1b_config", "make_lut_model"]
+__all__ = ["llama_config", "llama_3_2_1b_config", "make_model"]

@@ -188,14 +188,20 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
                   mask: Optional[torch.Tensor],
                   rope: Tuple[torch.Tensor, torch.Tensor],
                   cache: Optional[Dict[str, torch.Tensor]] = None,
-                  cache_pos=None, backend: str = "reference") -> torch.Tensor:
+                  cache_pos=None, backend: str = "reference",
+                  want_taps: bool = False):
     """One decoder layer; writes this layer's k/v into ``cache`` (in place).
 
     ``cache_pos`` is the python int 0 for prefill and a 0-d tensor for a
     decode step. Prefilling from position 0 attends over the fresh k/v only.
     A decode step on the ``"cuda"`` backend always runs the flash decode
     kernel over the cache (which launches or raises); on the reference
-    backend it runs the masked plain attention."""
+    backend it runs the masked plain attention.
+
+    Returns the layer's output; with ``want_taps`` it returns ``(output,
+    taps)``, where ``taps`` maps each linear's slot (``attn.q`` ...
+    ``mlp.down``, the JAX package's names) to the input it saw, the
+    activations a quantizer's Hessian is built from."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
@@ -207,8 +213,11 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
         raise ValueError(f"a decode step on the cuda backend takes one token "
                          f"per sequence, got {s}")
 
+    taps: Dict[str, torch.Tensor] = {}
     residual = x
     h = apply_norm(lp.input_norm.weight, x, cfg.norm_eps)
+    if want_taps:
+        taps["attn.q"] = taps["attn.k"] = taps["attn.v"] = h
     attn = lp.attn
     q = qlinear.apply(attn["q"], h, backend).reshape(b, s, -1, hd)
     k = qlinear.apply(attn["k"], h, backend).reshape(b, s, -1, hd)
@@ -228,7 +237,10 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     else:
         attn_out = attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                              mask, scale)
-    attn_out = qlinear.apply(attn["o"], attn_out.reshape(b, s, -1), backend)
+    attn_out = attn_out.reshape(b, s, -1)
+    if want_taps:
+        taps["attn.o"] = attn_out
+    attn_out = qlinear.apply(attn["o"], attn_out, backend)
     x = residual + attn_out
 
     h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
@@ -236,7 +248,12 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     g = qlinear.apply(mlp["gate"], h, backend)
     u = qlinear.apply(mlp["up"], h, backend)
     a = _activation(g, cfg.act) * u
-    return x + qlinear.apply(mlp["down"], a, backend)
+    out = x + qlinear.apply(mlp["down"], a, backend)
+    if want_taps:
+        taps["mlp.gate"] = taps["mlp.up"] = h
+        taps["mlp.down"] = a
+        return out, taps
+    return out
 
 
 # ------------------------------------------------------------------ embedding
@@ -261,7 +278,7 @@ def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,
     rope = rope_tables(cfg, positions)
     for lp in model.layers:
         x = layer_forward(cfg, lp, x, None, rope, backend=backend)
-    return unembed(cfg, model, x)
+    return unembed(cfg, model, x, backend)
 
 
 __all__ = ["ModelConfig", "Weights", "Layer", "Model", "layer_forward",

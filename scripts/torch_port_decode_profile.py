@@ -70,7 +70,7 @@ def main() -> int:
     B, S, n = args.batch, args.prompt, args.steps
     dev = torch.device("cuda")
     with torch.inference_mode():
-        model = synthetic.make_lut_model(cfg, bits=4, seed=0, device=dev)
+        model = synthetic.make_model(cfg, kind="lut", bits=4, seed=0, device=dev)
         cache = engine.init_cache(cfg, B, S + 4 * n + 16, dev)
         ids = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))

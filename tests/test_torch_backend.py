@@ -71,7 +71,7 @@ def test_cuda_decode_step_always_takes_flash_decode(monkeypatch, batch, heads,
     of 8: the kernel's wrapper, not the caller, decides to launch or raise)."""
     cfg = synthetic.llama_config(hidden=12 * heads, inter=32, layers=2,
                                  heads=heads, kv_heads=kv_heads, vocab=64)
-    model = synthetic.make_lut_model(cfg, seed=0)
+    model = synthetic.make_model(cfg, kind="lut", seed=0, device="cpu")
     calls = []
     flash = ttr.flash_decode_attention
 
@@ -96,7 +96,7 @@ def test_cuda_decode_step_always_takes_flash_decode(monkeypatch, batch, heads,
 def test_cuda_decode_step_takes_one_token():
     cfg = synthetic.llama_config(hidden=32, inter=32, layers=1, heads=2,
                                  kv_heads=1, vocab=64)
-    model = synthetic.make_lut_model(cfg, seed=0)
+    model = synthetic.make_model(cfg, kind="lut", seed=0, device="cpu")
     cache = teng.init_cache(cfg, 1, 16, "cpu")
     x = torch.zeros((1, 2, 32), dtype=torch.bfloat16)
     rope = ttr.rope_tables(cfg, torch.arange(2)[None])
@@ -117,9 +117,40 @@ def test_load_takes_a_backend(tmp_path):
                                  kv_heads=1, vocab=64)
     save_quantized(str(tmp_path), hf_import.config_to_hf(cfg),
                    QuantizeConfig(bits=4, quant_method="ganq"),
-                   synthetic.make_lut_model(cfg, seed=0))
+                   synthetic.make_model(cfg, kind="lut", seed=0, device="cpu"))
     g = GanqModel.load(str(tmp_path), device="cpu", backend="reference")
     assert g.backend == "reference"
     assert g.generate([[1, 2, 3]], max_new_tokens=2, max_seq=8).shape == (1, 2)
     with pytest.raises(ValueError, match="requires a CUDA device"):
         GanqModel.load(str(tmp_path), device="cpu", backend="cuda")
+
+
+def test_forward_passes_the_backend_to_the_lm_head(monkeypatch):
+    """``forward`` hands its backend to ``unembed``: a quantized untied
+    lm_head on the "cuda" backend reaches the LUT kernel's wrapper (which
+    takes its plain version for these CPU tensors), not the plain path."""
+    from ganq_tpu_torch.ops import lut_matmul as lm
+    from ganq_tpu_torch.ops import qlinear
+
+    cfg = synthetic.llama_config(hidden=32, inter=32, layers=1, heads=2,
+                                 kv_heads=1, vocab=64)
+    model = synthetic.make_model(cfg, kind="lut", seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, 16, (64, 32), generator=gen)
+    model.lm_head = qlinear.lut_linear(torch.randn((64, 16), generator=gen),
+                                       idx, 4)
+    seen = []
+    plain = lm.lut_matmul_reference
+
+    def spy(x, lut, packed, bits):
+        seen.append(lut.shape[0])
+        return plain(x, lut, packed, bits)
+
+    monkeypatch.setattr(lm, "lut_matmul_reference", spy)
+    ids = torch.tensor([[1, 2, 3]])
+    with torch.inference_mode():
+        ref = ttr.forward(cfg, model, ids, "reference")
+        assert seen == []
+        got = ttr.forward(cfg, model, ids, "cuda")
+    assert seen[-1] == cfg.vocab_size          # the lm_head went through it
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

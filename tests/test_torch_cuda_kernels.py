@@ -7,7 +7,9 @@ JAX, which the root conftest imports) run it as
 
 Shapes go beyond the serving path's: every bit width, f32 and bf16
 activations, padded K, ragged batch tiles, GQA ratios 1/4/32, head dims 64
-and 128, and positions at tile edges.
+and 128, and positions at tile edges; for the S-step kernels ragged m and n
+(n not a multiple of the 128-column block) and codebooks of 4 to 256
+entries.
 """
 
 import math
@@ -15,11 +17,17 @@ import math
 import pytest
 import torch
 
+from ganq_tpu_torch.core.config import QuantizeConfig
 from ganq_tpu_torch.ops.fused_attention import (
     flash_decode_attention, flash_decode_reference, flash_decode_split_bound,
     flash_decode_split_reference)
 from ganq_tpu_torch.ops.lut_matmul import lut_matmul, lut_matmul_reference
+from ganq_tpu_torch.ops.ganq_solver import (s_step, s_step_blocked,
+                                            s_step_blocked_kernel,
+                                            s_step_kernel)
 from ganq_tpu_torch.ops.packing import pack_factor, pack_int_rows
+from ganq_tpu_torch.quant.ganq import ganq_quantize, quad_loss
+from ganq_tpu_torch.quant.preamble import _ganq_L
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +155,86 @@ def test_flash_decode_reads_f32_query_as_bf16(gen):
     a = flash_decode_attention(q, k, v, pos, 0.125)
     b = flash_decode_attention(q.to(torch.bfloat16), k, v, pos, 0.125)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def _sstep_problem(gen, m, n, V):
+    """W and sorted codebooks of std 1, L the GANQ factor of a random
+    positive definite H from 2n samples."""
+    W = torch.randn((m, n), generator=gen, device="cuda")
+    X = torch.randn((2 * n, n), generator=gen, device="cuda")
+    H = X.T @ X / (2 * n)
+    T = torch.sort(torch.randn((m, V), generator=gen, device="cuda"),
+                   dim=1).values
+    return W, _ganq_L(H), T, H
+
+
+def _assert_sstep_close(W, T, H, got, plain):
+    """Index agreement >= 0.999; where the indices agree Werr = W - T[Q]
+    is the same float operation on both sides, so it must agree to 1e-4;
+    the quadratic loss tr(E H E^T) within 1e-5 of the plain version's
+    (near-tie flips are expected, ganq_tpu/quant/ganq.py:113-115)."""
+    (Q, E), (Qp, Ep) = got, plain
+    same = Q == Qp
+    assert float(same.float().mean()) >= 0.999
+    torch.testing.assert_close(E[same], Ep[same], rtol=1e-4, atol=1e-4)
+    loss = float(quad_loss(W, torch.take_along_dim(T, Q.long(), dim=1), H))
+    ref = float(quad_loss(W, torch.take_along_dim(T, Qp.long(), dim=1), H))
+    assert abs(loss - ref) <= 1e-5 * abs(ref)
+
+
+@pytest.mark.parametrize("m,n", [(33, 130), (200, 384), (64, 257)])
+@pytest.mark.parametrize("V", [4, 8, 16, 256])
+def test_s_step_blocked_kernel_matches_plain(gen, m, n, V):
+    W, L, T, H = _sstep_problem(gen, m, n, V)
+    before = s_step_blocked_kernel.launches
+    got = s_step_blocked_kernel(W, L, T)
+    assert s_step_blocked_kernel.launches == before + 1
+    assert got[0].dtype == torch.int32 and got[0].shape == (m, n)
+    _assert_sstep_close(W, T, H, got, s_step_blocked(W, L, T))
+
+
+@pytest.mark.parametrize("m,n", [(33, 130), (200, 384), (64, 257)])
+@pytest.mark.parametrize("V", [4, 8, 16, 256])
+def test_s_step_kernel_matches_plain(gen, m, n, V):
+    W, L, T, H = _sstep_problem(gen, m, n, V)
+    before = s_step_kernel.launches
+    got = s_step_kernel(W, L, T)
+    assert s_step_kernel.launches == before + 1
+    _assert_sstep_close(W, T, H, got, s_step(W, L, T))
+
+
+def test_s_step_kernels_reject_what_they_cannot_run(gen):
+    W, L, T, _ = _sstep_problem(gen, 8, 16, 16)
+    with pytest.raises(ValueError):
+        s_step_blocked_kernel(W, L, T[:, :5])
+    with pytest.raises(TypeError):
+        s_step_kernel(W.double(), L.double(), T.double())
+
+
+@pytest.mark.parametrize("backend,kernel", [("auto", "blocked"),
+                                            ("pallas", "columns"),
+                                            ("jax", None)])
+def test_ganq_quantize_on_the_card(gen, backend, kernel):
+    """One module through ganq_quantize on the card: "auto" runs kernel 3
+    and "pallas" kernel 4 once per iteration, "jax" neither. Against the
+    same module on the CPU (plain per-column S-step, float32 T-step in
+    another summation order): codes agree at >= 0.99 and the quadratic loss
+    within 1e-3."""
+    m, n, iters = 96, 256, 3
+    W = torch.randn((m, n), generator=gen, device="cuda") * 0.02
+    X = torch.randn((4 * n, n), generator=gen, device="cuda")
+    H = 2.0 / 4 * (X.T @ X)
+    qcfg = QuantizeConfig(bits=4, quant_method="ganq", act_sort="asc",
+                          l_damp_style="ganq", dead="mean",
+                          ganq_iterations=iters, solver_backend=backend)
+    counts = (s_step_blocked_kernel.launches, s_step_kernel.launches)
+    r = ganq_quantize(W, H, qcfg, nsamples=4)
+    grew = (s_step_blocked_kernel.launches - counts[0],
+            s_step_kernel.launches - counts[1])
+    steps = iters + int(r.fallback)
+    assert grew == {"blocked": (steps, 0), "columns": (0, steps),
+                    None: (0, 0)}[kernel]
+    cpu = ganq_quantize(W.cpu(), H.cpu(), qcfg, nsamples=4)
+    assert float((r.idx.cpu() == cpu.idx).float().mean()) >= 0.99
+    assert abs(r.quad_loss - cpu.quad_loss) <= 1e-3 * cpu.quad_loss
+    assert bool(torch.isfinite(r.lut).all())

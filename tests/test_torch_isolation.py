@@ -10,7 +10,8 @@ import torch
 
 import ganq_tpu_torch
 from ganq_tpu_torch import GanqModel
-from ganq_tpu_torch.models import synthetic
+from ganq_tpu_torch.formats import checkpoint
+from ganq_tpu_torch.models import hf_import, synthetic
 from ganq_tpu_torch.serve.engine import Engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,12 +26,21 @@ for n in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "ganq_tpu"
              or k.startswith("ganq_tpu."))
+import numpy as np
+from ganq_tpu_torch.ops import kmeans_exact
+kmeans_exact.kmeans_rows_exact(np.arange(12.0).reshape(2, 6), np.ones(6), 2)
+maps = open("/proc/self/maps").read()
+if "libkmeans1d-" not in maps or "ganq_tpu/native" in maps:
+    bad.append("kmeans library")
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+sys.exit(1 if bad or len(names) < 28 else 0)
 """
 
 
 def test_no_jax_and_no_jax_package_in_a_fresh_process():
+    """Every module of the port imports without JAX or ganq_tpu, and the
+    exact k-means runs on the port's own build of its own source (never the
+    JAX package's native library)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
@@ -48,6 +58,7 @@ def test_sources_do_not_name_the_jax_package():
                 assert "import jax" not in text and "from jax" not in text, f
                 assert "from ganq_tpu." not in text, f
                 assert "import ganq_tpu." not in text, f
+                assert "ganq_tpu/native" not in text, f
 
 
 def test_entry_points_do_not_silently_run_on_cpu(tmp_path):
@@ -57,7 +68,16 @@ def test_entry_points_do_not_silently_run_on_cpu(tmp_path):
         GanqModel.load(str(tmp_path))
     cfg = synthetic.llama_config(hidden=32, inter=64, layers=1, heads=2,
                                  kv_heads=1, vocab=64)
-    model = synthetic.make_lut_model(cfg, seed=0)
+    hf_cfg = hf_import.config_to_hf(cfg)
+    for entry in (lambda: synthetic.make_model(cfg, kind="lut", seed=0),
+                  lambda: synthetic.make_model(cfg, kind="dense"),
+                  lambda: checkpoint.load_quantized(str(tmp_path)),
+                  lambda: hf_import.params_from_dir(str(tmp_path)),
+                  lambda: hf_import.params_from_state_dict({}, hf_cfg),
+                  lambda: hf_import.params_from_numpy(hf_cfg, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    model = synthetic.make_model(cfg, kind="lut", seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, model)
     # an explicit CPU request runs
@@ -71,12 +91,14 @@ def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
     the plain version tests for a CPU tensor."""
     import inspect
 
-    from ganq_tpu_torch.ops import fused_attention, lut_matmul
+    from ganq_tpu_torch.ops import fused_attention, ganq_solver, lut_matmul
 
     for fn, plain in ((lut_matmul.lut_matmul, "lut_matmul_reference"),
                       (fused_attention.flash_decode_attention,
-                       "flash_decode_reference")):
+                       "flash_decode_reference"),
+                      (ganq_solver.s_step_blocked_kernel, "s_step_blocked"),
+                      (ganq_solver.s_step_kernel, "s_step")):
         src = inspect.getsource(fn)
-        assert src.count(plain) == 1
-        assert 'device.type == "cpu":\n        return ' + plain in src
+        assert src.count(plain + "(") == 1
+        assert 'device.type == "cpu":\n        return ' + plain + "(" in src
         assert "except" not in src

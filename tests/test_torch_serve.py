@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+# transformers only builds the tiny test model here: keep it from importing
+# TensorFlow, which costs seconds per process
+os.environ.setdefault("USE_TF", "0")
+
 import jax.numpy as jnp
 
 from ganq_tpu.core.config import QuantizeConfig as JQuantizeConfig
@@ -179,14 +183,15 @@ def test_port_checkpoint_loads_in_jax(jax_ckpt, tmp_path, max_shard_bytes):
     port (sharded through model.safetensors.index.json in the second case)."""
     d, hf_config = jax_ckpt
     jcfg, jparams, jq = jckpt.load_quantized(d)
-    cfg, model = thf.params_from_numpy(hf_config, _flatten_jax(jparams))
+    cfg, model = thf.params_from_numpy(hf_config, _flatten_jax(jparams),
+                                       device="cpu")
     out = str(tmp_path / "port_ckpt")
     tckpt.save_quantized(out, hf_config, QuantizeConfig(**QCFG), model,
                          max_shard_bytes=max_shard_bytes)
     sharded = os.path.isfile(os.path.join(out, "model.safetensors.index.json"))
     assert sharded == (max_shard_bytes < 1e6)
     jcfg2, jparams2, _ = jckpt.load_quantized(out)
-    _, tmodel2, _ = tckpt.load_quantized(out)
+    _, tmodel2, _ = tckpt.load_quantized(out, device="cpu")
     for li in range(jcfg.num_hidden_layers):
         for slot in ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.gate",
                      "mlp.up", "mlp.down"):
@@ -212,7 +217,7 @@ def test_quantize_config_byte_identical(jax_ckpt, tmp_path):
     assert (a / name).read_bytes() == (b / name).read_bytes()
     # the checkpoint writers too: the port's file equals ganq_tpu's
     _, model = thf.params_from_numpy(
-        hf_config, _flatten_jax(jckpt.load_quantized(d)[1]))
+        hf_config, _flatten_jax(jckpt.load_quantized(d)[1]), device="cpu")
     tckpt.save_quantized(str(tmp_path / "c"), hf_config,
                          QuantizeConfig(**QCFG), model)
     assert ((tmp_path / "c" / name).read_bytes()
@@ -227,9 +232,10 @@ def test_load_verifies_hash(jax_ckpt):
     d, _ = jax_ckpt
     good = {"model.safetensors": tckpt.sha256_file(
         os.path.join(d, "model.safetensors"))}
-    tckpt.load_quantized(d, verify_hash=good)
+    tckpt.load_quantized(d, device="cpu", verify_hash=good)
     with pytest.raises(ValueError, match="hash mismatch"):
-        tckpt.load_quantized(d, verify_hash={"model.safetensors": "0" * 64})
+        tckpt.load_quantized(d, device="cpu",
+                             verify_hash={"model.safetensors": "0" * 64})
 
 
 def test_quant_log_csv_matches(tmp_path):

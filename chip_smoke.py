@@ -15,7 +15,9 @@ Phases, each of which raises (exit code != 0) on failure:
    version's time, one PyTorch library call's time (or, for the S-step, a
    float32 matmul of the same operation count as a yardstick) and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 989
-   TFLOP/s in bf16 and 67 TFLOP/s in float32).
+   TFLOP/s in bf16, 1979 TOP/s in int8 and 67 TFLOP/s in float32). Kernels
+   5-8 (uniform and int8 linears) run at batch 1, 8 and 512; their library
+   yardstick is a bf16 matmul on the dequantized weight.
 4. serving path: a random-weight Llama-3.2-1B at its published widths, made
    a 4-bit GANQ ``lut`` model, saved with the port's checkpoint writer,
    loaded with ``GanqModel.load`` (default device: the card) and asked four
@@ -34,6 +36,21 @@ Phases, each of which raises (exit code != 0) on failure:
    weights and logits. The same path then runs at 2 layers with
    ``solver_backend="pallas"``, which must launch the per-column kernel
    instead.
+7. GPTQ path: the same dense start at depth ``GPTQ_LAYERS``, quantized with
+   ``QuantizeConfig()`` (GPTQ W4 g128, desc_act), saved in the GPTQ v1
+   layout, loaded (auto backend "cuda_a8") and asked two requests: the
+   permuted g_idx sends every linear to kernel 5. Then desc_act=False at 2
+   layers, served by "cuda_a8" (kernel 6) and by "cuda" (kernel 5).
+8. optimize() path: phase 4's checkpoint recoded by ``optimize("w8")``
+   (kernel 8 with ``layout="perlayer"``, after the default layout has
+   refused the request that the JAX engine's stacked layout fuses; kernel 7
+   under "cuda") and ``optimize()`` (uniform 8-bit, kernel 6); then an
+   affine-codebook ``lut`` model, which the engine certifies into uniform
+   4-bit linears (kernel 5). Llama-3.2-1B's head_dim of 64 keeps every
+   request of phases 7 and 8 off the JAX engine's whole-step megasteps.
+Each run of phases 7 and 8 sets the launch counters to 0, must match its
+expected launches exactly, and holds a teacher-forced decode step against
+the reference backend.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -53,9 +70,12 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
 QUANTIZE_LAYERS = 16               # depth of the quantize path (see PERF.md)
 PALLAS_PATH_LAYERS = 2             # depth of its solver_backend="pallas" run
+GPTQ_LAYERS = 16                   # depth of the GPTQ path (see PERF.md)
+GPTQ_SIDE_LAYERS = 2               # depth of its desc_act=False runs
 L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
 LLAMA_1B_LINEARS = {"q/o": (2048, 2048), "k/v": (512, 2048),
                     "gate/up": (8192, 2048), "down": (2048, 8192)}
@@ -362,6 +382,131 @@ def check_s_step(gen) -> list:
     return entries
 
 
+def _within_ulp(got, plain, what):
+    """|kernel - plain| within one bf16 ulp of either plus 2e-5 of
+    max|plain| (both round a float32 sum once; the float32 sums run in
+    another order). Returns the largest error."""
+    err = (got.float() - plain.float()).abs()
+    tol = (torch.maximum(bf16_ulp(got), bf16_ulp(plain))
+           + 2e-5 * plain.float().abs().max())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: max |kernel - plain| = "
+                             f"{float(err.max()):.3e} exceeds one bf16 ulp")
+    return float(err.max())
+
+
+def _linear_rows(name, kernel, plain, make, nbytes_of, ops_per_s, gen,
+                 widths=((4, "bits=4 g128"),)):
+    """Kernel, plain version and the library yardstick (a bf16 matmul on
+    the dequantized weight: the full-precision product) at the Llama-3.2-1B
+    shapes, batch 1, 8 and 512. ``make(M, K, bits)`` -> (args without x,
+    bf16 weight [M, K], weight bytes). Returns the rows and the worst
+    error."""
+    rows, worst = {}, 0.0
+    for bits, tag in widths:
+        for label, (M, K) in LLAMA_1B_LINEARS.items():
+            first = make(M, K, bits)
+            n = copies_for(first[2])
+            weights = [first] + [make(M, K, bits) for _ in range(n - 1)]
+            dense = [w[1] for w in weights[:copies_for(2 * M * K)]]
+            for B in (1, 8, 512):
+                x = torch.randn((B, K), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                args0 = weights[0][0]
+                got = kernel(x, *args0)
+                ref = plain(x, *args0)
+                torch.cuda.synchronize()
+                err = _within_ulp(got, ref, f"{name} {tag} {label} B={B}")
+                iters = max(2 * n, 30)
+                k_ms = time_ms(kernel, [(x, *w[0]) for w in weights], iters)
+                p_ms = time_ms(plain, [(x, *w[0]) for w in weights],
+                               max(n, 10))
+                l_ms = time_ms(lambda xx, w: torch.matmul(xx, w.T),
+                               [(x, w) for w in dense], iters)
+                nbytes = B * K * 2 + nbytes_of(M, K, bits) + B * M * 2
+                b_ms, b_by = bound(nbytes, 2.0 * B * M * K, ops_per_s)
+                worst = max(worst, err)
+                rows[(bits, label, B)] = dict(
+                    ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=err)
+                log(f"{name} {tag} {label} M={M} K={K} B={B}: "
+                    f"max_abs_err={err:.3e} (tol: 1 bf16 ulp + 2e-5 of "
+                    f"max|out|) kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
+                    f"library_ms={l_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
+                    f"bound_share={b_ms / k_ms:.3f}")
+            del weights, dense
+    return rows, worst
+
+
+def check_uniform_kernels(gen) -> list:
+    """Kernels 5 (``uniform_matmul``) and 6 (``uniform_a8_matmul``) on
+    symmetric codes with 128-column groups: 4 bits for both, and 8 bits for
+    kernel 6 (the ``optimize()`` recode). The library yardstick computes the
+    full-precision product, not the a8 one."""
+    from ganq_tpu_torch.ops.packing import pack_int_rows
+    from ganq_tpu_torch.ops.uniform_matmul import (
+        dequantize_uniform, uniform_a8_matmul, uniform_a8_reference,
+        uniform_matmul, uniform_matmul_reference)
+
+    def make(M, K, bits):
+        codes = torch.randint(0, 2**bits, (M, K), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        scales = (torch.rand((M, K // 128), generator=gen, device="cuda")
+                  * 0.003 + 0.001) * min(1.0, 16.0 / 2**bits)
+        packed = pack_int_rows(codes, bits)
+        w = dequantize_uniform(packed, scales, None, None, bits,
+                               K).to(torch.bfloat16)
+        return (packed, scales, None, None, bits), w, M * K * bits // 8
+
+    def nbytes_of(M, K, bits):
+        return M * K * bits // 8 + M * (K // 128) * 4
+
+    entries = []
+    for name, kernel, plain, widths, peak in (
+            ("uniform_matmul", uniform_matmul, uniform_matmul_reference,
+             ((4, "bits=4 g128"),), BF16_FLOPS_PER_S),
+            ("uniform_a8_matmul", uniform_a8_matmul, uniform_a8_reference,
+             ((4, "bits=4 g128"), (8, "bits=8 g128")), INT8_OPS_PER_S)):
+        rows, worst = _linear_rows(name, kernel, plain, make, nbytes_of, peak,
+                                   gen, widths)
+        entry = dict(rows[(4, "down", 1)])
+        entry.update(name=name, max_abs_err=worst,
+                     shape="bits=4 g128 M=2048 K=8192 B=1 (down, decode)")
+        entries.append(entry)
+    return entries
+
+
+def check_w8_kernels(gen) -> list:
+    """Kernels 7 (``w8_matmul``) and 8 (``w8a8_matmul``) on per-row int8
+    weights (the ``optimize("w8")`` recode). Kernel 8 and its plain version
+    quantize x alike and sum integers exactly: they are expected to agree
+    bit for bit, and are held to the same bound as the others."""
+    from ganq_tpu_torch.ops.w8_matmul import (w8_matmul, w8_matmul_reference,
+                                              w8a8_matmul, w8a8_reference)
+
+    def make(M, K, bits):
+        w8 = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        scale = torch.rand((M, 1), generator=gen, device="cuda") * 3e-4 + 1e-4
+        w = (w8.float() * scale).to(torch.bfloat16)
+        return (w8, scale), w, M * K
+
+    def nbytes_of(M, K, bits):
+        return M * K + M * 4
+
+    entries = []
+    for name, kernel, plain, peak in (
+            ("w8_matmul", w8_matmul, w8_matmul_reference, BF16_FLOPS_PER_S),
+            ("w8a8_matmul", w8a8_matmul, w8a8_reference, INT8_OPS_PER_S)):
+        rows, worst = _linear_rows(name, kernel, plain, make, nbytes_of, peak,
+                                   gen, ((8, "int8 per-row"),))
+        entry = dict(rows[(8, "down", 1)])
+        entry.update(name=name, max_abs_err=worst,
+                     shape="int8 M=2048 K=8192 B=1 (down, decode)")
+        entries.append(entry)
+    return entries
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # full-precision sums in the plain versions' and library's GEMMs
@@ -371,12 +516,13 @@ def phase_kernels() -> list:
     try:
         with torch.inference_mode():
             return [check_lut_matmul(gen), check_flash_decode(gen),
-                    *check_s_step(gen)]
+                    *check_s_step(gen), *check_uniform_kernels(gen),
+                    *check_w8_kernels(gen)]
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
 
 
-def phase_main_path():
+def phase_main_path(ckpt_dir: str):
     from ganq_tpu_torch import GanqModel, QuantizeConfig
     from ganq_tpu_torch.formats.checkpoint import save_quantized
     from ganq_tpu_torch.models import hf_import, synthetic
@@ -388,19 +534,15 @@ def phase_main_path():
     with torch.inference_mode():
         model = synthetic.make_model(cfg, kind="lut", bits=4, seed=0,
                                      device="cuda", dtype=torch.bfloat16)
-    tmp = tempfile.TemporaryDirectory()
-    try:
-        save_quantized(tmp.name, hf_import.config_to_hf(cfg),
-                       QuantizeConfig(bits=4, quant_method="ganq"), model)
-        del model
-        torch.cuda.empty_cache()
-        t1 = time.time()
-        q = GanqModel.load(tmp.name, dtype=torch.bfloat16)
-        log(f"main path: built+saved 1B lut checkpoint in {t1 - t0:.1f} s, "
-            f"loaded in {time.time() - t1:.1f} s on {q.device}, "
-            f"backend={q.backend}")
-    finally:
-        tmp.cleanup()
+    save_quantized(ckpt_dir, hf_import.config_to_hf(cfg),
+                   QuantizeConfig(bits=4, quant_method="ganq"), model)
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    q = GanqModel.load(ckpt_dir, dtype=torch.bfloat16)
+    log(f"main path: built+saved 1B lut checkpoint in {t1 - t0:.1f} s, "
+        f"loaded in {time.time() - t1:.1f} s on {q.device}, "
+        f"backend={q.backend}")
     if q.backend != "cuda" or q.device.type != "cuda":
         raise AssertionError("GanqModel.load did not select the card")
 
@@ -455,34 +597,41 @@ def phase_main_path():
     return q, launches, metrics
 
 
-def phase_reference_check(q) -> float:
-    """Teacher-force one decode step through both backends from the same
-    cache; relative L2 difference of the logits must stay below 5e-2 (bf16
-    activations: the paths round at different points, see PERF.md)."""
+def phase_reference_check(q, model=None, backend: str = "cuda",
+                          what: str = "reference check") -> float:
+    """Teacher-force one decode step through ``backend`` and the "reference"
+    backend from the same cache; relative L2 difference of the logits must
+    stay below 5e-2 (bf16 activations: the paths round at different points,
+    see PERF.md), and below 1e-1 on "cuda_a8", whose kernels also round
+    every linear's input to int8 per token (up to 1/254 of the row's
+    largest value). ``model`` defaults to ``q.model``."""
     from ganq_tpu_torch.serve import engine
 
+    model = q.model if model is None else model
     ids = torch.randint(0, q.cfg.vocab_size, (2, 128),
                         generator=torch.Generator().manual_seed(2)).cuda()
     with torch.inference_mode():
         cache = engine.init_cache(q.cfg, 2, 256, q.device)
-        logits0 = engine.prefill(q.cfg, q.model, cache, ids, "reference")
+        logits0 = engine.prefill(q.cfg, model, cache, ids, "reference")
         tok = logits0.argmax(-1)
         cache2 = [{k: v.clone() for k, v in c.items()} for c in cache]
         pos = torch.tensor(128, dtype=torch.int32, device=q.device)
-        a = engine.decode_step(q.cfg, q.model, cache, tok, pos, "cuda").float()
-        b = engine.decode_step(q.cfg, q.model, cache2, tok, pos,
+        a = engine.decode_step(q.cfg, model, cache, tok, pos, backend).float()
+        b = engine.decode_step(q.cfg, model, cache2, tok, pos,
                                "reference").float()
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite logits")
     rel = float((a - b).norm() / b.norm())
+    tol = 1e-1 if backend == "cuda_a8" else 5e-2
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    log(f"reference check: teacher-forced decode step, logits "
-        f"{tuple(a.shape)}, rel_l2(cuda, reference)={rel:.3e} "
+    log(f"{what}: teacher-forced decode step, logits "
+        f"{tuple(a.shape)}, rel_l2({backend}, reference)={rel:.3e} "
         f"max_abs={float((a - b).abs().max()):.3e} "
         f"max|ref|={float(b.abs().max()):.3e} top1_agree={agree:.2f} "
-        f"(tol rel_l2 <= 5e-2)")
-    if rel > 5e-2:
-        raise AssertionError("cuda and reference backends disagree")
+        f"(tol rel_l2 <= {tol:g})")
+    if rel > tol:
+        raise AssertionError(f"{what}: {backend} and reference backends "
+                             "disagree")
     return rel
 
 
@@ -491,9 +640,53 @@ def _kernel_counters():
     from ganq_tpu_torch.ops.ganq_solver import (s_step_blocked_kernel,
                                                 s_step_kernel)
     from ganq_tpu_torch.ops.lut_matmul import lut_matmul
+    from ganq_tpu_torch.ops.uniform_matmul import (uniform_a8_matmul,
+                                                   uniform_matmul)
+    from ganq_tpu_torch.ops.w8_matmul import w8_matmul, w8a8_matmul
 
     return {"lut_matmul": lut_matmul, "flash_decode": flash_decode_attention,
-            "s_step_blocked": s_step_blocked_kernel, "s_step": s_step_kernel}
+            "s_step_blocked": s_step_blocked_kernel, "s_step": s_step_kernel,
+            "uniform_matmul": uniform_matmul,
+            "uniform_a8_matmul": uniform_a8_matmul, "w8_matmul": w8_matmul,
+            "w8a8_matmul": w8a8_matmul}
+
+
+def _serve(q, requests, kernel_of, model=None, layout="auto"):
+    """``q.generate`` (with ``layout``) for each (batch, prompt, new) request
+    with the launch counters set to 0 just before; returns the counts read
+    just after, and checks them against the path's: one launch of
+    ``kernel_of(linear)`` per linear for a prompt of fewer than 1024 token
+    rows (else the dequantize-once GEMM) and per decode step, and one flash
+    decode per layer and decode step. ``model`` is the model the engine
+    serves (the engine's certified copy, where it makes one)."""
+    from ganq_tpu_torch.ops.qlinear import QLinear
+
+    counters = _kernel_counters()
+    model = q.model if model is None else model
+    expected = {k: 0 for k in counters}
+    per_step = {}
+    for lp in model.layers:
+        for p in list(lp.attn.values()) + list(lp.mlp.values()):
+            if isinstance(p, QLinear) and p.kind != "dense":
+                k = kernel_of(p)
+                per_step[k] = per_step.get(k, 0) + 1
+    layers = len(model.layers)
+    rng = np.random.default_rng(11)
+    for c in counters.values():
+        c.launches = 0
+    for B, S, new in requests:
+        for k, v in per_step.items():
+            expected[k] += (v if B * S < 1024 else 0) + (new - 1) * v
+        expected["flash_decode"] += (new - 1) * layers
+        ids = rng.integers(0, q.cfg.vocab_size, size=(B, S))
+        out = q.generate(ids, max_new_tokens=new, max_seq=S + new,
+                         layout=layout)
+        if out.shape != (B, new) or out.min() < 0 or out.max() >= q.cfg.vocab_size:
+            raise AssertionError(f"bad tokens {out.shape}")
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    return launches
 
 
 def phase_quantize_path(layers: int, solver_backend: str = "auto"):
@@ -631,21 +824,194 @@ def phase_quantize_path(layers: int, solver_backend: str = "auto"):
     return launches
 
 
+def phase_gptq_path(layers: int, desc_act: bool, backends=(None,)):
+    """The GPTQ quick start at Llama-3.2-1B's widths with ``layers`` layers:
+    dense safetensors directory -> GanqModel.load(dir, QuantizeConfig(
+    desc_act=...)) (GPTQ W4, group 128, sym) -> quantize(16 rows of 512) ->
+    save (GPTQ v1) -> GanqModel.load(dir, backend=b) for each b of
+    ``backends`` (None: the auto choice, which must be "cuda_a8") ->
+    generate at batch 1 (prompt 128 + 32) and 8 (+ 16), then a teacher-forced
+    step against the reference backend. With desc_act the permuted g_idx
+    sends every linear through the a8 gate's full-precision route (kernel
+    5); without it the auto backend runs kernel 6, and "cuda" kernel 5.
+    Returns the launch counts of each generate phase."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.ops.uniform_matmul import a8_eligible
+
+    cfg = synthetic.llama_3_2_1b_config(layers=layers)
+    qcfg = QuantizeConfig(desc_act=desc_act)
+    if qcfg.quant_method != "gptq" or qcfg.bits != 4 or qcfg.group_size != 128:
+        raise AssertionError(f"QuantizeConfig() is not GPTQ W4 g128: {qcfg}")
+    rows = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(16, 512))
+    results = []
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as qdir:
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=6,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        del dense
+        torch.cuda.empty_cache()
+        g = GanqModel.load(dense_dir, qcfg)
+        t0 = time.time()
+        qlog = g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t_quant = time.time() - t0
+        g.save(qdir)
+        bad = [f"{e.layer}.{e.module}" for e in qlog if not math.isfinite(e.loss)]
+        if len(qlog) != 7 * layers or bad:
+            raise AssertionError(f"GPTQ path: {len(qlog)} modules, "
+                                 f"non-finite losses: {bad}")
+        split = {}
+        for e in qlog:
+            for k, v in e.extra.items():
+                split[k] = split.get(k, 0.0) + v / layers
+        per_layer = [round(sum(e.duration for e in qlog if e.layer == li), 3)
+                     for li in range(layers)]
+        log(f"GPTQ path (desc_act={desc_act}): quantize {t_quant:.2f} s for "
+            f"{layers} layers ({t_quant / layers:.3f} s per layer; module "
+            f"time per layer {per_layer}); mean split per layer (s): "
+            + json.dumps({k: round(v, 4) for k, v in split.items()})
+            + f"; losses {min(e.loss for e in qlog):.4g} .. "
+            f"{max(e.loss for e in qlog):.4g}")
+        del g
+        torch.cuda.empty_cache()
+        for backend in backends:
+            q = GanqModel.load(qdir, dtype=torch.bfloat16, backend=backend)
+            if backend is None and q.backend != "cuda_a8":
+                raise AssertionError(f"GPTQ checkpoint selected {q.backend}")
+
+            def kernel_of(p, be=q.backend):
+                if be == "cuda_a8" and a8_eligible(
+                        p.in_features, p["qweight"].shape[0],
+                        p["scales"].shape[1],
+                        p["g_idx"] if "g_idx" in p else None, p.bits):
+                    return "uniform_a8_matmul"
+                return "uniform_matmul"
+
+            t0 = time.time()
+            launches = _serve(q, ((1, 128, 32), (8, 128, 16)), kernel_of)
+            log(f"GPTQ path (desc_act={desc_act}) backend={q.backend}: "
+                f"generate in {time.time() - t0:.2f} s, launches {launches}")
+            phase_reference_check(q, backend=q.backend,
+                                  what=f"GPTQ desc_act={desc_act} {q.backend}")
+            results.append(launches)
+            del q
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_optimize_path(ckpt_dir: str):
+    """``optimize()`` on phase 4's 16-layer lut checkpoint: "w8" under the
+    auto backend (cuda_a8) and under "cuda" (kernel 7); "auto" (uniform
+    8-bit: kernel 6); then a 16-layer ``lut_affine_sym`` model served
+    without optimize(), which the engine certifies into uniform 4-bit
+    linears (kernel 5). On cuda_a8 the JAX engine's stacked layout serves a
+    w8 MLP at these batches through its fused MLP kernel (kernel 9, not
+    ported yet): the port's engine must refuse that request, and serves it
+    with ``layout="perlayer"`` (kernel 8), as the JAX engine's per-layer
+    layout does. Each run's teacher-forced step is held against the
+    reference backend. Returns the launch counts of each run."""
+    from ganq_tpu_torch import GanqModel
+    from ganq_tpu_torch.models import synthetic
+
+    requests = ((1, 128, 16), (8, 64, 8))
+    results = []
+    for recode, backend, layout, kind, want in (
+            ("w8", None, "perlayer", "w8", "w8a8_matmul"),
+            ("w8", "cuda", "auto", "w8", "w8_matmul"),
+            ("auto", None, "auto", "uniform", "uniform_a8_matmul")):
+        q = GanqModel.load(ckpt_dir, dtype=torch.bfloat16)
+        t0 = time.time()
+        q.optimize(recode)
+        torch.cuda.synchronize()
+        t_opt = time.time() - t0
+        kinds = {(p.kind, p.bits) for lp in q.model.layers
+                 for p in list(lp.attn.values()) + list(lp.mlp.values())}
+        if q.backend != "cuda_a8" or {k for k, _ in kinds} != {kind}:
+            raise AssertionError(f"optimize({recode!r}): backend {q.backend}, "
+                                 f"kinds {kinds}")
+        if backend is not None:
+            q.backend = backend
+        if layout == "perlayer":
+            counters = _kernel_counters()
+            for c in counters.values():
+                c.launches = 0
+            try:
+                q.generate(np.zeros((1, 8), np.int64), max_new_tokens=2)
+            except NotImplementedError as e:
+                if "kernel 9" not in str(e):
+                    raise
+                log(f"optimize({recode!r}) {q.backend}, layout auto: refused "
+                    f"({e})")
+            else:
+                raise AssertionError("the engine served a w8 MLP on cuda_a8 "
+                                     "that the JAX engine fuses (kernel 9)")
+            if any(c.launches for c in counters.values()):
+                raise AssertionError("the refused request launched kernels")
+        launches = _serve(q, requests, lambda p, w=want: w, layout=layout)
+        log(f"optimize({recode!r}) in {t_opt:.2f} s -> {sorted(kinds)}, "
+            f"backend {q.backend}, layout {layout}: launches {launches}")
+        phase_reference_check(q, backend=q.backend,
+                              what=f"optimize({recode!r}) {q.backend}")
+        results.append(launches)
+        del q
+        torch.cuda.empty_cache()
+
+    cfg = synthetic.llama_3_2_1b_config()
+    with torch.inference_mode():
+        model = synthetic.make_model(cfg, kind="lut_affine_sym", seed=3,
+                                     device="cuda", dtype=torch.bfloat16)
+    q = GanqModel(cfg, model)
+    if q.backend != "cuda":
+        raise AssertionError(f"lut_affine_sym model selected {q.backend}")
+    served = q._get_engine().model
+    kinds = {(p.kind, "zeros" in p) for lp in served.layers
+             for p in list(lp.attn.values()) + list(lp.mlp.values())}
+    if kinds != {("uniform", False)}:
+        raise AssertionError(f"the engine did not certify the affine "
+                             f"codebooks: {kinds}")
+    launches = _serve(q, requests, lambda p: "uniform_matmul", model=served)
+    log(f"lut_affine_sym served without optimize(): engine certified every "
+        f"linear to symmetric uniform 4-bit; launches {launches}")
+    phase_reference_check(q, model=served, backend="cuda",
+                          what="certified lut_affine_sym cuda")
+    results.append(launches)
+    return results
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
     phase_build()
     kernels = phase_kernels()
-    q, launches, _ = phase_main_path()
-    phase_reference_check(q)
-    del q
-    torch.cuda.empty_cache()
-    # the default S-step (kernel 3) on the README path; then the same path
-    # with solver_backend="pallas" (kernel 4) at a cut depth
-    launches["s_step_blocked"] = phase_quantize_path(
-        QUANTIZE_LAYERS)["s_step_blocked"]
-    launches["s_step"] = phase_quantize_path(
-        PALLAS_PATH_LAYERS, "pallas")["s_step"]
+    ckpt = tempfile.TemporaryDirectory()
+    try:
+        q, launches, _ = phase_main_path(ckpt.name)
+        phase_reference_check(q)
+        del q
+        torch.cuda.empty_cache()
+        # the default S-step (kernel 3) on the README path; then the same
+        # path with solver_backend="pallas" (kernel 4) at a cut depth
+        launches["s_step_blocked"] = phase_quantize_path(
+            QUANTIZE_LAYERS)["s_step_blocked"]
+        launches["s_step"] = phase_quantize_path(
+            PALLAS_PATH_LAYERS, "pallas")["s_step"]
+        # GPTQ (kernels 5 and 6), then optimize() and the engine's affine
+        # certification (kernels 5-8); each run counts from 0
+        runs = phase_gptq_path(GPTQ_LAYERS, desc_act=True)
+        runs += phase_gptq_path(GPTQ_SIDE_LAYERS, desc_act=False,
+                                backends=(None, "cuda"))
+        runs += phase_optimize_path(ckpt.name)
+    finally:
+        ckpt.cleanup()
+    for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
+                 "w8a8_matmul"):
+        launches[name] = sum(r[name] for r in runs)
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on its paths")
     src = {"lut_matmul": ("ganq_tpu_torch/csrc/lut_matmul.cu",
                           "ganq_tpu/ops/lut_matmul.py:129"),
            "flash_decode": ("ganq_tpu_torch/csrc/flash_decode.cu",
@@ -653,7 +1019,15 @@ def main() -> int:
            "s_step_blocked": ("ganq_tpu_torch/csrc/ganq_sstep.cu",
                               "ganq_tpu/ops/ganq_solver.py:306"),
            "s_step": ("ganq_tpu_torch/csrc/ganq_sstep.cu",
-                      "ganq_tpu/ops/ganq_solver.py:142")}
+                      "ganq_tpu/ops/ganq_solver.py:142"),
+           "uniform_matmul": ("ganq_tpu_torch/csrc/uniform_matmul.cu",
+                              "ganq_tpu/ops/uniform_matmul.py:100"),
+           "uniform_a8_matmul": ("ganq_tpu_torch/csrc/uniform_matmul.cu",
+                                 "ganq_tpu/ops/uniform_matmul.py:244"),
+           "w8_matmul": ("ganq_tpu_torch/csrc/w8_matmul.cu",
+                         "ganq_tpu/ops/w8_matmul.py:86"),
+           "w8a8_matmul": ("ganq_tpu_torch/csrc/w8_matmul.cu",
+                           "ganq_tpu/ops/w8_matmul.py:146")}
     line = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": src[k["name"]][0],
          "replaces": src[k["name"]][1], "launches": launches[k["name"]],

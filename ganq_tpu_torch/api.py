@@ -1,11 +1,12 @@
 """Top-level user API: ``GanqModel``.
 
 The port of ``ganq_tpu/api.py``'s main path: ``GanqModel.load`` a dense
-checkpoint with a ``QuantizeConfig``, ``quantize`` it (GANQ, layer by layer),
-``save`` the packed ``lut`` checkpoint, ``GanqModel.load`` that and
-``generate``. The model runs on the card unless the caller passes
-``device="cpu"``. optimize(), the server and the evals come with later slices
-of the port and raise ``NotImplementedError`` until then.
+checkpoint with a ``QuantizeConfig``, ``quantize`` it (GANQ or GPTQ, layer by
+layer), ``save`` the packed checkpoint (``lut``, or the GPTQ v1/v2 layout),
+``GanqModel.load`` that, ``optimize`` it (recode ``lut`` linears for the
+int8-activation kernels) and ``generate``. The model runs on the card unless
+the caller passes ``device="cpu"``. The server and the evals come with later
+slices of the port and raise ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ class GanqModel:
         self.model_dir = model_dir
         self.quantized = quantized
         self.backend = select_backend(self.model, self.device, backend)
-        self._engines: Dict[int, Engine] = {}
+        self._engines: Dict[str, Engine] = {}
         self._quant_output: Optional[QuantizeOutput] = None
 
     # ------------------------------------------------------------------ load
@@ -101,20 +102,27 @@ class GanqModel:
         return AutoTokenizer.from_pretrained(model_dir, local_files_only=True)
 
     # -------------------------------------------------------------- generate
-    def _get_engine(self, max_seq: int) -> Engine:
-        eng = self._engines.get(max_seq)
+    def _get_engine(self, layout: str = "auto") -> Engine:
+        """One engine per layout, shared by every max_seq: the stacked
+        layout's certification runs once per model (and again only after
+        quantize() or optimize())."""
+        eng = self._engines.get(layout)
         if eng is None or eng.backend != self.backend:
             eng = Engine(self.cfg, self.model, backend=self.backend,
-                         max_seq=max_seq, device=self.device)
-            self._engines[max_seq] = eng
+                         max_seq=self.cfg.max_position_embeddings,
+                         device=self.device, layout=layout)
+            self._engines[layout] = eng
         return eng
 
     def generate(self, inputs: Union[str, Sequence[int], np.ndarray],
                  max_new_tokens: int = 64, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0, max_seq: int = 2048,
-                 seed: int = 0) -> Union[str, np.ndarray]:
+                 seed: int = 0, layout: str = "auto") -> Union[str, np.ndarray]:
         """Generate from token ids [B, S] (or [S]) or, with a tokenizer, a
-        string. Returns tokens [B, max_new_tokens], or the decoded string."""
+        string. Returns tokens [B, max_new_tokens], or the decoded string.
+        ``layout``: the engine's (:class:`~ganq_tpu_torch.serve.engine.Engine`);
+        "perlayer" serves the int8-activation requests that the JAX
+        package's stacked layout would run through its own kernels."""
         is_str = isinstance(inputs, str)
         if is_str:
             if self.tokenizer is None:
@@ -127,10 +135,10 @@ class GanqModel:
         eos = -1
         if self.tokenizer is not None and self.tokenizer.eos_token_id is not None:
             eos = int(self.tokenizer.eos_token_id)
-        eng = self._get_engine(min(max_seq, self.cfg.max_position_embeddings))
-        out = eng.generate(ids, max_new_tokens=max_new_tokens,
-                           temperature=temperature, top_k=top_k, top_p=top_p,
-                           eos_id=eos, seed=seed)
+        out = self._get_engine(layout).generate(
+            ids, max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p, eos_id=eos, seed=seed,
+            max_seq=min(max_seq, self.cfg.max_position_embeddings))
         if is_str:
             return self.tokenizer.decode([t for t in out[0].tolist() if t != eos])
         return out
@@ -140,7 +148,8 @@ class GanqModel:
                  batch_size: int = 1,
                  calibration_concat_size: Optional[int] = None,
                  resume_dir: Optional[str] = None) -> List[ModuleQuantLog]:
-        """Run layer-wise GANQ on the model's device. ``calibration_dataset``:
+        """Run layer-wise GANQ or GPTQ (``quant_method``) on the model's
+        device. ``calibration_dataset``:
         token-id arrays, ``{"input_ids": ...}`` dicts or strings (tokenizer
         required). ``resume_dir``: checkpoint each layer's artifacts there
         and resume a crashed run after the last completed layer. Afterwards
@@ -162,8 +171,9 @@ class GanqModel:
 
     # ------------------------------------------------------------------ save
     def save(self, save_dir: str) -> None:
-        """Write the packed ``lut`` checkpoint of a freshly quantized model,
-        from the solver's artifacts."""
+        """Write the packed checkpoint of a freshly quantized model from the
+        solver's artifacts: ``lut`` for GANQ, the GPTQ v1 or v2 layout
+        (``QuantizeConfig.format``) for GPTQ."""
         if self._quant_output is None:
             raise RuntimeError("nothing to save: call quantize() first")
         checkpoint.save_quantized(save_dir, self._hf_config_dict(), self.qcfg,
@@ -178,9 +188,58 @@ class GanqModel:
             return hf_import.load_hf_config(self.model_dir)
         return hf_import.config_to_hf(self.cfg)
 
+    # -------------------------------------------------------------- optimize
+    def optimize(self, recode: str = "auto") -> "GanqModel":
+        """Recode the quantized linears for the fastest serving path, then
+        select the backend again (``ganq_tpu/api.py`` ``optimize``).
+
+        ``recode``: "auto" certifies affine-grid ``lut`` codebooks into
+        ``uniform`` linears (lossless, ``certify_uniform``) and recodes the
+        rest, 3-bit codebooks included, to ``uniform`` 8-bit with
+        128-column max-abs scales (``recode_uniform8``); "u4" snaps 3-bit
+        codebooks onto a 16-level affine grid (``recode_uniform4``) and
+        treats the rest as "auto"; "affine" certifies only; "w8" recodes
+        every ``lut`` (and ``uniform``) linear to per-row int8
+        (``recode_w8``); "none" leaves the kinds as loaded. On the card the
+        recoded models select ``"cuda_a8"`` (kernels 6 and 8); where the JAX
+        package's stacked layout would serve a request through a kernel of
+        its own (a ``w8`` MLP at up to 64 token rows, any head_dim-128 model
+        at decode batch <= 64), ``generate`` raises unless given
+        ``layout="perlayer"``."""
+        from .ops.qlinear import (QLinear, certify_uniform, recode_uniform4,
+                                  recode_uniform8, recode_w8)
+
+        if recode not in ("auto", "affine", "u4", "w8", "none"):
+            raise ValueError(f"unknown recode {recode!r}")
+
+        def rec(v: QLinear) -> QLinear:
+            if recode in ("auto", "affine", "u4"):
+                q = certify_uniform(v)
+                if q is not None:
+                    return q
+            if recode == "u4":
+                q4 = recode_uniform4(v)
+                return q4 if q4 is not v else recode_uniform8(v)
+            if recode == "auto":
+                return recode_uniform8(v)
+            if recode == "w8":
+                return recode_w8(v)
+            return v
+
+        if recode != "none":
+            with torch.no_grad():
+                for lp in self.model.layers:
+                    for group in (lp.attn, lp.mlp):
+                        for name, v in list(group.items()):
+                            if isinstance(v, QLinear):
+                                group[name] = rec(v)
+                if isinstance(self.model.lm_head, QLinear):
+                    self.model.lm_head = rec(self.model.lm_head)
+        self.backend = select_backend(self.model, self.device)
+        self._engines = {}
+        return self
+
     # ------------------------------------------------ later slices of the port
-    def optimize(self, *args: Any, **kw: Any):
-        raise _not_ported("optimize", "the optimize() kernel slices")
 
     def serve(self, *args: Any, **kw: Any):
         raise _not_ported("serve", "the serving slice (batching and server)")

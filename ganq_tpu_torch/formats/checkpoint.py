@@ -1,15 +1,19 @@
-"""Quantized checkpoint save/load for the ``lut`` format.
+"""Quantized checkpoint save/load for the ``lut`` and GPTQ formats.
 
-The port of the ``lut`` part of ``ganq_tpu/formats/checkpoint.py``: a
-directory of (possibly sharded) safetensors files plus
+The port of the ``lut`` and GPTQ parts of ``ganq_tpu/formats/checkpoint.py``:
+a directory of (possibly sharded) safetensors files plus
 ``quantize_config.json``, ``config.json`` (with ``quantization_config``
-mirrored in) and ``quant_log.csv``. Each quantized linear is stored as
+mirrored in) and ``quant_log.csv``. A ``lut`` linear is stored as
 ``{module}.lut`` fp16 [out, 2^bits] (sorted per row) and
-``{module}.idx_packed`` int32 [out, in/packfactor] (planar codes). A freshly
-quantized model is written from its solver artifacts, as the JAX writer
-does; a packed model from its bf16 codebooks. A directory written by either
-package loads in the other. :func:`save_dense` writes an unquantized model
-as an HF checkpoint directory.
+``{module}.idx_packed`` int32 [out, in/packfactor] (planar codes); a
+``uniform`` linear in the GPTQ v1 (``format="gptq"``, zeros stored minus one)
+or v2 layout (``formats/gptq_compat.py``: ``qweight``, ``qzeros`` and
+``g_idx`` int32, ``scales`` fp16). A freshly quantized model is written from
+its solver artifacts, as the JAX writer does; a packed ``lut`` model from
+its bf16 codebooks. A directory written by either package loads in the
+other.
+:func:`save_dense` writes an unquantized model as an HF checkpoint
+directory.
 """
 
 from __future__ import annotations
@@ -20,16 +24,18 @@ import json
 import os
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.backend import resolve_device
-from ..core.config import META_QUANTIZER_GANQ_TPU, QuantizeConfig
+from ..core.config import FORMAT, META_QUANTIZER_GANQ_TPU, QuantizeConfig
 from ..models import hf_import
 from ..models.registry import ArchSpec, get_spec
 from ..models.transformer import Model, ModelConfig
 from ..ops import qlinear
 from ..ops.packing import pack_factor, pack_int_rows, unpack_int_rows
 from ..utils.logger import get_logger
+from . import gptq_compat
 from .safetensors_io import save_file
 
 log = get_logger(__name__)
@@ -67,16 +73,24 @@ def _linear_state(prefix: str, p: qlinear.QLinear) -> Dict[str, torch.Tensor]:
         out[f"{prefix}.idx_packed"] = packed
     else:
         raise NotImplementedError(
-            f"saving kind={p.kind} is not ported yet (GPTQ format: slice 3)")
+            f"saving a packed kind={p.kind} linear: uniform checkpoints are "
+            "written from GPTQ solver artifacts, as in the JAX package")
     if "bias" in p:
         out[f"{prefix}.bias"] = p["bias"]
     return out
 
 
-def _artifact_state(prefix: str, art: Any) -> Dict[str, torch.Tensor]:
+def _artifact_state(prefix: str, art: Any,
+                    v1: bool) -> Dict[str, torch.Tensor]:
     """Checkpoint tensors of one freshly quantized linear, from its solver
-    artifact as the JAX writer takes them: the float32 codebook goes
-    straight to fp16, is sorted per row (stable) and the codes remapped."""
+    artifact as the JAX writer takes them: a GANQ codebook goes straight to
+    fp16, is sorted per row (stable) and the codes remapped; GPTQ codes,
+    scales, zeros and g_idx go to the GPTQ layout."""
+    if art.lut is None:
+        packed = gptq_compat.pack_gptq(
+            *(t.cpu().numpy() for t in (art.qidx, art.scale, art.zero,
+                                        art.g_idx)), art.bits, v1=v1)
+        return {f"{prefix}.{k}": torch.from_numpy(v) for k, v in packed.items()}
     lut = art.lut.to(torch.float16)
     order = torch.argsort(lut, dim=1, stable=True)
     rank = torch.argsort(order, dim=1, stable=True)
@@ -85,17 +99,17 @@ def _artifact_state(prefix: str, art: Any) -> Dict[str, torch.Tensor]:
             f"{prefix}.idx_packed": pack_int_rows(idx, art.bits)}
 
 
-def _hf_state(spec: ArchSpec, model: Model,
-              artifacts: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def _hf_state(spec: ArchSpec, model: Model, artifacts: Dict[str, Any],
+              v1: bool = True) -> Dict[str, torch.Tensor]:
     """Every tensor of ``model`` under its HF name. Linears named in
     ``artifacts`` are written from their solver artifacts, every other
-    linear from the model."""
+    linear from the model; ``v1`` picks the GPTQ v1 zero storage."""
 
     def linear_state(prefix: str, full_name: str, p) -> Dict[str, torch.Tensor]:
         art = artifacts.get(full_name)
         if art is None:
             return _linear_state(prefix, p)
-        out = _artifact_state(prefix, art)
+        out = _artifact_state(prefix, art, v1)
         if "bias" in p:
             out[f"{prefix}.bias"] = p["bias"]
         return out
@@ -151,7 +165,8 @@ def save_quantized(save_dir: str, hf_config: Dict[str, Any],
     if len(model.layers) != spec.make_config(hf_config).num_hidden_layers:
         raise ValueError("model depth does not match hf_config")
     os.makedirs(save_dir, exist_ok=True)
-    _write_sharded(save_dir, _hf_state(spec, model, artifacts or {}),
+    _write_sharded(save_dir, _hf_state(spec, model, artifacts or {},
+                                       qcfg.format == FORMAT.GPTQ),
                    max_shard_bytes)
 
     qcfg_dict = qcfg.to_dict()
@@ -236,17 +251,28 @@ def load_quantized(model_dir: str, device="cuda",
     cfg, model = hf_import.params_from_state_dict(state, hf_config, dtype, device)
 
     def build_qlinear(prefix: str, bits: int) -> Optional[qlinear.QLinear]:
+        bias = state.get(f"{prefix}.bias")
+        bias = bias.to(device, dtype) if bias is not None else None
+        if f"{prefix}.qweight" in state:
+            qidx, scales, zeros, g_idx = (
+                torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                for t in gptq_compat.unpack_gptq(
+                    {k: state[f"{prefix}.{k}"].numpy()
+                     for k in ("qweight", "qzeros", "scales", "g_idx")},
+                    bits, v1=qcfg.format == FORMAT.GPTQ))
+            return qlinear.uniform_linear(qidx, scales, zeros, g_idx, bits,
+                                          bias)
+        if f"{prefix}.B" in state:
+            raise NotImplementedError(
+                f"{prefix}: the QQQ format is not ported yet (ROADMAP.md "
+                "queue A item 5)")
         if f"{prefix}.lut" not in state:
-            if f"{prefix}.qweight" in state or f"{prefix}.B" in state:
-                raise NotImplementedError(
-                    f"{prefix}: GPTQ/QQQ formats are not ported yet (slice 3)")
             return None
         packed = state[f"{prefix}.idx_packed"].to(device)
         arrays = {"lut": state[f"{prefix}.lut"].to(device, torch.bfloat16),
                   "idx_packed": packed}
-        bias = state.get(f"{prefix}.bias")
         if bias is not None:
-            arrays["bias"] = bias.to(device, dtype)
+            arrays["bias"] = bias
         return qlinear.QLinear("lut", arrays, bits=bits,
                                in_features=packed.shape[1] * pack_factor(bits))
 

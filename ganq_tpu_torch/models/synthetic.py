@@ -1,7 +1,8 @@
 """Synthetic models: random weights at real architecture widths.
 
-The port of ``llama_config`` and ``make_model`` (``dense`` and ``lut``
-kinds) of ``ganq_tpu/models/synthetic.py``. Random weights have the compute
+The port of ``llama_config`` and ``make_model`` of
+``ganq_tpu/models/synthetic.py``, with its kinds ``dense``, ``lut``,
+``lut_affine``, ``lut_affine_sym``, ``uniform`` and ``w8``. Random weights have the compute
 and memory behaviour of trained ones, so quantization runs, serving runs and
 kernel timings need no download. Everything is made on the target device
 (the card unless the caller passes ``device="cpu"``) from a seeded
@@ -58,6 +59,47 @@ def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
                            bits=bits, in_features=in_f)
 
 
+def _rand_affine_lut_linear(gen: torch.Generator, out_f: int, in_f: int,
+                            sym: bool, device) -> qlinear.QLinear:
+    """A 4-bit ``lut`` linear whose codebooks lie on an affine grid, as a
+    ``ganq_codebook="affine"`` / ``"affine_sym"`` solve emits them: slope b
+    in [0.001, 0.004) per row, and for the asymmetric grid an offset a in
+    [-0.002, 0.002)."""
+    b = torch.rand((out_f, 1), generator=gen, device=device) * 0.003 + 0.001
+    grid = torch.arange(16, dtype=torch.float32, device=device)
+    if sym:
+        lut = b * (grid - 8.0)
+    else:
+        a = torch.rand((out_f, 1), generator=gen, device=device) * 0.004 - 0.002
+        lut = a + b * (grid - 7.5)
+    idx = torch.randint(0, 16, (out_f, in_f), generator=gen, device=device)
+    return qlinear.lut_linear(lut, idx, 4)
+
+
+def _rand_uniform_linear(gen: torch.Generator, out_f: int, in_f: int,
+                         bits: int, device) -> qlinear.QLinear:
+    """A symmetric ``uniform`` linear with 128-column groups (one group for
+    other widths) and scales in [0.001, 0.004), capped so the weight's range
+    stays that of 4 bits."""
+    gs = 128 if in_f % 128 == 0 else in_f
+    qidx = torch.randint(0, 2**bits, (out_f, in_f), generator=gen,
+                         device=device, dtype=torch.int32)
+    scales = ((torch.rand((out_f, in_f // gs), generator=gen, device=device)
+               * 0.003 + 0.001) * min(1.0, 16.0 / (1 << bits)))
+    zeros = torch.full_like(scales, float(1 << (bits - 1)))
+    return qlinear.uniform_linear(qidx, scales, zeros, None, bits)
+
+
+def _rand_w8_linear(gen: torch.Generator, out_f: int, in_f: int,
+                    device) -> qlinear.QLinear:
+    """A ``w8`` linear: int8 weights and row scales in [1e-4, 4e-4)."""
+    w8 = torch.randint(-127, 128, (out_f, in_f), generator=gen, device=device,
+                       dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((out_f, 1), generator=gen, device=device) * 3e-4 + 1e-4
+    return qlinear.QLinear("w8", {"w8": w8, "scale": scale}, bits=8,
+                           in_features=in_f)
+
+
 def _rand_dense_linear(gen: torch.Generator, out_f: int, in_f: int, device,
                        dtype: torch.dtype) -> qlinear.QLinear:
     """A random dense linear of std 0.02 (the JAX package's synthetic scale)."""
@@ -69,11 +111,13 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
                seed: int = 0, device="cuda",
                dtype: torch.dtype = torch.bfloat16) -> Model:
     """Random model with every layer linear of ``kind`` (``"dense"``: std
-    0.02 weights in ``dtype``; ``"lut"``: ``bits``-bit codebooks and codes),
-    unit norm weights and an embedding of std 0.02 (tied, as
-    ``llama_config`` sets)."""
-    if kind not in ("dense", "lut"):
-        raise NotImplementedError(f"synthetic kind={kind!r} is not ported yet")
+    0.02 weights in ``dtype``; ``"lut"``: ``bits``-bit codebooks and codes;
+    ``"lut_affine"`` / ``"lut_affine_sym"``: 4-bit affine-grid codebooks;
+    ``"uniform"``: ``bits``-bit symmetric codes; ``"w8"``), unit norm
+    weights and an embedding of std 0.02 (tied, as ``llama_config`` sets)."""
+    if kind not in ("dense", "lut", "lut_affine", "lut_affine_sym", "uniform",
+                    "w8"):
+        raise ValueError(f"unknown synthetic kind {kind!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, q, kv, it = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
@@ -82,6 +126,13 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     def lin(out_f, in_f):
         if kind == "lut":
             return _rand_lut_linear(gen, out_f, in_f, bits, device)
+        if kind in ("lut_affine", "lut_affine_sym"):
+            return _rand_affine_lut_linear(gen, out_f, in_f,
+                                           kind == "lut_affine_sym", device)
+        if kind == "uniform":
+            return _rand_uniform_linear(gen, out_f, in_f, bits, device)
+        if kind == "w8":
+            return _rand_w8_linear(gen, out_f, in_f, device)
         return _rand_dense_linear(gen, out_f, in_f, device, dtype)
 
     layers = [Layer(torch.ones(h, dtype=dtype, device=device),

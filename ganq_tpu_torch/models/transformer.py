@@ -194,9 +194,9 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
 
     ``cache_pos`` is the python int 0 for prefill and a 0-d tensor for a
     decode step. Prefilling from position 0 attends over the fresh k/v only.
-    A decode step on the ``"cuda"`` backend always runs the flash decode
-    kernel over the cache (which launches or raises); on the reference
-    backend it runs the masked plain attention.
+    A decode step on a CUDA backend (``"cuda"`` or ``"cuda_a8"``) always runs
+    the flash decode kernel over the cache (which launches or raises); on the
+    reference backend it runs the masked plain attention.
 
     Returns the layer's output; with ``want_taps`` it returns ``(output,
     taps)``, where ``taps`` maps each linear's slot (``attn.q`` ...
@@ -207,10 +207,10 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
     is_prefill = cache is None or (isinstance(cache_pos, int) and cache_pos == 0
                                    and s > 1)
-    use_flash_decode = (backend == "cuda" and cache is not None
+    use_flash_decode = (backend in ("cuda", "cuda_a8") and cache is not None
                         and isinstance(cache_pos, torch.Tensor))
     if use_flash_decode and s != 1:
-        raise ValueError(f"a decode step on the cuda backend takes one token "
+        raise ValueError(f"a decode step on a cuda backend takes one token "
                          f"per sequence, got {s}")
 
     taps: Dict[str, torch.Tensor] = {}
@@ -266,7 +266,10 @@ def unembed(cfg: ModelConfig, model: Model, x: torch.Tensor,
     x = apply_norm(model.final_norm.weight, x, cfg.norm_eps)
     if model.lm_head is None:
         return x @ model.embed_tokens.weight.T.to(x.dtype)
-    return qlinear.apply(model.lm_head, x, backend)
+    # logits keep full activation precision: a quantized lm_head takes the
+    # full-precision kernels on "cuda_a8" too, as in the JAX package
+    return qlinear.apply(model.lm_head, x,
+                         "cuda" if backend == "cuda_a8" else backend)
 
 
 def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,

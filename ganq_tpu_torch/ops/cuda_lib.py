@@ -4,7 +4,8 @@ Each source ``ganq_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``. The build happens at first use, into ``build/`` at
 the root of the checkout, under a file name that carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and the shared headers, so an edited source is rebuilt and a stale
+library is never loaded.
 
 Nothing here runs at import: ``nvcc`` and ``ctypes`` are reached only when a
 CUDA tensor arrives at a kernel wrapper (or when :func:`build_all` is called),
@@ -22,7 +23,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-KERNEL_SOURCES = ("lut_matmul", "flash_decode", "ganq_sstep")
+KERNEL_SOURCES = ("lut_matmul", "flash_decode", "ganq_sstep", "uniform_matmul",
+                  "w8_matmul")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -42,9 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    shared header (``csrc/*.cuh``) a source may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str):

@@ -1,4 +1,4 @@
-"""Layer-wise sequential PTQ engine, for GANQ.
+"""Layer-wise sequential PTQ engine, for GANQ and GPTQ.
 
 The port of ``ganq_tpu/quant/looper.py`` (the reference's hook-driven
 ``ModuleLooper.loop``, ``gptqmodel/looper/module_looper.py:129-443``): the
@@ -13,12 +13,13 @@ plain loop:
         quantize the subset's linears -> fake-quant weights, in place
       x = layer_forward(layer, x)                  # next layer's inputs
 
-Per-module artifacts (codebooks and codes) are collected for the packer;
-dense weights are replaced by their fake-quant values, so later subsets and
-layers see quantized outputs, as in the reference (gptq_processor.py:193).
-This slice ports GANQ; the other methods, EoRA adapters, rotation, the
-lm_head pass and pre-embedded (multimodal) calibration rows raise
-``NotImplementedError`` naming the slice that brings them.
+Per-module artifacts (GANQ codebooks and codes; GPTQ codes, scales, zeros
+and g_idx) are collected for the packer; dense weights are replaced by their
+fake-quant values, so later subsets and layers see quantized outputs, as in
+the reference (gptq_processor.py:193). The other methods (AutoRound, QQQ),
+EoRA adapters, rotation, the lm_head pass and pre-embedded (multimodal)
+calibration rows raise ``NotImplementedError`` naming the queue item that
+brings them.
 """
 
 from __future__ import annotations
@@ -40,11 +41,13 @@ from ..ops import qlinear
 from ..utils.logger import get_logger
 from ..utils.observability import quant_log_table
 from .ganq import ganq_quantize
+from .gptq import gptq_quantize
 from .hessian import HessianAccumulator
 
 log = get_logger(__name__)
 
-_ARRAY_FIELDS = ("lut", "idx")
+_ARRAY_FIELDS = ("lut", "idx", "qidx", "scale", "zero", "g_idx")
+_PORTED_METHODS = (QUANT_METHOD.GANQ, QUANT_METHOD.GPTQ)
 
 
 @dataclass
@@ -60,13 +63,19 @@ class ModuleQuantLog:
 
 @dataclass
 class QuantizedModule:
-    """Solver artifact for one linear, consumed by the packer (the GANQ
-    fields of the JAX package's artifact)."""
+    """Solver artifact for one linear, consumed by the packer (the GANQ and
+    GPTQ fields of the JAX package's artifact)."""
     method: QUANT_METHOD
     bits: int
     group_size: int
-    lut: torch.Tensor            # [out, 2^bits] float32
-    idx: torch.Tensor            # [out, in] int32
+    # ganq
+    lut: Optional[torch.Tensor] = None       # [out, 2^bits] float32
+    idx: Optional[torch.Tensor] = None       # [out, in] int32
+    # gptq
+    qidx: Optional[torch.Tensor] = None      # [out, in] int32
+    scale: Optional[torch.Tensor] = None     # [out, n_groups]
+    zero: Optional[torch.Tensor] = None      # [out, n_groups]
+    g_idx: Optional[torch.Tensor] = None     # [in] int32
 
 
 @dataclass
@@ -88,7 +97,7 @@ def _full_name(spec: ArchSpec, layer_idx: int, module_name: str) -> str:
 
 def _check_supported(qcfg: QuantizeConfig, eff: QuantizeConfig,
                      full: str) -> None:
-    if eff.quant_method != QUANT_METHOD.GANQ:
+    if eff.quant_method not in _PORTED_METHODS:
         raise _not_ported(f"{full}: quant_method={eff.quant_method}")
     rank = int(qcfg.adapter.get("rank", 0)) if qcfg.adapter else 0
     dyn = qcfg.dynamic_get(full, "adapter", default=None, sub_key="rank")
@@ -110,7 +119,8 @@ def _save_layer_state(resume_dir: str, li: int,
         blobs[f"{name}::bits"] = np.asarray(art.bits)
         blobs[f"{name}::group_size"] = np.asarray(art.group_size)
         for f in _ARRAY_FIELDS:
-            blobs[f"{name}::{f}"] = getattr(art, f).cpu().numpy()
+            if getattr(art, f) is not None:
+                blobs[f"{name}::{f}"] = getattr(art, f).cpu().numpy()
     for slot, w in layer_weights.items():
         blobs[f"__w__::{slot}"] = w.float().cpu().numpy()
     tmp = os.path.join(resume_dir, f"layer_{li}.tmp.npz")   # savez adds .npz
@@ -134,12 +144,13 @@ def _load_layer_state(resume_dir: str, li: int, device):
     arts = {}
     for name, fd in fields.items():
         method = QUANT_METHOD(str(fd["method"]))
-        if method != QUANT_METHOD.GANQ:
+        if method not in _PORTED_METHODS:
             raise _not_ported(f"{path}: resuming {method} artifacts")
         arts[name] = QuantizedModule(
             method=method, bits=int(fd["bits"]),
             group_size=int(fd["group_size"]),
-            **{f: torch.from_numpy(fd[f]).to(device) for f in _ARRAY_FIELDS})
+            **{f: torch.from_numpy(fd[f]).to(device) for f in _ARRAY_FIELDS
+               if f in fd})
     return arts, weights
 
 
@@ -158,9 +169,10 @@ def quantize_model(cfg: ModelConfig, model: Model, spec: ArchSpec,
     run resumes after the last completed layer.
 
     Each module's ``ModuleQuantLog.extra`` holds its seconds per solver
-    phase (``prepare``, ``init``, ``s_step``, ``t_step``, ``final``) and
-    ``fallback``; the first module of each subset also holds ``hessian``,
-    the subset's Hessian capture."""
+    phase (GANQ: ``prepare``, ``init``, ``s_step``, ``t_step``, ``final``
+    and ``fallback``; GPTQ: ``prepare``, ``columns``, ``trailing``,
+    ``final``); the first module of each subset also holds ``hessian``, the
+    subset's Hessian capture."""
     if qcfg.rotation:
         raise _not_ported("rotation")
     if qcfg.lm_head:
@@ -218,6 +230,21 @@ def quantize_model(cfg: ModelConfig, model: Model, spec: ArchSpec,
     return QuantizeOutput(model=model, artifacts=artifacts, log=qlog)
 
 
+def _quantize_one(W: torch.Tensor, H: torch.Tensor, eff: QuantizeConfig,
+                  nsamples: int, codebook_init_fn, phases: Dict[str, float]):
+    """One linear through its method's solver: (solver result, artifact)."""
+    if eff.quant_method == QUANT_METHOD.GANQ:
+        r = ganq_quantize(W, H, eff, nsamples,
+                          codebook_init_fn=codebook_init_fn, timings=phases)
+        return r, QuantizedModule(method=QUANT_METHOD.GANQ, bits=eff.bits,
+                                  group_size=eff.group_size, lut=r.lut,
+                                  idx=r.idx)
+    r = gptq_quantize(W, H, eff, nsamples, timings=phases)
+    return r, QuantizedModule(method=eff.quant_method, bits=eff.bits,
+                              group_size=eff.group_size, qidx=r.qidx,
+                              scale=r.scale, zero=r.zero, g_idx=r.g_idx)
+
+
 def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
                     model: Model, li: int, subsets: List[List[str]],
                     acts: List[torch.Tensor], ropes, nsamples: int,
@@ -266,17 +293,15 @@ def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
             t0 = time.perf_counter()
             lin = hf_import.get_module(model, li, slot)
             phases: Dict[str, float] = {}
-            r = ganq_quantize(lin["weight"], H, eff, nsamples,
-                              codebook_init_fn=codebook_init_fn,
-                              timings=phases)
+            r, art = _quantize_one(lin["weight"], H, eff, nsamples,
+                                   codebook_init_fn, phases)
             _set_weight(lin, r.Q)
             full = _full_name(spec, li, mod)
-            art = QuantizedModule(method=QUANT_METHOD.GANQ, bits=eff.bits,
-                                  group_size=eff.group_size, lut=r.lut,
-                                  idx=r.idx)
             layer_arts[full] = art
             layer_weights[slot] = lin["weight"]
-            extra: Dict[str, Any] = dict(phases, fallback=r.fallback)
+            extra: Dict[str, Any] = dict(phases)
+            if art.method == QUANT_METHOD.GANQ:
+                extra["fallback"] = r.fallback
             if hessian_s is not None:
                 extra["hessian"], hessian_s = hessian_s, None
             dur = time.perf_counter() - t0
@@ -288,10 +313,18 @@ def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
     return layer_arts, layer_weights
 
 
+def _packed(art: QuantizedModule, bias) -> qlinear.QLinear:
+    if art.lut is not None:
+        return qlinear.lut_linear(art.lut, art.idx, art.bits, bias)
+    return qlinear.uniform_linear(art.qidx, art.scale, art.zero, art.g_idx,
+                                  art.bits, bias)
+
+
 def packed_params(spec: ArchSpec, out: QuantizeOutput) -> Model:
-    """The quantized model with every artifact realized as a packed ``lut``
-    linear, sharing every other tensor with ``out.model``: the in-memory
-    equivalent of the save -> load round trip."""
+    """The quantized model with every artifact realized as a packed linear
+    (GANQ: ``lut``; GPTQ: ``uniform``), sharing every other tensor with
+    ``out.model``: the in-memory equivalent of the save -> load round
+    trip."""
     model = out.model
     layers = []
     for li, lp in enumerate(model.layers):
@@ -302,15 +335,14 @@ def packed_params(spec: ArchSpec, out: QuantizeOutput) -> Model:
             old = groups[group].get(name)
             if art is None or old is None:
                 continue
-            groups[group][name] = qlinear.lut_linear(
-                art.lut, art.idx, art.bits, old["bias"] if "bias" in old else None)
+            groups[group][name] = _packed(
+                art, old["bias"] if "bias" in old else None)
         layers.append(Layer(lp.input_norm.weight, lp.post_norm.weight,
                             groups["attn"], groups["mlp"]))
     lm_head = model.lm_head
     art = out.artifacts.get(spec.lm_head_name)
     if art is not None and lm_head is not None:
-        lm_head = qlinear.lut_linear(art.lut, art.idx, art.bits,
-                                     lm_head["bias"] if "bias" in lm_head else None)
+        lm_head = _packed(art, lm_head["bias"] if "bias" in lm_head else None)
     return Model(model.embed_tokens.weight, model.final_norm.weight, layers,
                  lm_head)
 

@@ -23,7 +23,8 @@ def _uniform_linear(bits=4, out_f=8, in_f=32):
                           dtype=torch.int32)
     return tql.QLinear("uniform", {
         "qweight": pack_int_rows(codes, bits),
-        "scales": torch.full((out_f, 1), 0.01)}, bits=bits, in_features=in_f)
+        "scales": torch.full((out_f, 1), 0.01 * 16 / 2**bits)}, bits=bits,
+        in_features=in_f)
 
 
 def _lut_linear(bits):
@@ -44,7 +45,6 @@ def test_cpu_takes_reference_and_card_takes_cuda(bits):
 
 
 @pytest.mark.parametrize("make,match", [
-    (_uniform_linear, "slice 3"),
     (lambda: _lut_linear(8), "2, 3 or 4 bits"),
 ])
 def test_card_raises_for_a_linear_without_kernel(make, match):
@@ -52,6 +52,59 @@ def test_card_raises_for_a_linear_without_kernel(make, match):
     with pytest.raises(NotImplementedError, match=match):
         select_backend(model, GPU)
     assert select_backend(model, CPU) == "reference"
+
+
+def _w8_linear():
+    return tql.recode_w8(_lut_linear(4))
+
+
+@pytest.mark.parametrize("linears,card", [
+    ((lambda: _uniform_linear(4),), "cuda_a8"),
+    ((lambda: _uniform_linear(8), _w8_linear), "cuda_a8"),
+    ((_w8_linear,), "cuda_a8"),
+    ((lambda: _uniform_linear(2),), "cuda"),
+    ((lambda: _uniform_linear(3), lambda: _uniform_linear(4)), "cuda"),
+    ((lambda: _lut_linear(4), lambda: _uniform_linear(4)), "cuda"),
+    ((lambda: _lut_linear(3), _w8_linear), "cuda"),
+])
+def test_card_selects_cuda_a8_before_cuda(linears, card):
+    """The auto order on a card is "cuda_a8" (every quantized linear w8 or
+    uniform at 4 or 8 bits, as the JAX package's pallas_a8) and then
+    "cuda"; the CPU takes the reference backend."""
+    model = torch.nn.ModuleList([make() for make in linears]
+                                + [tql.dense_linear(torch.ones(4, 4))])
+    assert select_backend(model, GPU) == card
+    assert select_backend(model, GPU, "cuda") == "cuda"
+    assert select_backend(model, CPU) == "reference"
+    if card == "cuda":
+        with pytest.raises(NotImplementedError, match="cuda_a8"):
+            select_backend(model, GPU, "cuda_a8")
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_a8"])
+def test_cuda_backends_route_each_kind_to_its_kernel(monkeypatch, backend):
+    """apply() sends uniform linears to kernel 5 ("cuda") or 6 ("cuda_a8")
+    and w8 linears to kernel 7 or 8 (whose wrappers take their plain
+    versions for these CPU tensors), below 1024 token rows."""
+    from ganq_tpu_torch.ops import uniform_matmul as um
+    from ganq_tpu_torch.ops import w8_matmul as w8m
+
+    seen = []
+    for mod, name in ((um, "uniform_matmul"), (um, "uniform_a8_matmul"),
+                      (w8m, "w8_matmul"), (w8m, "w8a8_matmul")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, f=fn, n=name:
+                            seen.append(n) or f(*a))
+    x = torch.randn((3, 32), generator=torch.Generator().manual_seed(4))
+    for lin in (_uniform_linear(4), _w8_linear()):
+        ref = tql.apply(lin, x, "reference")
+        got = tql.apply(lin, x, backend)
+        assert got.shape == ref.shape
+        torch.testing.assert_close(got, ref, rtol=0.05,
+                                   atol=0.05 * float(ref.abs().max()))
+    a8 = backend == "cuda_a8"
+    assert seen == (["uniform_a8_matmul", "w8a8_matmul"] if a8
+                    else ["uniform_matmul", "w8_matmul"])
 
 
 def test_bad_requests_raise():
@@ -154,3 +207,35 @@ def test_forward_passes_the_backend_to_the_lm_head(monkeypatch):
         got = ttr.forward(cfg, model, ids, "cuda")
     assert seen[-1] == cfg.vocab_size          # the lm_head went through it
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_a8_decode_step_takes_flash_decode(monkeypatch):
+    """A "cuda_a8" decode step runs flash decode in every layer, as the JAX
+    package's pallas_a8 does, and a quantized lm_head keeps full-precision
+    activations: it goes to kernel 5, the layers' linears to kernel 6."""
+    from ganq_tpu_torch.ops import uniform_matmul as um
+
+    cfg = synthetic.llama_config(hidden=512, inter=512, layers=2, heads=4,
+                                 kv_heads=1, vocab=64)   # widths the gate admits
+    model = synthetic.make_model(cfg, kind="uniform", bits=8, seed=0,
+                                 device="cpu")
+    model.lm_head = _uniform_linear(8, out_f=64, in_f=512)
+    assert select_backend(model, GPU) == "cuda_a8"
+    calls, rows = [], []
+    flash = ttr.flash_decode_attention
+    monkeypatch.setattr(ttr, "flash_decode_attention",
+                        lambda *a: calls.append(1) or flash(*a))
+    for name in ("uniform_matmul", "uniform_a8_matmul"):
+        fn = getattr(um, name)
+        monkeypatch.setattr(um, name, lambda x, qw, *a, f=fn, n=name:
+                            rows.append((n, qw.shape[0])) or f(x, qw, *a))
+    with torch.inference_mode():
+        cache = teng.init_cache(cfg, 2, 16, "cpu")
+        ids = torch.randint(0, 64, (2, 4), generator=torch.Generator()
+                            .manual_seed(1))
+        tok = teng.prefill(cfg, model, cache, ids, "reference").argmax(-1)
+        rows.clear()
+        teng.decode_step(cfg, model, cache, tok, torch.tensor(4), "cuda_a8")
+    assert len(calls) == cfg.num_hidden_layers
+    assert rows[-1] == ("uniform_matmul", 64)               # the lm_head
+    assert {n for n, _ in rows[:-1]} == {"uniform_a8_matmul"}

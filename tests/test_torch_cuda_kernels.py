@@ -9,7 +9,8 @@ Shapes go beyond the serving path's: every bit width, f32 and bf16
 activations, padded K, ragged batch tiles, GQA ratios 1/4/32, head dims 64
 and 128, and positions at tile edges; for the S-step kernels ragged m and n
 (n not a multiple of the 128-column block) and codebooks of 4 to 256
-entries.
+entries; for the uniform and int8 kernels every bit width, symmetric and
+asymmetric zeros, sequential and permuted ``g_idx``, and batches 1 to 512.
 """
 
 import math
@@ -26,6 +27,13 @@ from ganq_tpu_torch.ops.ganq_solver import (s_step, s_step_blocked,
                                             s_step_blocked_kernel,
                                             s_step_kernel)
 from ganq_tpu_torch.ops.packing import pack_factor, pack_int_rows
+from ganq_tpu_torch.ops.uniform_matmul import (dequantize_uniform,
+                                               uniform_a8_matmul,
+                                               uniform_a8_reference,
+                                               uniform_matmul,
+                                               uniform_matmul_reference)
+from ganq_tpu_torch.ops.w8_matmul import (w8_matmul, w8_matmul_reference,
+                                          w8a8_matmul, w8a8_reference)
 from ganq_tpu_torch.quant.ganq import ganq_quantize, quad_loss
 from ganq_tpu_torch.quant.preamble import _ganq_L
 
@@ -238,3 +246,185 @@ def test_ganq_quantize_on_the_card(gen, backend, kernel):
     assert float((r.idx.cpu() == cpu.idx).float().mean()) >= 0.99
     assert abs(r.quad_loss - cpu.quad_loss) <= 1e-3 * cpu.quad_loss
     assert bool(torch.isfinite(r.lut).all())
+
+
+def _uniform_problem(gen, bits, M, K, G, sym, permuted):
+    codes = torch.randint(0, 2**bits, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    scales = torch.rand((M, G), generator=gen, device="cuda") * 0.003 + 0.001
+    zeros = None if sym else torch.randint(
+        0, 2**bits, (M, G), generator=gen, device="cuda").float()
+    g_idx = None
+    if permuted:
+        gs = -(-K // G)
+        g_idx = (torch.randperm(K, generator=gen, device="cuda") // gs).to(
+            torch.int32)
+    return pack_int_rows(codes, bits), scales, zeros, g_idx
+
+
+def _assert_within_ulp(got, exact):
+    """got against a float64 sum of the same products. bf16: one ulp plus
+    1e-6 of the output scale (a float32 sum rounded once). f32: 1e-5 of the
+    output scale (float32 sums in another order)."""
+    scale = float(exact.abs().max())
+    err = (got.double() - exact).abs()
+    if got.dtype == torch.bfloat16:
+        mag = exact.abs().clamp_min(1e-30)
+        tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-6 * scale
+    else:
+        tol = torch.full_like(exact, 1e-5 * scale)
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", ["seq", "perm", "sym", "odd"])
+def test_uniform_matmul_matches_plain(gen, bits, B, dtype, groups):
+    """Kernel 5 at every g_idx kind: the weight rounded to x's type as the
+    plain version rounds it, the sum within one ulp of the float64 sum.
+    "odd" is a width of 9 words (unaligned) with one group."""
+    M = 72
+    K, G = (1024, 8) if groups != "odd" else (9 * pack_factor(bits), 1)
+    packed, scales, zeros, g_idx = _uniform_problem(
+        gen, bits, M, K, G, sym=groups == "sym", permuted=groups == "perm")
+    x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+    before = uniform_matmul.launches
+    got = uniform_matmul(x, packed, scales, zeros, g_idx, bits)
+    assert uniform_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, M)
+    w = dequantize_uniform(packed, scales, zeros, g_idx, bits, K).to(dtype)
+    _assert_within_ulp(got, x.double() @ w.double().T)
+    plain = uniform_matmul_reference(x, packed, scales, zeros, g_idx, bits)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=1e-2,
+                               atol=1e-2 * float(plain.abs().max()))
+
+
+@pytest.mark.parametrize("bits,K,G", [(4, 1024, 8), (4, 1024, 1), (8, 1024, 8),
+                                      (3, 1024, 8), (2, 2048, 16), (8, 2048, 8)])
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sym", [True, False])
+def test_uniform_a8_matmul_matches_plain(gen, bits, K, G, B, dtype, sym):
+    """Kernel 6 against its plain version: the same int8 activations, exact
+    integer dots per group against float32 sums of the same products;
+    within 1e-5 of the output scale plus one ulp of x's type."""
+    M = 72
+    packed, scales, zeros, _ = _uniform_problem(gen, bits, M, K, G, sym,
+                                                permuted=False)
+    x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+    before = (uniform_a8_matmul.launches, uniform_matmul.launches)
+    got = uniform_a8_matmul(x, packed, scales, zeros, None, bits)
+    assert (uniform_a8_matmul.launches, uniform_matmul.launches) == \
+        (before[0] + 1, before[1])
+    plain = uniform_a8_reference(x, packed, scales, zeros, None, bits)
+    assert got.dtype == dtype and got.shape == (B, M)
+    scale = float(plain.float().abs().max())
+    ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
+    torch.testing.assert_close(got.float(), plain.float(), rtol=ulp,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("bits,K,M", [(4, 512, 8), (4, 72, 4), (8, 36, 8)])
+@pytest.mark.parametrize("B", [1, 5])
+def test_uniform_a8_matmul_few_rows_unaligned_width(gen, bits, K, M, B):
+    """At most 8 output rows the gate admits planes that are no multiple of
+    128 words (one group): a partial chunk, and for widths of 9 words the
+    kernel's unaligned byte loads."""
+    packed, scales, zeros, _ = _uniform_problem(gen, bits, M, K, 1, False,
+                                                permuted=False)
+    x = torch.randn((B, K), generator=gen, device="cuda")
+    before = uniform_a8_matmul.launches
+    got = uniform_a8_matmul(x, packed, scales, zeros, None, bits)
+    assert uniform_a8_matmul.launches == before + 1
+    plain = uniform_a8_reference(x, packed, scales, zeros, None, bits)
+    torch.testing.assert_close(got, plain, rtol=1e-5,
+                               atol=1e-5 * float(plain.abs().max()))
+
+
+def test_uniform_a8_gated_out_runs_kernel5(gen):
+    """A permuted g_idx (and a 64-column group) fails the a8 gate: the JAX
+    function returns the full-precision product there, so this one launches
+    kernel 5 and not kernel 6."""
+    for permuted, K, G in ((True, 1024, 8), (False, 1024, 16)):
+        packed, scales, zeros, g_idx = _uniform_problem(
+            gen, 4, 64, K, G, sym=False, permuted=permuted)
+        x = torch.randn((4, K), generator=gen, device="cuda")
+        before = (uniform_a8_matmul.launches, uniform_matmul.launches)
+        got = uniform_a8_matmul(x, packed, scales, zeros, g_idx, 4)
+        assert (uniform_a8_matmul.launches, uniform_matmul.launches) == \
+            (before[0], before[1] + 1)
+        plain = uniform_matmul_reference(x, packed, scales, zeros, g_idx, 4)
+        torch.testing.assert_close(got, plain, rtol=1e-5,
+                                   atol=1e-5 * float(plain.abs().max()))
+
+
+def _w8_problem(gen, M, Kp):
+    w8 = torch.randint(-127, 128, (M, Kp), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((M, 1), generator=gen, device="cuda") * 3e-4 + 1e-4
+    return w8, scale
+
+
+@pytest.mark.parametrize("K,Kp", [(1024, 1024), (1000, 1024), (72, 72)])
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8_matmul_matches_plain(gen, K, Kp, B, dtype):
+    """Kernel 7: the weight rounded to x's type as the plain version rounds
+    it, the sum within one ulp of the float64 sum; x zero-padded past K."""
+    M = 72
+    w8, scale = _w8_problem(gen, M, Kp)
+    x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+    before = w8_matmul.launches
+    got = w8_matmul(x, w8, scale)
+    assert w8_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, M)
+    w = (w8.float() * scale)[:, :K].to(dtype)
+    _assert_within_ulp(got, x.double() @ w.double().T)
+    plain = w8_matmul_reference(x, w8, scale)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=1e-2,
+                               atol=1e-2 * float(plain.abs().max()))
+
+
+@pytest.mark.parametrize("K,Kp,M", [(1024, 1024, 72), (1000, 1024, 72),
+                                    (72, 72, 8), (2048, 2048, 136)])
+@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_matmul_matches_plain(gen, K, Kp, M, B, dtype):
+    """Kernel 8 equals its plain version bit for bit: the same int8
+    activations (IEEE division, ties to even), an exact integer dot on both
+    sides, and the same two float products in the same order."""
+    w8, scale = _w8_problem(gen, M, Kp)
+    x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+    before = (w8a8_matmul.launches, w8_matmul.launches)
+    got = w8a8_matmul(x, w8, scale)
+    assert (w8a8_matmul.launches, w8_matmul.launches) == \
+        (before[0] + 1, before[1])
+    torch.testing.assert_close(got, w8a8_reference(x, w8, scale), rtol=0,
+                               atol=0)
+
+
+def test_w8a8_gated_out_runs_kernel7(gen):
+    """K' no multiple of 128 with more than 8 rows fails the w8a8 gate: the
+    full-precision product through kernel 7."""
+    w8, scale = _w8_problem(gen, 16, 72)
+    x = torch.randn((2, 72), generator=gen, device="cuda")
+    before = (w8a8_matmul.launches, w8_matmul.launches)
+    got = w8a8_matmul(x, w8, scale)
+    assert (w8a8_matmul.launches, w8_matmul.launches) == \
+        (before[0], before[1] + 1)
+    torch.testing.assert_close(got, w8_matmul_reference(x, w8, scale),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_uniform_and_w8_kernels_reject_what_they_cannot_run(gen):
+    packed, scales, _, _ = _uniform_problem(gen, 4, 8, 256, 2, True, False)
+    with pytest.raises(TypeError):
+        uniform_matmul(torch.randn((1, 256), device="cuda").half(), packed,
+                       scales, None, None, 4)
+    with pytest.raises(ValueError):
+        uniform_matmul(torch.randn((1, 128), device="cuda"), packed, scales,
+                       None, None, 4)
+    w8, scale = _w8_problem(gen, 8, 64)
+    with pytest.raises(ValueError):
+        w8_matmul(torch.randn((1, 128), device="cuda"), w8, scale)

@@ -33,7 +33,7 @@ maps = open("/proc/self/maps").read()
 if "libkmeans1d-" not in maps or "ganq_tpu/native" in maps:
     bad.append("kmeans library")
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 28 else 0)
+sys.exit(1 if bad or len(names) < 33 else 0)
 """
 
 
@@ -88,17 +88,32 @@ def test_entry_points_do_not_silently_run_on_cpu(tmp_path):
 
 def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
     """On a CUDA tensor the wrappers launch or raise: their only branch to
-    the plain version tests for a CPU tensor."""
+    the plain version tests for a CPU tensor. The a8 wrappers' other branch
+    is the JAX package's full-precision route for the shapes its gate
+    refuses, and it calls the kernel 5 / kernel 7 wrapper, never a plain
+    version."""
     import inspect
 
-    from ganq_tpu_torch.ops import fused_attention, ganq_solver, lut_matmul
+    from ganq_tpu_torch.ops import (fused_attention, ganq_solver, lut_matmul,
+                                    uniform_matmul, w8_matmul)
 
-    for fn, plain in ((lut_matmul.lut_matmul, "lut_matmul_reference"),
-                      (fused_attention.flash_decode_attention,
-                       "flash_decode_reference"),
-                      (ganq_solver.s_step_blocked_kernel, "s_step_blocked"),
-                      (ganq_solver.s_step_kernel, "s_step")):
+    for fn, plain, route in (
+            (lut_matmul.lut_matmul, "lut_matmul_reference", None),
+            (fused_attention.flash_decode_attention, "flash_decode_reference",
+             None),
+            (ganq_solver.s_step_blocked_kernel, "s_step_blocked", None),
+            (ganq_solver.s_step_kernel, "s_step", None),
+            (uniform_matmul.uniform_matmul, "uniform_matmul_reference", None),
+            (uniform_matmul.uniform_a8_matmul, "uniform_a8_reference",
+             "return uniform_matmul(x, qweight, scales, zeros, g_idx, bits)"),
+            (w8_matmul.w8_matmul, "w8_matmul_reference", None),
+            (w8_matmul.w8a8_matmul, "w8a8_reference",
+             "return w8_matmul(x, w8, scale)")):
         src = inspect.getsource(fn)
         assert src.count(plain + "(") == 1
         assert 'device.type == "cpu":\n        return ' + plain + "(" in src
         assert "except" not in src
+        assert "_reference(" not in src.replace(plain + "(", "")
+        assert src.count("return ") == (3 if route else 2)
+        if route:
+            assert route in src

@@ -205,8 +205,34 @@ def test_resume_restores_every_layer(dense, tmp_path):
                            thf.get_module(a.model, li, "mlp.up")["weight"])
 
 
+def test_gptq_resume_restores_every_layer_in_both_packages(dense, tmp_path):
+    """A GPTQ run's per-layer files (codes, scales, zeros, g_idx and the
+    fake-quantized weights) resume in the port and load in ganq_tpu's
+    resume reader with the same arrays."""
+    from ganq_tpu.quant.looper import _load_layer_state as jload
+
+    d, _, _ = dense
+    qcfg = QuantizeConfig(quant_method="gptq", bits=4, group_size=32)
+    a = GanqModel.load(d, qcfg, device="cpu")
+    a.quantize(_rows(), batch_size=2, resume_dir=str(tmp_path))
+    b = GanqModel.load(d, qcfg, device="cpu")
+    assert b.quantize(_rows(), batch_size=2, resume_dir=str(tmp_path)) == []
+    for li in range(2):
+        jarts, _ = jload(str(tmp_path), li)
+        for name, ja in jarts.items():
+            ta, tb = a._quant_output.artifacts[name], \
+                b._quant_output.artifacts[name]
+            assert ja.method == tb.method == "gptq" and tb.lut is None
+            for f in ("qidx", "scale", "zero", "g_idx"):
+                assert torch.equal(getattr(tb, f), getattr(ta, f))
+                np.testing.assert_array_equal(np.asarray(getattr(ja, f)),
+                                              getattr(ta, f).numpy())
+    assert torch.equal(thf.get_module(b.model, 1, "mlp.up")["weight"],
+                       thf.get_module(a.model, 1, "mlp.up")["weight"])
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(quant_method="gptq"), "queue A item 5"),
+    (dict(quant_method="auto_round"), "queue A item 5"),
     (dict(quant_method="ganq", adapter={"rank": 4}), "EoRA"),
     (dict(quant_method="ganq", rotation="hadamard"), "rotation"),
     (dict(quant_method="ganq", lm_head=True), "lm_head"),

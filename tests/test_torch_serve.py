@@ -172,7 +172,7 @@ def test_sampling_is_seeded(jax_ckpt):
                     top_p=0.9, seed=11)
     np.testing.assert_array_equal(s1, s2)
     assert s1.shape == (1, 6) and (0 <= s1).all() and (s1 < VOCAB).all()
-    streamed = list(g._get_engine(32).stream(ids, max_new_tokens=6))
+    streamed = list(g._get_engine().stream(ids, max_new_tokens=6))
     assert streamed == greedy[0].tolist()
 
 
@@ -236,6 +236,195 @@ def test_load_verifies_hash(jax_ckpt):
     with pytest.raises(ValueError, match="hash mismatch"):
         tckpt.load_quantized(d, device="cpu",
                              verify_hash={"model.safetensors": "0" * 64})
+
+
+def _engine_logits(jcfg, jparams, tmodel, ids, layout="auto"):
+    """Last-position prefill logits of ganq_tpu's Engine (stacked, and
+    affine codebooks certified, where its layers stack; per layer
+    otherwise) and of the port's Engine, both on the reference backend
+    with ``layout``, and the port's engine."""
+    from ganq_tpu.serve import engine as jeng_mod
+    from ganq_tpu.serve import stacked as jst
+
+    jeng = JEngine(jcfg, jparams, backend="reference", max_seq=32,
+                   layout=layout)
+    if jeng._sp is not None:
+        ck, cv = jst.init_cache(jcfg, jcfg.num_hidden_layers, ids.shape[0], 32)
+        ref = jst.prefill(jcfg, jeng._sp, ck, cv, jnp.asarray(ids),
+                          "reference")[0]
+    else:
+        ref = jeng_mod.prefill(jcfg, jparams,
+                               jeng_mod.init_cache(jcfg, ids.shape[0], 32),
+                               jnp.asarray(ids), "reference")[0]
+    eng = teng.Engine(_port_cfg(), tmodel, device="cpu", max_seq=32,
+                      layout=layout)
+    with torch.inference_mode():
+        cache = teng.init_cache(eng.cfg, ids.shape[0], 32, "cpu")
+        got = teng.prefill(eng.cfg, eng.model, cache, torch.as_tensor(ids),
+                           eng.backend).numpy()
+    return np.asarray(ref), got, eng
+
+
+def _port_cfg(hidden=128, heads=4):
+    from ganq_tpu_torch.models import synthetic as tsyn
+    return tsyn.llama_config(hidden=hidden, inter=2 * hidden, layers=2,
+                             heads=heads, kv_heads=max(heads // 2, 1),
+                             vocab=VOCAB)
+
+
+def _affine_model(kinds, hidden=128, heads=4):
+    """A 2-layer llama (float32 embedding and norms) built by ganq_tpu's
+    synthetic builder, layer i of kind ``kinds[i]``, and the same weights in
+    the port."""
+    from ganq_tpu.models import synthetic as jsyn
+
+    jcfg = jsyn.llama_config(hidden=hidden, inter=2 * hidden, layers=2,
+                             heads=heads, kv_heads=max(heads // 2, 1),
+                             vocab=VOCAB)
+    params = jsyn.make_model(jcfg, kind=kinds[0], seed=1, dtype=jnp.float32)
+    if kinds[1] != kinds[0]:
+        params["layers"][1] = jsyn.make_model(jcfg, kind=kinds[1], seed=2,
+                                              dtype=jnp.float32)["layers"][1]
+    _, tmodel = thf.params_from_numpy(thf.config_to_hf(_port_cfg(hidden, heads)),
+                                      _flatten_jax(params), device="cpu")
+    return jcfg, params, tmodel
+
+
+@pytest.mark.parametrize("kinds,certified", [
+    (("lut_affine_sym", "lut_affine_sym"), True),
+    (("lut_affine_sym", "lut"), False),
+])
+def test_engine_certifies_affine_codebooks_as_jax(kinds, certified):
+    """ganq_tpu's Engine serves a multi-layer model through
+    ``stack_layers(recode="affine")``, which certifies affine-grid codebooks
+    into uniform linears (values within 2^-7 of the row's range of the
+    stored ones) when every layer still stacks afterwards. The port's
+    Engine does the same: its logits equal ganq_tpu's (float32, 1e-4 of the
+    scale), while serving the stored codebooks would differ by more. A
+    layer of free codebooks beside a certified one leaves the whole model
+    ``lut``, as in ganq_tpu."""
+    jcfg, jparams, tmodel = _affine_model(kinds)
+    ids = _ids(6, (2, 12))
+    ref, got, eng = _engine_logits(jcfg, jparams, tmodel, ids)
+    served = {thf.get_module(eng.model, li, s).kind for li in range(2)
+              for s in ("attn.q", "attn.o", "mlp.down")}
+    assert served == ({"uniform"} if certified else {"lut"})
+    assert "zeros" not in thf.get_module(eng.model, 0, "attn.q")
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * scale)
+    with torch.inference_mode():
+        cache = teng.init_cache(eng.cfg, 2, 32, "cpu")
+        stored = teng.prefill(eng.cfg, tmodel, cache, torch.as_tensor(ids),
+                              "reference").numpy()
+    if certified:           # serving the stored codebooks fails the match
+        assert not np.allclose(stored, ref, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        np.testing.assert_array_equal(stored, got)
+
+
+def test_engine_certifies_a_quantized_lm_head_as_jax():
+    """A ``lut_affine_sym`` lm_head is certified with the layers
+    (``certify_stacked`` covers the lm_head): logits within 1e-4 of the
+    scale of ganq_tpu's Engine."""
+    import jax
+
+    from ganq_tpu.models import synthetic as jsyn
+
+    jcfg, jparams, _ = _affine_model(("lut_affine_sym",) * 2)
+    jparams["lm_head"] = jsyn._rand_linear(jax.random.PRNGKey(4), VOCAB, 128,
+                                           "lut_affine_sym")
+    _, tmodel = thf.params_from_numpy(thf.config_to_hf(_port_cfg()),
+                                      _flatten_jax(jparams), device="cpu")
+    assert tmodel.lm_head.kind == "lut"
+    ids = _ids(6, (2, 12))
+    ref, got, eng = _engine_logits(jcfg, jparams, tmodel, ids)
+    assert eng.model.lm_head.kind == "uniform"
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
+    """``layout="perlayer"``: ganq_tpu's Engine neither stacks nor
+    certifies, and neither does the port's; both serve the stored affine
+    codebooks (logits within 1e-4 of the scale)."""
+    jcfg, jparams, tmodel = _affine_model(("lut_affine_sym",) * 2)
+    ids = _ids(6, (2, 12))
+    ref, got, eng = _engine_logits(jcfg, jparams, tmodel, ids, "perlayer")
+    assert not eng.stacked and eng.model is tmodel
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+    with pytest.raises(NotImplementedError, match="stacked slice"):
+        teng.Engine(_port_cfg(), tmodel, device="cpu", layout="stacked")
+    with pytest.raises(ValueError, match="unknown layout"):
+        teng.Engine(_port_cfg(), tmodel, device="cpu", layout="scan")
+
+
+@pytest.mark.parametrize("kind,hidden,heads,backend,batch,prompt,new,want", [
+    ("uniform", 256, 2, "cuda_a8", 8, 12, 4, "megastep"),
+    ("uniform", 256, 2, "cuda_a8", 65, 2, 4, None),
+    ("uniform", 256, 2, "cuda", 8, 12, 4, None),
+    ("uniform", 128, 4, "cuda_a8", 8, 12, 4, None),
+    ("w8", 128, 4, "cuda_a8", 8, 12, 4, "kernel 9"),
+    ("w8", 128, 4, "cuda_a8", 2, 12, 1, "kernel 9"),
+    ("w8", 128, 4, "cuda_a8", 8, 12, 1, None),
+    ("w8", 128, 4, "cuda_a8", 65, 2, 4, None),
+])
+def test_stacked_only_kernels_are_named_where_jax_runs_them(
+        monkeypatch, kind, hidden, heads, backend, batch, prompt, new, want):
+    """The port's engine refuses exactly the requests that ganq_tpu's
+    stacked layout serves through kernels the port has not ported: a
+    whole-step megastep (its gate admits uniform W4 at head_dim 128, here
+    forced on as on a TPU) at decode batch <= 64, or the fused W8A8 MLP for
+    a forward of at most 64 token rows."""
+    from ganq_tpu.serve import stacked as jst
+
+    jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads)
+    sp = jst.stack_layers(jparams, recode="affine")
+    monkeypatch.setenv("GANQ_MEGASTEP", "1")
+    a8 = backend == "cuda_a8"
+    mega = a8 and new > 1 and jst.mega_enabled(jcfg, sp, "pallas_a8",
+                                                batch) is not None
+    mlp = sp["layers_stacked"]["mlp"]
+    rows = batch if new > 1 else batch * prompt
+    fused = (a8 and mlp["gateup"].kind == "w8" and mlp["down"].kind == "w8"
+             and rows <= 64)
+    stacked = teng.stacked_model(tmodel)
+    assert stacked is not None
+    got = teng.stacked_only_kernel(_port_cfg(hidden, heads), stacked,
+                                   backend, batch, prompt, new)
+    assert (got is not None) == (mega or fused)
+    assert got is None if want is None else want in got
+
+
+@pytest.mark.parametrize("recode", ["auto", "affine", "u4", "w8", "none"])
+def test_optimize_matches_jax(jax_ckpt, recode):
+    """``optimize(recode)`` on ganq_tpu's lut checkpoint gives the same
+    linears as ganq_tpu's ``optimize`` (kinds, bits, packed codes and
+    scales exactly) and the same greedy tokens on the reference backend.
+    Widths of 64 are no multiple of 128: their "auto" recode is the per-row
+    int8 artifact, as in ganq_tpu."""
+    from ganq_tpu.api import GanqModel as JGanqModel
+
+    d, _ = jax_ckpt
+    j = JGanqModel.load(d).optimize(recode)
+    g = GanqModel.load(d, device="cpu").optimize(recode)
+    assert g.backend == "reference"
+    for li in range(2):
+        for slot in ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.gate",
+                     "mlp.up", "mlp.down"):
+            jl = jhf.get_module(j.params, li, slot)
+            tl = thf.get_module(g.model, li, slot)
+            assert (tl.kind, tl.bits, tl.in_features) == \
+                (jl.kind, jl.bits, jl.in_features)
+            assert sorted(tl._buffers) == sorted(jl.arrays)
+            for k, v in jl.arrays.items():
+                np.testing.assert_array_equal(
+                    tl[k].float().numpy(),
+                    np.asarray(jnp.asarray(v).astype(jnp.float32)), err_msg=k)
+    ids = _ids(3, (2, 10))
+    np.testing.assert_array_equal(
+        g.generate(ids, max_new_tokens=8, max_seq=64),
+        np.asarray(j.generate(ids, max_new_tokens=8, max_seq=64)))
 
 
 def test_quant_log_csv_matches(tmp_path):

@@ -121,8 +121,8 @@ class GanqModel:
         """Generate from token ids [B, S] (or [S]) or, with a tokenizer, a
         string. Returns tokens [B, max_new_tokens], or the decoded string.
         ``layout``: the engine's (:class:`~ganq_tpu_torch.serve.engine.Engine`);
-        "perlayer" serves the int8-activation requests that the JAX
-        package's stacked layout would run through its own kernels."""
+        "perlayer" serves layer by layer the requests that the stacked
+        layout refuses (a whole-step kernel not ported yet)."""
         is_str = isinstance(inputs, str)
         if is_str:
             if self.tokenizer is None:
@@ -201,10 +201,12 @@ class GanqModel:
         treats the rest as "auto"; "affine" certifies only; "w8" recodes
         every ``lut`` (and ``uniform``) linear to per-row int8
         (``recode_w8``); "none" leaves the kinds as loaded. On the card the
-        recoded models select ``"cuda_a8"`` (kernels 6 and 8); where the JAX
-        package's stacked layout would serve a request through a kernel of
-        its own (a ``w8`` MLP at up to 64 token rows, any head_dim-128 model
-        at decode batch <= 64), ``generate`` raises unless given
+        recoded models select ``"cuda_a8"``; the engine's stacked layout
+        then runs the JAX package's fused kernels where its gates send a
+        request (for ``w8``: the fused W8A8 MLP and, for head_dim-128 models
+        at decode batch <= 8, the whole-step megastep), and ``generate``
+        raises where they send it to a whole-step kernel not ported yet
+        (``serve/engine.stacked_only_kernel``), unless given
         ``layout="perlayer"``."""
         from .ops.qlinear import (QLinear, certify_uniform, recode_uniform4,
                                   recode_uniform8, recode_w8)

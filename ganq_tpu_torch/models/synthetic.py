@@ -45,6 +45,20 @@ def llama_3_2_1b_config(layers: int = 16) -> ModelConfig:
                       "original_max_position_embeddings": 8192})
 
 
+def llama_3_2_3b_config(layers: int = 28) -> ModelConfig:
+    """Llama-3.2-3B at its published widths (huggingface.co/meta-llama/
+    Llama-3.2-3B config.json: vocab 128256, hidden 3072, intermediate 8192,
+    28 layers, 24 heads, 8 KV heads, head_dim 128, tied embeddings, rms eps
+    1e-5, rope theta 500000 with llama3 scaling); ``layers`` may cut the
+    depth. The smallest Llama-3 model with head_dim 128."""
+    return llama_config(
+        hidden=3072, inter=8192, layers=layers, heads=24, kv_heads=8,
+        vocab=128256, max_pos=131072, rope_theta=500000.0,
+        rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 8192})
+
+
 def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
                      device) -> qlinear.QLinear:
     """A random ``lut`` linear: sorted bf16 codebooks with std 0.006 (the
@@ -147,4 +161,5 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     return Model(embed, torch.ones(h, dtype=dtype, device=device), layers)
 
 
-__all__ = ["llama_config", "llama_3_2_1b_config", "make_model"]
+__all__ = ["llama_config", "llama_3_2_1b_config", "llama_3_2_3b_config",
+           "make_model"]

@@ -9,12 +9,22 @@ buffer paths are the JAX package's parameter paths
 a set of plain functions over them, as in the JAX package.
 
 The KV cache is updated in place (the JAX version returns new buffers).
+
+Layers of the stacked layout (``serve/stacked.py``) hold fused linears,
+``qkv`` (q, k and v rows) and ``gateup`` (gate, then up rows), and for a
+``w8`` o the transposed ``o_t_w8`` / ``o_t_scale``. On the int8-activation
+backend ``"cuda_a8"`` :func:`layer_forward` then takes the JAX package's
+fused kernels under its conditions: the fused W8A8 MLP (kernel 9) for at
+most 64 token rows, and, opted in by ``GANQ_FUSED_QKV`` and
+``GANQ_FUSED_LAYER=1`` (read at each call), the fused norm + qkv + rope
+(kernel 10) and the attention half of a decode layer (kernel 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -22,7 +32,10 @@ from torch import nn
 
 from ..ops import qlinear
 from ..ops.attention import causal_attention
-from ..ops.fused_attention import flash_decode_attention
+from ..ops.fused_attention import (flash_decode_attention,
+                                   fused_qkv_rope_w8a8, qkv_fusable_tile)
+from ..ops.fused_layer import attn_half_decode_w8a8, attn_half_fusable
+from ..ops.fused_mlp import fused_mlp_w8a8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,15 +81,22 @@ class Weights(nn.Module):
 
 class Layer(nn.Module):
     """One decoder layer's weights: two norms, attention q/k/v/o and the
-    gated MLP gate/up/down, each a :class:`~ganq_tpu_torch.ops.qlinear.QLinear`."""
+    gated MLP gate/up/down, each a :class:`~ganq_tpu_torch.ops.qlinear.QLinear`
+    (fused ``qkv`` and ``gateup`` in the stacked layout, which may also give
+    the transposed ``w8`` o weight ``o_t_w8 [Dq, H]`` and its scale
+    ``o_t_scale [1, H]``)."""
 
     def __init__(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
-                 attn: Dict[str, nn.Module], mlp: Dict[str, nn.Module]):
+                 attn: Dict[str, nn.Module], mlp: Dict[str, nn.Module],
+                 o_t_w8: Optional[torch.Tensor] = None,
+                 o_t_scale: Optional[torch.Tensor] = None):
         super().__init__()
         self.input_norm = Weights(input_norm)
         self.post_norm = Weights(post_norm)
         self.attn = nn.ModuleDict(attn)
         self.mlp = nn.ModuleDict(mlp)
+        self.register_buffer("o_t_w8", o_t_w8)
+        self.register_buffer("o_t_scale", o_t_scale)
 
 
 class Model(nn.Module):
@@ -172,6 +192,24 @@ def _activation(x: torch.Tensor, act: str) -> torch.Tensor:
     raise NotImplementedError(f"activation {act!r} is not ported yet")
 
 
+def _fused_act_kind(cfg: ModelConfig) -> str:
+    """cfg.act -> the fused kernels' activation name."""
+    if cfg.act == "silu":
+        return "silu"
+    if "tanh" in cfg.act or cfg.act == "gelu_new":
+        return "gelu_tanh"
+    return "gelu"
+
+
+def _rope_half_tables(cfg: ModelConfig, rope):
+    """(rotary_dim, cos_half, sin_half): the half-dim rope rows at the
+    decode position for the fused kernels (the first batch row; every row
+    of a decode step sits at the same position)."""
+    rd = cfg.head_dim
+    cos, sin = rope
+    return rd, cos[0, 0, :rd // 2], sin[0, 0, :rd // 2]
+
+
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
     """Write ``new`` [b, s, ...] into ``buf`` [b, T, ...] at rows pos.. in
     place; ``pos`` is a python int or a 0-d device tensor (no host sync)."""
@@ -184,6 +222,12 @@ def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
 
 
 # ---------------------------------------------------------------------- layer
+def _w8_gateup(lp: Layer) -> bool:
+    mlp = lp.mlp
+    return ("gateup" in mlp and mlp["gateup"].kind == "w8"
+            and mlp["down"].kind == "w8")
+
+
 def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
                   mask: Optional[torch.Tensor],
                   rope: Tuple[torch.Tensor, torch.Tensor],
@@ -194,9 +238,12 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
 
     ``cache_pos`` is the python int 0 for prefill and a 0-d tensor for a
     decode step. Prefilling from position 0 attends over the fresh k/v only.
-    A decode step on a CUDA backend (``"cuda"`` or ``"cuda_a8"``) always runs
-    the flash decode kernel over the cache (which launches or raises); on the
-    reference backend it runs the masked plain attention.
+    A decode step on a CUDA backend (``"cuda"`` or ``"cuda_a8"``) runs the
+    flash decode kernel over the cache (which launches or raises), or kernel
+    11 where it is opted in; on the reference backend it runs the masked
+    plain attention. The fused kernels of the stacked layout run under the
+    JAX package's conditions (``ganq_tpu/models/transformer.py:989-1085,
+    1214-1239``).
 
     Returns the layer's output; with ``want_taps`` it returns ``(output,
     taps)``, where ``taps`` maps each linear's slot (``attn.q`` ...
@@ -212,19 +259,73 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     if use_flash_decode and s != 1:
         raise ValueError(f"a decode step on a cuda backend takes one token "
                          f"per sequence, got {s}")
+    plain_decode = (cache is not None and s == 1 and b <= 64 and not want_taps
+                    and isinstance(cache_pos, torch.Tensor)
+                    and cache_pos.dim() == 0 and hd <= 128)
+    attn = lp.attn
+    a8 = backend == "cuda_a8"
+
+    # the attention half in one kernel (11) and the fused MLP (9): opt-in
+    if (plain_decode and b <= 8 and a8 and hd == 128 and _w8_gateup(lp)
+            and lp.o_t_w8 is not None
+            and os.environ.get("GANQ_FUSED_LAYER", "0") == "1"
+            and attn_half_fusable(cfg, lp)):
+        ap = attn["qkv"]
+        kvd = (ap["w8"].shape[0] - cfg.q_dim) // 2
+        rd, cos_h, sin_h = _rope_half_tables(cfg, rope)
+        y, k_new, v_new = attn_half_decode_w8a8(
+            x[:, 0, :], lp.input_norm.weight, ap["w8"], ap["scale"],
+            ap["bias"] if "bias" in ap else None, lp.o_t_w8, lp.o_t_scale,
+            cos_h, sin_h, cache["k"], cache["v"], cache_pos, q_dim=cfg.q_dim,
+            kv_dim=kvd, head_dim=hd, rotary_dim=rd, eps=cfg.norm_eps,
+            scale=scale)
+        _cache_write(cache["k"], k_new[:, None], cache_pos)
+        _cache_write(cache["v"], v_new[:, None], cache_pos)
+        gu, dn = lp.mlp["gateup"], lp.mlp["down"]
+        return fused_mlp_w8a8(y[:, None, :], gu["w8"], gu["scale"], dn["w8"],
+                              dn["scale"], act=_fused_act_kind(cfg),
+                              norm_w=lp.post_norm.weight, eps=cfg.norm_eps)
+
+    # norm + qkv + rope in one kernel (10): opt-in
+    use_fused_qkv = False
+    if (plain_decode and a8 and "qkv" in attn and attn["qkv"].kind == "w8"
+            and os.environ.get("GANQ_FUSED_QKV", "0") != "0"):
+        kvd = (attn["qkv"]["w8"].shape[0] - cfg.q_dim) // 2
+        use_fused_qkv = qkv_fusable_tile(cfg.q_dim, kvd, hd) is not None
 
     taps: Dict[str, torch.Tensor] = {}
     residual = x
-    h = apply_norm(lp.input_norm.weight, x, cfg.norm_eps)
-    if want_taps:
-        taps["attn.q"] = taps["attn.k"] = taps["attn.v"] = h
-    attn = lp.attn
-    q = qlinear.apply(attn["q"], h, backend).reshape(b, s, -1, hd)
-    k = qlinear.apply(attn["k"], h, backend).reshape(b, s, -1, hd)
-    v = qlinear.apply(attn["v"], h, backend).reshape(b, s, -1, hd)
-    cos, sin = rope
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_fused_qkv:
+        ap = attn["qkv"]
+        rd, cos_h, sin_h = _rope_half_tables(cfg, rope)
+        qkv = fused_qkv_rope_w8a8(
+            x[:, 0, :], lp.input_norm.weight, ap["w8"], ap["scale"],
+            ap["bias"] if "bias" in ap else None, cos_h, sin_h,
+            q_dim=cfg.q_dim, kv_dim=kvd, head_dim=hd, rotary_dim=rd,
+            eps=cfg.norm_eps, fold_norm=True)[:, None]
+        q = qkv[..., :cfg.q_dim].reshape(b, 1, -1, hd)
+        k = qkv[..., cfg.q_dim:cfg.q_dim + kvd].reshape(b, 1, -1, hd)
+        v = qkv[..., cfg.q_dim + kvd:].reshape(b, 1, -1, hd)
+    else:
+        h = apply_norm(lp.input_norm.weight, x, cfg.norm_eps)
+        if want_taps:
+            taps["attn.q"] = taps["attn.k"] = taps["attn.v"] = h
+        if "qkv" in attn:        # the stacked layout's fused rows
+            qkv = qlinear.apply(attn["qkv"], h, backend)
+            kvd = (qkv.shape[-1] - cfg.q_dim) // 2
+            q = qkv[..., :cfg.q_dim]
+            k = qkv[..., cfg.q_dim:cfg.q_dim + kvd]
+            v = qkv[..., cfg.q_dim + kvd:]
+        else:
+            q = qlinear.apply(attn["q"], h, backend)
+            k = qlinear.apply(attn["k"], h, backend)
+            v = qlinear.apply(attn["v"], h, backend)
+        q = q.reshape(b, s, -1, hd)
+        k = k.reshape(b, s, -1, hd)
+        v = v.reshape(b, s, -1, hd)
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     if cache is not None:
         _cache_write(cache["k"], k, cache_pos)
         _cache_write(cache["v"], v, cache_pos)
@@ -243,10 +344,20 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     attn_out = qlinear.apply(attn["o"], attn_out, backend)
     x = residual + attn_out
 
-    h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
     mlp = lp.mlp
-    g = qlinear.apply(mlp["gate"], h, backend)
-    u = qlinear.apply(mlp["up"], h, backend)
+    if a8 and _w8_gateup(lp) and b * s <= 64 and not want_taps:
+        # the whole MLP in one kernel (9), norm and residual folded in
+        gu, dn = mlp["gateup"], mlp["down"]
+        return fused_mlp_w8a8(x, gu["w8"], gu["scale"], dn["w8"], dn["scale"],
+                              act=_fused_act_kind(cfg),
+                              norm_w=lp.post_norm.weight, eps=cfg.norm_eps)
+    h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
+    if "gateup" in mlp:
+        gu = qlinear.apply(mlp["gateup"], h, backend)
+        g, u = gu[..., :cfg.intermediate_size], gu[..., cfg.intermediate_size:]
+    else:
+        g = qlinear.apply(mlp["gate"], h, backend)
+        u = qlinear.apply(mlp["up"], h, backend)
     a = _activation(g, cfg.act) * u
     out = x + qlinear.apply(mlp["down"], a, backend)
     if want_taps:

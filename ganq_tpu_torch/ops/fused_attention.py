@@ -1,24 +1,233 @@
-"""Flash decode attention: one query token per sequence over the KV cache.
+"""Fused attention decode kernels: norm + qkv + rope, and flash decode.
 
-The port of ``flash_decode_attention`` / ``flash_decode_reference`` from
-``ganq_tpu/ops/fused_attention.py`` (``fused_qkv_rope_w8a8`` comes with the
-optimize() kernels in a later slice).
+The port of ``ganq_tpu/ops/fused_attention.py``:
 
-:func:`flash_decode_attention` launches the hand-written CUDA kernel
-(``csrc/flash_decode.cu``) for CUDA tensors and runs the plain version,
-:func:`flash_decode_reference`, only for CPU tensors.
-:func:`flash_decode_split_reference` is a plain version that rounds where
-the kernel rounds, to hold the kernel to about one bf16 ulp on the card.
+- :func:`fused_qkv_rope_w8a8` (kernel 10, replaces the Pallas
+  ``fused_qkv_rope_w8a8``): rmsnorm, per-row int8 activations, the int8
+  qkv product ``(acc * sx) * s``, bias, and rope on the q and k sections,
+  out in bf16. Rope's partner lane is read rounded to bf16, as the TPU
+  kernel's sign-permutation product reads it:
+  ``y * cos + (bf16(y) @ R) * sin``. Its plain version is
+  :func:`fused_qkv_rope_plain`; ``rope_tile_operands``,
+  ``expand_rope_tables`` and ``qkv_fusable_tile`` are the JAX package's
+  helpers, copied.
+- :func:`flash_decode_attention` (kernel 2): one query token per sequence
+  over the KV cache (``csrc/flash_decode.cu``), plain version
+  :func:`flash_decode_reference`; :func:`flash_decode_split_reference`
+  rounds where the kernel rounds, to hold the kernel to about one bf16 ulp
+  on the card.
+
+The wrappers take the plain versions only for CPU tensors; for a CUDA tensor
+they launch their kernel or raise. ``.launches`` counts kernel calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+
+# ------------------------------------------------------------------ rope prep
+def rope_tile_operands(tile: int, head_dim: int, rotary_dim: int,
+                       interleaved: bool):
+    """Operands of rope on a [B, tile] row tile of ``tile // head_dim`` whole
+    heads (copied from the JAX package): ``R [tile, tile]``, the
+    block-diagonal rotate-half (or interleaved-pair) sign permutation with
+    zero columns outside the rotary span, and lane maps (cos_map, sin_map
+    [tile]) naming the rope-table entry each lane multiplies (-1: identity
+    lane, cos 1 and sin 0)."""
+    nh = tile // head_dim
+    R = np.zeros((tile, tile), np.float32)
+    cos_map = np.full((tile,), -1, np.int64)
+    sin_map = np.full((tile,), -1, np.int64)
+    half = rotary_dim // 2
+    for h in range(nh):
+        base = h * head_dim
+        for j in range(rotary_dim):
+            if interleaved:
+                partner = base + (j + 1 if j % 2 == 0 else j - 1)
+                cos_map[base + j] = sin_map[base + j] = j // 2
+                R[partner, base + j] = -1.0 if j % 2 == 0 else 1.0
+            elif j < half:
+                cos_map[base + j] = sin_map[base + j] = j
+                R[base + j + half, base + j] = -1.0
+            else:
+                cos_map[base + j] = sin_map[base + j] = j - half
+                R[base + j - half, base + j] = 1.0
+    return R, cos_map, sin_map
+
+
+def expand_rope_tables(cos_half: torch.Tensor, sin_half: torch.Tensor,
+                       cos_map: np.ndarray, sin_map: np.ndarray
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-lane cos/sin rows [1, tile] (float32) from the half tables
+    [rotary_dim // 2] and the lane maps (identity lanes: cos 1, sin 0)."""
+    dev = cos_half.device
+    cm = torch.as_tensor(np.where(cos_map < 0, 0, cos_map), device=dev)
+    sm = torch.as_tensor(np.where(sin_map < 0, 0, sin_map), device=dev)
+    cos_l = torch.where(torch.as_tensor(cos_map < 0, device=dev), 1.0,
+                        cos_half.to(torch.float32)[cm])
+    sin_l = torch.where(torch.as_tensor(sin_map < 0, device=dev), 0.0,
+                        sin_half.to(torch.float32)[sm])
+    return cos_l[None, :], sin_l[None, :]
+
+
+def qkv_fusable_tile(q_dim: int, kv_dim: int, head_dim: int) -> Optional[int]:
+    """The JAX package's row tile of its fused qkv kernels: the first of
+    512, 256, 1024, 128, 2048 that divides both the q and kv sections and
+    holds whole heads, or None (then no fused qkv kernel runs)."""
+    for cand in (512, 256, 1024, 128, 2048):
+        if q_dim % cand == 0 and kv_dim % cand == 0 and cand % head_dim == 0:
+            return cand
+    return None
+
+
+def rope_rows(y: torch.Tensor, cos_half: Optional[torch.Tensor],
+              sin_half: Optional[torch.Tensor], q_dim: int, kv_dim: int,
+              head_dim: int, rotary_dim: int, interleaved: bool
+              ) -> torch.Tensor:
+    """Rope on the q and k sections of y [B, Dqkv] (float32) as the fused
+    kernels apply it: ``y * cos + (bf16(y) @ R) * sin`` per head, R from
+    :func:`rope_tile_operands` (each output lane reads one partner lane,
+    rounded to bf16, times +-1); the v section is left as it is."""
+    if not rotary_dim:
+        return y
+    R, cmap, smap = rope_tile_operands(head_dim, head_dim, rotary_dim,
+                                       interleaved)
+    partner = torch.as_tensor(np.abs(R).argmax(axis=0), device=y.device)
+    sign = torch.as_tensor(R.sum(axis=0), device=y.device)
+    cos_l, sin_l = expand_rope_tables(cos_half, sin_half, cmap, smap)
+    n = q_dim + kv_dim
+    sec = y[:, :n].reshape(y.shape[0], n // head_dim, head_dim)
+    rot = sec.to(torch.bfloat16).to(torch.float32)[..., partner] * sign
+    roped = sec * cos_l + rot * sin_l
+    return torch.cat([roped.reshape(y.shape[0], n), y[:, n:]], dim=1)
+
+
+def _int_dot(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """x8 [B, K] (integers) @ w8[:, :K]^T as the exact int32 sum, returned
+    in float32 (the sum is exact in float64; its float32 rounding is the
+    kernels' int -> float conversion)."""
+    K = x8.shape[-1]
+    return (x8.to(torch.float64) @ w8[:, :K].to(torch.float64).T
+            ).to(torch.float32)
+
+
+def rms_rows(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             rms_offset: float = 0.0) -> torch.Tensor:
+    """The fused kernels' rmsnorm of token rows, kept in float32:
+    ``x * rsqrt(mean(x^2) + eps) * (w + offset)``."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return xf * torch.rsqrt(var + eps) * (weight.to(torch.float32)
+                                          + rms_offset)
+
+
+def fused_qkv_rope_plain(x: torch.Tensor, norm_w: Optional[torch.Tensor],
+                         qkv_w8: torch.Tensor, qkv_scale: torch.Tensor,
+                         bias: Optional[torch.Tensor],
+                         cos_half: Optional[torch.Tensor],
+                         sin_half: Optional[torch.Tensor], q_dim: int,
+                         kv_dim: int, head_dim: int, rotary_dim: int = 0,
+                         interleaved: bool = False, eps: float = 1e-5,
+                         rms_offset: float = 0.0,
+                         fold_norm: bool = True) -> torch.Tensor:
+    """Plain version of kernel 10, with the kernel's arithmetic: x [B, H] ->
+    qkv [B, q_dim + 2 kv_dim] bf16. The JAX oracle
+    (``fused_qkv_rope_reference``) rotates the float32 y instead of its bf16
+    rounding, which moves an output by at most one bf16 ulp."""
+    from .uniform_matmul import quantize_rows
+
+    H = x.shape[-1]
+    xf = x.to(torch.float32)
+    if fold_norm:
+        xf = rms_rows(xf, norm_w if norm_w is not None
+                      else torch.ones(H, device=x.device), eps, rms_offset)
+    x8, sx = quantize_rows(xf)
+    y = (_int_dot(x8, qkv_w8) * sx) * qkv_scale.to(torch.float32).reshape(1, -1)
+    if bias is not None:
+        y = y + bias.to(torch.float32).reshape(1, -1)
+    y = rope_rows(y, cos_half, sin_half, q_dim, kv_dim, head_dim, rotary_dim,
+                  interleaved)
+    return y.to(torch.bfloat16)
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+def fused_qkv_rope_w8a8(x: torch.Tensor, norm_w: Optional[torch.Tensor],
+                        qkv_w8: torch.Tensor, qkv_scale: torch.Tensor,
+                        bias: Optional[torch.Tensor],
+                        cos_half: Optional[torch.Tensor],
+                        sin_half: Optional[torch.Tensor], q_dim: int,
+                        kv_dim: int, head_dim: int, rotary_dim: int = 0,
+                        interleaved: bool = False, eps: float = 1e-5,
+                        rms_offset: float = 0.0,
+                        fold_norm: bool = True) -> torch.Tensor:
+    """Kernel 10: x [B, H] -> qkv [B, q_dim + 2 kv_dim] bf16 with rope on the
+    q and k sections; ``cos_half``/``sin_half`` [rotary_dim // 2] are the
+    rope tables at the decode position. qkv_w8 [Dqkv, H'] int8 (H' >= H,
+    pack padding unread), qkv_scale [Dqkv, 1] float32."""
+    Dqkv = qkv_w8.shape[0]
+    if Dqkv != q_dim + 2 * kv_dim:
+        raise ValueError("fused_qkv_rope: qkv rows != q_dim + 2 kv_dim")
+    if qkv_fusable_tile(q_dim, kv_dim, head_dim) is None:
+        raise ValueError(f"no 128-aligned head tile for q_dim={q_dim} "
+                         f"kv_dim={kv_dim} head_dim={head_dim}")
+    if x.device.type == "cpu":
+        return fused_qkv_rope_plain(x, norm_w, qkv_w8, qkv_scale, bias,
+                                    cos_half, sin_half, q_dim, kv_dim,
+                                    head_dim, rotary_dim, interleaved, eps,
+                                    rms_offset, fold_norm)
+    from .w8a8_args import launch
+    from .uniform_matmul import _aligned
+
+    B, H = x.shape
+    _check_fused_shapes("fused_qkv_rope", x, qkv_w8, head_dim, rotary_dim)
+    dev = x.device
+    xc = _aligned(x)
+    out = torch.empty((B, Dqkv), dtype=torch.bfloat16, device=dev)
+    x8 = torch.empty((B, H), dtype=torch.int8, device=dev)
+    sx = torch.empty((B,), dtype=torch.float32, device=dev)
+    launch("w8a8_fused", "ganq_fused_qkv_rope", "fused_qkv_rope_w8a8", dict(
+        x=xc, attn_norm=_f32(norm_w) if fold_norm else None,
+        qkv_w8=_aligned(qkv_w8), qkv_scale=_f32(qkv_scale),
+        qkv_bias=_f32(bias), cos_half=_f32(cos_half),
+        sin_half=_f32(sin_half), qkv_out=out, x8=x8, sx=sx), dev,
+        B=B, H=H, Kx=H, q_dim=q_dim, kv_dim=kv_dim, d=head_dim,
+        rd=rotary_dim or 0, interleaved=int(interleaved),
+        qkv_ld=qkv_w8.shape[1], L=1, fold_norm=int(fold_norm),
+        x_bf16=int(x.dtype == torch.bfloat16), eps=eps,
+        rms_offset=rms_offset)
+    fused_qkv_rope_w8a8.launches += 1
+    return out
+
+
+fused_qkv_rope_w8a8.launches = 0
+
+
+def _check_fused_shapes(what: str, x: torch.Tensor, qkv_w8: torch.Tensor,
+                        head_dim: int, rotary_dim: int) -> None:
+    """What the fused CUDA kernels take: x bf16 or float32, int8 weights
+    whose rows are 16-byte multiples, a hidden width of 16-byte multiples and
+    an even rotary span."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 2:
+        raise TypeError(f"{what} kernel: x must be a bf16 or float32 matrix")
+    if qkv_w8.dtype != torch.int8 or qkv_w8.shape[1] % 16 or x.shape[1] % 16:
+        raise ValueError(f"{what} kernel: int8 rows and the hidden width "
+                         "must be multiples of 16")
+    if qkv_w8.shape[1] < x.shape[1] or (rotary_dim or 0) % 2 \
+            or (rotary_dim or 0) > head_dim or head_dim % 2:
+        raise ValueError(f"{what} kernel: bad widths (weight "
+                         f"{tuple(qkv_w8.shape)}, x {tuple(x.shape)}, "
+                         f"rotary_dim {rotary_dim})")
+
 
 _SPLIT_KEYS = 128      # keys per block of the kernel (csrc/flash_decode.cu)
 _TILE_KEYS = 64        # keys per tile of a block
@@ -156,4 +365,6 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 flash_decode_attention.launches = 0
 
 __all__ = ["flash_decode_attention", "flash_decode_reference",
-           "flash_decode_split_reference", "flash_decode_split_bound"]
+           "flash_decode_split_reference", "flash_decode_split_bound",
+           "fused_qkv_rope_w8a8", "fused_qkv_rope_plain", "rope_tile_operands",
+           "expand_rope_tables", "qkv_fusable_tile", "rope_rows", "rms_rows"]

@@ -295,6 +295,32 @@ def recode_uniform4(p: QLinear) -> QLinear:
         in_features=n)
 
 
+def concat_rows(linears) -> QLinear:
+    """Fuse linears that share an input (q/k/v, gate/up) by concatenating
+    their output rows: every row-wise array (weight, codebooks, packed
+    codes, scales, zeros, bias) is independent per output row. ``g_idx``
+    is shared and must agree. Linears of mixed kind or bits, or whose arrays
+    differ (``zeros`` present in some only), raise ValueError: there the JAX
+    package's ``concat_rows`` drops the later linears' ``zeros`` or raises,
+    and the port serves them unfused (``ROADMAP.md`` queue C)."""
+    first = linears[0]
+    if len({(p.kind, p.bits) for p in linears}) != 1:
+        raise ValueError("cannot fuse linears of mixed kind/bits")
+    keys = sorted(k for k, v in first._buffers.items() if v is not None)
+    if any(sorted(k for k, v in p._buffers.items() if v is not None) != keys
+           for p in linears[1:]):
+        raise ValueError("cannot fuse linears with different arrays")
+    arrays = {}
+    for k in keys:
+        if k == "g_idx":
+            if any(not torch.equal(first[k], p[k]) for p in linears[1:]):
+                raise ValueError("cannot fuse linears with divergent g_idx")
+            arrays[k] = first[k]
+        else:
+            arrays[k] = torch.cat([p[k] for p in linears], dim=0)
+    return QLinear(first.kind, arrays, first.bits, first.in_features)
+
+
 def certify_uniform(p: QLinear, tol_rel: float = 2.0 ** -7
                     ) -> Optional[QLinear]:
     """``lut`` linear whose per-row codebook lies on an affine grid ->
@@ -359,4 +385,4 @@ def certify_uniform(p: QLinear, tol_rel: float = 2.0 ** -7
 __all__ = ["QLinear", "dense_linear", "lut_linear", "uniform_linear",
            "dequantize_weight", "apply", "uniform_g_idx", "uniform_zeros",
            "recode_w8", "w8_to_uniform8", "recode_uniform8", "recode_uniform4",
-           "certify_uniform"]
+           "certify_uniform", "concat_rows"]

@@ -6,21 +6,17 @@ decode step are plain calls over the layers, and the cache is updated in
 place. The position, the sampled tokens and the finished flags stay on the
 device, so a decode step needs no host sync.
 
-The JAX engine (``layout="auto"``) serves homogeneous models of more than
-one layer through a stacked-layer layout (``serve/stacked.py``), built by
-``stack_layers(recode="affine")``: that call first certifies every ``lut``
-linear whose codebook lies on an affine grid into a ``uniform`` linear
-(``ops/qlinear.certify_uniform``), whose least-squares scale and zero serve
-values within 2^-7 of the row's range of the stored codebook, and keeps the
-certified layers only if they still stack. The port serves layer by layer
-(fusing q/k/v and gate/up rows changes no row's numbers) but applies the
-same certification under the same rule (:func:`stacked_model`), so it serves
-the numbers the JAX engine serves. On its int8-activation backend the
-stacked layout also runs kernels of its own, which come with the stacked
-slice of the port: where the JAX engine would (:func:`stacked_only_kernel`),
-the port's engine raises, and ``layout="perlayer"`` serves layer by layer as
-the JAX engine's ``layout="perlayer"`` does (no certification, no stacked
-kernels).
+As the JAX engine (``layout="auto"``) does, the port serves a homogeneous
+model of more than one layer through the stacked layout
+(``serve/stacked.py``): ``stack_layers(recode="affine")`` certifies every
+``lut`` linear whose codebook lies on an affine grid into a ``uniform``
+linear and fuses each layer's rows, and ``prepack`` (at batch 1, as there)
+packs the whole-step megastep's operands. Requests then take the fused
+kernels and the megastep where the JAX engine's gates send them. Where its
+gate picks a whole-step kernel the port does not have yet (kernels 13 and
+14: :func:`stacked_only_kernel`), the engine raises; ``layout="perlayer"``
+serves the model as given, layer by layer, as the JAX engine's
+``layout="perlayer"`` does.
 """
 
 from __future__ import annotations
@@ -31,103 +27,26 @@ import numpy as np
 import torch
 
 from ..core.backend import resolve_device, select_backend
-from ..models.transformer import (Layer, Model, ModelConfig, causal_mask,
-                                  embed, layer_forward, rope_tables, unembed)
-from ..ops.qlinear import QLinear, certify_uniform
+from ..models.transformer import (Model, ModelConfig, causal_mask, embed,
+                                  layer_forward, rope_tables, unembed)
 
 Cache = List[Dict[str, torch.Tensor]]
 
-# linears the stacked layout fuses by concatenating rows (serve/stacked.py
-# fuse_layer): they must share kind and bits, or the JAX engine does not stack
-_FUSED = (("attn", ("q", "k", "v")), ("mlp", ("gate", "up")))
 
+def stacked_only_kernel(cfg: ModelConfig, sp: Optional[Model], backend: str,
+                        batch: int, max_new_tokens: int,
+                        device="cuda") -> Optional[str]:
+    """The whole-step kernel that the JAX engine's stacked layout runs for
+    this request and the port has not ported, or None: where
+    ``serve/stacked.mega_enabled`` picks a variant of kernel 13 (``"w4"``)
+    or kernel 14 (``"w4p"``, ``"w3"``, ``"w2"``, ``"w8p"``, ``"wl8"``) and
+    the request decodes. ``sp`` is the engine's stacked model."""
+    from . import stacked
 
-def _structure(lp: Layer):
-    """What ``jax.tree_util.tree_structure`` and ``jnp.stack`` see of a
-    layer: per linear its kind, bits, width and arrays with their shapes."""
-    out = []
-    for group in ("attn", "mlp"):
-        for name, p in getattr(lp, group).items():
-            bufs = tuple(sorted((k, tuple(v.shape))
-                                for k, v in p._buffers.items() if v is not None))
-            out.append((group, name, p.kind, p.bits, p.in_features, bufs))
-    return tuple(out)
-
-
-def _fusable(lp: Layer) -> bool:
-    for group, names in _FUSED:
-        lins = [getattr(lp, group)[n] for n in names
-                if n in getattr(lp, group)]
-        if len({(p.kind, p.bits, "zeros" in p) for p in lins}) > 1:
-            return False
-    return True
-
-
-def stacked_model(model: Model) -> Optional[Model]:
-    """The model the JAX engine's stacked layout serves, or None where that
-    engine serves layer by layer (``ganq_tpu/serve/engine.py`` with
-    ``stack_layers(recode="affine")``). For a model of more than one layer
-    whose layers share one structure, every ``lut`` linear that
-    :func:`certify_uniform` accepts becomes a ``uniform`` linear; the
-    certified layers stack only if they keep the same kind, bits and
-    presence of ``zeros`` in every layer, and fused linears (q/k/v, gate/up)
-    of one kind and bits; otherwise the JAX engine serves the uncertified
-    params layer by layer. A quantized lm_head is certified as well. Returns
-    a new Model sharing every other tensor."""
-    layers = list(model.layers)
-    if len(layers) <= 1 or len({_structure(lp) for lp in layers}) != 1:
+    if max_new_tokens <= 1:
         return None
-
-    def cert(p: QLinear) -> QLinear:
-        q = certify_uniform(p)
-        return p if q is None else q
-
-    new = [Layer(lp.input_norm.weight, lp.post_norm.weight,
-                 {k: cert(v) for k, v in lp.attn.items()},
-                 {k: cert(v) for k, v in lp.mlp.items()}) for lp in layers]
-    if (len({_structure(lp) for lp in new}) != 1
-            or not all(_fusable(lp) for lp in new)):
-        return None
-    # a quantized lm_head is certified too (serve/stacked.py certify_stacked)
-    lm = model.lm_head
-    return Model(model.embed_tokens.weight, model.final_norm.weight, new,
-                 cert(lm) if isinstance(lm, QLinear) else lm)
-
-
-# the JAX stacked layout's whole-step megasteps and fused MLP take decode
-# batches and forwards of at most this many token rows
-# (ganq_tpu/serve/stacked.py mega_env_enabled, models/transformer.py)
-_STACKED_KERNEL_ROWS = 64
-
-
-def stacked_only_kernel(cfg: ModelConfig, model: Model, backend: str,
-                        batch: int, prompt_len: int,
-                        max_new_tokens: int) -> Optional[str]:
-    """The kernel that the JAX engine's stacked layout runs for this request
-    on its int8-activation backend (``pallas_a8``, here ``cuda_a8``) and the
-    port has not ported, or None. ``model`` is the stacked (certified)
-    model. Two kinds, both waiting for the stacked slice:
-
-    - the whole-step megasteps (kernels 12-14, ``serve/stacked.py``
-      ``mega_enabled``): decode at batch <= 64 of a head_dim-128 model whose
-      linears are all ``w8`` or ``uniform`` (a superset of the JAX gates,
-      which add width and group conditions);
-    - the fused W8A8 MLP (kernel 9, ``fused_mlp_w8a8``): every forward of at
-      most 64 token rows when gate, up and down are ``w8``."""
-    if backend != "cuda_a8":
-        return None
-    decodes = max_new_tokens > 1
-    lins = [p for lp in model.layers
-            for p in list(lp.attn.values()) + list(lp.mlp.values())]
-    if (decodes and batch <= _STACKED_KERNEL_ROWS and cfg.head_dim == 128
-            and all(p.kind in ("w8", "uniform") for p in lins)):
-        return "a whole-step megastep (kernels 12-14)"
-    rows = batch if decodes else batch * prompt_len
-    if (rows <= _STACKED_KERNEL_ROWS
-            and all(lp.mlp[n].kind == "w8" for lp in model.layers
-                    for n in ("gate", "up", "down"))):
-        return "fused_mlp_w8a8 (kernel 9)"
-    return None
+    return stacked.missing_kernel(
+        stacked.mega_enabled(cfg, sp, backend, batch, device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
@@ -229,28 +148,39 @@ class Engine:
 
     ``device`` defaults to the card; the CPU runs only when asked for.
     ``backend`` defaults to :func:`select_backend`'s choice for the model as
-    given. ``layout="auto"`` serves :func:`stacked_model` of it where the
-    JAX engine stacks, and raises for a request that the JAX engine would
-    serve through a kernel of its stacked layout
-    (:func:`stacked_only_kernel`); ``"perlayer"`` serves the model as given,
-    as the JAX engine's ``layout="perlayer"`` does."""
+    given. ``layout="auto"`` serves the stacked layout where the JAX engine
+    stacks (``serve/stacked.py``; ``self.stacked`` says so) and the model as
+    given otherwise; ``"stacked"`` raises ValueError where the layers do not
+    stack; ``"perlayer"`` serves the model as given."""
 
     def __init__(self, cfg: ModelConfig, model: Model,
                  backend: Optional[str] = None, max_seq: int = 2048,
                  device="cuda", layout: str = "auto"):
-        if layout == "stacked":
-            raise NotImplementedError(
-                "layout='stacked' comes with the stacked slice of the port "
-                "(ROADMAP.md queue A)")
-        if layout not in ("auto", "perlayer"):
+        from . import stacked
+
+        if layout not in ("auto", "perlayer", "stacked"):
             raise ValueError(f"unknown layout {layout!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         model = model.to(self.device)
         self.backend = select_backend(model, self.device, backend)
-        stacked = stacked_model(model) if layout == "auto" else None
-        self.stacked = stacked is not None
-        self.model = stacked if self.stacked else model
+        sp = None
+        if layout != "perlayer" and len(model.layers) > 1:
+            try:
+                sp = stacked.stack_layers(model, recode="affine")
+            except ValueError:
+                sp = None            # mixed kinds or bits: per layer
+        if sp is not None:
+            try:
+                sp = stacked.prepack(cfg, sp, self.backend, 1, self.device)
+            except NotImplementedError:
+                # a kernel-13/14 variant: its requests raise in _prepare
+                sp = stacked.certify_stacked(sp)
+        if layout == "stacked" and sp is None:
+            raise ValueError("layout='stacked' requires homogeneous layer "
+                             "parameters")
+        self.stacked = sp is not None
+        self.model = sp if self.stacked else model
         self.max_seq = max_seq
 
     def _prepare(self, input_ids, max_new_tokens: int,
@@ -263,15 +193,6 @@ class Engine:
         if total > (max_seq or self.max_seq):
             raise ValueError(f"sequence {total} exceeds max_seq "
                              f"{max_seq or self.max_seq}")
-        kernel = self.stacked and stacked_only_kernel(
-            self.cfg, self.model, self.backend, ids.shape[0], ids.shape[1],
-            max_new_tokens)
-        if kernel:
-            raise NotImplementedError(
-                f"the JAX engine serves this request through {kernel} of its "
-                "stacked layout, which comes with the stacked slice of the "
-                "port (ROADMAP.md queue B); pass layout='perlayer' (int8 "
-                "activations, per-layer kernels) or backend='cuda'")
         return ids
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -282,13 +203,36 @@ class Engine:
                  eos_id: int = -1, seed: int = 0,
                  max_seq: Optional[int] = None) -> np.ndarray:
         """Tokens [B, max_new_tokens]; ``max_seq`` sizes this request's KV
-        cache (default the engine's)."""
+        cache (default the engine's). Raises NotImplementedError where the
+        JAX engine would run an unported whole-step kernel
+        (:func:`stacked_only_kernel`)."""
         ids = self._prepare(input_ids, max_new_tokens, max_seq)
-        cache = init_cache(self.cfg, ids.shape[0], max_seq or self.max_seq,
-                           self.device)
-        out = generate_tokens(self.cfg, self.model, cache, ids,
-                              self._generator(seed), max_new_tokens,
-                              temperature, top_k, top_p, eos_id, self.backend)
+        T = max_seq or self.max_seq
+        if self.stacked:
+            from . import stacked
+
+            kernel = stacked_only_kernel(self.cfg, self.model, self.backend,
+                                         ids.shape[0], max_new_tokens,
+                                         self.device)
+            if kernel:
+                raise NotImplementedError(
+                    f"the JAX engine serves this request through {kernel} "
+                    "of its stacked layout, which comes with a later slice "
+                    "of the port (ROADMAP.md queue B); pass "
+                    "layout='perlayer' (per-layer kernels) or "
+                    "backend='cuda'")
+            ck, cv = stacked.init_cache(self.cfg, len(self.model.layers),
+                                        ids.shape[0], T, self.device)
+            out = stacked.generate_tokens(
+                self.cfg, self.model, ck, cv, ids, self._generator(seed),
+                max_new_tokens, temperature, top_k, top_p, eos_id,
+                self.backend)
+        else:
+            cache = init_cache(self.cfg, ids.shape[0], T, self.device)
+            out = generate_tokens(self.cfg, self.model, cache, ids,
+                                  self._generator(seed), max_new_tokens,
+                                  temperature, top_k, top_p, eos_id,
+                                  self.backend)
         return out.cpu().numpy().astype(np.int32)
 
     @torch.inference_mode()
@@ -296,7 +240,8 @@ class Engine:
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                eos_id: int = -1, seed: int = 0) -> Iterator[int]:
         """Token-by-token generator for one sequence: yields each token as it
-        is produced (one host sync per token); stops at eos."""
+        is produced (one host sync per token); stops at eos. Decode steps
+        run layer by layer, as the JAX engine's ``stream`` does."""
         ids = self._prepare(input_ids, max_new_tokens)
         if ids.shape[0] != 1:
             raise ValueError("stream() is single-sequence (batch=1)")
@@ -316,4 +261,4 @@ class Engine:
 
 
 __all__ = ["Engine", "init_cache", "prefill", "decode_step", "generate_tokens",
-           "sample", "stacked_model", "stacked_only_kernel"]
+           "sample", "stacked_only_kernel"]

@@ -117,3 +117,29 @@ def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
         assert src.count("return ") == (3 if route else 2)
         if route:
             assert route in src
+
+
+def test_fused_kernel_wrappers_never_fall_back_for_cuda_tensors():
+    """Kernels 9-12 likewise: the one branch to the plain version tests for
+    a CPU tensor; kernel 9's other branch is the JAX package's
+    full-precision route for the shapes its ``ok`` test refuses (computed
+    outside any kernel there, and here)."""
+    import inspect
+
+    from ganq_tpu_torch.ops import (fused_attention, fused_layer, fused_mlp,
+                                    megastep)
+
+    for fn, plain, route in (
+            (fused_mlp.fused_mlp_w8a8, "fused_mlp_plain",
+             "return fused_mlp_fallback("),
+            (fused_attention.fused_qkv_rope_w8a8, "fused_qkv_rope_plain", None),
+            (fused_layer.attn_half_decode_w8a8, "attn_half_plain", None),
+            (megastep.megastep_decode_w8a8, "megastep_plain", None)):
+        src = inspect.getsource(fn)
+        assert src.count(plain + "(") == 1
+        assert 'device.type == "cpu":\n        return ' + plain + "(" in src
+        assert "except" not in src
+        assert src.count("return ") == (3 if route else 2)
+        if route:
+            assert route in src
+        assert ".launches += 1" in src

@@ -306,10 +306,11 @@ def test_engine_certifies_affine_codebooks_as_jax(kinds, certified):
     jcfg, jparams, tmodel = _affine_model(kinds)
     ids = _ids(6, (2, 12))
     ref, got, eng = _engine_logits(jcfg, jparams, tmodel, ids)
-    served = {thf.get_module(eng.model, li, s).kind for li in range(2)
-              for s in ("attn.q", "attn.o", "mlp.down")}
+    served = {p.kind for lp in eng.model.layers
+              for p in list(lp.attn.values()) + list(lp.mlp.values())}
     assert served == ({"uniform"} if certified else {"lut"})
-    assert "zeros" not in thf.get_module(eng.model, 0, "attn.q")
+    assert eng.stacked == certified
+    assert "zeros" not in next(iter(eng.model.layers[0].attn.values()))
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * scale)
     with torch.inference_mode():
@@ -353,46 +354,58 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
     assert not eng.stacked and eng.model is tmodel
     np.testing.assert_allclose(got, ref, rtol=1e-4,
                                atol=1e-4 * np.abs(ref).max())
-    with pytest.raises(NotImplementedError, match="stacked slice"):
-        teng.Engine(_port_cfg(), tmodel, device="cpu", layout="stacked")
+    # layout="stacked" serves layers that stack and raises, as ganq_tpu's
+    # does, where they do not (one certified and one free-codebook layer)
+    assert teng.Engine(_port_cfg(), tmodel, device="cpu",
+                       layout="stacked").stacked
+    mixed_cfg, mixed_params, mixed = _affine_model(("lut_affine_sym", "lut"))
+    with pytest.raises(ValueError, match="homogeneous"):
+        JEngine(mixed_cfg, mixed_params, layout="stacked")
+    with pytest.raises(ValueError, match="homogeneous"):
+        teng.Engine(_port_cfg(), mixed, device="cpu", layout="stacked")
     with pytest.raises(ValueError, match="unknown layout"):
         teng.Engine(_port_cfg(), tmodel, device="cpu", layout="scan")
 
 
 @pytest.mark.parametrize("kind,hidden,heads,backend,batch,prompt,new,want", [
-    ("uniform", 256, 2, "cuda_a8", 8, 12, 4, "megastep"),
+    ("uniform", 256, 2, "cuda_a8", 8, 12, 4, "kernel 14"),
     ("uniform", 256, 2, "cuda_a8", 65, 2, 4, None),
     ("uniform", 256, 2, "cuda", 8, 12, 4, None),
     ("uniform", 128, 4, "cuda_a8", 8, 12, 4, None),
-    ("w8", 128, 4, "cuda_a8", 8, 12, 4, "kernel 9"),
-    ("w8", 128, 4, "cuda_a8", 2, 12, 1, "kernel 9"),
+    ("w8", 128, 4, "cuda_a8", 8, 12, 4, None),
+    ("w8", 128, 4, "cuda_a8", 2, 12, 1, None),
     ("w8", 128, 4, "cuda_a8", 8, 12, 1, None),
     ("w8", 128, 4, "cuda_a8", 65, 2, 4, None),
+    ("w8", 256, 2, "cuda_a8", 8, 12, 4, None),
+    ("w8", 256, 2, "cuda_a8", 9, 12, 4, None),
+    ("uniform", 256, 2, "cuda_a8", 64, 2, 4, "kernel 14"),
+    ("uniform", 256, 2, "cuda_a8", 8, 12, 1, None),
 ])
 def test_stacked_only_kernels_are_named_where_jax_runs_them(
         monkeypatch, kind, hidden, heads, backend, batch, prompt, new, want):
     """The port's engine refuses exactly the requests that ganq_tpu's
-    stacked layout serves through kernels the port has not ported: a
-    whole-step megastep (its gate admits uniform W4 at head_dim 128, here
-    forced on as on a TPU) at decode batch <= 64, or the fused W8A8 MLP for
-    a forward of at most 64 token rows."""
+    stacked layout serves through whole-step kernels the port has not
+    ported (kernels 13 and 14): where ganq_tpu's ``mega_enabled`` (on by
+    default for "pallas_a8" on a TPU, here forced with ``GANQ_MEGASTEP=1``)
+    picks a variant other than "w8" for a request that decodes. The port's
+    gate, on the card, gives the same variant. ``w8`` models, whose kernels
+    (9 and 12) are ported, are served at every batch."""
     from ganq_tpu.serve import stacked as jst
 
     jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads)
     sp = jst.stack_layers(jparams, recode="affine")
-    monkeypatch.setenv("GANQ_MEGASTEP", "1")
-    a8 = backend == "cuda_a8"
-    mega = a8 and new > 1 and jst.mega_enabled(jcfg, sp, "pallas_a8",
-                                                batch) is not None
-    mlp = sp["layers_stacked"]["mlp"]
-    rows = batch if new > 1 else batch * prompt
-    fused = (a8 and mlp["gateup"].kind == "w8" and mlp["down"].kind == "w8"
-             and rows <= 64)
-    stacked = teng.stacked_model(tmodel)
-    assert stacked is not None
-    got = teng.stacked_only_kernel(_port_cfg(hidden, heads), stacked,
-                                   backend, batch, prompt, new)
-    assert (got is not None) == (mega or fused)
+    if backend == "cuda_a8":
+        monkeypatch.setenv("GANQ_MEGASTEP", "1")
+    variant = jst.mega_enabled(jcfg, sp, "pallas_a8" if backend == "cuda_a8"
+                               else "pallas", batch)
+    monkeypatch.delenv("GANQ_MEGASTEP", raising=False)
+    refused = new > 1 and variant not in (None, "w8")
+    eng = teng.Engine(_port_cfg(hidden, heads), tmodel, backend="reference",
+                      device="cpu")
+    assert eng.stacked
+    got = teng.stacked_only_kernel(_port_cfg(hidden, heads), eng.model,
+                                   backend, batch, new, device="cuda")
+    assert (got is not None) == refused
     assert got is None if want is None else want in got
 
 

@@ -19,7 +19,10 @@ Phases, each of which raises (exit code != 0) on failure:
    5-8 (uniform and int8 linears) run at batch 1, 8 and 512; their library
    yardstick is a bf16 matmul on the dequantized weight. Kernels 9-12 (the
    fused W8A8 MLP, norm + qkv + rope, attention half and whole decode step)
-   run at the Llama-3.2-3B shapes, batch 1 and 8 (and 64 for 9 and 10).
+   run at the Llama-3.2-3B shapes, batch 1 and 8 (and 64 for 9 and 10);
+   the group-scaled whole decode steps, kernel 14 ("w4p" and "w8p") at
+   batch 1, 8 and 64 and kernel 13 at batch 1 and 8, over 28 Llama-3.2-3B
+   layers.
 4. serving path: a random-weight Llama-3.2-1B at its published widths, made
    a 4-bit GANQ ``lut`` model, saved with the port's checkpoint writer,
    loaded with ``GanqModel.load`` (default device: the card) and asked four
@@ -58,8 +61,13 @@ Phases, each of which raises (exit code != 0) on failure:
    MLP (kernel 9) layer by layer at batch 16, the attention half (kernel 11)
    with ``GANQ_MEGASTEP=0 GANQ_FUSED_LAYER=1``, the fused qkv + rope (kernel
    10) with ``GANQ_FUSED_QKV=1``; decode ms per step against
-   ``layout="perlayer"``; ``optimize()`` (uniform 8-bit, kernel 14's "w8p")
-   still refused.
+   ``layout="perlayer"``. Then the same checkpoint's ``optimize()`` (the
+   quick start's default: uniform 8-bit, 128-column groups) through kernel
+   14's "w8p" variant at batch 1, 8, 16 and 64, and a symmetric uniform W4
+   g128 model (saved as GPTQ v1, loaded) through "w4p" at batch 1 and 16
+   and through kernel 13 (``GANQ_W4_PLANE=0``) at batch 1 and 8: one
+   whole-step launch per decode step, decode ms per step against
+   ``layout="perlayer"``.
 Each run of phases 7-9 sets the launch counters to 0, must match its
 expected launches exactly (``expected_launches``, the port's routing, which
 is the JAX package's), and holds a teacher-forced decode step against the
@@ -815,6 +823,140 @@ def check_megastep(gen) -> dict:
     return entry
 
 
+def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128):
+    """Random operands of kernel 13 (``kmajor``: megapack4's layouts) or
+    kernel 14 (megapack_lowbit's) over L layers: any byte is a valid code
+    byte; bf16 group scales, the o and down ones a tenth of the others'
+    (residual-dominated layers, as in ``check_megastep``)."""
+    from ganq_tpu_torch.ops.megastep4 import _mlp_tile4
+    from ganq_tpu_torch.ops.megastep_lowbit import _mlp_plan
+
+    Dqkv = q_dim + 2 * kv_dim
+    F = 2 if bits == 4 else 1
+    ti = _mlp_tile4(I) if kmajor else _mlp_plan(I, bits, H)[0]
+    gtp = -(-(ti // gs) // 8) * 8
+    unit = 16.0 if bits == 4 else 1.0
+
+    def codes(*shape):
+        return torch.randint(-128, 128, (L, *shape), generator=gen,
+                             device="cuda", dtype=torch.int32).to(torch.int8)
+
+    def scales(*shape, lo=1e-4):
+        return ((torch.rand((L, *shape), generator=gen, device="cuda") * 3
+                 + 1) * lo * unit).to(torch.bfloat16)
+
+    mp = {"attn_norm": torch.rand((L, 1, H), generator=gen, device="cuda")
+          + 0.5,
+          "mlp_norm": torch.rand((L, 1, H), generator=gen, device="cuda")
+          + 0.5,
+          "qkv_bias": torch.zeros((L, 1, Dqkv), device="cuda"),
+          "qkv_s": scales(H // gs, Dqkv),
+          "o_s": scales(q_dim // gs, H, lo=1e-5),
+          "gu_s": scales(H // gs, 2 * I),
+          "dn_s": scales(I // ti * gtp, H, lo=1e-5)}
+    if kmajor:
+        mp.update(qkv_p4=codes(Dqkv // 2, H), o_p4=codes(q_dim, H // 2),
+                  gu_p4=codes(I, H), dn_p4=codes(I, H // 2))
+    else:
+        mp.update(qkv_pk=codes(Dqkv // F, H), o_pk=codes(H // F, q_dim),
+                  gu_pk=codes(2 * I // F, H), dn_pk=codes(H // F, I))
+    return mp
+
+
+def check_grouped_megasteps(gen) -> list:
+    """Kernels 14 ("w4p" and "w8p", batch 1, 8 and 64) and 13 (batch 1 and
+    8) over the 28 layers of Llama-3.2-3B (random packs, slot b at decode
+    position FUSED_POS + b) against their plain versions, within twice the
+    plain version's own spread under a two-ulp nudge (``_spread_close``).
+    Timed with CUDA events over eager calls; the bound counts the code
+    bytes, the bf16 scales, the K/V history, norms and the rows in and
+    out. No library call computes the same step; the per-layer path on a
+    model is timed in phase 9."""
+    from ganq_tpu_torch.ops.megastep4 import megastep4_decode, megastep4_plain
+    from ganq_tpu_torch.ops.megastep_lowbit import (megastep_lowbit_decode,
+                                                    megastep_lowbit_plain)
+
+    H, I, q_dim, kv_dim, d, L = _l3b_widths()
+    Dqkv = q_dim + 2 * kv_dim
+    Hkv = kv_dim // d
+    T = 256
+    ang = torch.rand(d // 2, generator=gen, device="cuda") * 6.2831853
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+              scale=1.0 / math.sqrt(d))
+    entries = []
+    for name, kernel, plain, variants in (
+            ("megastep_lowbit_decode", megastep_lowbit_decode,
+             megastep_lowbit_plain, (("w4p", 4, (1, 8, 64)),
+                                     ("w8p", 8, (1, 8, 64)))),
+            ("megastep4_decode", megastep4_decode, megastep4_plain,
+             (("w4", 4, (1, 8)),))):
+        rows = {}
+        for variant, bits, batches in variants:
+            kmajor = variant == "w4"
+            mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor)
+            vkw = dict(kw) if kmajor else dict(kw, bits=bits)
+            code_bytes = L * (Dqkv + q_dim + 3 * I) * H * bits // 8
+            scale_bytes = sum(v.numel() * 2 for k, v in mp.items()
+                              if k.endswith("_s"))
+            for B in batches:
+                pos = [FUSED_POS + b for b in range(B)]
+                kc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                                  device="cuda") * 0.5).to(torch.bfloat16)
+                vc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                                  device="cuda") * 0.5).to(torch.bfloat16)
+                x = torch.randn((B, H), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                got = kernel(x, mp, kc, vc, pos_t, cos, sin, **vkw)
+                ref = plain(x, mp, kc, vc, pos, cos, sin, **vkw)
+                nudged = plain(
+                    x, dict(mp, attn_norm=mp["attn_norm"] * (1 + 2**-22),
+                            mlp_norm=mp["mlp_norm"] * (1 + 2**-22)),
+                    kc, vc, pos, cos, sin, **vkw)
+                torch.cuda.synchronize()
+                errs = [_spread_close(g, p, q, f"{variant} {n} B={B}")
+                        for n, g, p, q in zip(("y", "k_new", "v_new"), got,
+                                              ref, nudged)]
+                k_ms = event_ms(lambda: kernel(x, mp, kc, vc, pos_t, cos,
+                                               sin, **vkw), (), 10)
+                p_ms = (event_ms(lambda: plain(x, mp, kc, vc, pos, cos, sin,
+                                               **vkw), (), 1)
+                        if B == 1 else None)
+                nbytes = (code_bytes + scale_bytes
+                          + 2 * L * sum(pos) * kv_dim * 2
+                          + L * (2 * H + Dqkv) * 4 + 2 * B * H * 2
+                          + 2 * L * B * kv_dim * 2)
+                b_ms, b_by = bound(nbytes, 2.0 * B * L * (Dqkv + q_dim + 3 * I)
+                                   * H, INT8_OPS_PER_S)
+                rows[(variant, B)] = dict(
+                    ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=max(e[0] for e in errs),
+                    rel_l2=max(e[1] for e in errs))
+                log(f"{name} ({variant}) L={L} H={H} pos={FUSED_POS}+b B={B}: "
+                    f"max_abs_err y/k/v={[round(e[0], 5) for e in errs]} "
+                    f"rel_l2={[f'{e[1]:.2e}' for e in errs]} (tol 2 x the "
+                    f"plain version's spread {[f'{e[2]:.2e}' for e in errs]}"
+                    f" + 2^-8) kernel_ms={k_ms:.4f} plain_ms="
+                    f"{p_ms if p_ms is None else round(p_ms, 3)} "
+                    f"bound_ms={b_ms:.4f} ({b_by}) "
+                    f"bound_share={b_ms / k_ms:.3f}")
+                del kc, vc
+            del mp
+            torch.cuda.empty_cache()
+        first = variants[0][0]
+        entry = dict(rows[(first, 1)])
+        entry.update(name=name,
+                     max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                     shape=f"L=28 H=3072 I=8192 pos={FUSED_POS} B=1 "
+                     f"({first}, Llama-3.2-3B step)",
+                     by_case={f"{v}_b{b}": {k: r[k] for k in (
+                         "ms", "bound_ms", "plain_ms", "rel_l2")}
+                         for (v, b), r in rows.items()})
+        entries.append(entry)
+    return entries
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # full-precision sums in the plain versions' and library's GEMMs
@@ -826,7 +968,7 @@ def phase_kernels() -> list:
             return [check_lut_matmul(gen), check_flash_decode(gen),
                     *check_s_step(gen), *check_uniform_kernels(gen),
                     *check_w8_kernels(gen), *check_fused_w8a8(gen),
-                    check_megastep(gen)]
+                    check_megastep(gen), *check_grouped_megasteps(gen)]
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
 
@@ -933,10 +1075,11 @@ def phase_reference_check(q, what: str = "reference check",
         tok = stacked.prefill(cfg, sp, ck, cv, ids, "reference").argmax(-1)
         ck2, cv2 = ck.clone(), cv.clone()
         pos = torch.tensor(128, dtype=torch.int32, device=eng.device)
-        if variant == "w8":
+        if variant:
             mk, mv = stacked._mega_cache(ck, cv)
-            a = stacked._decode_one_mega(cfg, sp, sp.megapack_w8, mk, mv, tok,
-                                         pos, eng.backend).float()
+            a = stacked._decode_one_mega(
+                cfg, sp, stacked._mega_pack_for(cfg, sp, variant), mk, mv,
+                tok, pos, eng.backend, variant).float()
         else:
             a = stacked.decode_step(cfg, sp, ck, cv, tok, pos,
                                     eng.backend).float()
@@ -967,6 +1110,8 @@ def _kernel_counters():
                                                 s_step_kernel)
     from ganq_tpu_torch.ops.lut_matmul import lut_matmul
     from ganq_tpu_torch.ops.megastep import megastep_decode_w8a8
+    from ganq_tpu_torch.ops.megastep4 import megastep4_decode
+    from ganq_tpu_torch.ops.megastep_lowbit import megastep_lowbit_decode
     from ganq_tpu_torch.ops.uniform_matmul import (uniform_a8_matmul,
                                                    uniform_matmul)
     from ganq_tpu_torch.ops.w8_matmul import w8_matmul, w8a8_matmul
@@ -978,7 +1123,9 @@ def _kernel_counters():
             "w8a8_matmul": w8a8_matmul, "fused_mlp_w8a8": fused_mlp_w8a8,
             "fused_qkv_rope_w8a8": fused_qkv_rope_w8a8,
             "attn_half_decode_w8a8": attn_half_decode_w8a8,
-            "megastep_decode_w8a8": megastep_decode_w8a8}
+            "megastep_decode_w8a8": megastep_decode_w8a8,
+            "megastep4_decode": megastep4_decode,
+            "megastep_lowbit_decode": megastep_lowbit_decode}
 
 
 def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
@@ -986,8 +1133,9 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     package's): per layer of the prompt (B * S token rows) one
     ``kernel_of(linear)`` per linear below 1024 rows (else the
     dequantize-once GEMM), the fused MLP (kernel 9) instead of a fused w8
-    gateup/down on "cuda_a8" at up to 64 rows; per decode step the megastep
-    (kernel 12) once when ``variant`` is "w8", else per layer the attention
+    gateup/down on "cuda_a8" at up to 64 rows; per decode step the whole-step
+    kernel of ``variant`` once (12 for "w8", 13 for "w4", 14 for "w4p" and
+    "w8p"), else per layer the attention
     half (kernel 11, ``GANQ_FUSED_LAYER=1``, B <= 8) or the fused qkv
     (kernel 10, ``GANQ_FUSED_QKV``) or the qkv linear, one flash decode
     unless kernel 11 ran, o, and the MLP as for the prompt."""
@@ -1017,8 +1165,10 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
                 add(kernel_of(p))
         mlp_of(lp, rows)
     steps = new - 1
-    if variant == "w8":
-        add("megastep_decode_w8a8", steps)
+    if variant:
+        add({"w8": "megastep_decode_w8a8", "w4": "megastep4_decode",
+             "w4p": "megastep_lowbit_decode",
+             "w8p": "megastep_lowbit_decode"}[variant], steps)
         return out
     for _ in range(steps):
         for lp in model.layers:
@@ -1359,6 +1509,138 @@ def phase_optimize_path(ckpt_dir: str):
     return results
 
 
+def _request_env(env):
+    """Set the environment switches of a request; returns the saved ones."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    return saved
+
+
+def _restore_env(saved):
+    import os
+
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k)
+        else:
+            os.environ[k] = v
+
+
+def _run_requests(q, label, requests, rng, want_variant=None):
+    """Each (name, batch, prompt, new, env) request through ``q.generate``
+    with the launch counters set to 0 just before and read just after; the
+    counts must equal the path's (``expected_launches``) and, when given,
+    the whole-step variant ``want_variant``; each is followed by a
+    teacher-forced step against the reference backend. Returns
+    {name: launches}."""
+    from ganq_tpu_torch.serve import stacked
+
+    cfg = q.cfg
+    counters = _kernel_counters()
+    eng = q._get_engine()
+    kernel_of = kernel_of_linear(q.backend)
+    out = {}
+    for name, B, S, new, env in requests:
+        saved = _request_env(env)
+        try:
+            variant = stacked.mega_enabled(cfg, eng.model, eng.backend, B,
+                                           eng.device)
+            if want_variant and variant != want_variant:
+                raise AssertionError(f"{label} request {name}: variant "
+                                     f"{variant}, not {want_variant}")
+            want = expected_launches(q, eng.model, eng.backend, B, S, new,
+                                     kernel_of, variant)
+            ids = rng.integers(0, cfg.vocab_size, size=(B, S))
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.time()
+            toks = q.generate(ids, max_new_tokens=new, max_seq=S + new)
+            dt = time.time() - t0
+            got = {k: c.launches for k, c in counters.items() if c.launches}
+            if got != {k: v for k, v in want.items() if v}:
+                raise AssertionError(f"{label} request {name}: launches "
+                                     f"{got}, expected {want}")
+            if (toks.shape != (B, new) or toks.min() < 0
+                    or toks.max() >= cfg.vocab_size):
+                raise AssertionError(f"{label} request {name}: bad tokens")
+            log(f"{label} request ({name}) batch {B} prompt {S} + {new} "
+                f"{env or ''}: variant {variant}, {dt * 1e3:.1f} ms, "
+                f"launches {got}")
+            out[name] = got
+            phase_reference_check(q, f"{label} request ({name})", batch=B)
+        finally:
+            _restore_env(saved)
+    return out
+
+
+def _decode_ms(q, label, shapes, rng, env=None, layouts=("auto", "perlayer")):
+    """Decode ms per step (host clock, best of two, runs in turns a, b, b,
+    a): the difference between a request of ``new`` tokens and one of 1,
+    over new - 1 steps, for each layout. Returns {batch: {layout: ms}}."""
+    out = {}
+    saved = _request_env(env or {})
+    try:
+        for B, S, new in shapes:
+            ids = rng.integers(0, q.cfg.vocab_size, size=(B, S))
+            per = {}
+            for layout in layouts + layouts[::-1]:
+                t0 = time.time()
+                q.generate(ids, max_new_tokens=1, max_seq=S + new,
+                           layout=layout)
+                t1 = time.time()
+                q.generate(ids, max_new_tokens=new, max_seq=S + new,
+                           layout=layout)
+                t2 = time.time()
+                per.setdefault(layout, []).append(
+                    ((t2 - t1) - (t1 - t0)) / (new - 1) * 1e3)
+            out[B] = {k: min(v) for k, v in per.items()}
+            log(f"{label}: decode ms per step at batch {B} (prompt {S}, "
+                f"{new - 1} steps, host clock, best of 2) {env or ''}: "
+                + ", ".join(f"{k} {min(v):.3f} (runs "
+                            f"{[round(x, 3) for x in v]})"
+                            for k, v in per.items()))
+    finally:
+        _restore_env(saved)
+    return out
+
+
+def _save_uniform_w4(cfg, ckpt):
+    """A random symmetric uniform W4 g128 model at ``cfg``
+    (``synthetic.make_model(kind="uniform")``) saved as a GPTQ v1 checkpoint
+    from artifacts of its own codes and scales."""
+    from ganq_tpu_torch import QuantizeConfig
+    from ganq_tpu_torch.core.config import QUANT_METHOD
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.models.registry import get_spec
+    from ganq_tpu_torch.ops.packing import unpack_int_rows
+    from ganq_tpu_torch.quant.looper import QuantizedModule
+
+    qcfg = QuantizeConfig(desc_act=False)
+    with torch.inference_mode():
+        model = synthetic.make_model(cfg, kind="uniform", bits=4, seed=8,
+                                     device="cuda", dtype=torch.bfloat16)
+        spec = get_spec("llama")
+        arts = {}
+        for i in range(len(model.layers)):
+            for mod, slot in spec.module_slots.items():
+                p = hf_import.get_module(model, i, slot)
+                n = p.in_features
+                scale = p["scales"].cpu()
+                arts[f"{spec.layers_prefix}.{i}.{mod}"] = QuantizedModule(
+                    method=QUANT_METHOD.GPTQ, bits=4, group_size=128,
+                    qidx=unpack_int_rows(p["qweight"], 4, n).to(
+                        torch.uint8).cpu(),
+                    scale=scale, zero=torch.full_like(scale, 8.0),
+                    g_idx=torch.arange(n, dtype=torch.int32) // 128)
+    save_quantized(ckpt, hf_import.config_to_hf(cfg), qcfg, model,
+                   artifacts=arts)
+    del model, arts
+    torch.cuda.empty_cache()
+
+
 def phase_3b_path():
     """The stacked int8 path at Llama-3.2-3B's published widths (28 layers,
     head_dim 128): a random 4-bit ``lut`` model saved with the port's writer,
@@ -1371,19 +1653,21 @@ def phase_3b_path():
     11 and 9 in decode); (e) batch 16 with ``GANQ_FUSED_QKV=1`` (kernel 10).
     Each is followed by a teacher-forced step against the reference
     backend. Decode ms per step at batch 1 and 8 is measured through the
-    megastep and through ``layout="perlayer"`` on the same model. Then
-    ``optimize()`` (uniform 8-bit, whose whole step is kernel 14's "w8p"
-    variant) must still be refused, with no launch."""
-    import os
-
+    megastep and through ``layout="perlayer"`` on the same model. Then the
+    same checkpoint's ``optimize()`` (uniform 8-bit, 128-column groups) is
+    served through kernel 14's "w8p" variant at batch 1, 8, 16 and 64, one
+    launch a decode step, and a symmetric uniform W4 g128 model (saved as
+    GPTQ v1, loaded) through "w4p" at batch 1 and 16 and through kernel 13
+    with ``GANQ_W4_PLANE=0`` at batch 1 and 8, with their decode ms per
+    step against ``layout="perlayer"``. Returns the launch counts of every
+    request (``runs``) and the decode times."""
     from ganq_tpu_torch import GanqModel, QuantizeConfig
     from ganq_tpu_torch.formats.checkpoint import save_quantized
     from ganq_tpu_torch.models import hf_import, synthetic
-    from ganq_tpu_torch.serve import stacked
 
     cfg = synthetic.llama_3_2_3b_config()
-    counters = _kernel_counters()
-    results = {}
+    results = {"runs": []}
+    rng = np.random.default_rng(9)
     with tempfile.TemporaryDirectory() as ckpt:
         t0 = time.time()
         with torch.inference_mode():
@@ -1408,86 +1692,71 @@ def phase_3b_path():
         if q.backend != "cuda_a8" or not eng.stacked:
             raise AssertionError("the 3B w8 model is not on the stacked "
                                  "cuda_a8 path")
-        kernel_of = kernel_of_linear(q.backend)
-        rng = np.random.default_rng(9)
         q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
                    max_new_tokens=3, max_seq=32)                  # warm-up
-        requests = (("a", 1, 128, 32, {}), ("b", 8, 64, 16, {}),
-                    ("c", 16, 32, 8, {}),
-                    ("d", 1, 48, 4, {"GANQ_MEGASTEP": "0",
-                                     "GANQ_FUSED_LAYER": "1"}),
-                    ("e", 16, 32, 4, {"GANQ_FUSED_QKV": "1"}))
-        for name, B, S, new, env in requests:
-            saved = {k: os.environ.get(k) for k in env}
-            os.environ.update(env)
-            try:
-                variant = stacked.mega_enabled(cfg, eng.model, eng.backend, B,
-                                               eng.device)
-                want = expected_launches(q, eng.model, eng.backend, B, S, new,
-                                         kernel_of, variant)
-                ids = rng.integers(0, cfg.vocab_size, size=(B, S))
-                for c in counters.values():
-                    c.launches = 0
-                t0 = time.time()
-                out = q.generate(ids, max_new_tokens=new, max_seq=S + new)
-                dt = time.time() - t0
-                got = {k: c.launches for k, c in counters.items() if c.launches}
-                if got != {k: v for k, v in want.items() if v}:
-                    raise AssertionError(f"3B request {name}: launches {got}, "
-                                         f"expected {want}")
-                if (out.shape != (B, new) or out.min() < 0
-                        or out.max() >= cfg.vocab_size):
-                    raise AssertionError(f"3B request {name}: bad tokens")
-                log(f"3B request ({name}) batch {B} prompt {S} + {new} "
-                    f"{env or ''}: variant {variant}, {dt * 1e3:.1f} ms, "
-                    f"launches {got}")
-                results[name] = got
-                phase_reference_check(q, f"3B request ({name})", batch=B)
-            finally:
-                for k, v in saved.items():
-                    if v is None:
-                        os.environ.pop(k)
-                    else:
-                        os.environ[k] = v
-
-        # decode ms per step: megastep against the per-layer layout
-        for B, S, new in ((1, 128, 32), (8, 64, 16)):
-            ids = rng.integers(0, cfg.vocab_size, size=(B, S))
-            per = {}
-            for layout in ("auto", "perlayer", "perlayer", "auto"):
-                t0 = time.time()
-                q.generate(ids, max_new_tokens=1, max_seq=S + new,
-                           layout=layout)
-                t1 = time.time()
-                q.generate(ids, max_new_tokens=new, max_seq=S + new,
-                           layout=layout)
-                t2 = time.time()
-                per.setdefault(layout, []).append(
-                    ((t2 - t1) - (t1 - t0)) / (new - 1) * 1e3)
-            results[f"decode_ms_b{B}"] = {k: min(v) for k, v in per.items()}
-            log(f"3B decode ms per step at batch {B} (prompt {S}, {new - 1} "
-                f"steps, host clock, best of 2): stacked layout (kernel 12) "
-                f"{min(per['auto']):.3f}, perlayer {min(per['perlayer']):.3f} "
-                f"(runs {[round(v, 3) for v in per['auto']]} / "
-                f"{[round(v, 3) for v in per['perlayer']]})")
+        runs = _run_requests(q, "3B w8", (
+            ("a", 1, 128, 32, {}), ("b", 8, 64, 16, {}), ("c", 16, 32, 8, {}),
+            ("d", 1, 48, 4, {"GANQ_MEGASTEP": "0", "GANQ_FUSED_LAYER": "1"}),
+            ("e", 16, 32, 4, {"GANQ_FUSED_QKV": "1"})), rng)
+        results["runs"] += list(runs.values())
+        results["decode_w8"] = _decode_ms(
+            q, "3B w8 (kernel 12 / perlayer)", ((1, 128, 32), (8, 64, 16)),
+            rng)
         del q, eng
         torch.cuda.empty_cache()
 
         # optimize(): uniform 8-bit, whose whole step is kernel 14's "w8p"
+        t0 = time.time()
         q = GanqModel.load(ckpt, dtype=torch.bfloat16).optimize()
-        for c in counters.values():
-            c.launches = 0
-        try:
-            q.generate(np.zeros((1, 8), np.int64), max_new_tokens=2)
-        except NotImplementedError as e:
-            if "kernel 14" not in str(e):
-                raise
-            log(f"3B optimize(): refused ({e})")
-        else:
-            raise AssertionError("the engine served a request that the JAX "
-                                 "engine runs through kernel 14")
-        if any(c.launches for c in counters.values()):
-            raise AssertionError("the refused request launched kernels")
+        q._get_engine()
+        torch.cuda.synchronize()
+        log(f"3B optimize(): loaded, recoded, stacked and packed in "
+            f"{time.time() - t0:.1f} s; backend {q.backend}; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+                   max_new_tokens=3, max_seq=32)                  # warm-up
+        runs = _run_requests(q, "3B optimize()", (
+            ("w8p_b1", 1, 128, 32, {}), ("w8p_b8", 8, 64, 16, {}),
+            ("w8p_b16", 16, 32, 8, {}), ("w8p_b64", 64, 32, 8, {})), rng,
+            want_variant="w8p")
+        results["runs"] += list(runs.values())
+        results["decode_w8p"] = _decode_ms(
+            q, "3B optimize() (kernel 14 w8p / perlayer)",
+            ((1, 128, 32), (8, 64, 16)), rng)
+        del q
+        torch.cuda.empty_cache()
+
+    # a symmetric uniform W4 g128 model: kernel 14's "w4p", and kernel 13
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.time()
+        _save_uniform_w4(cfg, ckpt)
+        t1 = time.time()
+        q = GanqModel.load(ckpt, dtype=torch.bfloat16)
+        q._get_engine()
+        torch.cuda.synchronize()
+        log(f"3B sym W4: built+saved (GPTQ v1) in {t1 - t0:.1f} s, loaded, "
+            f"stacked and packed in {time.time() - t1:.1f} s; backend "
+            f"{q.backend}; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if q.backend != "cuda_a8":
+            raise AssertionError(f"the sym W4 model selected {q.backend}")
+        q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+                   max_new_tokens=3, max_seq=32)                  # warm-up
+        runs = _run_requests(q, "3B sym W4", (
+            ("w4p_b1", 1, 128, 32, {}), ("w4p_b16", 16, 32, 8, {})), rng,
+            want_variant="w4p")
+        results["runs"] += list(runs.values())
+        runs = _run_requests(q, "3B sym W4", (
+            ("w4_b1", 1, 128, 32, {"GANQ_W4_PLANE": "0"}),
+            ("w4_b8", 8, 64, 16, {"GANQ_W4_PLANE": "0"})), rng,
+            want_variant="w4")
+        results["runs"] += list(runs.values())
+        results["decode_w4p"] = _decode_ms(
+            q, "3B sym W4 (kernel 14 w4p / perlayer)",
+            ((1, 128, 32), (8, 64, 16)), rng)
+        results["decode_w4"] = _decode_ms(
+            q, "3B sym W4 (kernel 13)", ((1, 128, 32), (8, 64, 16)), rng,
+            env={"GANQ_W4_PLANE": "0"}, layouts=("auto",))
         del q
         torch.cuda.empty_cache()
     return results
@@ -1518,12 +1787,13 @@ def main() -> int:
         runs += phase_optimize_path(ckpt.name)
     finally:
         ckpt.cleanup()
-    # the stacked int8 path at Llama-3.2-3B (kernels 8-12)
+    # the stacked paths at Llama-3.2-3B (kernels 6 and 8-14)
     three_b = phase_3b_path()
-    runs += [three_b[k] for k in "abcde"]
+    runs += three_b["runs"]
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
-                 "attn_half_decode_w8a8", "megastep_decode_w8a8"):
+                 "attn_half_decode_w8a8", "megastep_decode_w8a8",
+                 "megastep4_decode", "megastep_lowbit_decode"):
         launches[name] = sum(r.get(name, 0) for r in runs)
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on its paths")
@@ -1550,7 +1820,12 @@ def main() -> int:
            "attn_half_decode_w8a8": ("ganq_tpu_torch/csrc/w8a8_fused.cu",
                                      "ganq_tpu/ops/fused_layer.py:340"),
            "megastep_decode_w8a8": ("ganq_tpu_torch/csrc/megastep_w8.cu",
-                                    "ganq_tpu/ops/megastep.py:380")}
+                                    "ganq_tpu/ops/megastep.py:380"),
+           "megastep4_decode": ("ganq_tpu_torch/csrc/megastep4.cu",
+                                "ganq_tpu/ops/megastep4.py:495"),
+           "megastep_lowbit_decode": (
+               "ganq_tpu_torch/csrc/megastep_lowbit.cu",
+               "ganq_tpu/ops/megastep_lowbit.py:1390")}
     line = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": src[k["name"]][0],
          "replaces": src[k["name"]][1], "launches": launches[k["name"]],
@@ -1558,10 +1833,10 @@ def main() -> int:
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
          **{x: k[x] for x in ("agreement", "yardstick_ms", "ms_b8",
-                              "bound_ms_b8") if x in k},
+                              "bound_ms_b8", "by_case") if x in k},
          "shape": k["shape"]} for k in kernels]}
-    log(f"3B decode ms per step (host clock): batch 1 "
-        f"{three_b['decode_ms_b1']}, batch 8 {three_b['decode_ms_b8']}")
+    log("3B decode ms per step (host clock): " + json.dumps(
+        {k: v for k, v in three_b.items() if k.startswith("decode_")}))
     log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -204,8 +204,10 @@ class GanqModel:
         recoded models select ``"cuda_a8"``; the engine's stacked layout
         then runs the JAX package's fused kernels where its gates send a
         request (for ``w8``: the fused W8A8 MLP and, for head_dim-128 models
-        at decode batch <= 8, the whole-step megastep), and ``generate``
-        raises where they send it to a whole-step kernel not ported yet
+        at decode batch <= 8, the whole-step megastep; for uniform 8-bit and
+        symmetric 4-bit models at decode batch <= 64, the group-scaled
+        whole step), and ``generate`` raises where they send it to a
+        whole-step variant not ported yet
         (``serve/engine.stacked_only_kernel``), unless given
         ``layout="perlayer"``."""
         from .ops.qlinear import (QLinear, certify_uniform, recode_uniform4,

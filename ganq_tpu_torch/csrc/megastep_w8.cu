@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(kThreads, 2) megastep_kernel(W8A8Args a) {
       const size_t off = (size_t)l * a.cache_sl + (size_t)b * a.cache_sb +
                          (size_t)g * a.cache_sg;
       attn_unit(a, b, g, a.qkv_out, a.k_cache + off, a.v_cache + off, a.attn,
-                a.attn_amax, reinterpret_cast<float*>(work));
+                a.attn_amax, reinterpret_cast<float*>(work), *a.pos);
     }
     grid.sync();
 

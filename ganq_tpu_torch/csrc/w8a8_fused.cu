@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(W8A8Args a) {
     const int b = u / Hkv, g = u - b * Hkv;
     const size_t off = (size_t)b * a.cache_sb + (size_t)g * a.cache_sg;
     attn_unit(a, b, g, a.qkv_out, a.k_cache + off, a.v_cache + off, a.attn,
-              a.attn_amax, fs);
+              a.attn_amax, fs, *a.pos);
   }
 }
 

@@ -35,6 +35,10 @@
 struct W8A8Args {
   int B, H, Kx, q_dim, kv_dim, d, rd, interleaved, qkv_ld, o_rows, I, ti,
       down_ld, T, Tb, L, fold_norm, act, x_bf16;
+  // kernels 13 and 14 (megastep_grouped.cuh): group size, code bits, qkv
+  // row tile, padded scale rows per MLP tile, rope-table row stride, and
+  // kernel 13's layouts (low nibble first, K-major o and down)
+  int gs, bits, tq, gtp, cos_ld, kmajor;
   float eps, rms_offset, scale;
   long long cache_sb, cache_sg, cache_st, cache_sl;
   const void* x;
@@ -68,6 +72,17 @@ struct W8A8Args {
   float* attn_amax;
   int* o32;
   int* part;
+  // kernels 13 and 14: packed codes, bf16 group scales [L, groups, rows],
+  // float32 group partials of kernel 13's K-major products
+  const int8_t* qkv_pk;
+  const int8_t* o_pk;
+  const int8_t* gu_pk;
+  const int8_t* dn_pk;
+  const __nv_bfloat16* qkv_gs;
+  const __nv_bfloat16* o_gs;
+  const __nv_bfloat16* gu_gs;
+  const __nv_bfloat16* dn_gs;
+  float* partf;
 };
 
 namespace {
@@ -532,19 +547,20 @@ __device__ __forceinline__ void bf16x4(uint2 raw, float* f) {
 }
 
 // Flash GQA attention of one (batch row b, kv head g) unit: qpk query heads
-// of the bf16 qkv row against the cache keys below pos (key t of the unit
-// at kc + t * st) and the current token, head_dim 128. Per key block: a
-// thread per key for the scores, a warp per head for the max and the sum,
-// a thread per 4 dims and eighth of the keys for p . v (the eighths summed
-// in order). Writes a = acc / l into attn [B, q_dim] and max|a| into
-// attn_amax [b * Hkv + g]. smem: kAttnSmemFloats floats.
+// of the bf16 qkv row against the cache keys below pos, the row's history
+// length (key t of the unit at kc + t * st), and the current token,
+// head_dim 128. Per key block: a thread per key for the scores, a warp per
+// head for the max and the sum, a thread per 4 dims and eighth of the keys
+// for p . v (the eighths summed in order). Writes a = acc / l into attn
+// [B, q_dim] and max|a| into attn_amax [b * Hkv + g]. smem:
+// kAttnSmemFloats floats.
 __device__ void attn_unit(const W8A8Args& a, int b, int g,
                           const bf16* __restrict__ qkv,
                           const bf16* __restrict__ kc,
                           const bf16* __restrict__ vc, float* attn,
-                          float* attn_amax, float* smem) {
+                          float* attn_amax, float* smem, int pos) {
   const int d = 128, Hkv = a.kv_dim / d, qpk = a.q_dim / d / Hkv;
-  const int Dqkv = a.q_dim + 2 * a.kv_dim, Tb = a.Tb, pos = *a.pos;
+  const int Dqkv = a.q_dim + 2 * a.kv_dim, Tb = a.Tb;
   const long long st = a.cache_st;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* qs = smem;                           // [qpk][128]

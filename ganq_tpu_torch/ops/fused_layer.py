@@ -42,12 +42,14 @@ def flash_block(T: int, block_t: int = 256) -> int:
 
 
 def flash_rows(q: torch.Tensor, k_hist: torch.Tensor, v_hist: torch.Tensor,
-               k_cur: torch.Tensor, v_cur: torch.Tensor, pos: int,
+               k_cur: torch.Tensor, v_cur: torch.Tensor, pos,
                scale: float, Tb: int) -> torch.Tensor:
     """Flash GQA attention of one query token per row with the TPU kernels'
     rounding points. q [B, Hq, d] bf16; k/v_hist [B, Hkv, T, d] (history
-    below ``pos``; later keys are never read); k/v_cur [B, Hkv, d] bf16, the
-    current token, folded in last. Returns acc / l, float32 [B, Hq, d]."""
+    below ``pos``, an int or one length per row; later keys are never read,
+    and blocks past a row's history leave it as it is); k/v_cur [B, Hkv, d]
+    bf16, the current token, folded in last. Returns acc / l, float32
+    [B, Hq, d]."""
     B, Hq, d = q.shape
     Hkv = k_hist.shape[1]
     qpk = Hq // Hkv
@@ -67,11 +69,13 @@ def flash_rows(q: torch.Tensor, k_hist: torch.Tensor, v_hist: torch.Tensor,
         acc = acc * alpha[..., None] + pv
         m = m_new
 
-    for t0 in range(0, pos, Tb):
+    rows = [int(p) for p in torch.as_tensor(pos).reshape(-1)]
+    lens = torch.tensor(rows, device=q.device).reshape(-1, 1, 1, 1)
+    for t0 in range(0, max(rows), Tb):
         kb = k_hist[:, :, t0:t0 + Tb].to(torch.float32)
         vb = v_hist[:, :, t0:t0 + Tb].to(torch.float32)
         s = torch.einsum("bgqd,bgtd->bgqt", qf, kb) * scale
-        valid = torch.arange(t0, t0 + kb.shape[2], device=q.device) < pos
+        valid = torch.arange(t0, t0 + kb.shape[2], device=q.device) < lens
         fold(torch.where(valid, s, _NEG_BIG), vb)
     kc = k_cur.to(torch.bfloat16).to(torch.float32)
     s_c = (qf * kc[:, :, None, :]).sum(-1, keepdim=True) * scale

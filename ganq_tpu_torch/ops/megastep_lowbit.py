@@ -1,19 +1,45 @@
-"""Gates of the plane-packed whole-step kernels (kernel 14, not ported).
+"""Whole decode step over all layers in one launch, plane-packed uniform
+weights (kernel 14), and the gates of its variants.
 
-``ganq_tpu/ops/megastep_lowbit.py`` serves homogeneous uniform W4/W3/W2/W8
-models ("w4p", "w3", "w2", "w8p") and true 8-entry 3-bit codebooks ("wl8",
-the Walsh plane expansion) at decode batch <= 64 through
-``megastep_lowbit_decode``, which the port has not yet ported (``ROADMAP.md``
-queue B). The port keeps its own copies of the gates
-(:func:`megastep_lowbit_fusable`, :func:`megastep_walsh_fusable`) and of the
-plans and tile rules they read, so that ``serve/stacked.mega_enabled``
-routes a request exactly as the JAX package does.
+The port of ``ganq_tpu/ops/megastep_lowbit.py``. ``ganq_tpu`` serves
+homogeneous uniform W4/W3/W2/W8 models ("w4p", "w3", "w2", "w8p") and true
+8-entry 3-bit codebooks ("wl8", the Walsh plane expansion) at decode batch
+<= 64 through ``megastep_lowbit_decode``. The port has the symmetric "w4p"
+and "w8p" variants: :func:`megapack_lowbit` packs the JAX package's planes
+(keys, shapes and bytes), :func:`megastep_lowbit_decode` launches
+``csrc/megastep_lowbit.cu`` (``ganq_megastep_lowbit``, one cooperative
+launch) for CUDA tensors and runs :func:`megastep_lowbit_plain` only for CPU
+tensors; ``.launches`` counts kernel calls. It raises NotImplementedError
+naming the feature for every operand of a later sub-slice: w3/w2, the Walsh
+LUTs, zero points, act-order masks, EoRA, biases, qk-norm, sandwich norms,
+windows, softcap and the trailing-unembed lm fold.
+
+The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
+product sums, over its groups in order, the group's bf16 scale times the
+exact int32 dot of the int8 activations with the centred codes ``q -
+2^(bits-1)``. Two things differ from kernel 13: rope reads its partner lane
+in float32 (the TPU kernel rotates by lane rolls, ``_rope_rot``), and the
+MLP tile comes from :func:`_mlp_plan` (4096 for w4p and 2048 for w8p at
+Llama-3.2-3B widths). The flash block Tb follows the JAX wrapper's plan,
+which may halve it where the TPU's VMEM estimate is exceeded
+(:func:`megastep_lowbit_plan`).
+
+The gates (:func:`megastep_lowbit_fusable`, :func:`megastep_walsh_fusable`)
+and the plans and tile rules they read are copies, so that
+``serve/stacked.mega_enabled`` routes a request exactly as the JAX package
+does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
+import torch
+
+from .megastep4 import (_codes, _dn_layout, _gu_layout, _scales_t,
+                        _uniform_mats, common_pack_ops, grouped_step_plain,
+                        nibble_rows)
 from .packing import pack_factor
 
 # field plans: per plane, (row_block, src_shift, width) high bits -> low
@@ -195,5 +221,389 @@ def megastep_lowbit_fusable(cfg, sp, bits: int) -> bool:
     return _qkv_tile_lb(Dqkv, cfg.head_dim, g_r) is not None
 
 
-__all__ = ["megastep_lowbit_fusable", "megastep_walsh_fusable", "_PLAN",
+# ------------------------------------------------------------------- packs
+def _plane_pack(codes: torch.Tensor, tile: int, bits: int) -> torch.Tensor:
+    """[R, K] codes -> [NP * R / g_r, K] int8 plane bytes, tile-major (the
+    JAX package's ``_plane_pack``): tile t's planes at rows
+    [t * NP * tile / g_r, ...), plane p's field f holding the tile's row
+    block [f * tile / g_r, (f + 1) * tile / g_r); each plane's top field
+    stored XOR its sign bit."""
+    plan = _PLAN[bits]
+    g_r = max(r for segs in plan for (r, _, _) in segs) + 1
+    R, K = codes.shape
+    tF = tile // g_r
+    c = codes.to(torch.int32).reshape(R // tile, g_r, tF, K)
+    planes = []
+    for segs in plan:
+        byte = None
+        for j, (row, shift, w) in enumerate(segs):
+            v = (c[:, row] >> shift) & ((1 << w) - 1)
+            if j == 0:
+                v = v ^ (1 << (w - 1))
+            byte = v if byte is None else (byte << w) | v
+        planes.append(byte)
+    out = torch.stack(planes, dim=1).reshape(R // tile * len(plan) * tF, K)
+    return ((out + 128) % 256 - 128).to(torch.int8)
+
+
+@torch.no_grad()
+def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
+    """Kernel 14's operands from a stacked model of symmetric uniform
+    ``bits``-bit fused linears (``serve/stacked.stack_layers``), byte-equal
+    to the JAX package's ``megapack_lowbit``: plane bytes ``qkv_pk``,
+    ``o_pk``, ``gu_pk`` (gate tiles, then up tiles), ``dn_pk``, bf16 scales
+    with the groups leading (``gu_s`` and ``dn_s`` tile-major), the qkv
+    bias and the norms. Bits 4 and 8; packs one layer at a time."""
+    if bits not in (4, 8):
+        raise NotImplementedError(
+            f"megapack_lowbit: {bits}-bit planes (w3/w2) are a later slice of "
+            "the port (ROADMAP.md queue B)")
+    mats = _uniform_mats(sp, bits)
+    H = cfg.hidden_size
+    _, _, _, g_r = _plan_meta(bits)
+    Dqkv = mats[0][0]["scales"].shape[0]
+    I = mats[0][2]["scales"].shape[0] // 2
+    gs = mats[0][3].in_features // mats[0][3]["scales"].shape[1]
+    tq = _qkv_tile_lb(Dqkv, cfg.head_dim, g_r)
+    ti = _mlp_plan(I, bits, H)[0]
+    out = {k: [] for k in ("qkv_pk", "qkv_s", "o_pk", "o_s", "gu_pk", "gu_s",
+                           "dn_pk", "dn_s")}
+    for qkv, o, gu, dn in mats:
+        gcodes = _codes(gu)
+        out["qkv_pk"].append(_plane_pack(_codes(qkv), tq, bits))
+        out["qkv_s"].append(_scales_t(qkv))
+        out["o_pk"].append(_plane_pack(_codes(o), H, bits))
+        out["o_s"].append(_scales_t(o))
+        out["gu_pk"].append(torch.cat([_plane_pack(gcodes[:I], ti, bits),
+                                       _plane_pack(gcodes[I:], ti, bits)]))
+        out["gu_s"].append(_gu_layout(_scales_t(gu), I, ti))
+        out["dn_pk"].append(_plane_pack(_codes(dn), H, bits))
+        out["dn_s"].append(_dn_layout(_scales_t(dn), I, ti, gs))
+    mp = {k: torch.stack(v) for k, v in out.items()}
+    mp.update(common_pack_ops(sp, mats))
+    return mp
+
+
+# -------------------------------------------------------------------- plan
+def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
+                         head_dim: int, T: int, Dqkv: int, I: int, bits: int,
+                         gs: int, block_t: int = 128,
+                         qkv_cap_mb: int = 12) -> Dict[str, int]:
+    """The JAX wrapper's run-time plan (``megastep_lowbit.py:966-1087``) for
+    a model without optional operands: the qkv tile ``tq``, the MLP tile
+    ``ti`` (baked into the pack), the tiles per grid step ``ptq``/``ptg``
+    and the flash block ``Tb``: ``block_t`` at most T, halved until it
+    divides T, then halved again (or ptg, then ptq, cut) while the TPU's
+    VMEM estimate exceeds its budget. Tb and ti set rounding points."""
+    metas, _, _, g_r = _plan_meta(bits)
+    npl = len(metas)
+    d = head_dim
+    Hq, Hkv = q_dim // d, kv_dim // d
+    tq = _qkv_tile_lb(Dqkv, d, g_r)
+    NQ = Dqkv // tq
+    Tb = min(block_t, T)
+    while T % Tb:
+        Tb //= 2
+    ti, ptg = _mlp_plan(I, bits, H)
+    NG = I // ti
+    gtp8 = -(-(ti // gs) // 8) * 8
+    Gp, Gq = H // gs, q_dim // gs
+    Bp = -(-B // 8) * 8
+
+    def _per_step(n_tiles, tile_bytes, cap):
+        for c in range(n_tiles, 0, -1):
+            if n_tiles % c == 0 and c * tile_bytes <= cap:
+                return c
+        return 1
+
+    pq0 = npl * tq // g_r
+    ptq = _per_step(NQ, pq0 * H, qkv_cap_mb * 1024 * 1024)
+    po = npl * H // g_r
+    BGp_ = -(-B * Hkv // 8) * 8
+
+    def _vmem_est(ptq_, ptg_, Tb_):
+        pq_ = ptq_ * pq0
+        pi_ = ptg_ * (npl * ti // g_r)
+        est = 2 * pq_ * H
+        est += 2 * 2 * Gp * ptq_ * tq
+        est += 2 * 4 * 2 * ptq_ * B * tq
+        est += 2 * 2 * 2 * (B * Hkv) * Tb_ * d
+        est += 2 * po * q_dim
+        est += 2 * 2 * Gq * H
+        est += 2 * 2 * pi_ * H
+        est += 2 * 2 * Gp * ptg_ * 2 * ti
+        est += 2 * po * ptg_ * ti
+        est += 2 * 2 * ptg_ * gtp8 * H
+        est += 2 * 4 * (2 * H + ptq_ * tq)
+        est += 2 * B * H + 2 * 2 * 2 * B * kv_dim + 4 * BGp_ * 128
+        est += 2 * B * H
+        est += (4 * B * H + B * H + 4 * Bp * 128
+                + 2 * (Hq + 2 * Hkv) * Bp * d + 4 * Hq * Bp * d
+                + 2 * 4 * Hq * Bp * 128 + Bp * max(q_dim, ti) + 4 * B * H)
+        return est
+
+    def _down(c, n):
+        for c2 in range(c - 1, 0, -1):
+            if n % c2 == 0:
+                return c2
+        return 1
+
+    budget = 108 * 1024 * 1024
+    while _vmem_est(ptq, ptg, Tb) > budget:
+        if Tb > 16:
+            Tb //= 2
+        elif ptg > 1:
+            ptg = _down(ptg, NG)
+        elif ptq > 1:
+            ptq = _down(ptq, NQ)
+        else:
+            break
+    return {"tq": tq, "ti": ti, "ptq": ptq, "ptg": ptg, "Tb": Tb}
+
+
+def _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
+             qkv_cap_mb):
+    _, _, _, g_r = _plan_meta(bits)
+    H = x.shape[1]
+    return megastep_lowbit_plan(
+        x.shape[0], H, q_dim, kv_dim, head_dim, k_cache.shape[2],
+        mp["qkv_pk"].shape[1] * g_r, mp["gu_s"].shape[2] // 2, bits,
+        H // mp["qkv_s"].shape[1], block_t, qkv_cap_mb)
+
+
+# --------------------------------------------------------------- the step
+def _plane_codes(pk: torch.Tensor, tile: int, bits: int) -> torch.Tensor:
+    """Centred codes ``q - 2^(bits-1)`` [R, K] of 4- or 8-bit planes: an
+    8-bit plane byte read signed is the centred code; a 4-bit plane holds
+    the tile's first row block in its high nibble."""
+    if bits == 8:
+        return pk.to(torch.int32)
+    return nibble_rows(pk, tile, True)
+
+
+def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
+                  gs: int):
+    """Layer l's decoded operands of a :func:`megapack_lowbit` pack."""
+    H = mp["o_s"].shape[2]
+    I = mp["gu_s"].shape[2] // 2
+    NG = I // ti
+    gtp = mp["dn_s"].shape[1] // NG
+    Pi = mp["gu_pk"].shape[1] // 2
+
+    def ops(l):
+        gpk = mp["gu_pk"][l]
+        gsc = mp["gu_s"][l].reshape(-1, NG, 2, ti)
+        return {
+            "qkv": (_plane_codes(mp["qkv_pk"][l], tq, bits), mp["qkv_s"][l]),
+            "o": (_plane_codes(mp["o_pk"][l], H, bits), mp["o_s"][l]),
+            "gate": (_plane_codes(gpk[:Pi], ti, bits),
+                     gsc[:, :, 0].reshape(-1, I)),
+            "up": (_plane_codes(gpk[Pi:], ti, bits),
+                   gsc[:, :, 1].reshape(-1, I)),
+            "down": (_plane_codes(mp["dn_pk"][l], H, bits),
+                     mp["dn_s"][l].reshape(NG, gtp, H)[:, :ti // gs]
+                     .reshape(I // gs, H)),
+            "bias": mp["qkv_bias"][l, 0], "attn_norm": mp["attn_norm"][l, 0],
+            "mlp_norm": mp["mlp_norm"][l, 0]}
+    return ops
+
+
+def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
+                          k_cache: torch.Tensor, v_cache: torch.Tensor, pos,
+                          cos_half: Optional[torch.Tensor],
+                          sin_half: Optional[torch.Tensor], *, q_dim: int,
+                          kv_dim: int, head_dim: int, rotary_dim: int = 0,
+                          interleaved: bool = False, eps: float = 1e-5,
+                          rms_offset: float = 0.0, scale: float = 1.0,
+                          act: str = "silu", block_t: int = 128,
+                          bits: int = 4, qkv_cap_mb: int = 12):
+    """Plain version of kernel 14 ("w4p", "w8p"), with the kernel's
+    arithmetic. Shapes as :func:`megastep_lowbit_decode`."""
+    plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
+                    qkv_cap_mb)
+    gs = x.shape[1] // mp["qkv_s"].shape[1]
+    return grouped_step_plain(
+        x, _layer_ops_lb(mp, bits, plan["tq"], plan["ti"], gs),
+        mp["qkv_pk"].shape[0], k_cache, v_cache, pos, cos_half, sin_half,
+        q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim, rotary_dim=rotary_dim,
+        interleaved=interleaved, eps=eps, rms_offset=rms_offset, scale=scale,
+        act=act, Tb=plan["Tb"], ti=plan["ti"], gs=gs, partner_bf16=False)
+
+
+# operands of kernel 14's later sub-slices and what each serves
+_LATER_OPERANDS = {"qkv_sz": "asym zero points", "ap_q": "act-order masks",
+                   "la_q": "EoRA adapters", "qk_nm": "qk-norm",
+                   "pa_norm": "sandwich norms",
+                   "o_bias": "o/gate-up/down biases"}
+
+
+def _later_feature(mp, bits: int, softcap=0.0, windows=None,
+                   rope_sel=None, lm=None, walsh: int = 0) -> Optional[str]:
+    """The first feature of a kernel 14 call that a later slice of the port
+    brings, or None."""
+    if walsh:
+        return "the Walsh LUT planes (wl8)"
+    if bits not in (4, 8):
+        return f"{bits}-bit planes (w3/w2)"
+    for key, what in _LATER_OPERANDS.items():
+        if key in mp:
+            return what
+    if windows is not None:
+        return "sliding windows"
+    if softcap:
+        return "the attention softcap"
+    if rope_sel is not None:
+        return "dual rope tables"
+    if lm is not None:
+        return "the trailing-unembed lm fold"
+    return None
+
+
+def pos_vector(pos, B: int, device) -> torch.Tensor:
+    """Per-slot positions [B] int32 on ``device`` from a host int, a 0-d or
+    a [B] tensor."""
+    p = torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1)
+    return p.expand(B).contiguous()
+
+
+def rope_rows_for(cos_half, sin_half, B: int, rotary_dim: int, device):
+    """cos/sin [B, rotary_dim / 2] float32 (a [half] table serves every
+    slot), or (None, None) without rope."""
+    if not rotary_dim:
+        return None, None
+    half = rotary_dim // 2
+    return tuple(t.to(device=device, dtype=torch.float32).reshape(-1, half)
+                 .expand(B, half).contiguous() for t in (cos_half, sin_half))
+
+
+def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
+                   mp: Dict[str, torch.Tensor], keys: Dict[str, str],
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, pos,
+                   cos_half, sin_half, *, bits: int, kmajor: bool, tq: int,
+                   ti: int, gs: int, Tb: int, q_dim: int, kv_dim: int,
+                   head_dim: int, rotary_dim: int, interleaved: bool,
+                   eps: float, rms_offset: float, scale: float, act: str):
+    """Check the operands of a whole-step kernel 13 or 14 call and launch it
+    (``csrc/<library>.cu``). ``keys`` names the pack's code operands. The
+    kernel reads x and writes y in float32; y is returned in x's type."""
+    from .w8a8_args import ACT_CODES, launch
+
+    B, H = x.shape
+    d = head_dim
+    Hkv = kv_dim // d
+    F = 2 if bits == 4 else 1
+    qkv_pk, o_pk, gu_pk, dn_pk = (mp[keys[k]] for k in ("qkv", "o", "gu",
+                                                        "dn"))
+    L = qkv_pk.shape[0]
+    Dqkv = qkv_pk.shape[1] * F
+    I = mp["gu_s"].shape[2] // 2
+    T = k_cache.shape[2]
+    rd = rotary_dim or 0
+    if (d != 128 or Dqkv != q_dim + 2 * kv_dim or (q_dim // d) % Hkv
+            or q_dim // d // Hkv > 8 or H % (128 * F) or gs % 128
+            or H % gs or q_dim % gs or ti % gs or I % ti or Tb > 256
+            or T % Tb or rd % 2 or rd > d or act not in ACT_CODES):
+        raise ValueError(f"{what}: head_dim 128, at most 8 query heads per kv "
+                         "head, 128-multiple groups and tiles")
+    if (k_cache.shape != (L, B * Hkv, T, d) or v_cache.shape != k_cache.shape
+            or k_cache.dtype != torch.bfloat16
+            or v_cache.dtype != torch.bfloat16
+            or not k_cache.is_contiguous() or not v_cache.is_contiguous()):
+        raise ValueError(f"{what}: contiguous bf16 caches [L, B * Hkv, T, d]")
+    for name, t in ((keys["qkv"], qkv_pk), (keys["o"], o_pk),
+                    (keys["gu"], gu_pk), (keys["dn"], dn_pk)):
+        if t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous int8")
+    for name in ("qkv_s", "o_s", "gu_s", "dn_s"):
+        if mp[name].dtype != torch.bfloat16 or not mp[name].is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous bf16")
+    dev = x.device
+    ng = I // ti
+    cos_t, sin_t = rope_rows_for(cos_half, sin_half, B, rd, dev)
+    y = torch.empty((B, H), dtype=torch.float32, device=dev)
+    kn = torch.empty((L, B, kv_dim), dtype=torch.bfloat16, device=dev)
+    vn = torch.empty((L, B, kv_dim), dtype=torch.bfloat16, device=dev)
+    scratch = functools.partial(torch.empty, device=dev)
+    launch(library, symbol, what, dict(
+        x=x.to(torch.float32).contiguous(), attn_norm=mp["attn_norm"],
+        mlp_norm=mp["mlp_norm"], qkv_bias=mp["qkv_bias"], cos_half=cos_t,
+        sin_half=sin_t, k_cache=k_cache, v_cache=v_cache,
+        pos=pos_vector(pos, B, dev), qkv_pk=qkv_pk, o_pk=o_pk, gu_pk=gu_pk,
+        dn_pk=dn_pk, qkv_gs=mp["qkv_s"], o_gs=mp["o_s"], gu_gs=mp["gu_s"],
+        dn_gs=mp["dn_s"], y=y, kn=kn, vn=vn,
+        qkv_out=scratch((B, Dqkv), dtype=torch.bfloat16),
+        x8=scratch((B, H), dtype=torch.int8),
+        sx=scratch((B,), dtype=torch.float32),
+        xs=scratch((B, H), dtype=torch.float32),
+        act_a=scratch((B, I), dtype=torch.float32),
+        amax=scratch((B, ng), dtype=torch.int32),
+        a8=scratch((B, max(q_dim, I)), dtype=torch.int8),
+        attn=scratch((B, q_dim), dtype=torch.float32),
+        attn_amax=scratch((B * Hkv,), dtype=torch.float32),
+        partf=(scratch((max(q_dim, I) // gs, B, H), dtype=torch.float32)
+               if kmajor else None)), dev,
+        B=B, H=H, q_dim=q_dim, kv_dim=kv_dim, d=d, rd=rd,
+        interleaved=int(interleaved), I=I, ti=ti, T=T, Tb=Tb, L=L,
+        act=ACT_CODES[act], eps=eps, rms_offset=rms_offset, scale=scale,
+        cache_sb=Hkv * T * d, cache_sg=T * d, cache_st=d,
+        cache_sl=B * Hkv * T * d, gs=gs, bits=bits, tq=tq,
+        gtp=mp["dn_s"].shape[1] // ng, cos_ld=rd // 2, kmajor=int(kmajor))
+    return y.to(x.dtype), kn, vn
+
+
+def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos, cos_half: Optional[torch.Tensor],
+                           sin_half: Optional[torch.Tensor], *, q_dim: int,
+                           kv_dim: int, head_dim: int, rotary_dim: int = 0,
+                           interleaved: bool = False, eps: float = 1e-5,
+                           rms_offset: float = 0.0, scale: float = 1.0,
+                           act: str = "silu", block_t: int = 128,
+                           bits: int = 3, softcap: float = 0.0, windows=None,
+                           rope_sel=None, lm=None, walsh: int = 0,
+                           qkv_cap_mb: int = 12):
+    """Kernel 14, one decode step over all layers ("w4p" at ``bits=4``,
+    "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
+    ``mp`` from :func:`megapack_lowbit`; k/v_cache [L, B * Hkv, T, d] bf16
+    (slot b's history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B]
+    int tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at
+    each slot's position. Returns (y [B, H], the hidden state before the
+    final norm, in x's type; k_new and v_new [L, B, kv_dim] bf16). The other
+    arguments are the JAX wrapper's; each of them, and every optional
+    operand of ``mp``, raises NotImplementedError naming its feature."""
+    B, H = x.shape
+    if B > 64:
+        raise ValueError("megastep_lowbit_decode: B <= 64")
+    later = _later_feature(mp, bits, softcap, windows, rope_sel, lm, walsh)
+    if later:
+        raise NotImplementedError(
+            f"megastep_lowbit_decode: {later} comes with a later slice of the "
+            "port (ROADMAP.md queue B)")
+    if x.device.type == "cpu":
+        return megastep_lowbit_plain(x, mp, k_cache, v_cache, pos, cos_half,
+                                     sin_half, q_dim=q_dim, kv_dim=kv_dim,
+                                     head_dim=head_dim, rotary_dim=rotary_dim,
+                                     interleaved=interleaved, eps=eps,
+                                     rms_offset=rms_offset, scale=scale,
+                                     act=act, block_t=block_t, bits=bits,
+                                     qkv_cap_mb=qkv_cap_mb)
+    plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
+                    qkv_cap_mb)
+    y, kn, vn = launch_grouped(
+        "megastep_lowbit", "ganq_megastep_lowbit", "megastep_lowbit_decode",
+        x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},
+        k_cache, v_cache, pos, cos_half, sin_half, bits=bits, kmajor=False,
+        tq=plan["tq"], ti=plan["ti"], gs=H // mp["qkv_s"].shape[1],
+        Tb=plan["Tb"], q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim,
+        rotary_dim=rotary_dim, interleaved=interleaved, eps=eps,
+        rms_offset=rms_offset, scale=scale, act=act)
+    megastep_lowbit_decode.launches += 1
+    return y, kn, vn
+
+
+megastep_lowbit_decode.launches = 0
+
+__all__ = ["megastep_lowbit_decode", "megastep_lowbit_plain",
+           "megapack_lowbit", "megastep_lowbit_plan",
+           "megastep_lowbit_fusable", "megastep_walsh_fusable", "_PLAN",
            "_plan_meta", "_mlp_plan"]

@@ -1,8 +1,10 @@
-"""The argument block of the fused W8A8 decode kernels (kernels 9-12).
+"""The argument block of the fused decode kernels (kernels 9-14).
 
 ``csrc/w8a8_fused.cuh`` declares the same struct, ``W8A8Args``; each C entry
 point (``ganq_fused_mlp``, ``ganq_fused_qkv_rope``, ``ganq_attn_half``,
-``ganq_megastep_w8``) takes a pointer to one. Field order and types must
+``ganq_megastep_w8``, ``ganq_megastep4``, ``ganq_megastep_lowbit``) takes a
+pointer to one; the group-scaled kernels 13 and 14 read the fields after
+``x_bf16`` and after ``part`` too. Field order and types must
 match the header's. Pointers are tensors' ``data_ptr()`` (0 for an unused
 field); the kernels read and write them on the caller's stream, so every
 tensor named here must stay alive until the launch has been enqueued, which
@@ -20,14 +22,16 @@ from . import cuda_lib
 
 _INTS = ("B", "H", "Kx", "q_dim", "kv_dim", "d", "rd", "interleaved", "qkv_ld",
          "o_rows", "I", "ti", "down_ld", "T", "Tb", "L", "fold_norm", "act",
-         "x_bf16")
+         "x_bf16", "gs", "bits", "tq", "gtp", "cos_ld", "kmajor")
 _FLOATS = ("eps", "rms_offset", "scale")
 _STRIDES = ("cache_sb", "cache_sg", "cache_st", "cache_sl")
 _POINTERS = ("x", "attn_norm", "mlp_norm", "qkv_w8", "qkv_scale", "qkv_bias",
              "cos_half", "sin_half", "k_cache", "v_cache", "pos", "o_t_w8",
              "o_t_scale", "gateup_w8", "gateup_scale", "down_w8",
              "down_scale", "y", "qkv_out", "kn", "vn", "x8", "sx", "xs",
-             "act_a", "amax", "a8", "attn", "attn_amax", "o32", "part")
+             "act_a", "amax", "a8", "attn", "attn_amax", "o32", "part",
+             "qkv_pk", "o_pk", "gu_pk", "dn_pk", "qkv_gs", "o_gs", "gu_gs",
+             "dn_gs", "partf")
 
 ACT_CODES = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 

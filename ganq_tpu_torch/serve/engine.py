@@ -12,11 +12,11 @@ model of more than one layer through the stacked layout
 ``lut`` linear whose codebook lies on an affine grid into a ``uniform``
 linear and fuses each layer's rows, and ``prepack`` (at batch 1, as there)
 packs the whole-step megastep's operands. Requests then take the fused
-kernels and the megastep where the JAX engine's gates send them. Where its
-gate picks a whole-step kernel the port does not have yet (kernels 13 and
-14: :func:`stacked_only_kernel`), the engine raises; ``layout="perlayer"``
-serves the model as given, layer by layer, as the JAX engine's
-``layout="perlayer"`` does.
+kernels and the megasteps (kernels 12-14) where the JAX engine's gates send
+them. Where its gate picks a whole-step variant the port does not have yet
+(kernel 14's later sub-slices: :func:`stacked_only_kernel`), the engine
+raises; ``layout="perlayer"`` serves the model as given, layer by layer, as
+the JAX engine's ``layout="perlayer"`` does.
 """
 
 from __future__ import annotations
@@ -36,17 +36,18 @@ Cache = List[Dict[str, torch.Tensor]]
 def stacked_only_kernel(cfg: ModelConfig, sp: Optional[Model], backend: str,
                         batch: int, max_new_tokens: int,
                         device="cuda") -> Optional[str]:
-    """The whole-step kernel that the JAX engine's stacked layout runs for
-    this request and the port has not ported, or None: where
-    ``serve/stacked.mega_enabled`` picks a variant of kernel 13 (``"w4"``)
-    or kernel 14 (``"w4p"``, ``"w3"``, ``"w2"``, ``"w8p"``, ``"wl8"``) and
-    the request decodes. ``sp`` is the engine's stacked model."""
+    """What of the whole-step kernel that the JAX engine's stacked layout
+    runs for this request the port has not ported, or None: where the
+    request decodes and ``serve/stacked.mega_enabled`` picks a variant that
+    ``serve/stacked.missing_kernel`` names (kernel 14's "w3", "w2" and
+    "wl8", and its later sub-slices' operands). ``sp`` is the engine's
+    stacked model."""
     from . import stacked
 
     if max_new_tokens <= 1:
         return None
     return stacked.missing_kernel(
-        stacked.mega_enabled(cfg, sp, backend, batch, device))
+        cfg, sp, stacked.mega_enabled(cfg, sp, backend, batch, device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
@@ -174,7 +175,7 @@ class Engine:
             try:
                 sp = stacked.prepack(cfg, sp, self.backend, 1, self.device)
             except NotImplementedError:
-                # a kernel-13/14 variant: its requests raise in _prepare
+                # a later kernel-14 variant: its requests raise in generate
                 sp = stacked.certify_stacked(sp)
         if layout == "stacked" and sp is None:
             raise ValueError("layout='stacked' requires homogeneous layer "

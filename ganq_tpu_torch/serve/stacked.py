@@ -1,26 +1,29 @@
-"""The stacked serving layout: fused layers and the whole-step megastep.
+"""The stacked serving layout: fused layers and the whole-step megasteps.
 
 The port of ``ganq_tpu/serve/stacked.py``. The JAX package stacks the layer
 parameters with a leading layer axis and scans one layer body over them;
 PyTorch needs no scan, so here "stacked" is a model whose layers are fused
 (:func:`fuse_layer`: q/k/v rows into one ``qkv`` linear, gate/up into
 ``gateup``, and the transposed int8 o weight), served by a Python loop over
-the layers, plus the megastep's ``[L, ...]`` operands (:func:`prepack`).
+the layers, plus the megasteps' ``[L, ...]`` operands (:func:`prepack`).
 Fusing rows changes no row's numbers.
 
 Routing follows the JAX package's. :func:`mega_enabled` picks the whole-step
 variant of a request from the gates of the whole-step kernels, in the JAX
-order: ``"w8"`` is kernel 12 (ported, ``ops/megastep.py``); ``"w4"`` is
-kernel 13 and ``"w4p"``, ``"w3"``, ``"w2"``, ``"w8p"`` and ``"wl8"`` are
-kernel 14, which the port does not have yet (``ROADMAP.md`` queue B). The
-decode steps of a request with a variant run the megastep once per step; the
-others, and every prefill, run the layers one by one
-(``models/transformer.layer_forward``), where the fused MLP (kernel 9) and
-the opt-in kernels 10 and 11 live. The environment switches
+order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
+(``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
+(``ops/megastep_lowbit.py``); kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"``,
+and its variants with optional operands (zero points, act-order, EoRA,
+biases, the lm fold), come with later slices (:func:`missing_kernel`,
+``ROADMAP.md`` queue B). The decode steps of a request with a variant run
+the megastep once per step; the others, and every prefill, run the layers
+one by one (``models/transformer.layer_forward``), where the fused MLP
+(kernel 9) and the opt-in kernels 10 and 11 live. The environment switches
 (``GANQ_MEGASTEP``, ``GANQ_LUT_AFFINE``, ``GANQ_W8_PLANE``, ``GANQ_WALSH``,
-``GANQ_W4_PLANE``) are the JAX package's, read when a request is resolved.
-The megastep is on by default for ``"cuda_a8"`` on the card; on the CPU
-only with ``GANQ_MEGASTEP=1`` (then its plain version runs).
+``GANQ_W4_PLANE``, ``GANQ_LM_FOLD``) are the JAX package's, read when a
+request is resolved. The megastep is on by default for ``"cuda_a8"`` on the
+card; on the CPU only with ``GANQ_MEGASTEP=1`` (then its plain version
+runs).
 """
 
 from __future__ import annotations
@@ -40,12 +43,17 @@ from .engine import decode_step as _decode_layers
 from .engine import prefill as _prefill_layers
 from .engine import sample
 
-# whole-step variants and the kernel that serves each
+# whole-step variants and the kernel that serves each; kernel 14's variants
+# by their plane bits (``stacked.py:195``)
+_LB_BITS = {"w4p": 4, "w3": 3, "w2": 2, "w8p": 8, "wl8": 3}
 _KERNEL_OF = {"w8": "megastep_decode_w8a8 (kernel 12)",
               "w4": "megastep4_decode (kernel 13)"}
-_LB_VARIANTS = ("w4p", "w3", "w2", "w8p", "wl8")
-for _v in _LB_VARIANTS:
+for _v in _LB_BITS:
     _KERNEL_OF[_v] = f"megastep_lowbit_decode (kernel 14, variant {_v!r})"
+# the variants the port serves, and the attribute of the stacked model that
+# keeps each one's pack
+_PACK_ATTR = {"w8": "megapack_w8", "w4": "megapack4", "w4p": "megapack_lb",
+              "w8p": "megapack_lb"}
 
 
 def _layer(lp: Layer, attn: Dict[str, QLinear], mlp: Dict[str, QLinear],
@@ -136,7 +144,8 @@ def certify_stacked(sp: Model) -> Model:
     out = Model(sp.embed_tokens.weight, sp.final_norm.weight,
                 [_map_linears(lp, _certified) for lp in sp.layers],
                 _certified(lm) if isinstance(lm, QLinear) else lm)
-    out.megapack_w8 = getattr(sp, "megapack_w8", None)
+    for attr in set(_PACK_ATTR.values()):
+        setattr(out, attr, getattr(sp, attr, None))
     return out
 
 
@@ -205,11 +214,72 @@ def mega_enabled(cfg: ModelConfig, sp: Optional[Model], backend: str,
     return None
 
 
-def missing_kernel(variant: Optional[str]) -> Optional[str]:
-    """The unported kernel that serves ``variant``, or None."""
-    if variant is None or variant == "w8":
+def _lb_kv_dim(cfg: ModelConfig, mp, bits: int) -> int:
+    from ..ops.megastep_lowbit import _plan_meta
+
+    metas, _, _, g_r = _plan_meta(bits)
+    return (mp["qkv_pk"].shape[1] * g_r // len(metas) - cfg.q_dim) // 2
+
+
+def lm_fold_engages(cfg: ModelConfig, sp: Model) -> bool:
+    """Whether the JAX package's kernel 14 call folds the final norm and the
+    lm_head into the step (``mega_lm_operands``, ``megastep_lowbit.py:
+    1870``, unless ``GANQ_LM_FOLD=0``): a ``w8`` lm_head without bias with
+    one scale per row and a vocabulary tile of at most 4 MB."""
+    if os.environ.get("GANQ_LM_FOLD", "1") == "0":
+        return False
+    lm = sp.lm_head
+    if not isinstance(lm, QLinear) or lm.kind != "w8" or "bias" in lm:
+        return False
+    V, H = lm["w8"].shape
+    if lm["scale"].numel() != V:
+        return False
+    return any(V % tv == 0 and tv * H <= 4 * 1024 * 1024
+               for tv in (4096, 2048, 1024, 512, 256, 128))
+
+
+def _later_operands(sp: Model) -> Optional[str]:
+    """The first operand of the stacked layers that kernel 14's later
+    sub-slices bring (zero points, act-order, EoRA, o/gate-up/down
+    biases), or None."""
+    lp = sp.layers[0]
+    mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
+    for key, what in (("zeros", "asym zero points"), ("g_idx", "act-order"),
+                      ("lora_a", "EoRA adapters")):
+        if any(key in m for m in mats):
+            return what
+    if any("bias" in m for m in mats[1:]):
+        return "o/gate-up/down biases"
+    return None
+
+
+def missing_kernel(cfg: ModelConfig, sp: Optional[Model],
+                   variant: Optional[str]) -> Optional[str]:
+    """What of the whole-step kernel that serves ``variant`` on ``sp`` the
+    port has not ported, or None: kernel 14's "w3", "w2" and "wl8" variants,
+    and "w4p"/"w8p" with an operand of a later sub-slice or where the JAX
+    package folds the lm_head into the step."""
+    if variant is None or variant in ("w8", "w4"):
         return None
-    return _KERNEL_OF[variant]
+    if variant not in _PACK_ATTR:
+        return _KERNEL_OF[variant]
+    feature = _later_operands(sp)
+    if feature is None and lm_fold_engages(cfg, sp):
+        feature = "the trailing-unembed lm fold"
+    return f"{_KERNEL_OF[variant]} with {feature}" if feature else None
+
+
+def _pack(cfg: ModelConfig, sp: Model, variant: str):
+    from ..ops.megastep import megapack
+    from ..ops.megastep4 import megapack4
+    from ..ops.megastep_lowbit import megapack_lowbit
+
+    with torch.no_grad():
+        if variant == "w8":
+            return megapack(cfg, sp)
+        if variant == "w4":
+            return megapack4(cfg, sp)
+        return megapack_lowbit(cfg, sp, _LB_BITS[variant])
 
 
 def prepack(cfg: ModelConfig, sp: Model, backend: str, batch: int,
@@ -217,36 +287,36 @@ def prepack(cfg: ModelConfig, sp: Model, backend: str, batch: int,
     """Certify the stacked model (``GANQ_LUT_AFFINE=0`` opts out), convert
     ``w8`` to uniform 8-bit for batches above 8 (``GANQ_W8_PLANE=0`` opts
     out), and pack the megastep's operands once for the variant this batch
-    takes: ``"w8"`` sets ``sp.megapack_w8``; a variant of an unported
-    kernel raises NotImplementedError naming it."""
+    takes, one pack per kernel (``sp.megapack_w8``, ``sp.megapack4``,
+    ``sp.megapack_lb``); a variant or an operand of a later slice raises
+    NotImplementedError naming it."""
     if os.environ.get("GANQ_LUT_AFFINE", "1") != "0":
         sp = certify_stacked(sp)
     if (mega_env_enabled(backend, batch, device) and batch > 8
             and os.environ.get("GANQ_W8_PLANE", "1") != "0"):
         sp = w8p_stacked(sp)
     variant = mega_enabled(cfg, sp, backend, batch, device)
-    missing = missing_kernel(variant)
+    missing = missing_kernel(cfg, sp, variant)
     if missing:
         raise NotImplementedError(
             f"the whole-step variant {variant!r} runs {missing}, which the "
             "port does not have yet (ROADMAP.md queue B)")
-    if variant == "w8" and getattr(sp, "megapack_w8", None) is None:
-        from ..ops.megastep import megapack
-        with torch.no_grad():
-            sp.megapack_w8 = megapack(cfg, sp)
+    if variant and getattr(sp, _PACK_ATTR[variant], None) is None:
+        setattr(sp, _PACK_ATTR[variant], _pack(cfg, sp, variant))
     return sp
 
 
 def _mega_pack_for(cfg: ModelConfig, sp: Model, variant: str):
-    """The prepacked megastep operands for ``variant`` (packed here when
-    :func:`prepack` did not)."""
-    missing = missing_kernel(variant)
+    """The prepacked megastep operands for ``variant`` (packed here, and
+    kept, when :func:`prepack` did not: ``GANQ_W4_PLANE=0`` sends a model
+    prepacked for "w4p" to kernel 13)."""
+    missing = missing_kernel(cfg, sp, variant)
     if missing:
         raise NotImplementedError(f"{missing} is not ported yet")
-    mp = getattr(sp, "megapack_w8", None)
+    mp = getattr(sp, _PACK_ATTR[variant], None)
     if mp is None:
-        from ..ops.megastep import megapack
-        mp = megapack(cfg, sp)
+        mp = _pack(cfg, sp, variant)
+        setattr(sp, _PACK_ATTR[variant], mp)
     return mp
 
 
@@ -293,24 +363,44 @@ def decode_step(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
 
 def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
                      cv: torch.Tensor, token: torch.Tensor, pos: torch.Tensor,
-                     backend: str) -> torch.Tensor:
-    """One decode step through the megastep (the ``"w8"`` variant). ck/cv in
-    the megastep layout, updated in place with the step's k/v at ``pos``
-    after the kernel; then the full-precision unembed."""
+                     backend: str, variant: str = "w8") -> torch.Tensor:
+    """One decode step through the whole-step kernel of ``variant`` (kernel
+    12 for "w8", 13 for "w4", 14 for "w4p"/"w8p"). ck/cv in the megastep
+    layout, updated in place with the step's k/v at ``pos`` after the
+    kernel; then the full-precision unembed. Where the JAX package folds the
+    lm_head into kernel 14's step it raises (``GANQ_LM_FOLD=0`` serves the
+    step without the fold, as the JAX package then does)."""
     from ..ops.megastep import megastep_decode_w8a8
+    from ..ops.megastep4 import megastep4_decode
+    from ..ops.megastep_lowbit import megastep_lowbit_decode
 
     b = token.shape[0]
     L = ck.shape[0]
     d = cfg.head_dim
-    kv_dim = (mp["qkv_w8"].shape[1] - cfg.q_dim) // 2
+    kw = {}
+    if variant == "w4":
+        kv_dim = (mp["qkv_p4"].shape[1] * 2 - cfg.q_dim) // 2
+        step_fn = megastep4_decode
+    elif variant in _LB_BITS:
+        if lm_fold_engages(cfg, sp):
+            raise NotImplementedError(
+                f"{_KERNEL_OF[variant]} with the trailing-unembed lm fold "
+                "comes with a later slice of the port (ROADMAP.md queue A "
+                "item 4); GANQ_LM_FOLD=0 serves the step without it")
+        kv_dim = _lb_kv_dim(cfg, mp, _LB_BITS[variant])
+        step_fn = megastep_lowbit_decode
+        kw["bits"] = _LB_BITS[variant]
+    else:
+        kv_dim = (mp["qkv_w8"].shape[1] - cfg.q_dim) // 2
+        step_fn = megastep_decode_w8a8
     positions = pos.reshape(1, 1).expand(b, 1)
     x = embed(sp, token[:, None])[:, 0, :]
     rd, cos_h, sin_h = _rope_half_tables(cfg, rope_tables(cfg, positions))
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(d)
-    y, kn, vn = megastep_decode_w8a8(
+    y, kn, vn = step_fn(
         x, mp, ck, cv, pos, cos_h, sin_h, q_dim=cfg.q_dim, kv_dim=kv_dim,
         head_dim=d, rotary_dim=rd, eps=cfg.norm_eps, scale=scale,
-        act=_fused_act_kind(cfg))
+        act=_fused_act_kind(cfg), **kw)
     at = pos.reshape(1).to(torch.int64)
     ck.index_copy_(2, at, kn.reshape(L, -1, 1, d).to(ck.dtype))
     cv.index_copy_(2, at, vn.reshape(L, -1, 1, d).to(cv.dtype))
@@ -342,7 +432,8 @@ def generate_tokens(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
         ck, cv = _mega_cache(cache_k, cache_v)
 
         def step(t, p):
-            return _decode_one_mega(cfg, sp, mp, ck, cv, t, p, backend)
+            return _decode_one_mega(cfg, sp, mp, ck, cv, t, p, backend,
+                                    variant)
     else:
         def step(t, p):
             return decode_step(cfg, sp, cache_k, cache_v, t, p, backend)
@@ -368,5 +459,5 @@ def greedy_decode(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
 
 __all__ = ["fuse_layer", "recode_layer_w8", "recode_layer_affine",
            "stack_layers", "certify_stacked", "w8p_stacked", "mega_enabled",
-           "mega_env_enabled", "missing_kernel", "prepack", "prefill",
+           "mega_env_enabled", "missing_kernel", "lm_fold_engages", "prepack", "prefill",
            "decode_step", "generate_tokens", "greedy_decode", "init_cache"]

@@ -615,3 +615,113 @@ def test_megastep_matches_plain(gen, L, H, q_dim, kv_dim, I, B, T, pos):
     _close(kn, pk, 5e-3, "megastep k_new")
     _close(vn, pv, 5e-3, "megastep v_new")
     _close(y, py, 5e-3, f"megastep y L={L} B={B} pos={pos}")
+
+
+# ------------------------------------------------ kernels 13 and 14
+from ganq_tpu_torch.ops.megastep4 import (_mlp_tile4, _qkv_tile4,
+                                          megastep4_decode, megastep4_plain)
+from ganq_tpu_torch.ops.megastep_lowbit import (_mlp_plan,
+                                                megastep_lowbit_decode,
+                                                megastep_lowbit_plain)
+
+
+def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128):
+    """Random whole-step operands in the layouts of kernel 13's megapack4
+    (``kmajor``) or kernel 14's megapack_lowbit: any byte is a valid code
+    byte. The o and down scales are a tenth of the others' (residual-
+    dominated layers, as trained models are), so that an int8 activation
+    flipped at a rounding tie does not snowball through the layers."""
+    Dqkv = q_dim + 2 * kv_dim
+    F = 2 if bits == 4 else 1
+    ti = _mlp_tile4(I) if kmajor else _mlp_plan(I, bits, H)[0]
+    gtp = -(-(ti // gs) // 8) * 8
+    unit = 16.0 if bits == 4 else 1.0
+
+    def codes(*shape):
+        return torch.randint(-128, 128, (L, *shape), generator=gen,
+                             device="cuda", dtype=torch.int32).to(torch.int8)
+
+    def scales(*shape, lo=1e-4):
+        return ((torch.rand((L, *shape), generator=gen, device="cuda") * 3
+                 + 1) * lo * unit).to(torch.bfloat16)
+
+    mp = {"attn_norm": torch.rand((L, 1, H), generator=gen, device="cuda")
+          + 0.5,
+          "mlp_norm": torch.rand((L, 1, H), generator=gen, device="cuda")
+          + 0.5,
+          "qkv_bias": torch.randn((L, 1, Dqkv), generator=gen, device="cuda")
+          * 0.05,
+          "qkv_s": scales(H // gs, Dqkv), "o_s": scales(q_dim // gs, H,
+                                                        lo=1e-5),
+          "gu_s": scales(H // gs, 2 * I),
+          "dn_s": scales(I // ti * gtp, H, lo=1e-5)}
+    if kmajor:
+        mp.update(qkv_p4=codes(Dqkv // 2, H), o_p4=codes(q_dim, H // 2),
+                  gu_p4=codes(I, H), dn_p4=codes(I, H // 2))
+    else:
+        mp.update(qkv_pk=codes(Dqkv // F, H), o_pk=codes(H // F, q_dim),
+                  gu_pk=codes(2 * I // F, H), dn_pk=codes(H // F, I))
+    return mp
+
+
+def _grouped_step(gen, L, H, kv_dim, B, T, pos):
+    Hkv = kv_dim // 128
+    kc = (torch.randn((L, B * Hkv, T, 128), generator=gen, device="cuda")
+          * 0.5).to(torch.bfloat16)
+    vc = (torch.randn((L, B * Hkv, T, 128), generator=gen, device="cuda")
+          * 0.5).to(torch.bfloat16)
+    for b, p in enumerate(pos):                     # never attended
+        kc[:, b * Hkv:(b + 1) * Hkv, p:] = 23.0
+        vc[:, b * Hkv:(b + 1) * Hkv, p:] = -7.0
+    x = torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16)
+    return x, kc, vc
+
+
+_GROUPED_SHAPES = [(2, 256, 256, 128, 512), (2, 3072, 3072, 1024, 8192)]
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 64])
+@pytest.mark.parametrize("T,pos0", [(64, 0), (64, 50), (512, 300)])
+def test_megastep_lowbit_matches_plain(gen, L, H, q_dim, kv_dim, I, bits, B,
+                                       T, pos0):
+    mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False)
+    pos = [(pos0 + 7 * b) % (T - 1) if pos0 else 0 for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=bits)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = megastep_lowbit_decode.launches
+    y, kn, vn = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin, **kw)
+    assert megastep_lowbit_decode.launches == before + 1
+    py, pk, pv = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, **kw)
+    torch.cuda.synchronize()
+    what = f"megastep_lowbit bits={bits} H={H} B={B} pos={pos0}"
+    _close(kn, pk, 5e-3, what + " k_new")
+    _close(vn, pv, 5e-3, what + " v_new")
+    _close(y, py, 5e-3, what + " y")
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("T,pos0", [(64, 0), (64, 50), (512, 300)])
+def test_megastep4_matches_plain(gen, L, H, q_dim, kv_dim, I, B, T, pos0):
+    assert _qkv_tile4(q_dim + 2 * kv_dim, 128)
+    mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, 4, True)
+    pos = [(pos0 + 7 * b) % (T - 1) if pos0 else 0 for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = megastep4_decode.launches
+    y, kn, vn = megastep4_decode(x, mp, kc, vc, pos_t, cos, sin, **kw)
+    assert megastep4_decode.launches == before + 1
+    py, pk, pv = megastep4_plain(x, mp, kc, vc, pos, cos, sin, **kw)
+    torch.cuda.synchronize()
+    what = f"megastep4 H={H} B={B} pos={pos0}"
+    _close(kn, pk, 5e-3, what + " k_new")
+    _close(vn, pv, 5e-3, what + " v_new")
+    _close(y, py, 5e-3, what + " y")

@@ -143,3 +143,22 @@ def test_fused_kernel_wrappers_never_fall_back_for_cuda_tensors():
         if route:
             assert route in src
         assert ".launches += 1" in src
+
+
+def test_whole_step_wrappers_never_fall_back_for_cuda_tensors():
+    """Kernels 13 and 14 likewise: the one branch to the plain version
+    tests for a CPU tensor, and every other path launches the kernel (the
+    features of later sub-slices raise before either)."""
+    import inspect
+
+    from ganq_tpu_torch.ops import megastep4, megastep_lowbit
+
+    for fn, plain in ((megastep4.megastep4_decode, "megastep4_plain"),
+                      (megastep_lowbit.megastep_lowbit_decode,
+                       "megastep_lowbit_plain")):
+        src = inspect.getsource(fn)
+        assert src.count(plain + "(") == 1
+        assert 'device.type == "cpu":\n        return ' + plain + "(" in src
+        assert "except" not in src
+        assert src.count("return ") == 2
+        assert "launch_grouped(" in src and ".launches += 1" in src

@@ -272,19 +272,26 @@ def _port_cfg(hidden=128, heads=4):
                              vocab=VOCAB)
 
 
-def _affine_model(kinds, hidden=128, heads=4):
+def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
     """A 2-layer llama (float32 embedding and norms) built by ganq_tpu's
-    synthetic builder, layer i of kind ``kinds[i]``, and the same weights in
-    the port."""
+    synthetic builder, layer i of kind ``kinds[i]`` (``bits`` for the
+    ``uniform`` kind; an untied lm_head of kind ``lm_head``), and the same
+    weights in the port."""
+    import jax
+
     from ganq_tpu.models import synthetic as jsyn
 
     jcfg = jsyn.llama_config(hidden=hidden, inter=2 * hidden, layers=2,
                              heads=heads, kv_heads=max(heads // 2, 1),
                              vocab=VOCAB)
-    params = jsyn.make_model(jcfg, kind=kinds[0], seed=1, dtype=jnp.float32)
+    params = jsyn.make_model(jcfg, kind=kinds[0], seed=1, dtype=jnp.float32,
+                             bits=bits)
     if kinds[1] != kinds[0]:
         params["layers"][1] = jsyn.make_model(jcfg, kind=kinds[1], seed=2,
                                               dtype=jnp.float32)["layers"][1]
+    if lm_head:
+        params["lm_head"] = jsyn._rand_linear(jax.random.PRNGKey(4), VOCAB,
+                                              hidden, lm_head)
     _, tmodel = thf.params_from_numpy(thf.config_to_hf(_port_cfg(hidden, heads)),
                                       _flatten_jax(params), device="cpu")
     return jcfg, params, tmodel
@@ -367,39 +374,52 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
         teng.Engine(_port_cfg(), tmodel, device="cpu", layout="scan")
 
 
-@pytest.mark.parametrize("kind,hidden,heads,backend,batch,prompt,new,want", [
-    ("uniform", 256, 2, "cuda_a8", 8, 12, 4, "kernel 14"),
-    ("uniform", 256, 2, "cuda_a8", 65, 2, 4, None),
-    ("uniform", 256, 2, "cuda", 8, 12, 4, None),
-    ("uniform", 128, 4, "cuda_a8", 8, 12, 4, None),
-    ("w8", 128, 4, "cuda_a8", 8, 12, 4, None),
-    ("w8", 128, 4, "cuda_a8", 2, 12, 1, None),
-    ("w8", 128, 4, "cuda_a8", 8, 12, 1, None),
-    ("w8", 128, 4, "cuda_a8", 65, 2, 4, None),
-    ("w8", 256, 2, "cuda_a8", 8, 12, 4, None),
-    ("w8", 256, 2, "cuda_a8", 9, 12, 4, None),
-    ("uniform", 256, 2, "cuda_a8", 64, 2, 4, "kernel 14"),
-    ("uniform", 256, 2, "cuda_a8", 8, 12, 1, None),
-])
+@pytest.mark.parametrize(
+    "kind,bits,lm,hidden,heads,backend,batch,prompt,new,want", [
+        ("uniform", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
+        ("uniform", 4, None, 256, 2, "cuda_a8", 65, 2, 4, None),
+        ("uniform", 4, None, 256, 2, "cuda", 8, 12, 4, None),
+        ("uniform", 4, None, 128, 4, "cuda_a8", 8, 12, 4, None),
+        ("w8", 4, None, 128, 4, "cuda_a8", 8, 12, 4, None),
+        ("w8", 4, None, 128, 4, "cuda_a8", 2, 12, 1, None),
+        ("w8", 4, None, 128, 4, "cuda_a8", 8, 12, 1, None),
+        ("w8", 4, None, 128, 4, "cuda_a8", 65, 2, 4, None),
+        ("w8", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
+        ("w8", 4, None, 256, 2, "cuda_a8", 9, 12, 4, None),
+        ("uniform", 4, None, 256, 2, "cuda_a8", 64, 2, 4, None),
+        ("uniform", 4, None, 256, 2, "cuda_a8", 8, 12, 1, None),
+        ("uniform", 8, None, 256, 2, "cuda_a8", 16, 2, 4, None),
+        ("uniform", 2, None, 512, 4, "cuda_a8", 8, 12, 4, "'w2'"),
+        ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 4, "lm fold"),
+        ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 1, None),
+    ])
 def test_stacked_only_kernels_are_named_where_jax_runs_them(
-        monkeypatch, kind, hidden, heads, backend, batch, prompt, new, want):
+        monkeypatch, kind, bits, lm, hidden, heads, backend, batch, prompt,
+        new, want):
     """The port's engine refuses exactly the requests that ganq_tpu's
-    stacked layout serves through whole-step kernels the port has not
-    ported (kernels 13 and 14): where ganq_tpu's ``mega_enabled`` (on by
-    default for "pallas_a8" on a TPU, here forced with ``GANQ_MEGASTEP=1``)
-    picks a variant other than "w8" for a request that decodes. The port's
-    gate, on the card, gives the same variant. ``w8`` models, whose kernels
-    (9 and 12) are ported, are served at every batch."""
+    stacked layout serves through a whole-step variant the port has not
+    ported: where ganq_tpu's ``mega_enabled`` (on by default for
+    "pallas_a8" on a TPU, here forced with ``GANQ_MEGASTEP=1``) picks
+    kernel 14's "w3", "w2" or "wl8", or picks "w4p"/"w8p" for a model whose
+    lm_head ganq_tpu folds into the step (``mega_lm_operands``), for a
+    request that decodes. The port's gate, on the card, gives the same
+    variant. Kernels 12 ("w8"), 13 ("w4") and 14's "w4p" and "w8p" serve
+    every other request."""
+    from ganq_tpu.ops import megastep_lowbit as jlb
     from ganq_tpu.serve import stacked as jst
 
-    jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads)
+    jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads, bits,
+                                          lm)
     sp = jst.stack_layers(jparams, recode="affine")
     if backend == "cuda_a8":
         monkeypatch.setenv("GANQ_MEGASTEP", "1")
     variant = jst.mega_enabled(jcfg, sp, "pallas_a8" if backend == "cuda_a8"
                                else "pallas", batch)
     monkeypatch.delenv("GANQ_MEGASTEP", raising=False)
-    refused = new > 1 and variant not in (None, "w8")
+    later = variant in ("w3", "w2", "wl8") or (
+        variant in ("w4p", "w8p") and jlb.mega_lm_operands(jcfg, sp)
+        is not None)
+    refused = new > 1 and later
     eng = teng.Engine(_port_cfg(hidden, heads), tmodel, backend="reference",
                       device="cpu")
     assert eng.stacked
@@ -407,6 +427,34 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
                                    backend, batch, new, device="cuda")
     assert (got is not None) == refused
     assert got is None if want is None else want in got
+
+
+def test_optimize_whole_step_greedy_matches_jax(monkeypatch):
+    """The slice as a whole: ``optimize()`` of a 2-layer head_dim-128 ``lut``
+    llama recodes every linear to uniform 8-bit in both packages; with the
+    megastep forced on (``GANQ_MEGASTEP=1``) both engines decode a batch of
+    2 through kernel 14's "w8p" variant: ganq_tpu's Pallas kernel in
+    interpret mode, the port's plain version. Greedy tokens are equal."""
+    from ganq_tpu.api import GanqModel as JGanqModel
+    from ganq_tpu.serve import stacked as jst
+
+    from ganq_tpu_torch.serve import stacked as tst
+
+    variant = "w8p"
+    jcfg, jparams, tmodel = _affine_model(("lut",) * 2, 256, 2)
+    monkeypatch.setenv("GANQ_MEGASTEP", "1")
+    j = JGanqModel(jcfg, jparams, quantized=True).optimize()
+    g = GanqModel(_port_cfg(256, 2), tmodel, device="cpu").optimize()
+    eng = g._get_engine("auto")
+    assert eng.stacked and tst.mega_enabled(
+        g.cfg, eng.model, eng.backend, 2, "cpu") == variant
+    sp = jst.prepack(j.cfg, jst.stack_layers(j.params, recode="affine"),
+                     j.backend, 1)
+    assert jst.mega_enabled(j.cfg, sp, j.backend, 2) == variant
+    ids = _ids(9, (2, 8))
+    want = np.asarray(j.generate(ids, max_new_tokens=5, max_seq=32))
+    np.testing.assert_array_equal(
+        g.generate(ids, max_new_tokens=5, max_seq=32), want)
 
 
 @pytest.mark.parametrize("recode", ["auto", "affine", "u4", "w8", "none"])

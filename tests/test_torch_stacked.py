@@ -160,13 +160,17 @@ def test_mega_gates_match_jax(monkeypatch, case):
 
 
 def test_prepack_routes_and_refuses_as_jax(monkeypatch):
-    """``prepack`` at batch 1 packs the w8 megastep's operands; where the
-    variant is one of kernel 14's it raises, naming the kernel, and the
-    engine serves such a model without it (its decoding requests raise
-    through ``stacked_only_kernel``). Off by default on the CPU, as
-    ganq_tpu's is; on by default for "cuda_a8" on the card."""
+    """``prepack`` at batch 1 packs the operands of the whole-step kernel
+    the variant takes (kernel 12's for w8, kernel 14's for uniform W4, and
+    kernel 13's at request time under ``GANQ_W4_PLANE=0``); where the
+    variant is one of kernel 14's later sub-slices ("w2" here) it raises,
+    naming the kernel, and the engine serves such a model without it (its
+    decoding requests raise through ``stacked_only_kernel``). Off by default
+    on the CPU, as ganq_tpu's is; on by default for "cuda_a8" on the
+    card."""
     _, _, tcfg, w8 = _pair(256, 2, 1, 512, "w8", vocab=64)
     _, _, _, u4 = _pair(256, 2, 1, 512, "uniform", 4, vocab=64)
+    _, _, tcfg2, u2 = _pair(512, 4, 2, 512, "uniform", 2, vocab=64)
     assert not tst.mega_env_enabled("cuda_a8", 1, "cpu")
     assert tst.mega_env_enabled("cuda_a8", 1, "cuda")
     assert not tst.mega_env_enabled("cuda", 1, "cuda")
@@ -175,19 +179,31 @@ def test_prepack_routes_and_refuses_as_jax(monkeypatch):
     sp = tst.prepack(tcfg, tst.stack_layers(w8, recode="affine"), "cuda_a8",
                      1, "cpu")
     assert sp.megapack_w8 is not None
+    sp = tst.prepack(tcfg, tst.stack_layers(u4, recode="affine"), "cuda_a8",
+                     1, "cpu")
+    assert sp.megapack_lb["gu_pk"].dtype == torch.int8
+    assert sp.megapack4 is None and sp.megapack_w8 is None
+    monkeypatch.setenv("GANQ_W4_PLANE", "0")
+    assert tst.mega_enabled(tcfg, sp, "cuda_a8", 8, "cpu") == "w4"
+    assert "qkv_p4" in tst._mega_pack_for(tcfg, sp, "w4")
+    assert sp.megapack4 is not None
+    monkeypatch.delenv("GANQ_W4_PLANE")
     with pytest.raises(NotImplementedError, match="kernel 14"):
-        tst.prepack(tcfg, tst.stack_layers(u4, recode="affine"), "cuda_a8",
+        tst.prepack(tcfg2, tst.stack_layers(u2, recode="affine"), "cuda_a8",
                     1, "cpu")
-    eng = teng.Engine(tcfg, u4, backend="reference", device="cpu")
-    assert eng.stacked and getattr(eng.model, "megapack_w8", None) is None
-    got = teng.stacked_only_kernel(tcfg, eng.model, "cuda_a8", 4, 8, "cpu")
-    assert "kernel 14" in got
-    assert teng.stacked_only_kernel(tcfg, eng.model, "cuda_a8", 4, 1,
+    eng = teng.Engine(tcfg2, u2, backend="reference", device="cpu")
+    assert eng.stacked and getattr(eng.model, "megapack_lb", None) is None
+    got = teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 8, "cpu")
+    assert "kernel 14" in got and "'w2'" in got
+    assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 1,
                                     "cpu") is None
-    assert teng.stacked_only_kernel(tcfg, eng.model, "cuda_a8", 65, 8,
+    assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 65, 8,
+                                    "cpu") is None
+    eng4 = teng.Engine(tcfg, u4, backend="reference", device="cpu")
+    assert teng.stacked_only_kernel(tcfg, eng4.model, "cuda_a8", 4, 8,
                                     "cpu") is None
     monkeypatch.setenv("GANQ_MEGASTEP", "0")
-    assert teng.stacked_only_kernel(tcfg, eng.model, "cuda_a8", 4, 8,
+    assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 8,
                                     "cpu") is None
 
 

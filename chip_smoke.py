@@ -863,42 +863,79 @@ def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128):
     return mp
 
 
+ZP_AO_LAYERS = 8                   # depth of kernel 14's 8B-width cases
+
+
+def _zp_ao_operands(gen, mp, L, H, q_dim, bits, zp, ao):
+    """Kernel 14's zero-point corrections (scale * (2^(bits-1) - zero) for
+    random fractional zeros in [2^bits / 4, 3 * 2^bits / 4], float32 in
+    the scales' layouts) and act-order column orders (a random permutation
+    per layer) added to a random pack."""
+    if zp:
+        for k in ("qkv", "o", "gu", "dn"):
+            s = mp[f"{k}_s"].float()
+            dz = (torch.rand(s.shape, generator=gen, device="cuda") - 0.5) \
+                * 0.5 * 2 ** bits
+            mp[f"{k}_sz"] = (s * dz).contiguous()
+    if ao:
+        for k, n in (("ap_q", H), ("ap_g", H), ("ap_o", q_dim)):
+            mp[k] = torch.stack([torch.randperm(n, generator=gen,
+                                                device="cuda")
+                                 for _ in range(L)]).to(torch.int32)
+    return mp
+
+
 def check_grouped_megasteps(gen) -> list:
     """Kernels 14 ("w4p" and "w8p", batch 1, 8 and 64) and 13 (batch 1 and
     8) over the 28 layers of Llama-3.2-3B (random packs, slot b at decode
     position FUSED_POS + b) against their plain versions, within twice the
-    plain version's own spread under a two-ulp nudge (``_spread_close``).
-    Timed with CUDA events over eager calls; the bound counts the code
-    bytes, the bf16 scales, the K/V history, norms and the rows in and
-    out. No library call computes the same step; the per-layer path on a
-    model is timed in phase 9."""
+    plain version's own spread under a two-ulp nudge (``_spread_close``);
+    then kernel 14 with zero points ("w4p" and "w8p") and act-order ("w4p")
+    over ZP_AO_LAYERS layers of Llama-3.1-8B at batch 1, 8 and 64. Timed
+    with CUDA events over eager calls; the bound counts the code bytes, the
+    bf16 scales (and float32 zero-point corrections, int32 column orders),
+    the K/V history, norms and the rows in and out. No library call
+    computes the same step; the per-layer path on a model is timed in
+    phases 9 and 10."""
+    from ganq_tpu_torch.models import synthetic
     from ganq_tpu_torch.ops.megastep4 import megastep4_decode, megastep4_plain
     from ganq_tpu_torch.ops.megastep_lowbit import (megastep_lowbit_decode,
                                                     megastep_lowbit_plain)
 
-    H, I, q_dim, kv_dim, d, L = _l3b_widths()
-    Dqkv = q_dim + 2 * kv_dim
-    Hkv = kv_dim // d
+    c8 = synthetic.llama_3_1_8b_config(ZP_AO_LAYERS)
+    widths = {"3b": _l3b_widths(),
+              "8b": (c8.hidden_size, c8.intermediate_size, c8.q_dim,
+                     c8.kv_dim, c8.head_dim, ZP_AO_LAYERS)}
     T = 256
-    ang = torch.rand(d // 2, generator=gen, device="cuda") * 6.2831853
+    ang = torch.rand(64, generator=gen, device="cuda") * 6.2831853
     cos, sin = torch.cos(ang), torch.sin(ang)
-    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
-              scale=1.0 / math.sqrt(d))
     entries = []
     for name, kernel, plain, variants in (
             ("megastep_lowbit_decode", megastep_lowbit_decode,
-             megastep_lowbit_plain, (("w4p", 4, (1, 8, 64)),
-                                     ("w8p", 8, (1, 8, 64)))),
+             megastep_lowbit_plain, (
+                 ("w4p", 4, (1, 8, 64), "3b", False, False),
+                 ("w8p", 8, (1, 8, 64), "3b", False, False),
+                 ("w4p_zp", 4, (1, 8, 64), "8b", True, False),
+                 ("w8p_zp", 8, (1, 8, 64), "8b", True, False),
+                 ("w4p_ao", 4, (1, 8, 64), "8b", False, True))),
             ("megastep4_decode", megastep4_decode, megastep4_plain,
-             (("w4", 4, (1, 8)),))):
+             (("w4", 4, (1, 8), "3b", False, False),))):
         rows = {}
-        for variant, bits, batches in variants:
+        for variant, bits, batches, model, zp, ao in variants:
+            H, I, q_dim, kv_dim, d, L = widths[model]
+            Dqkv = q_dim + 2 * kv_dim
+            Hkv = kv_dim // d
+            kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+                      scale=1.0 / math.sqrt(d))
             kmajor = variant == "w4"
-            mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor)
+            mp = _zp_ao_operands(
+                gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor),
+                L, H, q_dim, bits, zp, ao)
             vkw = dict(kw) if kmajor else dict(kw, bits=bits)
             code_bytes = L * (Dqkv + q_dim + 3 * I) * H * bits // 8
-            scale_bytes = sum(v.numel() * 2 for k, v in mp.items()
-                              if k.endswith("_s"))
+            scale_bytes = sum(v.numel() * v.element_size()
+                              for k, v in mp.items()
+                              if k.endswith(("_s", "_sz")) or k[:3] == "ap_")
             for B in batches:
                 pos = [FUSED_POS + b for b in range(B)]
                 kc = (torch.randn((L, B * Hkv, T, d), generator=gen,
@@ -957,6 +994,96 @@ def check_grouped_megasteps(gen) -> list:
     return entries
 
 
+def _moe_pack(gen, E, H, I, bits, gs=128):
+    """Random kernel 15 operands in moe_megapack's layouts (any byte is a
+    valid code byte)."""
+    from ganq_tpu_torch.ops.megastep_lowbit import _mlp_plan
+
+    F = 2 if bits == 4 else 1
+    ti = _mlp_plan(I, bits, H)[0]
+    gtp = -(-(ti // gs) // 8) * 8
+    unit = 16.0 if bits == 4 else 1.0
+
+    def codes(*shape):
+        return torch.randint(-128, 128, (E, *shape), generator=gen,
+                             device="cuda", dtype=torch.int32).to(torch.int8)
+
+    def scales(*shape):
+        return ((torch.rand((E, *shape), generator=gen, device="cuda") * 3
+                 + 1) * 1e-4 * unit).to(torch.bfloat16)
+
+    return {"gate_pk": codes(2 * I // F, H), "gu_s": scales(H // gs, 2 * I),
+            "dn_pk": codes(H // F, I), "dn_s": scales(I // ti * gtp, H)}
+
+
+def check_moe_expert(gen) -> dict:
+    """Kernel 15 at Mixtral-8x7B's widths (8 experts, H 4096, I 14336,
+    top-2), 8-bit experts (``optimize()``'s recode) and 4-bit, batch 1, 8
+    and 32, on the slots of random top-2 routing, against its plain
+    version within one bf16 ulp plus 5e-3 of the largest output (an int8
+    activation at a rounding tie may flip: the activation's exp differs in
+    the last bit between the kernel and PyTorch). Timed by a CUDA graph of
+    launches; the bound counts the code bytes and bf16 scales of the
+    experts that carry routed mass (the slots past them are zero-weight
+    padding), x and y. No library call computes the same function."""
+    from ganq_tpu_torch.models.transformer import moe_slots
+    from ganq_tpu_torch.ops.moe_expert import (moe_expert_decode,
+                                               moe_expert_plain)
+
+    E, H, I, k = 8, 4096, 14336, 2
+    rows = {}
+    for bits in (8, 4):
+        mp = _moe_pack(gen, E, H, I, bits)
+        per_expert = sum(v[0].numel() * v.element_size()
+                         for v in mp.values())
+        for B in (1, 8, 32):
+            x = (torch.randn((B, H), generator=gen, device="cuda") * 0.5).to(
+                torch.bfloat16)
+            probs = torch.softmax(torch.randn((B, E), generator=gen,
+                                              device="cuda") * 2, dim=-1)
+            sel = probs >= torch.topk(probs, k, dim=-1).values[:, -1:]
+            gated = torch.where(sel, probs, 0.0)
+            gated = gated / gated.sum(-1, keepdim=True)
+            slot_ids, wts = moe_slots(gated, k)
+            got = moe_expert_decode(x, mp, slot_ids, wts, bits=bits)
+            ref = moe_expert_plain(x, mp, slot_ids, wts, bits=bits)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            tol = bf16_ulp(torch.maximum(got.abs(), ref.abs())) \
+                + 5e-3 * ref.abs().max()
+            if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+                raise AssertionError(f"moe_expert bits={bits} B={B}: max err "
+                                     f"{float(err.max()):.3e}")
+            k_ms = time_ms(lambda: moe_expert_decode(x, mp, slot_ids, wts,
+                                                     bits=bits), [()], 20)
+            p_ms = (event_ms(lambda: moe_expert_plain(x, mp, slot_ids, wts,
+                                                      bits=bits), (), 1)
+                    if B == 1 else None)
+            routed = int((gated.sum(0) > 0).sum())
+            b_ms, b_by = bound(routed * per_expert + B * H * (2 + 4),
+                               2.0 * B * k * 3 * H * I, INT8_OPS_PER_S)
+            rows[(bits, B)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by,
+                                   max_abs_err=float(err.max()))
+            log(f"moe_expert_decode (kernel 15) E={E} H={H} I={I} bits={bits} "
+                f"B={B} S={slot_ids.numel()} routed experts {routed}: "
+                f"max_abs_err={float(err.max()):.3e} (tol 1 bf16 ulp + 5e-3 "
+                f"x {float(ref.abs().max()):.3e}) kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms if p_ms is None else round(p_ms, 3)} "
+                f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / k_ms:.3f}")
+        del mp
+        torch.cuda.empty_cache()
+    entry = dict(rows[(8, 1)])
+    entry.update(name="moe_expert_decode", library_ms=None,
+                 max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                 shape="E=8 H=4096 I=14336 top-2 bits=8 B=1 (Mixtral-8x7B "
+                 "MoE layer)",
+                 by_case={f"w{b}_b{B}": {x: r[x] for x in (
+                     "ms", "bound_ms", "plain_ms")}
+                     for (b, B), r in rows.items()})
+    return entry
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # full-precision sums in the plain versions' and library's GEMMs
@@ -968,7 +1095,8 @@ def phase_kernels() -> list:
             return [check_lut_matmul(gen), check_flash_decode(gen),
                     *check_s_step(gen), *check_uniform_kernels(gen),
                     *check_w8_kernels(gen), *check_fused_w8a8(gen),
-                    check_megastep(gen), *check_grouped_megasteps(gen)]
+                    check_megastep(gen), *check_grouped_megasteps(gen),
+                    check_moe_expert(gen)]
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
 
@@ -1112,6 +1240,7 @@ def _kernel_counters():
     from ganq_tpu_torch.ops.megastep import megastep_decode_w8a8
     from ganq_tpu_torch.ops.megastep4 import megastep4_decode
     from ganq_tpu_torch.ops.megastep_lowbit import megastep_lowbit_decode
+    from ganq_tpu_torch.ops.moe_expert import moe_expert_decode
     from ganq_tpu_torch.ops.uniform_matmul import (uniform_a8_matmul,
                                                    uniform_matmul)
     from ganq_tpu_torch.ops.w8_matmul import w8_matmul, w8a8_matmul
@@ -1125,7 +1254,8 @@ def _kernel_counters():
             "attn_half_decode_w8a8": attn_half_decode_w8a8,
             "megastep_decode_w8a8": megastep_decode_w8a8,
             "megastep4_decode": megastep4_decode,
-            "megastep_lowbit_decode": megastep_lowbit_decode}
+            "megastep_lowbit_decode": megastep_lowbit_decode,
+            "moe_expert_decode": moe_expert_decode}
 
 
 def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
@@ -1138,12 +1268,16 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     "w8p"), else per layer the attention
     half (kernel 11, ``GANQ_FUSED_LAYER=1``, B <= 8) or the fused qkv
     (kernel 10, ``GANQ_FUSED_QKV``) or the qkv linear, one flash decode
-    unless kernel 11 ran, o, and the MLP as for the prompt."""
+    unless kernel 11 ran, o, and the MLP as for the prompt. A MoE layer's
+    experts run the fused expert kernel (15) once for a step of at most 32
+    token rows on "cuda_a8" where the layer has its pack (unless
+    ``GANQ_MOE_MEGA=0``), else each expert's gate, up and down."""
     import os
 
     a8 = backend == "cuda_a8"
     fused_layer = os.environ.get("GANQ_FUSED_LAYER", "0") == "1"
     fused_qkv = os.environ.get("GANQ_FUSED_QKV", "0") != "0"
+    moe_mega = os.environ.get("GANQ_MOE_MEGA", "") != "0"
     out = {}
 
     def add(k, n=1):
@@ -1151,7 +1285,14 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
 
     def mlp_of(lp, rows):
         mlp = lp.mlp
-        if (a8 and "gateup" in mlp and mlp["gateup"].kind == "w8"
+        if lp.moe is not None:
+            if a8 and "mega" in lp.moe and rows <= 32 and moe_mega:
+                add("moe_expert_decode")
+            elif rows < 1024:
+                for e in lp.moe["experts"]:
+                    for p in e.values():
+                        add(kernel_of(p))
+        elif (a8 and "gateup" in mlp and mlp["gateup"].kind == "w8"
                 and mlp["down"].kind == "w8" and rows <= 64):
             add("fused_mlp_w8a8")
         elif rows < 1024:
@@ -1606,10 +1747,14 @@ def _decode_ms(q, label, shapes, rng, env=None, layouts=("auto", "perlayer")):
     return out
 
 
-def _save_uniform_w4(cfg, ckpt):
-    """A random symmetric uniform W4 g128 model at ``cfg``
-    (``synthetic.make_model(kind="uniform")``) saved as a GPTQ v1 checkpoint
-    from artifacts of its own codes and scales."""
+def _save_uniform_w4(cfg, ckpt, asym=False, actorder=False, seed=8):
+    """A random uniform W4 g128 model at ``cfg``
+    (``synthetic.make_model(kind="uniform")``) saved as a GPTQ v1
+    checkpoint from artifacts of its own codes and scales: symmetric, or
+    with random integer zero points in [4, 12] (``asym``, a ``sym=False``
+    checkpoint) and a balanced permuted g_idx (``actorder``, a
+    ``desc_act=True`` one: each layer's columns shuffled by one permutation
+    per shared input, g_idx recording each column's group)."""
     from ganq_tpu_torch import QuantizeConfig
     from ganq_tpu_torch.core.config import QUANT_METHOD
     from ganq_tpu_torch.formats.checkpoint import save_quantized
@@ -1618,23 +1763,35 @@ def _save_uniform_w4(cfg, ckpt):
     from ganq_tpu_torch.ops.packing import unpack_int_rows
     from ganq_tpu_torch.quant.looper import QuantizedModule
 
-    qcfg = QuantizeConfig(desc_act=False)
+    qcfg = QuantizeConfig(desc_act=actorder, sym=not asym)
+    gen = torch.Generator().manual_seed(seed)
+    shared = {"self_attn.q_proj": "h", "self_attn.k_proj": "h",
+              "self_attn.v_proj": "h", "self_attn.o_proj": "o",
+              "mlp.gate_proj": "g", "mlp.up_proj": "g", "mlp.down_proj": "d"}
     with torch.inference_mode():
-        model = synthetic.make_model(cfg, kind="uniform", bits=4, seed=8,
+        model = synthetic.make_model(cfg, kind="uniform", bits=4, seed=seed,
                                      device="cuda", dtype=torch.bfloat16)
         spec = get_spec("llama")
         arts = {}
         for i in range(len(model.layers)):
+            perms = {}
             for mod, slot in spec.module_slots.items():
                 p = hf_import.get_module(model, i, slot)
                 n = p.in_features
                 scale = p["scales"].cpu()
+                qidx = unpack_int_rows(p["qweight"], 4, n).to(torch.uint8).cpu()
+                g_idx = torch.arange(n, dtype=torch.int32) // 128
+                if actorder:
+                    perm = perms.setdefault(shared[mod],
+                                            torch.randperm(n, generator=gen))
+                    qidx, g_idx = qidx[:, perm], g_idx[perm]
+                zero = torch.full_like(scale, 8.0)
+                if asym:
+                    zero = torch.randint(4, 13, scale.shape, generator=gen
+                                         ).to(torch.float32)
                 arts[f"{spec.layers_prefix}.{i}.{mod}"] = QuantizedModule(
                     method=QUANT_METHOD.GPTQ, bits=4, group_size=128,
-                    qidx=unpack_int_rows(p["qweight"], 4, n).to(
-                        torch.uint8).cpu(),
-                    scale=scale, zero=torch.full_like(scale, 8.0),
-                    g_idx=torch.arange(n, dtype=torch.int32) // 128)
+                    qidx=qidx, scale=scale, zero=zero, g_idx=g_idx)
     save_quantized(ckpt, hf_import.config_to_hf(cfg), qcfg, model,
                    artifacts=arts)
     del model, arts
@@ -1762,6 +1919,120 @@ def phase_3b_path():
     return results
 
 
+EIGHT_B_LAYERS = 8                 # depth of the 8B path (see PERF.md)
+MIXTRAL_LAYERS = 4                 # depth of the Mixtral path (see PERF.md)
+
+
+def phase_8b_path():
+    """A ``sym=False``, ``desc_act=True`` GPTQ W4 g128 checkpoint (random
+    codes, integer zero points, a balanced permuted g_idx) at Llama-3.1-8B's
+    published widths, EIGHT_B_LAYERS of its 32 layers, saved as GPTQ v1 and
+    loaded: the engine bakes the act-order artifacts into kernel 14's pack
+    and carries the zero-point corrections, and requests at batch 1 and 16
+    decode through "w4p", one launch a step (their launches exact, a
+    teacher-forced step against the reference backend); decode ms per step
+    at batch 1 against ``layout="perlayer"``."""
+    from ganq_tpu_torch import GanqModel
+    from ganq_tpu_torch.models import synthetic
+
+    cfg = synthetic.llama_3_1_8b_config(EIGHT_B_LAYERS)
+    rng = np.random.default_rng(13)
+    results = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.time()
+        _save_uniform_w4(cfg, ckpt, asym=True, actorder=True, seed=14)
+        t1 = time.time()
+        q = GanqModel.load(ckpt, dtype=torch.bfloat16)
+        eng = q._get_engine()
+        torch.cuda.synchronize()
+        mp = getattr(eng.model, "megapack_lb", None)
+        log(f"8B asym act-order W4: built+saved (GPTQ v1, {EIGHT_B_LAYERS} "
+            f"layers) in {t1 - t0:.1f} s, loaded, stacked and packed in "
+            f"{time.time() - t1:.1f} s; backend {q.backend}, stacked "
+            f"{eng.stacked}, pack operands "
+            f"{sorted(k for k in (mp or {}) if k[-3:] == '_sz' or k[:3] == 'ap_')}"
+            f"; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if (q.backend != "cuda_a8" or not eng.stacked or mp is None
+                or not {"qkv_sz", "ap_q", "ap_g", "ap_o"} <= set(mp)):
+            raise AssertionError("the 8B asym act-order model is not on "
+                                 "kernel 14's zero-point act-order path")
+        q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+                   max_new_tokens=3, max_seq=32)                  # warm-up
+        results["runs"] = list(_run_requests(q, "8B asym act-order W4", (
+            ("w4p_zp_ao_b1", 1, 128, 32, {}),
+            ("w4p_zp_ao_b16", 16, 32, 8, {})), rng,
+            want_variant="w4p").values())
+        results["decode_8b_w4p"] = _decode_ms(
+            q, "8B asym act-order W4 (kernel 14 w4p / perlayer)",
+            ((1, 128, 32),), rng)
+        del q, eng, mp
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_mixtral_path():
+    """A random 4-bit GANQ ``lut`` model at Mixtral-8x7B's published widths
+    (MIXTRAL_LAYERS of its 32 layers, 8 experts, top-2), saved with the
+    port's writer (experts under the HF names, the router dense), loaded
+    and ``optimize()``d: the experts recoded to uniform 8-bit and each MoE
+    layer given kernel 15's pack. MoE models are served per layer: requests
+    at batch 1, 8 and 32 (prompts of more than 32 token rows, so that the
+    prefill runs every expert through kernel 6) decode with one kernel 15
+    launch per layer per step beside kernels 6 (q/k/v/o) and 2 (attention),
+    and batch 1 with ``GANQ_MOE_MEGA=0`` through the masked per-expert loop
+    (kernel 6 for every expert) as the yardstick; launches exact, each
+    followed by a teacher-forced step against the reference backend.
+    Decode ms per step at batch 1 with and without kernel 15."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+
+    cfg = synthetic.mixtral_8x7b_config(MIXTRAL_LAYERS)
+    rng = np.random.default_rng(15)
+    results = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.time()
+        with torch.inference_mode():
+            model = synthetic.make_model(cfg, kind="lut", bits=4, seed=16,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_quantized(ckpt, hf_import.config_to_hf(cfg),
+                       QuantizeConfig(bits=4, quant_method="ganq"), model)
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.time()
+        q = GanqModel.load(ckpt, dtype=torch.bfloat16)
+        t2 = time.time()
+        q.optimize()
+        eng = q._get_engine()
+        torch.cuda.synchronize()
+        packed = [lp.moe is not None and "mega" in lp.moe
+                  for lp in eng.model.layers]
+        log(f"Mixtral: built+saved the {MIXTRAL_LAYERS}-layer Mixtral-8x7B "
+            f"lut checkpoint in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s, "
+            f"optimize() (recode and kernel 15 packs) in "
+            f"{time.time() - t2:.1f} s; backend {q.backend}, stacked "
+            f"{eng.stacked}, packed layers {sum(packed)}; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if q.backend != "cuda_a8" or eng.stacked or not all(packed):
+            raise AssertionError("the Mixtral model is not on the per-layer "
+                                 "cuda_a8 path with kernel 15's packs")
+        q.generate(rng.integers(0, cfg.vocab_size, size=(1, 40)),
+                   max_new_tokens=3, max_seq=64)                  # warm-up
+        results["runs"] = list(_run_requests(q, "Mixtral", (
+            ("moe_b1", 1, 64, 16, {}), ("moe_b8", 8, 16, 8, {}),
+            ("moe_b32", 32, 8, 6, {}),
+            ("masked_b1", 1, 64, 8, {"GANQ_MOE_MEGA": "0"})), rng).values())
+        results["decode_mixtral"] = _decode_ms(
+            q, "Mixtral (kernel 15)", ((1, 64, 16),), rng, layouts=("auto",))
+        results["decode_mixtral_masked"] = _decode_ms(
+            q, "Mixtral (GANQ_MOE_MEGA=0, masked expert loop)",
+            ((1, 64, 16),), rng, env={"GANQ_MOE_MEGA": "0"},
+            layouts=("auto",))
+        del q, eng
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
@@ -1790,10 +2061,17 @@ def main() -> int:
     # the stacked paths at Llama-3.2-3B (kernels 6 and 8-14)
     three_b = phase_3b_path()
     runs += three_b["runs"]
+    # kernel 14 with zero points and act-order at Llama-3.1-8B widths, then
+    # Mixtral through kernel 15 (with kernels 6 and 2 around it)
+    eight_b = phase_8b_path()
+    runs += eight_b["runs"]
+    mixtral = phase_mixtral_path()
+    runs += mixtral["runs"]
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
                  "attn_half_decode_w8a8", "megastep_decode_w8a8",
-                 "megastep4_decode", "megastep_lowbit_decode"):
+                 "megastep4_decode", "megastep_lowbit_decode",
+                 "moe_expert_decode"):
         launches[name] = sum(r.get(name, 0) for r in runs)
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on its paths")
@@ -1825,7 +2103,9 @@ def main() -> int:
                                 "ganq_tpu/ops/megastep4.py:495"),
            "megastep_lowbit_decode": (
                "ganq_tpu_torch/csrc/megastep_lowbit.cu",
-               "ganq_tpu/ops/megastep_lowbit.py:1390")}
+               "ganq_tpu/ops/megastep_lowbit.py:1390"),
+           "moe_expert_decode": ("ganq_tpu_torch/csrc/moe_expert.cu",
+                                 "ganq_tpu/ops/moe_expert.py:195")}
     line = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": src[k["name"]][0],
          "replaces": src[k["name"]][1], "launches": launches[k["name"]],
@@ -1835,8 +2115,9 @@ def main() -> int:
          **{x: k[x] for x in ("agreement", "yardstick_ms", "ms_b8",
                               "bound_ms_b8", "by_case") if x in k},
          "shape": k["shape"]} for k in kernels]}
-    log("3B decode ms per step (host clock): " + json.dumps(
-        {k: v for k, v in three_b.items() if k.startswith("decode_")}))
+    log("decode ms per step (host clock): " + json.dumps(
+        {k: v for d in (three_b, eight_b, mixtral) for k, v in d.items()
+         if k.startswith("decode_")}))
     log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

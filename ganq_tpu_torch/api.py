@@ -209,7 +209,10 @@ class GanqModel:
         whole step), and ``generate`` raises where they send it to a
         whole-step variant not ported yet
         (``serve/engine.stacked_only_kernel``), unless given
-        ``layout="perlayer"``."""
+        ``layout="perlayer"``. A MoE model's experts are recoded too, and on
+        the card each MoE layer whose experts are uniform 4- or 8-bit gets
+        kernel 15's packed copy (``ops/moe_expert.moe_megapack``), which its
+        decode steps take (``models/transformer._moe_combine``)."""
         from .ops.qlinear import (QLinear, certify_uniform, recode_uniform4,
                                   recode_uniform8, recode_w8)
 
@@ -233,15 +236,37 @@ class GanqModel:
         if recode != "none":
             with torch.no_grad():
                 for lp in self.model.layers:
-                    for group in (lp.attn, lp.mlp):
+                    groups = [lp.attn, lp.mlp]
+                    if lp.moe is not None:
+                        groups += list(lp.moe["experts"])
+                    for group in groups:
                         for name, v in list(group.items()):
                             if isinstance(v, QLinear):
                                 group[name] = rec(v)
                 if isinstance(self.model.lm_head, QLinear):
                     self.model.lm_head = rec(self.model.lm_head)
+        if self.device.type == "cuda":
+            self._pack_moe_experts()
         self.backend = select_backend(self.model, self.device)
         self._engines = {}
         return self
+
+    def _pack_moe_experts(self) -> None:
+        """Kernel 15's packed experts (``moe["mega"]``) for every MoE layer
+        whose experts it takes (``ganq_tpu/api.py:632-649``); prefill keeps
+        the per-expert linears, so both are held."""
+        from .models.transformer import Pack
+        from .ops.moe_expert import moe_mega_fusable, moe_megapack
+
+        for lp in self.model.layers:
+            moe = lp.moe
+            if moe is None or "mega" in moe:
+                continue
+            gate = moe["experts"][0]["gate"] if "gate" in moe["experts"][0] \
+                else None
+            bits = getattr(gate, "bits", None)
+            if bits and moe_mega_fusable(self.cfg, moe, bits):
+                moe["mega"] = Pack(moe_megapack(self.cfg, moe, bits))
 
     # ------------------------------------------------ later slices of the port
 

@@ -27,5 +27,5 @@
 extern "C" int ganq_megastep4(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->bits != 4 || !p->kmajor || p->B > 8) return (int)cudaErrorInvalidValue;
-  return (int)launch_grouped_b<4, true>(*p, s);
+  return (int)launch_grouped_b<4, true, false>(*p, s);
 }

@@ -1,12 +1,13 @@
 // Whole decode step over all layers in one launch, group-scaled uniform
 // weights with int8 activations, for Hopper (sm_90a): the phases and the
 // persistent kernel of kernel 13 (megastep4.cu, ganq_megastep4) and kernel
-// 14 (megastep_lowbit.cu, ganq_megastep_lowbit, variants "w4p" and "w8p").
+// 14 (megastep_lowbit.cu, ganq_megastep_lowbit, variants "w4p" and "w8p";
+// with zero points or act-order megastep_lowbit_opt.cu).
 //
 // Replaces ganq_tpu/ops/megastep4.py megastep4_decode (Pallas
 // _megastep4_kernel) and ganq_tpu/ops/megastep_lowbit.py
-// megastep_lowbit_decode (_megastep_lb_kernel, bits 4 and 8, no optional
-// operands). The TPU kernels are one pallas_call walking (layers, phases)
+// megastep_lowbit_decode (_megastep_lb_kernel, bits 4 and 8; of its
+// optional operands the zero points *_sz and the act-order orders ap_*). The TPU kernels are one pallas_call walking (layers, phases)
 // in order and dequantize by algebra on masked int8 MXU dots, because a TPU
 // has no gather. Here a byte's codes are decoded by shift and mask: a
 // pair-nibble byte holds the codes of two output rows (or, in kernel 13's
@@ -14,7 +15,11 @@
 // decodes it once. The numbers are the TPU kernels': per group of gs
 // columns the exact int32 dot z = x8 . (q - 2^(bits-1)) (the TPU's plane
 // algebra gives the same integer), then y += s_g * z in float32, group
-// after group in order, then y * sx.
+// after group in order, then y * sx. With zero points (kernel 14's *_sz)
+// each group adds sz_g * S_g in float32 to its s_g * z_g, S_g the group's
+// int8 activation sum; with act-order (ap_*) the qkv, gate/up and o phases
+// stage their activation rows through the pack's column order (a gather in
+// place of the TPU kernel's Benes lane routing: the same values).
 //
 // One cooperative launch (cudaLaunchCooperativeKernel; the grid is
 // occupancy times SMs, every block runs every phase and passes every
@@ -102,13 +107,16 @@ __device__ __forceinline__ void nibbles(unsigned w, int& hi, int& lo) {
 // where hi_first; F = 1 byte at 8 bits, stored XOR 128) against token row
 // b. Lane g owns group g (gs columns, 32 groups a pass): the exact int32
 // dot of the centred codes, times the group's scale ``scale(v, g)`` (one
-// per (r, f)), into the warp's partials pf; lane v < V then sums the
-// groups in order. Returns lane v's sum.
-template <int TB, int BITS, int NR, typename Scale>
+// per (r, f)), plus, with ZP, the zero-point correction ``sz(v, g)``
+// times the group's activation sum (kernel 14's fields_y: s z + sz S in
+// float32), into the warp's partials pf; lane v < V then sums the groups
+// in order. Returns lane v's sum. (ZP is a template argument so that the
+// symmetric loop carries no activation sums.)
+template <int TB, int BITS, int NR, bool ZP, typename Scale, typename Sz>
 __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
                                            int K, const int8_t* xs, int gs,
                                            bool hi_first, float* pf,
-                                           Scale scale) {
+                                           Scale scale, Sz sz) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int V = NR * F * TB;
   const int lane = threadIdx.x & 31;
@@ -117,12 +125,17 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
   for (int g0 = 0; g0 < G; g0 += 32) {
     const int g = g0 + lane;
     if (g < G) {
-      float sg[NR * F];
+      float sg[NR * F], zg[NR * F];
 #pragma unroll
-      for (int u = 0; u < NR * F; ++u) sg[u] = scale(u * TB, g);
-      int acc[V];
+      for (int u = 0; u < NR * F; ++u) {
+        sg[u] = scale(u * TB, g);
+        if constexpr (ZP) zg[u] = sz(u * TB, g);
+      }
+      int acc[V], xsum[TB];
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[v] = 0;
+#pragma unroll
+      for (int b = 0; b < TB; ++b) xsum[b] = 0;
 #pragma unroll 2
       for (int c = 0; c < n16; ++c) {
         const int k = g * gs + 16 * c;
@@ -140,6 +153,13 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
           xw[b][1] = xv.y;
           xw[b][2] = xv.z;
           xw[b][3] = xv.w;
+        }
+        if constexpr (ZP) {
+#pragma unroll
+          for (int b = 0; b < TB; ++b)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              xsum[b] = __dp4a(xw[b][j], 0x01010101, xsum[b]);
         }
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
@@ -166,8 +186,12 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
         }
       }
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        pf[lane * (V + 1) + v] = __fmul_rn(sg[v / TB], (float)acc[v]);
+      for (int v = 0; v < V; ++v) {
+        float p = __fmul_rn(sg[v / TB], (float)acc[v]);
+        if constexpr (ZP)
+          p = __fadd_rn(p, __fmul_rn(zg[v / TB], (float)xsum[v % TB]));
+        pf[lane * (V + 1) + v] = p;
+      }
     }
     __syncwarp();
     if (lane < V) {
@@ -177,6 +201,22 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
     __syncwarp();
   }
   return y;
+}
+
+// group_dot with the zero-point corrections where szs is given; OPT (a
+// kernel with optional operands) compiles that choice in at all, so that
+// the symmetric kernels carry none of it
+template <int TB, int BITS, int NR, bool OPT, typename Scale, typename Sz>
+__device__ __forceinline__ float group_dot_zp(
+    const int8_t* const (&rows)[NR], int K, const int8_t* xs, int gs,
+    bool hi_first, float* pf, Scale scale, const float* szs, Sz sz) {
+  if constexpr (OPT) {
+    if (szs)
+      return group_dot<TB, BITS, NR, true>(rows, K, xs, gs, hi_first, pf,
+                                           scale, sz);
+  }
+  return group_dot<TB, BITS, NR, false>(rows, K, xs, gs, hi_first, pf, scale,
+                                        sz);
 }
 
 // token rows b0 .. b0 + nb of src (row stride ld), columns k0 .. k0 + K,
@@ -197,6 +237,37 @@ __device__ void stage_rows_ld(const int8_t* __restrict__ src, int ld, int k0,
   __syncthreads();
 }
 
+// as stage_rows_ld, with column k of the staged rows read from column
+// perm[k] of src (kernel 14's act-order: the activations in the pack's
+// group-sorted column order)
+template <int TB>
+__device__ void stage_rows_perm(const int8_t* __restrict__ src, int ld,
+                                const int* __restrict__ perm, int b0, int nb,
+                                int K, int8_t* xs) {
+  const int xstride = (K >> 7) * kPad;
+  for (int e = threadIdx.x; e < TB * K; e += kThreads) {
+    const int b = e / K, k = e - b * K;
+    xs[(size_t)b * xstride + padk(k)] =
+        b < nb ? src[(size_t)(b0 + b) * ld + __ldg(perm + k)] : (int8_t)0;
+  }
+  __syncthreads();
+}
+
+// stage token rows b0 .. b0 + nb of the [B, K] activations src, in the
+// column order perm where it is given (OPT: as group_dot_zp)
+template <int TB, bool OPT>
+__device__ __forceinline__ void stage_rows_ord(const int8_t* src,
+                                               const int* perm, int b0,
+                                               int nb, int K, int8_t* xs) {
+  if constexpr (OPT) {
+    if (perm) {
+      stage_rows_perm<TB>(src, K, perm, b0, nb, K, xs);
+      return;
+    }
+  }
+  stage_rows_ld<TB>(src, K, 0, b0, nb, K, xs);
+}
+
 // the attention output's int8 scale of token row b: max(1e-12, max|a|) / 127
 __device__ __forceinline__ float attn_scale(const W8A8Args& a, int b) {
   const int Hkv = a.kv_dim / a.d;
@@ -215,7 +286,7 @@ __device__ __forceinline__ float bf(const bf16* p, size_t i) {
 // row block); y = (sum_g s_g z_g) * sx + bias, rope with the partner read
 // in float32 (kernel 14, lane rolls) or rounded to bf16 (kernel 13, sign
 // permutation), out in bf16 to qkv_out and the layer's kn/vn.
-template <int TB, int BITS, bool KMAJ>
+template <int TB, int BITS, bool KMAJ, bool OPT>
 __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -228,6 +299,8 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   const int8_t* pk = a.qkv_pk + (size_t)l * P * H;
   const bf16* sc = a.qkv_gs + (size_t)l * G * Dqkv;
   const float* bias = a.qkv_bias + (size_t)l * Dqkv;
+  const float* szs = a.qkv_sz ? a.qkv_sz + (size_t)l * G * Dqkv : nullptr;
+  const int* perm = a.ap_q ? a.ap_q + (size_t)l * H : nullptr;
   bf16* kn = a.kn + (size_t)l * a.B * a.kv_dim;
   bf16* vn = a.vn + (size_t)l * a.B * a.kv_dim;
   int staged = -1;
@@ -236,7 +309,7 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
     const int b0 = grp * TB, nb = min(TB, a.B - b0);
     if (grp != staged) {
       __syncthreads();
-      stage_rows_ld<TB>(a.x8, H, 0, b0, nb, H, xs);
+      stage_rows_ord<TB, OPT>(a.x8, perm, b0, nb, H, xs);
       staged = grp;
     }
     const int u = rb * kWarps + warp;
@@ -250,9 +323,11 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
       return t * a.tq + f * tF + (p - t * tF);
     };
     const int8_t* rows[2] = {pk + (size_t)p0 * H, pk + (size_t)p1 * H};
-    const float y = group_dot<TB, BITS, 2>(
+    const float y = group_dot_zp<TB, BITS, 2, OPT>(
         rows, H, xs, a.gs, !KMAJ, pf,
-        [&](int v, int g) { return bf(sc, (size_t)g * Dqkv + row_of(v)); });
+        [&](int v, int g) { return bf(sc, (size_t)g * Dqkv + row_of(v)); },
+        szs,
+        [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; });
     const int b = lane % TB;
     const bool mine = lane < 2 * FT && b < nb;
     const int row = row_of(lane < 2 * FT ? lane : 0);
@@ -282,7 +357,7 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // A warp per (gate, up) packed row pair of gu_pk [2 I / F, H] (gate tiles,
 // then up tiles; tile-major scales gu_gs [G, 2 I]): act(g * sx) * (u * sx)
 // into act_a [B, I] and max|a| per (token row, tile) into amax.
-template <int TB, int BITS, bool KMAJ>
+template <int TB, int BITS, bool KMAJ, bool OPT>
 __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -293,25 +368,30 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.gu_pk + (size_t)l * 2 * PI * H;
   const bf16* sc = a.gu_gs + (size_t)l * G * 2 * I;
+  const float* szs = a.gu_sz ? a.gu_sz + (size_t)l * G * 2 * I : nullptr;
+  const int* perm = a.ap_g ? a.ap_g + (size_t)l * H : nullptr;
   int staged = -1;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
     const int b0 = grp * TB, nb = min(TB, a.B - b0);
     if (grp != staged) {
       __syncthreads();
-      stage_rows_ld<TB>(a.x8, H, 0, b0, nb, H, xs);
+      stage_rows_ord<TB, OPT>(a.x8, perm, b0, nb, H, xs);
       staged = grp;
     }
     const int p = rb * kWarps + warp;
     if (p >= PI) continue;
     const int t = p / tF, i = p - t * tF;
     const int8_t* rows[2] = {pk + (size_t)p * H, pk + (size_t)(PI + p) * H};
-    const float y = group_dot<TB, BITS, 2>(
-        rows, H, xs, a.gs, !KMAJ, pf, [&](int v, int g) {
-          const int r = v / FT, f = (v / TB) % F;
-          return bf(sc, (size_t)g * 2 * I + (size_t)(2 * t + r) * ti +
-                            f * tF + i);
-        });
+    auto col = [&](int v) {
+      const int r = v / FT, f = (v / TB) % F;
+      return (size_t)(2 * t + r) * ti + f * tF + i;
+    };
+    const float y = group_dot_zp<TB, BITS, 2, OPT>(
+        rows, H, xs, a.gs, !KMAJ, pf,
+        [&](int v, int g) { return bf(sc, (size_t)g * 2 * I + col(v)); },
+        szs,
+        [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; });
     const float yu = __shfl_sync(0xffffffffu, y,
                                  lane < FT ? lane + FT : lane);
     const int b = lane % TB, f = (lane / TB) % F;
@@ -328,7 +408,7 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // o_pk [H / F, q_dim]: a warp per two output rows (NR = 2 / F packed
 // rows); x[b][n] += (sum_g s_g z_g) * sa[b] for the rows n it owns (a8
 // staged from the quantized attention output).
-template <int TB, int BITS>
+template <int TB, int BITS, bool OPT>
 __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
                               float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -339,6 +419,8 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.o_pk + (size_t)l * P * K;
   const bf16* sc = a.o_gs + (size_t)l * Gq * H;
+  const float* szs = a.o_sz ? a.o_sz + (size_t)l * Gq * H : nullptr;
+  const int* perm = a.ap_o ? a.ap_o + (size_t)l * K : nullptr;
   int staged = -1;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
@@ -348,7 +430,7 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
       if (threadIdx.x < TB)
         sa_s[threadIdx.x] =
             (int)threadIdx.x < nb ? attn_scale(a, b0 + threadIdx.x) : 1.f;
-      stage_rows_ld<TB>(a.a8, K, 0, b0, nb, K, xs);
+      stage_rows_ord<TB, OPT>(a.a8, perm, b0, nb, K, xs);
       staged = grp;
     }
     const int u = rb * kWarps + warp;
@@ -357,9 +439,10 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
     const int8_t* rows[NR];
 #pragma unroll
     for (int r = 0; r < NR; ++r) rows[r] = pk + (size_t)(NR * u + r) * K;
-    const float y = group_dot<TB, BITS, NR>(
+    const float y = group_dot_zp<TB, BITS, NR, OPT>(
         rows, K, xs, a.gs, true, pf,
-        [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); });
+        [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); },
+        szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; });
     const int b = lane % TB;
     if (lane >= 2 * TB || b >= nb) continue;
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
@@ -371,7 +454,7 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
 // order, ma += (sum over the tile's groups of s_g z_g) * sa_t, then adds ma
 // to the residual rows it owns (a8 staged per tile from the quantized
 // activation; dn_gs [NG * gtp, H], each tile's groups padded to gtp rows).
-template <int TB, int BITS>
+template <int TB, int BITS, bool OPT>
 __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
                                  float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -382,6 +465,7 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.dn_pk + (size_t)l * P * I;
   const bf16* sc = a.dn_gs + (size_t)l * ng * a.gtp * H;
+  const float* szs = a.dn_sz ? a.dn_sz + (size_t)l * ng * a.gtp * H : nullptr;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
     const int b0 = grp * TB, nb = min(TB, a.B - b0);
@@ -400,9 +484,13 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
 #pragma unroll
         for (int r = 0; r < NR; ++r)
           rows[r] = pk + (size_t)(NR * u + r) * I + (size_t)t * ti;
-        const float y = group_dot<TB, BITS, NR>(
-            rows, ti, xs, a.gs, true, pf, [&](int v, int g) {
+        const float y = group_dot_zp<TB, BITS, NR, OPT>(
+            rows, ti, xs, a.gs, true, pf,
+            [&](int v, int g) {
               return bf(sc, (size_t)(t * a.gtp + g) * H + row_of(v));
+            },
+            szs, [&](int v, int g) {
+              return szs[(size_t)(t * a.gtp + g) * H + row_of(v)];
             });
         if (lane < 2 * TB)
           ma = __fadd_rn(ma, __fmul_rn(y, sa_s[lane % TB]));
@@ -502,7 +590,7 @@ __device__ __forceinline__ void kmajor_mlp_residual(const W8A8Args& a,
 }
 
 // ----------------------------------------------------------------- kernel
-template <int TB, int BITS, bool KMAJ>
+template <int TB, int BITS, bool KMAJ, bool OPT>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_megastep_kernel(W8A8Args a) {
   cg::grid_group grid = cg::this_grid();
@@ -536,7 +624,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     grid.sync();
     // 2: qkv + rope; zero the MLP tile maxima
     for (size_t e = tid; e < (size_t)a.B * ng; e += nthreads) a.amax[e] = 0;
-    gphase_qkv<TB, BITS, KMAJ>(a, l, xs_s, pf);
+    gphase_qkv<TB, BITS, KMAJ, OPT>(a, l, xs_s, pf);
     grid.sync();
     // 3: attention
     for (int u = blockIdx.x; u < a.B * Hkv; u += gridDim.x) {
@@ -567,7 +655,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
       }
     } else {
-      gphase_o_rows<TB, BITS>(a, l, xs_s, sa_s, pf);
+      gphase_o_rows<TB, BITS, OPT>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
     // 6: MLP norm and int8 rows
@@ -577,7 +665,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                             a.x8 + (size_t)b * H, a.sx + b, red);
     grid.sync();
     // 7: gate/up
-    gphase_gateup<TB, BITS, KMAJ>(a, l, xs_s, pf);
+    gphase_gateup<TB, BITS, KMAJ, OPT>(a, l, xs_s, pf);
     grid.sync();
     // 8: the activation's int8 rows per tile
     for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
@@ -594,7 +682,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                           return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
                         });
     } else {
-      gphase_down_rows<TB, BITS>(a, l, xs_s, sa_s, pf);
+      gphase_down_rows<TB, BITS, OPT>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
   }
@@ -604,9 +692,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int TB, int BITS, bool KMAJ>
+template <int TB, int BITS, bool KMAJ, bool OPT>
 cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
-  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ>;
+  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT>;
   size_t kmax = (size_t)a.H;
   if (!KMAJ) kmax = (size_t)std::max(a.H, std::max(a.q_dim, a.ti));
   size_t work = sizeof(float) * kAttnSmemFloats;
@@ -635,12 +723,13 @@ cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
                                      params, smem, s);
 }
 
-template <int BITS, bool KMAJ>
+// OPT: the kernel that reads kernel 14's zero points and act-order orders
+template <int BITS, bool KMAJ, bool OPT>
 cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
-  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ>(a, s);
-  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ>(a, s);
-  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ>(a, s);
-  return launch_grouped<kGroupTB, BITS, KMAJ>(a, s);
+  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ, OPT>(a, s);
+  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ, OPT>(a, s);
+  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ, OPT>(a, s);
+  return launch_grouped<kGroupTB, BITS, KMAJ, OPT>(a, s);
 }
 
 }  // namespace

@@ -2,8 +2,9 @@
 // weights (kernel 14, variants "w4p" and "w8p"), for Hopper (sm_90a).
 //
 // Replaces ganq_tpu/ops/megastep_lowbit.py megastep_lowbit_decode (Pallas
-// _megastep_lb_kernel) at bits 4 and 8 without optional operands, batch
-// <= 64. The kernel is megastep_grouped.cuh's with kernel 14's layouts:
+// _megastep_lb_kernel) at bits 4 and 8, batch <= 64, for packs without
+// optional operands (with zero points or act-order: megastep_lowbit_opt.cu).
+// The kernel is megastep_grouped.cuh's with kernel 14's layouts:
 // every projection row-major, 8-bit planes one code a byte (stored XOR
 // 128, so the signed byte is the centred code), 4-bit planes two rows a
 // byte with the row tile's first half in the high nibble; rope reads its
@@ -23,11 +24,14 @@
 // cos/sin_half [B, cos_ld]. Out kn/vn [L, B, kv_dim] bf16. Scratch:
 // qkv_out [B, Dqkv] bf16, x8 [B, H], sx [B], xs [B, H], act_a [B, I], amax
 // [B, I / ti], a8 [B, max(q_dim, I)], attn [B, q_dim], attn_amax [B Hkv].
+// Packs with zero points or act-order take ganq_megastep_lowbit_opt
+// (megastep_lowbit_opt.cu).
 // Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep_lowbit(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->kmajor || p->B > 64) return (int)cudaErrorInvalidValue;
-  if (p->bits == 4) return (int)launch_grouped_b<4, false>(*p, s);
-  if (p->bits == 8) return (int)launch_grouped_b<8, false>(*p, s);
+  if (p->kmajor || p->B > 64 || p->qkv_sz || p->ap_q)
+    return (int)cudaErrorInvalidValue;
+  if (p->bits == 4) return (int)launch_grouped_b<4, false, false>(*p, s);
+  if (p->bits == 8) return (int)launch_grouped_b<8, false, false>(*p, s);
   return (int)cudaErrorInvalidValue;
 }

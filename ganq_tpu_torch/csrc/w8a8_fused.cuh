@@ -83,6 +83,17 @@ struct W8A8Args {
   const __nv_bfloat16* gu_gs;
   const __nv_bfloat16* dn_gs;
   float* partf;
+  // kernel 14: float32 zero-point corrections scale * (2^(bits-1) - zero)
+  // in the scales' layouts, and act-order column orders of the qkv and
+  // gate/up activations [L, H] and of the attention output [L, q_dim]
+  // (each null when the pack has none)
+  const float* qkv_sz;
+  const float* o_sz;
+  const float* gu_sz;
+  const float* dn_sz;
+  const int* ap_q;
+  const int* ap_g;
+  const int* ap_o;
 };
 
 namespace {

@@ -1,6 +1,8 @@
 """Quantized checkpoint save/load for the ``lut`` and GPTQ formats.
 
-The port of the ``lut`` and GPTQ parts of ``ganq_tpu/formats/checkpoint.py``:
+The port of the ``lut`` and GPTQ parts of ``ganq_tpu/formats/checkpoint.py``
+(llama and mixtral models; a MoE layer's experts are stored under the HF
+expert names, its router dense):
 a directory of (possibly sharded) safetensors files plus
 ``quantize_config.json``, ``config.json`` (with ``quantization_config``
 mirrored in) and ``quant_log.csv``. A ``lut`` linear is stored as
@@ -122,6 +124,9 @@ def _hf_state(spec: ArchSpec, model: Model, artifacts: Dict[str, Any],
         for ours in ("input_norm", "post_norm"):
             key = spec.name_map[f"layers.{{i}}.{ours}.weight"].format(i=i)
             state[key] = getattr(lp, ours).weight
+        if lp.moe is not None:            # the router stays dense
+            key = spec.name_map["layers.{i}.moe.router.weight"].format(i=i)
+            state[key] = lp.moe["router"]["weight"]
         for mod, slot in spec.module_slots.items():
             p = hf_import.get_module(model, i, slot)
             if p is not None:
@@ -133,14 +138,22 @@ def _hf_state(spec: ArchSpec, model: Model, artifacts: Dict[str, Any],
     return state
 
 
+def _spec_of(hf_config: Dict[str, Any], model: Model) -> ArchSpec:
+    """The config's spec, its expert templates instantiated; raises where
+    the model's depth is not the config's."""
+    spec = get_spec(hf_config["model_type"])
+    cfg = spec.make_config(hf_config)
+    if len(model.layers) != cfg.num_hidden_layers:
+        raise ValueError("model depth does not match hf_config")
+    return spec.expand(cfg.num_experts)
+
+
 def save_dense(save_dir: str, hf_config: Dict[str, Any], model: Model,
                max_shard_bytes: int = MAX_SHARD_BYTES) -> None:
     """Write an unquantized model as an HF checkpoint directory
     (``config.json`` plus sharded safetensors), the input of
     ``GanqModel.load(dir, quantize_config)``."""
-    spec = get_spec(hf_config["model_type"])
-    if len(model.layers) != spec.make_config(hf_config).num_hidden_layers:
-        raise ValueError("model depth does not match hf_config")
+    spec = _spec_of(hf_config, model)
     os.makedirs(save_dir, exist_ok=True)
     _write_sharded(save_dir, _hf_state(spec, model, {}), max_shard_bytes)
     with open(os.path.join(save_dir, "config.json"), "w") as f:
@@ -161,9 +174,7 @@ def save_quantized(save_dir: str, hf_config: Dict[str, Any],
     keep their bf16 codebooks). ``quant_log``: entries with ``layer``,
     ``module``, ``method``, ``loss``, ``damp`` and ``duration`` attributes,
     written to ``quant_log.csv``."""
-    spec = get_spec(hf_config["model_type"])
-    if len(model.layers) != spec.make_config(hf_config).num_hidden_layers:
-        raise ValueError("model depth does not match hf_config")
+    spec = _spec_of(hf_config, model)
     os.makedirs(save_dir, exist_ok=True)
     _write_sharded(save_dir, _hf_state(spec, model, artifacts or {},
                                        qcfg.format == FORMAT.GPTQ),
@@ -249,6 +260,7 @@ def load_quantized(model_dir: str, device="cuda",
 
     state = dict(hf_import.iter_safetensors(model_dir))
     cfg, model = hf_import.params_from_state_dict(state, hf_config, dtype, device)
+    spec = spec.expand(cfg.num_experts)
 
     def build_qlinear(prefix: str, bits: int) -> Optional[qlinear.QLinear]:
         bias = state.get(f"{prefix}.bias")

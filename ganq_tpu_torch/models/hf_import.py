@@ -1,6 +1,7 @@
 """HF config and tensors -> the port's :class:`Model`.
 
-The port of ``ganq_tpu/models/hf_import.py`` for the llama family: the HF
+The port of ``ganq_tpu/models/hf_import.py`` for the llama family and
+mixtral (MoE layers: a dense router and per-expert gate/up/down): the HF
 config dict becomes a :class:`ModelConfig`, and HF tensor names map onto the
 model's parameter paths through the registry's ``name_map``.
 :func:`params_from_dir` reads a dense checkpoint directory;
@@ -52,7 +53,10 @@ def config_to_hf(cfg: ModelConfig) -> Dict[str, Any]:
             "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
             "rope_scaling": cfg.rope_scaling, "hidden_act": cfg.act,
             "attention_bias": cfg.attn_bias, "mlp_bias": cfg.mlp_bias,
-            "tie_word_embeddings": cfg.tie_word_embeddings}
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            **({"num_local_experts": cfg.num_experts,
+                "num_experts_per_tok": cfg.num_experts_per_tok}
+               if cfg.num_experts else {})}
 
 
 def iter_safetensors(model_dir: str) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -83,16 +87,30 @@ def params_from_dir(model_dir: str, dtype: torch.dtype = torch.float32,
     return params_from_state_dict(state, hf_config, dtype, device)
 
 
+def _container(model: Model, layer_idx: int, slot: str):
+    """(container, name) of a slot: ``attn.q``, ``mlp.down``,
+    ``moe.router``, ``moe.experts.3.gate``; the container is None where the
+    layer has no such group."""
+    parts = slot.split(".")
+    node = getattr(model.layers[layer_idx], parts[0])
+    for p in parts[1:-1]:
+        if node is None:
+            break
+        node = node[int(p)] if p.isdigit() else node[p]
+    return node, parts[-1]
+
+
 def get_module(model: Model, layer_idx: int, slot: str) -> Optional[torch.nn.Module]:
-    """The linear at slot ``attn.q`` / ``mlp.down`` of layer ``layer_idx``."""
-    group, name = slot.split(".")
-    container = getattr(model.layers[layer_idx], group)
-    return container[name] if name in container else None
+    """The linear at slot ``attn.q`` / ``mlp.down`` / ``moe.experts.0.gate``
+    of layer ``layer_idx``, or None."""
+    container, name = _container(model, layer_idx, slot)
+    return container[name] if container is not None and name in container \
+        else None
 
 
 def set_module(model: Model, layer_idx: int, slot: str, value) -> None:
-    group, name = slot.split(".")
-    getattr(model.layers[layer_idx], group)[name] = value
+    container, name = _container(model, layer_idx, slot)
+    container[name] = value
 
 
 def params_from_state_dict(state: Dict[str, torch.Tensor],
@@ -105,6 +123,7 @@ def params_from_state_dict(state: Dict[str, torch.Tensor],
     device = resolve_device(device)
     spec = get_spec(hf_config["model_type"])
     cfg = spec.make_config(hf_config)
+    spec = spec.expand(cfg.num_experts)
 
     def get(ours: str, i: int = 0) -> Optional[torch.Tensor]:
         theirs = spec.name_map.get(ours)
@@ -120,9 +139,19 @@ def params_from_state_dict(state: Dict[str, torch.Tensor],
                     w, get(f"layers.{{i}}.{group}.{n}.bias", i))
         return out
 
+    def moe(i: int):
+        if not cfg.num_experts:
+            return None
+        router = get("layers.{i}.moe.router.weight", i)
+        return {"router": qlinear.dense_linear(router),
+                "experts": [slots(i, f"moe.experts.{e}", _MLP)
+                            for e in range(cfg.num_experts)]}
+
     layers = [Layer(get("layers.{i}.input_norm.weight", i),
                     get("layers.{i}.post_norm.weight", i),
-                    attn=slots(i, "attn", _ATTN), mlp=slots(i, "mlp", _MLP))
+                    attn=slots(i, "attn", _ATTN),
+                    mlp={} if cfg.num_experts else slots(i, "mlp", _MLP),
+                    moe=moe(i))
               for i in range(cfg.num_hidden_layers)]
     embed = get("embed_tokens.weight")
     lm = get("lm_head.weight")
@@ -167,11 +196,18 @@ def params_from_numpy(cfg_dict: Dict[str, Any], arrays: Dict[str, Any],
     layers = []
     for i in range(cfg.num_hidden_layers):
         p = f"layers.{i}"
+        moe = None
+        if cfg.num_experts:
+            moe = {"router": linear(f"{p}.moe.router"),
+                   "experts": [{n: linear(f"{p}.moe.experts.{e}.{n}")
+                                for n in _MLP}
+                               for e in range(cfg.num_experts)]}
         layers.append(Layer(
             tensor(arrays[f"{p}.input_norm.weight"]),
             tensor(arrays[f"{p}.post_norm.weight"]),
             attn={n: linear(f"{p}.attn.{n}") for n in _ATTN},
-            mlp={n: linear(f"{p}.mlp.{n}") for n in _MLP}))
+            mlp={} if moe else {n: linear(f"{p}.mlp.{n}") for n in _MLP},
+            moe=moe))
     model = Model(tensor(arrays["embed_tokens.weight"]),
                   tensor(arrays["final_norm.weight"]), layers,
                   linear("lm_head"))

@@ -1,15 +1,17 @@
-"""Architecture registry: the llama ``ArchSpec``.
+"""Architecture registry: the llama and mixtral ``ArchSpec``s.
 
-The port of the llama entry of ``ganq_tpu/models/registry.py``: how a HF
-config becomes a :class:`ModelConfig`, how HF tensor names map onto the
-model's parameter paths, and which linears are quantized (their checkpoint
-module names, the slots they fill and the order of the quantization
-subsets). The other architectures come with
-later slices.
+The port of the llama and mixtral entries of ``ganq_tpu/models/registry.py``:
+how a HF config becomes a :class:`ModelConfig`, how HF tensor names map
+onto the model's parameter paths, and which linears are quantized (their
+checkpoint module names, the slots they fill and the order of the
+quantization subsets). Expert templates (``{e}``) are instantiated per
+model by :meth:`ArchSpec.expand`. The other architectures come with later
+slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List
 
@@ -28,6 +30,30 @@ class ArchSpec:
     module_slots: Dict[str, str] = field(default_factory=dict)
     lm_head_name: str = "lm_head"
     layers_prefix: str = "model.layers"
+
+    def expand(self, num_experts: int) -> "ArchSpec":
+        """The spec with its ``{e}`` expert templates instantiated for
+        experts 0 .. num_experts - 1 (``ganq_tpu/models/registry.py:47-80``,
+        the reference's expert-index placeholder); itself for a dense
+        model."""
+        if num_experts <= 0 or not any("{e}" in m for sub in self.layer_modules
+                                       for m in sub):
+            return self
+
+        def each(name):
+            if "{e}" not in name:
+                return [name]
+            return [name.replace("{e}", str(e)) for e in range(num_experts)]
+
+        def mapping(d):
+            return {k: v for ours, theirs in d.items()
+                    for k, v in zip(each(ours), each(theirs))}
+
+        return dataclasses.replace(
+            self, name_map=mapping(self.name_map),
+            layer_modules=[[n for m in sub for n in each(m)]
+                           for sub in self.layer_modules],
+            module_slots=mapping(self.module_slots))
 
 
 REGISTRY: Dict[str, ArchSpec] = {}
@@ -108,6 +134,55 @@ register(ArchSpec(
     name_map=LLAMA_NAME_MAP,
     layer_modules=LLAMA_LAYER_MODULES,
     module_slots=LLAMA_SLOTS,
+))
+
+
+# -------------------------------------------------------------------- mixtral
+def _mixtral_config(hf: Dict[str, Any]) -> ModelConfig:
+    return dataclasses.replace(
+        _llama_config(hf), model_type="mixtral",
+        num_experts=hf.get("num_local_experts", 8),
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2))
+
+
+MIXTRAL_NAME_MAP = {
+    **{k: v for k, v in LLAMA_NAME_MAP.items()
+       if ".mlp." not in k and ".bias" not in k},
+    "layers.{i}.moe.router.weight":
+        "model.layers.{i}.block_sparse_moe.gate.weight",
+    "layers.{i}.moe.experts.{e}.gate.weight":
+        "model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight",
+    "layers.{i}.moe.experts.{e}.down.weight":
+        "model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight",
+    "layers.{i}.moe.experts.{e}.up.weight":
+        "model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight",
+}
+
+# the router stays dense: the reference's mixtral definition quantizes only
+# the experts' w1/w3/w2
+MIXTRAL_LAYER_MODULES = [
+    ["self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"],
+    ["self_attn.o_proj"],
+    ["block_sparse_moe.experts.{e}.w1", "block_sparse_moe.experts.{e}.w3"],
+    ["block_sparse_moe.experts.{e}.w2"],
+]
+
+MIXTRAL_SLOTS = {
+    "self_attn.q_proj": "attn.q",
+    "self_attn.k_proj": "attn.k",
+    "self_attn.v_proj": "attn.v",
+    "self_attn.o_proj": "attn.o",
+    "block_sparse_moe.experts.{e}.w1": "moe.experts.{e}.gate",
+    "block_sparse_moe.experts.{e}.w3": "moe.experts.{e}.up",
+    "block_sparse_moe.experts.{e}.w2": "moe.experts.{e}.down",
+}
+
+register(ArchSpec(
+    model_type="mixtral",
+    make_config=_mixtral_config,
+    name_map=MIXTRAL_NAME_MAP,
+    layer_modules=MIXTRAL_LAYER_MODULES,
+    module_slots=MIXTRAL_SLOTS,
 ))
 
 

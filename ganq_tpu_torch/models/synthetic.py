@@ -1,6 +1,6 @@
 """Synthetic models: random weights at real architecture widths.
 
-The port of ``llama_config`` and ``make_model`` of
+The port of ``llama_config`` and ``make_model`` (with Mixtral's experts) of
 ``ganq_tpu/models/synthetic.py``, with its kinds ``dense``, ``lut``,
 ``lut_affine``, ``lut_affine_sym``, ``uniform`` and ``w8``. Random weights have the compute
 and memory behaviour of trained ones, so quantization runs, serving runs and
@@ -11,6 +11,7 @@ kernel timings need no download. Everything is made on the target device
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -57,6 +58,38 @@ def llama_3_2_3b_config(layers: int = 28) -> ModelConfig:
         rope_scaling={"rope_type": "llama3", "factor": 32.0,
                       "low_freq_factor": 1.0, "high_freq_factor": 4.0,
                       "original_max_position_embeddings": 8192})
+
+
+def llama_3_1_8b_config(layers: int = 32) -> ModelConfig:
+    """Llama-3.1-8B at its published widths (huggingface.co/meta-llama/
+    Llama-3.1-8B config.json: vocab 128256, hidden 4096, intermediate 14336,
+    32 layers, 32 heads, 8 KV heads, head_dim 128, untied embeddings, rms
+    eps 1e-5, rope theta 500000 with llama3 scaling); ``layers`` may cut
+    the depth. Power-of-two hidden and query widths: the JAX package's
+    whole-step kernel takes act-order artifacts there."""
+    return dataclasses.replace(
+        llama_config(hidden=4096, inter=14336, layers=layers, heads=32,
+                     kv_heads=8, vocab=128256, max_pos=131072,
+                     rope_theta=500000.0,
+                     rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                                   "low_freq_factor": 1.0,
+                                   "high_freq_factor": 4.0,
+                                   "original_max_position_embeddings": 8192}),
+        tie_word_embeddings=False)
+
+
+def mixtral_8x7b_config(layers: int = 32) -> ModelConfig:
+    """Mixtral-8x7B at its published widths (huggingface.co/mistralai/
+    Mixtral-8x7B-v0.1 config.json: vocab 32000, hidden 4096, intermediate
+    14336, 32 layers, 32 heads, 8 KV heads, head_dim 128, 8 experts, top-2,
+    rope theta 1e6, rms eps 1e-5, untied embeddings); ``layers`` may cut the
+    depth."""
+    return dataclasses.replace(
+        llama_config(hidden=4096, inter=14336, layers=layers, heads=32,
+                     kv_heads=8, vocab=32000, max_pos=32768,
+                     rope_theta=1e6),
+        model_type="mixtral", tie_word_embeddings=False, num_experts=8,
+        num_experts_per_tok=2)
 
 
 def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
@@ -128,7 +161,10 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     0.02 weights in ``dtype``; ``"lut"``: ``bits``-bit codebooks and codes;
     ``"lut_affine"`` / ``"lut_affine_sym"``: 4-bit affine-grid codebooks;
     ``"uniform"``: ``bits``-bit symmetric codes; ``"w8"``), unit norm
-    weights and an embedding of std 0.02 (tied, as ``llama_config`` sets)."""
+    weights and an embedding of std 0.02 (tied, as ``llama_config`` sets;
+    an untied config gets a dense lm_head of std 0.02). A MoE config
+    (``num_experts``) gets per layer a dense router of std 0.02 and
+    ``num_experts`` experts of ``kind`` in place of the MLP."""
     if kind not in ("dense", "lut", "lut_affine", "lut_affine_sym", "uniform",
                     "w8"):
         raise ValueError(f"unknown synthetic kind {kind!r}")
@@ -149,17 +185,29 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
             return _rand_w8_linear(gen, out_f, in_f, device)
         return _rand_dense_linear(gen, out_f, in_f, device, dtype)
 
-    layers = [Layer(torch.ones(h, dtype=dtype, device=device),
-                    torch.ones(h, dtype=dtype, device=device),
-                    attn={"q": lin(q, h), "k": lin(kv, h), "v": lin(kv, h),
-                          "o": lin(h, q)},
-                    mlp={"gate": lin(it, h), "up": lin(it, h),
-                         "down": lin(h, it)})
-              for _ in range(cfg.num_hidden_layers)]
+    def mlp():
+        return {"gate": lin(it, h), "up": lin(it, h), "down": lin(h, it)}
+
+    def layer():
+        attn = {"q": lin(q, h), "k": lin(kv, h), "v": lin(kv, h),
+                "o": lin(h, q)}
+        norms = (torch.ones(h, dtype=dtype, device=device),
+                 torch.ones(h, dtype=dtype, device=device))
+        if not cfg.num_experts:
+            return Layer(*norms, attn=attn, mlp=mlp())
+        router = _rand_dense_linear(gen, cfg.num_experts, h, device, dtype)
+        return Layer(*norms, attn=attn, mlp={}, moe={
+            "router": router,
+            "experts": [mlp() for _ in range(cfg.num_experts)]})
+
+    layers = [layer() for _ in range(cfg.num_hidden_layers)]
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device)
              * 0.02).to(dtype)
-    return Model(embed, torch.ones(h, dtype=dtype, device=device), layers)
+    lm_head = (None if cfg.tie_word_embeddings else
+               _rand_dense_linear(gen, cfg.vocab_size, h, device, dtype))
+    return Model(embed, torch.ones(h, dtype=dtype, device=device), layers,
+                 lm_head)
 
 
 __all__ = ["llama_config", "llama_3_2_1b_config", "llama_3_2_3b_config",
-           "make_model"]
+           "llama_3_1_8b_config", "mixtral_8x7b_config", "make_model"]

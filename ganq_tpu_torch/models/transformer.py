@@ -3,7 +3,9 @@ functions for the math.
 
 The port of the llama subset of ``ganq_tpu/models/transformer.py``: RMSNorm,
 rope with linear or llama3 frequency scaling, grouped-query attention, the
-gated SiLU MLP and tied embeddings. The weights live in ``nn.Module``s whose
+gated SiLU MLP and tied embeddings; and Mixtral's sparse MoE in place of the
+MLP (top-k softmax routing, the masked per-expert loop, and on "cuda_a8"
+the fused expert kernel, kernel 15, for decode-shaped steps). The weights live in ``nn.Module``s whose
 buffer paths are the JAX package's parameter paths
 (``layers.0.attn.q.weight``, ``final_norm.weight``, ...); the forward math is
 a set of plain functions over them, as in the JAX package.
@@ -57,6 +59,8 @@ class ModelConfig:
     mlp_bias: bool = False
     tie_word_embeddings: bool = False
     attn_scale: Optional[float] = None  # default 1/sqrt(head_dim)
+    num_experts: int = 0              # 0: a dense MLP (mixtral: 8)
+    num_experts_per_tok: int = 2
 
     @property
     def q_dim(self) -> int:
@@ -79,17 +83,34 @@ class Weights(nn.Module):
             self.register_buffer("bias", bias)
 
 
+class Pack(nn.Module):
+    """Named tensors as buffers (a kernel's packed operands), so that
+    ``.to(device)`` moves them with the model."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, value in tensors.items():
+            self.register_buffer(name, value)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {k: v for k, v in self._buffers.items() if v is not None}
+
+
 class Layer(nn.Module):
     """One decoder layer's weights: two norms, attention q/k/v/o and the
     gated MLP gate/up/down, each a :class:`~ganq_tpu_torch.ops.qlinear.QLinear`
     (fused ``qkv`` and ``gateup`` in the stacked layout, which may also give
     the transposed ``w8`` o weight ``o_t_w8 [Dq, H]`` and its scale
-    ``o_t_scale [1, H]``)."""
+    ``o_t_scale [1, H]``). A MoE layer has no MLP and holds ``moe``: the
+    dense ``router`` [E, H], the ``experts`` (each a dict of gate/up/down
+    linears) and, after ``optimize()`` on the card, kernel 15's packed
+    experts ``mega`` (a :class:`Pack`)."""
 
     def __init__(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                  attn: Dict[str, nn.Module], mlp: Dict[str, nn.Module],
                  o_t_w8: Optional[torch.Tensor] = None,
-                 o_t_scale: Optional[torch.Tensor] = None):
+                 o_t_scale: Optional[torch.Tensor] = None,
+                 moe: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.input_norm = Weights(input_norm)
         self.post_norm = Weights(post_norm)
@@ -97,6 +118,12 @@ class Layer(nn.Module):
         self.mlp = nn.ModuleDict(mlp)
         self.register_buffer("o_t_w8", o_t_w8)
         self.register_buffer("o_t_scale", o_t_scale)
+        self.moe = None
+        if moe is not None:
+            experts = nn.ModuleList(nn.ModuleDict(e) for e in moe["experts"])
+            self.moe = nn.ModuleDict(
+                {**{k: v for k, v in moe.items() if k != "experts"},
+                 "experts": experts})
 
 
 class Model(nn.Module):
@@ -344,6 +371,11 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     attn_out = qlinear.apply(attn["o"], attn_out, backend)
     x = residual + attn_out
 
+    if lp.moe is not None:
+        h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
+        out = x + _moe_forward(cfg, lp.moe, h, backend,
+                               taps if want_taps else None)
+        return (out, taps) if want_taps else out
     mlp = lp.mlp
     if a8 and _w8_gateup(lp) and b * s <= 64 and not want_taps:
         # the whole MLP in one kernel (9), norm and residual folded in
@@ -364,6 +396,82 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
         taps["mlp.gate"] = taps["mlp.up"] = h
         taps["mlp.down"] = a
         return out, taps
+    return out
+
+
+# ------------------------------------------------------------------------ moe
+def _moe_forward(cfg: ModelConfig, moe, h: torch.Tensor, backend: str,
+                 taps: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """Mixtral-style sparse MoE (``ganq_tpu/models/transformer.py:458-511``,
+    the top-k softmax router): the dense router's logits, softmax in
+    float32, the selection ``probs >= `` the k-th largest (a threshold:
+    ties select more than k), the selected probabilities renormalised by
+    ``max(sum, 1e-9)``. The JAX package's other routers (sparsemixer,
+    sigmoid scoring, group-limited, shared experts, routed scale) raise."""
+    for key in ("shared", "shared_gate", "router_bias"):
+        if key in moe:
+            raise NotImplementedError(
+                f"MoE {key!r}: routers other than Mixtral's top-k softmax "
+                "come with the rest of the model zoo (ROADMAP.md queue A "
+                "item 6)")
+    logits = qlinear.apply(moe["router"], h, backend)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    thresh = torch.topk(probs, cfg.num_experts_per_tok, dim=-1).values[..., -1:]
+    sel = probs >= thresh
+    gated = torch.where(sel, probs, 0.0)
+    gated = gated / torch.clamp(gated.sum(dim=-1, keepdim=True), min=1e-9)
+    return _moe_combine(cfg, moe, h, sel, gated, backend, taps)
+
+
+def moe_slots(gated: torch.Tensor, k: int):
+    """Kernel 15's expert slots for routing weights ``gated`` [rows, E]:
+    S = min(E, rows * k) slots, the experts of the most routed mass first
+    (ties to the lower index, as ``jax.lax.top_k``), and the weights
+    [rows, S] in slot order. Stays on the device (no host sync)."""
+    rows, E = gated.shape
+    S = min(E, rows * k)
+    order = torch.sort(gated.sum(dim=0), descending=True, stable=True).indices
+    slot_ids = order[:S]
+    return slot_ids, gated[:, slot_ids]
+
+
+def _moe_combine(cfg: ModelConfig, moe, h: torch.Tensor, sel: torch.Tensor,
+                 gated: torch.Tensor, backend: str,
+                 taps: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """The experts' outputs under routing weights ``gated`` [b, s, E]
+    (``ganq_tpu/models/transformer.py:513-603``): the fused expert kernel
+    (15) where the layer carries its ``mega`` pack, the backend is
+    ``"cuda_a8"``, no taps are taken, the step has at most 32 token rows and
+    ``GANQ_MOE_MEGA`` is not "0" (on the CPU only with ``GANQ_MOE_MEGA=1``,
+    where its plain version runs); else the masked per-expert loop, every
+    expert on every row with its routing weight (zero where unselected)."""
+    rows = h.numel() // h.shape[-1]
+    env = os.environ.get("GANQ_MOE_MEGA", "")
+    if ("mega" in moe and backend == "cuda_a8" and taps is None and rows <= 32
+            and env != "0" and (h.device.type != "cpu" or env == "1")):
+        from ..ops.moe_expert import moe_expert_decode
+
+        E = gated.shape[-1]
+        slot_ids, wts = moe_slots(gated.reshape(rows, E).to(torch.float32),
+                                  cfg.num_experts_per_tok)
+        y = moe_expert_decode(h.reshape(rows, h.shape[-1]),
+                              moe["mega"].tensors(), slot_ids, wts,
+                              bits=moe["experts"][0]["gate"].bits,
+                              act=_fused_act_kind(cfg))
+        return y.reshape(h.shape).to(h.dtype)
+    out = torch.zeros_like(h)
+    for e, exp in enumerate(moe["experts"]):
+        w_e = gated[..., e:e + 1].to(h.dtype)
+        x_e = h * sel[..., e:e + 1].to(h.dtype)
+        if taps is not None:
+            taps[f"moe.experts.{e}.gate"] = taps[f"moe.experts.{e}.up"] = x_e
+        a = (_activation(qlinear.apply(exp["gate"], x_e, backend), cfg.act)
+             * qlinear.apply(exp["up"], x_e, backend))
+        if taps is not None:
+            taps[f"moe.experts.{e}.down"] = a * sel[..., e:e + 1].to(a.dtype)
+        out = out + w_e * qlinear.apply(exp["down"], a, backend)
     return out
 
 
@@ -395,6 +503,6 @@ def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,
     return unembed(cfg, model, x, backend)
 
 
-__all__ = ["ModelConfig", "Weights", "Layer", "Model", "layer_forward",
+__all__ = ["ModelConfig", "Weights", "Pack", "Layer", "Model", "layer_forward",
            "forward", "embed", "unembed", "apply_norm", "rope_tables",
            "apply_rope", "attention", "causal_mask"]

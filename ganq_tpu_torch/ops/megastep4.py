@@ -80,9 +80,11 @@ def _pair_cols(codes_t: torch.Tensor) -> torch.Tensor:
     return _to_int8(((c[:, N // 2:] ^ 8) << 4) | c[:, :N // 2])
 
 
-def _uniform_mats(sp, bits: int):
-    """The four fused linears of every layer, checked to be the symmetric
-    uniform ``bits``-bit artifacts the whole-step kernels take."""
+def _uniform_mats(sp, bits: int, zeros: bool = False):
+    """The four fused linears of every layer, checked to be the uniform
+    ``bits``-bit artifacts the whole-step kernels take: symmetric, or with
+    zero points where ``zeros`` (kernel 14)."""
+    later = ("g_idx", "lora_a") if zeros else ("zeros", "g_idx", "lora_a")
     out = []
     for lp in sp.layers:
         mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
@@ -90,7 +92,7 @@ def _uniform_mats(sp, bits: int):
             if m.kind != "uniform" or m.bits != bits:
                 raise ValueError(f"megapack: every linear must be uniform "
                                  f"{bits}-bit")
-            for feature in ("zeros", "g_idx", "lora_a"):
+            for feature in later:
                 if feature in m:
                     raise NotImplementedError(
                         f"megapack: {feature!r} artifacts (asym zero points, "
@@ -250,21 +252,30 @@ def nibble_cols(pk_t: torch.Tensor) -> torch.Tensor:
 
 
 def group_linear(x8: torch.Tensor, codes: torch.Tensor,
-                 scales: torch.Tensor, gs: int) -> torch.Tensor:
+                 scales: torch.Tensor, gs: int,
+                 sz: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole-step kernels' group-scaled product: x8 [B, K] (integers)
     and centred codes [R, K] -> [B, R] float32, the sum over the K / gs
     groups in order of ``s[g] * z_g`` with ``z_g`` the exact int32 group
-    dot (float64 here, exact) and ``scales`` [G, R] bf16 or float32."""
+    dot (float64 here, exact) and ``scales`` [G, R] bf16 or float32. With
+    zero-point corrections ``sz`` [G, R] float32 each group adds
+    ``s[g] * z_g + sz[g] * S_g``, ``S_g`` the group's activation sum."""
     B, K = x8.shape
     R = codes.shape[0]
     G = K // gs
-    z = torch.einsum("bgk,rgk->brg", x8.to(torch.float64).reshape(B, G, gs),
+    xg = x8.to(torch.float64).reshape(B, G, gs)
+    z = torch.einsum("bgk,rgk->brg", xg,
                      codes.to(torch.float64).reshape(R, G, gs)
                      ).to(torch.float32)
     s = scales.to(torch.float32)
+    if sz is not None:
+        S = xg.sum(dim=2).to(torch.float32)
     y = torch.zeros((B, R), dtype=torch.float32, device=x8.device)
     for g in range(G):
-        y = y + s[g] * z[:, :, g]
+        p = s[g] * z[:, :, g]
+        if sz is not None:
+            p = p + sz[g] * S[:, g:g + 1]
+        y = y + p
     return y
 
 
@@ -304,9 +315,12 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        scale: float, act: str, Tb: int, ti: int, gs: int,
                        partner_bf16: bool):
     """The arithmetic kernels 13 and 14 share, on decoded operands.
-    ``layer_ops(l)`` gives layer l's centred codes and [G, R] scales
-    (``qkv``, ``o``, ``gate``, ``up``, ``down``: (codes, scales)), its qkv
-    ``bias`` and its two norm weights. ``pos`` [B] holds each slot's
+    ``layer_ops(l)`` gives layer l's centred codes, [G, R] scales and
+    zero-point corrections (``qkv``, ``o``, ``gate``, ``up``, ``down``:
+    (codes, scales, sz or None)), its qkv ``bias``, its two norm weights
+    and, for act-order packs, the column orders ``ap_q``/``ap_g``/``ap_o``
+    (or None) through which the qkv, gate/up and o products read their
+    activations. ``pos`` [B] holds each slot's
     history length; cos/sin_half are [rotary_dim / 2] or [B, rotary_dim /
     2]. Returns (y in x's type, k_new, v_new [L, B, kv_dim] bf16)."""
     B, H = x.shape
@@ -321,10 +335,15 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                                                    ).expand(B, -1)
     xs = x.to(torch.float32)
     kns, vns = [], []
+    def perm(v, order):
+        return v if order is None else v[:, order]
+
     for li in range(L):
         op = layer_ops(li)
         x8, sx = quantize_rows(rms_rows(xs, op["attn_norm"], eps, rms_offset))
-        y = group_linear(x8, *op["qkv"], gs) * sx + op["bias"]
+        c, s, z = op["qkv"]
+        y = group_linear(perm(x8, op.get("ap_q")), c, s, gs, z) * sx \
+            + op["bias"]
         if rotary_dim:
             y = rope_rows_per_slot(y, cos_b, sin_b, q_dim + kv_dim, d,
                                    rotary_dim, interleaved, partner_bf16)
@@ -338,21 +357,26 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        kn.reshape(B, Hkv, d), vn.reshape(B, Hkv, d), pos_l,
                        scale, Tb)
         a8, sa = attn_out_int8(a.reshape(B, q_dim))
-        xs = xs + group_linear(a8, *op["o"], gs) * sa
+        c, s, z = op["o"]
+        xs = xs + group_linear(perm(a8, op.get("ap_o")), c, s, gs, z) * sa
         x8, sx = quantize_rows(rms_rows(xs, op["mlp_norm"], eps, rms_offset))
-        dn_codes, dn_s = op["down"]
+        x8 = perm(x8, op.get("ap_g"))
+        dn_codes, dn_s, dn_sz = op["down"]
         I = dn_codes.shape[1]
         gti = ti // gs
         ma = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+        def tile(sel, rows):
+            return None if sel is None else sel[rows]
+
         for t in range(I // ti):
             cols = slice(t * ti, (t + 1) * ti)
-            g = group_linear(x8, op["gate"][0][cols], op["gate"][1][:, cols],
-                             gs) * sx
-            u = group_linear(x8, op["up"][0][cols], op["up"][1][:, cols],
-                             gs) * sx
-            a8m, sam = quantize_rows(activation(g, act) * u)
-            ma = ma + group_linear(a8m, dn_codes[:, cols],
-                                   dn_s[t * gti:(t + 1) * gti], gs) * sam
+            gu = [group_linear(x8, c[cols], s[:, cols], gs,
+                               tile(z, (slice(None), cols))) * sx
+                  for c, s, z in (op["gate"], op["up"])]
+            a8m, sam = quantize_rows(activation(gu[0], act) * gu[1])
+            grp = slice(t * gti, (t + 1) * gti)
+            ma = ma + group_linear(a8m, dn_codes[:, cols], dn_s[grp], gs,
+                                   tile(dn_sz, grp)) * sam
         xs = xs + ma
     return xs.to(x.dtype), torch.stack(kns), torch.stack(vns)
 
@@ -367,15 +391,16 @@ def _layer_ops4(mp: Dict[str, torch.Tensor], ti: int, tq: int, gs: int):
         gcodes = mp["gu_p4"][l]
         gsc = mp["gu_s"][l].reshape(-1, NG, 2, ti)
         return {
-            "qkv": (nibble_rows(mp["qkv_p4"][l], tq, False), mp["qkv_s"][l]),
-            "o": (nibble_cols(mp["o_p4"][l]), mp["o_s"][l]),
+            "qkv": (nibble_rows(mp["qkv_p4"][l], tq, False), mp["qkv_s"][l],
+                    None),
+            "o": (nibble_cols(mp["o_p4"][l]), mp["o_s"][l], None),
             "gate": (nibble_rows(gcodes[:I // 2], ti, False),
-                     gsc[:, :, 0].reshape(-1, I)),
+                     gsc[:, :, 0].reshape(-1, I), None),
             "up": (nibble_rows(gcodes[I // 2:], ti, False),
-                   gsc[:, :, 1].reshape(-1, I)),
+                   gsc[:, :, 1].reshape(-1, I), None),
             "down": (nibble_cols(mp["dn_p4"][l]),
                      mp["dn_s"][l].reshape(NG, gtp, -1)[:, :ti // gs]
-                     .reshape(I // gs, -1)),
+                     .reshape(I // gs, -1), None),
             "bias": mp["qkv_bias"][l, 0], "attn_norm": mp["attn_norm"][l, 0],
             "mlp_norm": mp["mlp_norm"][l, 0]}
     return ops

@@ -4,20 +4,24 @@ weights (kernel 14), and the gates of its variants.
 The port of ``ganq_tpu/ops/megastep_lowbit.py``. ``ganq_tpu`` serves
 homogeneous uniform W4/W3/W2/W8 models ("w4p", "w3", "w2", "w8p") and true
 8-entry 3-bit codebooks ("wl8", the Walsh plane expansion) at decode batch
-<= 64 through ``megastep_lowbit_decode``. The port has the symmetric "w4p"
-and "w8p" variants: :func:`megapack_lowbit` packs the JAX package's planes
-(keys, shapes and bytes), :func:`megastep_lowbit_decode` launches
-``csrc/megastep_lowbit.cu`` (``ganq_megastep_lowbit``, one cooperative
-launch) for CUDA tensors and runs :func:`megastep_lowbit_plain` only for CPU
-tensors; ``.launches`` counts kernel calls. It raises NotImplementedError
-naming the feature for every operand of a later sub-slice: w3/w2, the Walsh
-LUTs, zero points, act-order masks, EoRA, biases, qk-norm, sandwich norms,
-windows, softcap and the trailing-unembed lm fold.
+<= 64 through ``megastep_lowbit_decode``. The port has the "w4p" and "w8p"
+variants, with zero points and act-order: :func:`megapack_lowbit` packs the
+JAX package's planes (keys, shapes and bytes) and zero-point corrections,
+:func:`actorder_transform` bakes act-order artifacts into a pack-only copy
+and gives the column orders of the activations, and
+:func:`megastep_lowbit_decode` launches ``csrc/megastep_lowbit.cu``
+(``ganq_megastep_lowbit``, one cooperative launch; packs with zero points or
+act-order ``csrc/megastep_lowbit_opt.cu``) for CUDA tensors and runs
+:func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
+counts kernel calls. It raises NotImplementedError naming the feature for
+every operand of a later sub-slice: w3/w2, the Walsh LUTs, EoRA, biases,
+qk-norm, sandwich norms, windows, softcap and the trailing-unembed lm fold.
 
 The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
 product sums, over its groups in order, the group's bf16 scale times the
 exact int32 dot of the int8 activations with the centred codes ``q -
-2^(bits-1)``. Two things differ from kernel 13: rope reads its partner lane
+2^(bits-1)`` (plus, with zero points, the group's correction ``sz`` times
+its activation sum, ``megastep_lowbit.py:479-494``). Two things differ from kernel 13: rope reads its partner lane
 in float32 (the TPU kernel rotates by lane rolls, ``_rope_rot``), and the
 MLP tile comes from :func:`_mlp_plan` (4096 for w4p and 2048 for w8p at
 Llama-3.2-3B widths). The flash block Tb follows the JAX wrapper's plan,
@@ -35,12 +39,13 @@ from __future__ import annotations
 import functools
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .megastep4 import (_codes, _dn_layout, _gu_layout, _scales_t,
                         _uniform_mats, common_pack_ops, grouped_step_plain,
                         nibble_rows)
-from .packing import pack_factor
+from .packing import pack_factor, pack_int_rows, unpack_int_rows
 
 # field plans: per plane, (row_block, src_shift, width) high bits -> low
 # (megastep_lowbit.py:69)
@@ -246,19 +251,37 @@ def _plane_pack(codes: torch.Tensor, tile: int, bits: int) -> torch.Tensor:
     return ((out + 128) % 256 - 128).to(torch.int8)
 
 
+def _sz_t(m, bits: int) -> torch.Tensor:
+    """[G, R] float32 zero-point corrections ``scale * (2^(bits-1) -
+    zero)`` of a uniform linear (zeros where it has none)."""
+    s = m["scales"].to(torch.float32)
+    if "zeros" not in m:
+        return torch.zeros_like(s).T.contiguous()
+    return (s * (float(1 << (bits - 1)) - m["zeros"].to(torch.float32))
+            ).T.contiguous()
+
+
 @torch.no_grad()
 def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
-    """Kernel 14's operands from a stacked model of symmetric uniform
-    ``bits``-bit fused linears (``serve/stacked.stack_layers``), byte-equal
-    to the JAX package's ``megapack_lowbit``: plane bytes ``qkv_pk``,
-    ``o_pk``, ``gu_pk`` (gate tiles, then up tiles), ``dn_pk``, bf16 scales
-    with the groups leading (``gu_s`` and ``dn_s`` tile-major), the qkv
-    bias and the norms. Bits 4 and 8; packs one layer at a time."""
+    """Kernel 14's operands from a stacked model of uniform ``bits``-bit
+    fused linears (``serve/stacked.stack_layers``), byte-equal to the JAX
+    package's ``megapack_lowbit``: plane bytes ``qkv_pk``, ``o_pk``,
+    ``gu_pk`` (gate tiles, then up tiles), ``dn_pk``, bf16 scales with the
+    groups leading (``gu_s`` and ``dn_s`` tile-major), the qkv bias and the
+    norms; where any projection has zero points, the float32 corrections
+    ``qkv_sz``, ``o_sz``, ``gu_sz`` and ``dn_sz`` in the scales' layouts.
+    Bits 4 and 8; packs one layer at a time. Act-order artifacts go through
+    :func:`actorder_transform` first (ValueError here)."""
     if bits not in (4, 8):
         raise NotImplementedError(
             f"megapack_lowbit: {bits}-bit planes (w3/w2) are a later slice of "
             "the port (ROADMAP.md queue B)")
-    mats = _uniform_mats(sp, bits)
+    lp0 = sp.layers[0]
+    if any("g_idx" in m for m in (lp0.attn["qkv"], lp0.attn["o"],
+                                  lp0.mlp["gateup"], lp0.mlp["down"])):
+        raise ValueError("megapack_lowbit: act-order artifacts must go "
+                         "through actorder_transform (serve.stacked.prepack)")
+    mats = _uniform_mats(sp, bits, zeros=True)
     H = cfg.hidden_size
     _, _, _, g_r = _plan_meta(bits)
     Dqkv = mats[0][0]["scales"].shape[0]
@@ -266,8 +289,12 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     gs = mats[0][3].in_features // mats[0][3]["scales"].shape[1]
     tq = _qkv_tile_lb(Dqkv, cfg.head_dim, g_r)
     ti = _mlp_plan(I, bits, H)[0]
-    out = {k: [] for k in ("qkv_pk", "qkv_s", "o_pk", "o_s", "gu_pk", "gu_s",
-                           "dn_pk", "dn_s")}
+    zp = any("zeros" in m for m in mats[0])
+    keys = ["qkv_pk", "qkv_s", "o_pk", "o_s", "gu_pk", "gu_s", "dn_pk",
+            "dn_s"]
+    if zp:
+        keys += ["qkv_sz", "o_sz", "gu_sz", "dn_sz"]
+    out = {k: [] for k in keys}
     for qkv, o, gu, dn in mats:
         gcodes = _codes(gu)
         out["qkv_pk"].append(_plane_pack(_codes(qkv), tq, bits))
@@ -279,9 +306,105 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
         out["gu_s"].append(_gu_layout(_scales_t(gu), I, ti))
         out["dn_pk"].append(_plane_pack(_codes(dn), H, bits))
         out["dn_s"].append(_dn_layout(_scales_t(dn), I, ti, gs))
+        if zp:
+            out["qkv_sz"].append(_sz_t(qkv, bits))
+            out["o_sz"].append(_sz_t(o, bits))
+            out["gu_sz"].append(_gu_layout(_sz_t(gu, bits), I, ti))
+            out["dn_sz"].append(_dn_layout(_sz_t(dn, bits), I, ti, gs))
     mp = {k: torch.stack(v) for k, v in out.items()}
     mp.update(common_pack_ops(sp, mats))
     return mp
+
+
+def _gidx_perm(g_idx_l, gs: int) -> Optional[np.ndarray]:
+    """Stable group-contiguous column order of one layer's g_idx, or None
+    where it is already sequential (``megastep_lowbit.py:1451``). Raises
+    ValueError on unbalanced groups (every group must hold gs columns)."""
+    gi = np.asarray(g_idx_l, np.int64)
+    n = gi.shape[0]
+    if np.array_equal(gi, np.arange(n) // gs):
+        return None
+    counts = np.bincount(gi, minlength=n // gs)
+    if counts.shape[0] != n // gs or not np.all(counts == gs):
+        raise ValueError("act-order g_idx with unbalanced groups")
+    return np.argsort(gi, kind="stable").astype(np.int32)
+
+
+@torch.no_grad()
+def actorder_transform(cfg, sp, bits: int):
+    """Bake act-order (``g_idx``) artifacts into a pack-only copy
+    (``megastep_lowbit.py:1465``). Returns ``(tsp, aps)``: a stacked model
+    whose qkv/o/gate-up/down columns are sorted group-contiguous (g_idx
+    dropped), and the column orders the kernel reads its activations
+    through: ``ap_q`` and ``ap_g`` [L, H], ``ap_o`` [L, q_dim] int32 (the
+    identity for a projection without g_idx; ``aps`` is empty where
+    qkv, o and gate/up have none). Down's order is baked into the pack: the
+    gate/up output rows (codes, scales, zeros and bias) are permuted to
+    match, so no activation of down is permuted at run time. Where the
+    JAX package routes activations through Beneš lane masks
+    (``ops/lane_perm.py``), a gather through the indices gives the same
+    values. The ORIGINAL ``sp`` keeps serving prefill (its artifacts keep
+    g_idx). Raises ValueError on unbalanced groups."""
+    from ..models.transformer import Layer, Model
+    from .qlinear import QLinear
+
+    names = (("attn", "qkv"), ("attn", "o"), ("mlp", "gateup"),
+             ("mlp", "down"))
+    if not any("g_idx" in getattr(lp, g)[n] for lp in sp.layers
+               for g, n in names):
+        return sp, {}
+
+    def perm_of(m):
+        if "g_idx" not in m:
+            return None
+        return _gidx_perm(m["g_idx"].cpu().numpy(),
+                          m.in_features // m["scales"].shape[1])
+
+    perms = [{n: perm_of(getattr(lp, g)[n]) for g, n in names}
+             for lp in sp.layers]
+
+    def rewrite(m, col, row=None):
+        arrays = {k: v for k, v in m._buffers.items()
+                  if v is not None and k != "g_idx"}
+        dev = m["qweight"].device
+        if col is not None:
+            codes = unpack_int_rows(m["qweight"], m.bits, m.in_features)
+            arrays["qweight"] = pack_int_rows(
+                codes[:, torch.as_tensor(col, device=dev).long()], m.bits)
+        if row is not None:
+            I = m["scales"].shape[0] // 2
+            rp = torch.as_tensor(row, device=dev).long()
+            full = torch.cat([rp, rp + I])
+            for k in ("qweight", "scales", "zeros", "bias"):
+                if k in arrays:
+                    arrays[k] = arrays[k][full]
+        return QLinear(m.kind, arrays, m.bits, m.in_features)
+
+    layers = []
+    for lp, p in zip(sp.layers, perms):
+        attn = dict(lp.attn.items())
+        mlp = dict(lp.mlp.items())
+        attn["qkv"] = rewrite(attn["qkv"], p["qkv"])
+        attn["o"] = rewrite(attn["o"], p["o"])
+        mlp["gateup"] = rewrite(mlp["gateup"], p["gateup"], p["down"])
+        mlp["down"] = rewrite(mlp["down"], p["down"])
+        layers.append(Layer(lp.input_norm.weight, lp.post_norm.weight, attn,
+                            mlp))
+    tsp = Model(sp.embed_tokens.weight, sp.final_norm.weight, layers,
+                sp.lm_head)
+    aps = {}
+    if any(p[n] is not None for p in perms for n in ("qkv", "o", "gateup")):
+        dev = sp.layers[0].attn["qkv"]["qweight"].device
+
+        def orders(name, n):
+            return torch.stack([torch.as_tensor(
+                p[name] if p[name] is not None else np.arange(n, dtype=np.int32),
+                device=dev) for p in perms])
+
+        aps = {"ap_q": orders("qkv", cfg.hidden_size),
+               "ap_g": orders("gateup", cfg.hidden_size),
+               "ap_o": orders("o", cfg.q_dim)}
+    return tsp, aps
 
 
 # -------------------------------------------------------------------- plan
@@ -390,21 +513,33 @@ def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
     gtp = mp["dn_s"].shape[1] // NG
     Pi = mp["gu_pk"].shape[1] // 2
 
+    def gate_up(key, l):
+        g = mp[key][l].reshape(-1, NG, 2, ti)
+        return g[:, :, 0].reshape(-1, I), g[:, :, 1].reshape(-1, I)
+
+    def down(key, l):
+        return mp[key][l].reshape(NG, gtp, H)[:, :ti // gs].reshape(I // gs,
+                                                                    H)
+
+    zp = "qkv_sz" in mp
+
     def ops(l):
         gpk = mp["gu_pk"][l]
-        gsc = mp["gu_s"][l].reshape(-1, NG, 2, ti)
+        gs_, us_ = gate_up("gu_s", l)
+        gz, uz = gate_up("gu_sz", l) if zp else (None, None)
         return {
-            "qkv": (_plane_codes(mp["qkv_pk"][l], tq, bits), mp["qkv_s"][l]),
-            "o": (_plane_codes(mp["o_pk"][l], H, bits), mp["o_s"][l]),
-            "gate": (_plane_codes(gpk[:Pi], ti, bits),
-                     gsc[:, :, 0].reshape(-1, I)),
-            "up": (_plane_codes(gpk[Pi:], ti, bits),
-                   gsc[:, :, 1].reshape(-1, I)),
-            "down": (_plane_codes(mp["dn_pk"][l], H, bits),
-                     mp["dn_s"][l].reshape(NG, gtp, H)[:, :ti // gs]
-                     .reshape(I // gs, H)),
+            "qkv": (_plane_codes(mp["qkv_pk"][l], tq, bits), mp["qkv_s"][l],
+                    mp["qkv_sz"][l] if zp else None),
+            "o": (_plane_codes(mp["o_pk"][l], H, bits), mp["o_s"][l],
+                  mp["o_sz"][l] if zp else None),
+            "gate": (_plane_codes(gpk[:Pi], ti, bits), gs_, gz),
+            "up": (_plane_codes(gpk[Pi:], ti, bits), us_, uz),
+            "down": (_plane_codes(mp["dn_pk"][l], H, bits), down("dn_s", l),
+                     down("dn_sz", l) if zp else None),
             "bias": mp["qkv_bias"][l, 0], "attn_norm": mp["attn_norm"][l, 0],
-            "mlp_norm": mp["mlp_norm"][l, 0]}
+            "mlp_norm": mp["mlp_norm"][l, 0],
+            **{k: mp[k][l].long() for k in ("ap_q", "ap_g", "ap_o")
+               if k in mp}}
     return ops
 
 
@@ -431,8 +566,7 @@ def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
 
 
 # operands of kernel 14's later sub-slices and what each serves
-_LATER_OPERANDS = {"qkv_sz": "asym zero points", "ap_q": "act-order masks",
-                   "la_q": "EoRA adapters", "qk_nm": "qk-norm",
+_LATER_OPERANDS = {"la_q": "EoRA adapters", "qk_nm": "qk-norm",
                    "pa_norm": "sandwich norms",
                    "o_bias": "o/gate-up/down biases"}
 
@@ -517,6 +651,27 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     for name in ("qkv_s", "o_s", "gu_s", "dn_s"):
         if mp[name].dtype != torch.bfloat16 or not mp[name].is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous bf16")
+    extra = {}
+    for name, field, dtype, shape in (
+            ("qkv_sz", "qkv_sz", torch.float32, mp["qkv_s"].shape),
+            ("o_sz", "o_sz", torch.float32, mp["o_s"].shape),
+            ("gu_sz", "gu_sz", torch.float32, mp["gu_s"].shape),
+            ("dn_sz", "dn_sz", torch.float32, mp["dn_s"].shape),
+            ("ap_q", "ap_q", torch.int32, (L, H)),
+            ("ap_g", "ap_g", torch.int32, (L, H)),
+            ("ap_o", "ap_o", torch.int32, (L, q_dim))):
+        t = mp.get(name)
+        if t is None:
+            continue
+        if (kmajor or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} "
+                             f"{tuple(shape)} (kernel 14)")
+        extra[field] = t
+    if ("qkv_sz" in extra) != ("dn_sz" in extra) or (
+            "ap_q" in extra) != ("ap_o" in extra):
+        raise ValueError(f"{what}: zero points and act-order orders come "
+                         "for all four projections")
     dev = x.device
     ng = I // ti
     cos_t, sin_t = rope_rows_for(cos_half, sin_half, B, rd, dev)
@@ -541,7 +696,7 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         attn=scratch((B, q_dim), dtype=torch.float32),
         attn_amax=scratch((B * Hkv,), dtype=torch.float32),
         partf=(scratch((max(q_dim, I) // gs, B, H), dtype=torch.float32)
-               if kmajor else None)), dev,
+               if kmajor else None), **extra), dev,
         B=B, H=H, q_dim=q_dim, kv_dim=kv_dim, d=d, rd=rd,
         interleaved=int(interleaved), I=I, ti=ti, T=T, Tb=Tb, L=L,
         act=ACT_CODES[act], eps=eps, rms_offset=rms_offset, scale=scale,
@@ -564,12 +719,14 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                            qkv_cap_mb: int = 12):
     """Kernel 14, one decode step over all layers ("w4p" at ``bits=4``,
     "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
-    ``mp`` from :func:`megapack_lowbit`; k/v_cache [L, B * Hkv, T, d] bf16
-    (slot b's history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B]
-    int tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at
-    each slot's position. Returns (y [B, H], the hidden state before the
-    final norm, in x's type; k_new and v_new [L, B, kv_dim] bf16). The other
-    arguments are the JAX wrapper's; each of them, and every optional
+    ``mp`` from :func:`megapack_lowbit`, with the zero-point corrections
+    ``*_sz`` and the act-order orders ``ap_*`` (:func:`actorder_transform`)
+    where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
+    history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B] int
+    tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at each
+    slot's position. Returns (y [B, H], the hidden state before the final
+    norm, in x's type; k_new and v_new [L, B, kv_dim] bf16). The other
+    arguments are the JAX wrapper's; each of them, and every other optional
     operand of ``mp``, raises NotImplementedError naming its feature."""
     B, H = x.shape
     if B > 64:
@@ -589,8 +746,12 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                                      qkv_cap_mb=qkv_cap_mb)
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
                     qkv_cap_mb)
+    # packs with zero points or act-order run the kernel's other
+    # instantiation (csrc/megastep_lowbit_opt.cu)
+    lib = ("megastep_lowbit_opt" if "qkv_sz" in mp or "ap_q" in mp
+           else "megastep_lowbit")
     y, kn, vn = launch_grouped(
-        "megastep_lowbit", "ganq_megastep_lowbit", "megastep_lowbit_decode",
+        lib, f"ganq_{lib}", "megastep_lowbit_decode",
         x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},
         k_cache, v_cache, pos, cos_half, sin_half, bits=bits, kmajor=False,
         tq=plan["tq"], ti=plan["ti"], gs=H // mp["qkv_s"].shape[1],

@@ -175,6 +175,10 @@ def quantize_model(cfg: ModelConfig, model: Model, spec: ArchSpec,
     subset's Hessian capture."""
     if qcfg.rotation:
         raise _not_ported("rotation")
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "quantizing a MoE model (per-expert routed Hessian taps) is not "
+            "ported yet: it comes first in ROADMAP.md queue A item 6")
     if qcfg.lm_head:
         if model.lm_head is None:
             # reference module_looper.py:131-135

@@ -7,7 +7,7 @@ place. The position, the sampled tokens and the finished flags stay on the
 device, so a decode step needs no host sync.
 
 As the JAX engine (``layout="auto"``) does, the port serves a homogeneous
-model of more than one layer through the stacked layout
+dense-MLP model of more than one layer through the stacked layout
 (``serve/stacked.py``): ``stack_layers(recode="affine")`` certifies every
 ``lut`` linear whose codebook lies on an affine grid into a ``uniform``
 linear and fuses each layer's rows, and ``prepack`` (at batch 1, as there)
@@ -16,7 +16,10 @@ kernels and the megasteps (kernels 12-14) where the JAX engine's gates send
 them. Where its gate picks a whole-step variant the port does not have yet
 (kernel 14's later sub-slices: :func:`stacked_only_kernel`), the engine
 raises; ``layout="perlayer"`` serves the model as given, layer by layer, as
-the JAX engine's ``layout="perlayer"`` does.
+the JAX engine's ``layout="perlayer"`` does. MoE models stay per layer,
+where the fused expert kernel (kernel 15) serves their decode steps
+(``models/transformer._moe_combine``), and so do act-order models whose
+groups are not balanced (``prepack`` raises ValueError).
 """
 
 from __future__ import annotations
@@ -166,14 +169,16 @@ class Engine:
         model = model.to(self.device)
         self.backend = select_backend(model, self.device, backend)
         sp = None
-        if layout != "perlayer" and len(model.layers) > 1:
+        # MoE models stay per layer: the fused expert kernel (kernel 15)
+        # is reached through the per-layer MoE combine
+        if (layout != "perlayer" and len(model.layers) > 1
+                and not any(lp.moe is not None for lp in model.layers)):
             try:
                 sp = stacked.stack_layers(model, recode="affine")
-            except ValueError:
-                sp = None            # mixed kinds or bits: per layer
-        if sp is not None:
-            try:
                 sp = stacked.prepack(cfg, sp, self.backend, 1, self.device)
+            except ValueError:
+                sp = None            # mixed kinds or bits, or act-order
+                                     # groups out of balance: per layer
             except NotImplementedError:
                 # a later kernel-14 variant: its requests raise in generate
                 sp = stacked.certify_stacked(sp)

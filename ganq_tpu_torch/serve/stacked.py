@@ -13,8 +13,8 @@ variant of a request from the gates of the whole-step kernels, in the JAX
 order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
 (``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
 (``ops/megastep_lowbit.py``); kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"``,
-and its variants with optional operands (zero points, act-order, EoRA,
-biases, the lm fold), come with later slices (:func:`missing_kernel`,
+and its variants with optional operands other than zero points and
+act-order (EoRA, biases, the lm fold), come with later slices (:func:`missing_kernel`,
 ``ROADMAP.md`` queue B). The decode steps of a request with a variant run
 the megastep once per step; the others, and every prefill, run the layers
 one by one (``models/transformer.layer_forward``), where the fused MLP
@@ -240,14 +240,11 @@ def lm_fold_engages(cfg: ModelConfig, sp: Model) -> bool:
 
 def _later_operands(sp: Model) -> Optional[str]:
     """The first operand of the stacked layers that kernel 14's later
-    sub-slices bring (zero points, act-order, EoRA, o/gate-up/down
-    biases), or None."""
+    sub-slices bring (EoRA, o/gate-up/down biases), or None."""
     lp = sp.layers[0]
     mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
-    for key, what in (("zeros", "asym zero points"), ("g_idx", "act-order"),
-                      ("lora_a", "EoRA adapters")):
-        if any(key in m for m in mats):
-            return what
+    if any("lora_a" in m for m in mats):
+        return "EoRA adapters"
     if any("bias" in m for m in mats[1:]):
         return "o/gate-up/down biases"
     return None
@@ -270,16 +267,23 @@ def missing_kernel(cfg: ModelConfig, sp: Optional[Model],
 
 
 def _pack(cfg: ModelConfig, sp: Model, variant: str):
+    """The variant's pack; kernel 14's bakes act-order artifacts first
+    (``actorder_transform``: ValueError on unbalanced groups) and carries
+    the activations' column orders."""
     from ..ops.megastep import megapack
     from ..ops.megastep4 import megapack4
-    from ..ops.megastep_lowbit import megapack_lowbit
+    from ..ops.megastep_lowbit import actorder_transform, megapack_lowbit
 
     with torch.no_grad():
         if variant == "w8":
             return megapack(cfg, sp)
         if variant == "w4":
             return megapack4(cfg, sp)
-        return megapack_lowbit(cfg, sp, _LB_BITS[variant])
+        bits = _LB_BITS[variant]
+        tsp, aps = actorder_transform(cfg, sp, bits)
+        mp = megapack_lowbit(cfg, tsp, bits)
+        mp.update(aps)
+        return mp
 
 
 def prepack(cfg: ModelConfig, sp: Model, backend: str, batch: int,
@@ -288,8 +292,10 @@ def prepack(cfg: ModelConfig, sp: Model, backend: str, batch: int,
     ``w8`` to uniform 8-bit for batches above 8 (``GANQ_W8_PLANE=0`` opts
     out), and pack the megastep's operands once for the variant this batch
     takes, one pack per kernel (``sp.megapack_w8``, ``sp.megapack4``,
-    ``sp.megapack_lb``); a variant or an operand of a later slice raises
-    NotImplementedError naming it."""
+    ``sp.megapack_lb``, act-order artifacts baked into kernel 14's); a
+    variant or an operand of a later slice raises NotImplementedError
+    naming it, act-order groups that are not balanced ValueError (the
+    engine then serves the model per layer, as the JAX engine does)."""
     if os.environ.get("GANQ_LUT_AFFINE", "1") != "0":
         sp = certify_stacked(sp)
     if (mega_env_enabled(backend, batch, device) and batch > 8

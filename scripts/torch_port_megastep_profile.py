@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's whole-step kernels (kernels 12, 13, 14) goes.
+"""Where the time of the port's whole-step kernels (kernels 12, 13, 14) and
+of the fused expert kernel (kernel 15) goes.
 
     python3 scripts/torch_port_megastep_profile.py [--layers 28] [--pos 160]
-        [--kernels 12,13,14]
+        [--kernels 12,13,14,15]
 
 On one NVIDIA GPU: builds instrumented copies of
 ``ganq_tpu_torch/csrc/megastep_w8.cu`` (kernel 12) and of the group-scaled
@@ -16,7 +17,12 @@ and prints the microseconds of each phase summed over the layers (each
 phase's time includes the barrier after it), then the cost of a grid
 barrier alone (a cooperative launch of the same grid size that only
 synchronises). The instrumented builds are profiling copies; the port always
-runs the sources as they are.
+runs the sources as they are. Kernel 15 (``csrc/moe_expert.cu``, four
+launches a call) runs alone at Mixtral-8x7B's widths (8 experts, hidden
+4096, intermediate 14336, top-2 routing of random logits), 8- and 4-bit
+experts at batch 1 and 8: its time per call (a CUDA graph of 20 calls,
+timed with CUDA events) and each launch's device time
+(``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -132,11 +138,56 @@ def _report(lib, phases, layers: int, label: str) -> None:
           flush=True)
 
 
+def moe_profile(gen) -> None:
+    """Kernel 15 alone at Mixtral-8x7B's widths: ms a call and per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ganq_tpu_torch.models.transformer import moe_slots
+    from ganq_tpu_torch.ops.moe_expert import moe_expert_decode
+
+    import chip_smoke
+
+    E, H, I, k = 8, 4096, 14336, 2
+    for bits in (8, 4):
+        mp = chip_smoke._moe_pack(gen, E, H, I, bits)
+        for B in (1, 8):
+            x = torch.randn((B, H), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            probs = torch.softmax(torch.randn((B, E), generator=gen,
+                                              device="cuda") * 2, dim=-1)
+            sel = probs >= torch.topk(probs, k, dim=-1).values[:, -1:]
+            gated = torch.where(sel, probs, 0.0)
+            slot_ids, wts = moe_slots(gated / gated.sum(-1, keepdim=True), k)
+
+            def call():
+                return moe_expert_decode(x, mp, slot_ids, wts, bits=bits)
+
+            ms = chip_smoke.time_ms(call, [()], 20)
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            parts = []
+            for evt in prof.key_averages():
+                t = getattr(evt, "device_time_total",
+                            getattr(evt, "cuda_time_total", 0))
+                if t:
+                    parts.append(f"{evt.key[:40]} {t / 5 / 1e3:.4f} ms")
+            print(f"kernel 15 (moe_expert_decode) E={E} H={H} I={I} "
+                  f"bits={bits} batch {B}, {int((gated.sum(0) > 0).sum())} "
+                  f"routed experts: {ms:.4f} ms a call; per launch: "
+                  + ("; ".join(parts) or "no device time in the profile"))
+        del mp
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=28)
     ap.add_argument("--pos", type=int, default=160)
-    ap.add_argument("--kernels", default="12,13,14")
+    ap.add_argument("--kernels", default="12,13,14,15")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -222,6 +273,10 @@ def main() -> int:
         step("grouped", "kernel 13 (w4)", megastep4_decode, mp, (1, 8), 256)
         del mp
     cuda_lib.function = real
+    if 15 in kernels:
+        moe_profile(gen)
+    if not libs:
+        return 0
     lib = next(iter(libs.values()))
     blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream

@@ -725,3 +725,85 @@ def test_megastep4_matches_plain(gen, L, H, q_dim, kv_dim, I, B, T, pos0):
     _close(kn, pk, 5e-3, what + " k_new")
     _close(vn, pv, 5e-3, what + " v_new")
     _close(y, py, 5e-3, what + " y")
+
+
+# the smoke's random operands (chip_smoke.py phase 3)
+from chip_smoke import _moe_pack, _zp_ao_operands
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 9, 64])
+@pytest.mark.parametrize("zp,ao", [(True, False), (False, True),
+                                   (True, True)])
+def test_megastep_lowbit_zero_points_actorder_match_plain(
+        gen, L, H, q_dim, kv_dim, I, bits, B, zp, ao):
+    """Kernel 14 with zero points (``*_sz``) and/or act-order column orders
+    (``ap_*``) against its plain version: at the plain cases' tolerance
+    (one bf16 ulp plus 5e-3 of the largest output) without zero points,
+    and with them 1e-2: an int8 activation that flips at a rounding tie
+    in one layer also moves its group's activation sum by one, which adds
+    +-sz (up to a quarter of 2^bits scale steps) to every row of the next
+    product, as the JAX tests widen their asym bound
+    (``tests/test_megastep_lowbit.py:709-712``)."""
+    mp = _zp_ao_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I,
+                                            bits, False),
+                         L, H, q_dim, bits, zp, ao)
+    T, pos0 = 64, 50
+    pos = [(pos0 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=bits)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = megastep_lowbit_decode.launches
+    y, kn, vn = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin, **kw)
+    assert megastep_lowbit_decode.launches == before + 1
+    py, pk, pv = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, **kw)
+    torch.cuda.synchronize()
+    what = f"megastep_lowbit zp={zp} ao={ao} bits={bits} H={H} B={B}"
+    rel = 1e-2 if zp else 5e-3
+    _close(kn, pk, rel, what + " k_new")
+    _close(vn, pv, rel, what + " v_new")
+    _close(y, py, rel, what + " y")
+
+
+# ------------------------------------------------------------- kernel 15
+from ganq_tpu_torch.models.transformer import moe_slots
+from ganq_tpu_torch.ops.moe_expert import moe_expert_decode, moe_expert_plain
+
+
+@pytest.mark.parametrize("E,H,I,bits,B", [
+    (E, H, I, bits, B) for E, H, I in ((4, 256, 512), (8, 512, 8192))
+    for bits in (4, 8) for B in (1, 3, 8, 32)] + [
+    (8, 4096, 14336, bits, B) for bits in (4, 8) for B in (1, 32)])
+def test_moe_expert_matches_plain(gen, E, H, I, bits, B):
+    """Kernel 15 against its plain version (run on the card) on routed
+    slots (top-2 of random routing, zero-weight padding slots where B * 2 <
+    E), up to Mixtral-8x7B's widths (I = 14336: 7 tiles at 8 bits, 4 at 4
+    bits)."""
+    mp = _moe_pack(gen, E, H, I, bits)
+    x = (torch.randn((B, H), generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    logits = torch.randn((B, E), generator=gen, device="cuda")
+    probs = torch.softmax(logits, dim=-1)
+    sel = probs >= torch.topk(probs, 2, dim=-1).values[:, -1:]
+    gated = torch.where(sel, probs, 0.0)
+    gated = gated / gated.sum(-1, keepdim=True)
+    slot_ids, wts = moe_slots(gated, 2)
+    before = moe_expert_decode.launches
+    y = moe_expert_decode(x, mp, slot_ids, wts, bits=bits)
+    assert moe_expert_decode.launches == before + 1
+    py = moe_expert_plain(x, mp, slot_ids, wts, bits=bits)
+    torch.cuda.synchronize()
+    _close(y, py, 5e-3, f"moe_expert E={E} I={I} bits={bits} B={B}")
+
+
+def test_moe_expert_rejects_what_it_cannot_run(gen):
+    mp = _moe_pack(gen, 4, 256, 512, 4)
+    x = torch.zeros((33, 256), device="cuda", dtype=torch.bfloat16)
+    ids = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="B <= 32"):
+        moe_expert_decode(x, mp, ids, torch.zeros((33, 4), device="cuda"))
+    with pytest.raises(ValueError, match="wts"):
+        moe_expert_decode(x[:2], mp, ids, torch.zeros((3, 4), device="cuda"))

@@ -162,3 +162,24 @@ def test_whole_step_wrappers_never_fall_back_for_cuda_tensors():
         assert "except" not in src
         assert src.count("return ") == 2
         assert "launch_grouped(" in src and ".launches += 1" in src
+
+
+def test_moe_expert_wrapper_never_falls_back_for_cuda_tensors():
+    """Kernel 15 likewise: its one branch to the plain version tests for a
+    CPU tensor; every other path launches the kernel or raises, and the
+    MoE combine reaches it only on "cuda_a8" (or, on the CPU, with
+    ``GANQ_MOE_MEGA=1``)."""
+    import inspect
+
+    from ganq_tpu_torch.models import transformer
+    from ganq_tpu_torch.ops import moe_expert
+
+    src = inspect.getsource(moe_expert.moe_expert_decode)
+    assert src.count("moe_expert_plain(") == 1
+    assert 'device.type == "cpu":\n        return moe_expert_plain(' in src
+    assert "except" not in src
+    assert src.count("return ") == 2
+    assert "cuda_lib.check(" in src and ".launches += 1" in src
+    combine = inspect.getsource(transformer._moe_combine)
+    assert 'backend == "cuda_a8"' in combine
+    assert 'h.device.type != "cpu" or env == "1"' in combine

@@ -84,20 +84,28 @@ def test_packs_match_jax_bytes(packed, variant):
 
 
 def test_pack_refuses_later_features(packed):
-    """Zero points are a later sub-slice of kernel 14, and so are 3-bit
-    planes: the packs raise."""
+    """3-bit planes are a later sub-slice of kernel 14: the pack raises.
+    Zero points are kernel 14's (kernel 13's pack still refuses them), and
+    act-order artifacts must go through ``actorder_transform`` first, as
+    in ganq_tpu (ValueError)."""
     _, _, _, tcfg, _, tsp = packed["w4p"]
     with pytest.raises(NotImplementedError, match="w3/w2"):
         tlb.megapack_lowbit(tcfg, tsp, 3)
     lin = tsp.layers[0].attn["qkv"]
     lin.register_buffer("zeros", torch.full_like(lin["scales"], 7.0))
     try:
-        for pack in (tm4.megapack4, functools.partial(tlb.megapack_lowbit,
-                                                      bits=4)):
-            with pytest.raises(NotImplementedError, match="zero points"):
-                pack(tcfg, tsp)
+        with pytest.raises(NotImplementedError, match="zero points"):
+            tm4.megapack4(tcfg, tsp)
+        assert "qkv_sz" in tlb.megapack_lowbit(tcfg, tsp, 4)
     finally:
         del lin._buffers["zeros"]
+    lin.register_buffer("g_idx", torch.arange(lin.in_features,
+                                              dtype=torch.int32) // 128)
+    try:
+        with pytest.raises(ValueError, match="actorder_transform"):
+            tlb.megapack_lowbit(tcfg, tsp, 4)
+    finally:
+        del lin._buffers["g_idx"]
 
 
 def _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, gs):
@@ -265,7 +273,8 @@ def test_plain_matches_jax_interpret(packed, variant, B):
 
 def test_wrappers_refuse_later_features(packed):
     """Each operand or argument of a later sub-slice of kernel 14 raises
-    NotImplementedError naming its feature, on the CPU as on the card."""
+    NotImplementedError naming its feature, on the CPU as on the card (zero
+    points and act-order are served: ``test_zero_point_actorder_*``)."""
     jcfg, _, _, _, tmp, _ = packed["w8p"]
     B, T, d = 1, 64, 128
     x = torch.zeros((B, jcfg.hidden_size), dtype=torch.bfloat16)
@@ -280,11 +289,210 @@ def test_wrappers_refuse_later_features(packed):
         with pytest.raises(NotImplementedError, match=what):
             tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
                                        **{**kw, **extra})
-    for key, what in (("qkv_sz", "zero points"), ("la_q", "EoRA"),
-                      ("o_bias", "biases"), ("ap_q", "act-order")):
+    for key, what in (("la_q", "EoRA"), ("o_bias", "biases"),
+                      ("qk_nm", "qk-norm"), ("pa_norm", "sandwich")):
         with pytest.raises(NotImplementedError, match=what):
             tlb.megastep_lowbit_decode(x, {**tmp, key: None}, kc, kc, 3,
                                        None, None, **kw)
     with pytest.raises(ValueError, match="B <= 8"):
         tm4.megastep4_decode(torch.zeros((9, 256)), {}, kc, kc, 3, None,
                              None, q_dim=256, kv_dim=128, head_dim=d)
+
+
+# ------------------------------------------- zero points and act-order
+def inject_zp_ao(params, bits, asym, actorder, seed=3, unbalanced=False):
+    """Give every uniform linear of ganq_tpu's per-layer params random
+    fractional zero points (``asym``, as
+    ``tests/test_megastep_lowbit.py:117-121``) and act-order artifacts
+    (``actorder``: columns shuffled by one permutation per shared input,
+    g_idx recording each column's group, as ``_inject_gidx``; with
+    ``unbalanced`` one group holds a column more than the next). Codes are
+    repacked with the port's packer, whose bytes are ganq_tpu's
+    (``tests/test_torch_packing.py``)."""
+    from ganq_tpu.ops import qlinear as jql
+    from ganq_tpu_torch.ops.packing import pack_int_rows, unpack_int_rows
+
+    rng = np.random.default_rng(seed)
+    for lp in params["layers"]:
+        perms = {}
+        for group, name, shared in (
+                ("attn", "q", "h"), ("attn", "k", "h"), ("attn", "v", "h"),
+                ("attn", "o", "o"), ("mlp", "gate", "g"), ("mlp", "up", "g"),
+                ("mlp", "down", "d")):
+            m = lp[group][name]
+            n = m.in_features
+            arrays = {"scales": m["scales"]}
+            scales = np.asarray(m["scales"])
+            gs = n // scales.shape[1]
+            if asym:
+                arrays["zeros"] = jnp.asarray(rng.uniform(
+                    0.25 * 2 ** bits, 0.75 * 2 ** bits,
+                    size=scales.shape).astype(np.float32))
+            qweight = m["qweight"]
+            if actorder:
+                p = perms.setdefault(shared, rng.permutation(n))
+                gi = np.arange(n) // gs
+                if unbalanced:
+                    gi[gs] = 0
+                codes = unpack_int_rows(torch.from_numpy(np.asarray(qweight)),
+                                        bits, n)
+                qweight = jnp.asarray(pack_int_rows(
+                    codes[:, torch.from_numpy(p)], bits).numpy())
+                arrays["g_idx"] = jnp.asarray(gi[p], jnp.int32)
+            arrays["qweight"] = qweight
+            lp[group][name] = jql.QLinear("uniform", arrays, bits, n)
+    return params
+
+
+def np_uniform_llama(hidden, heads, kvh, inter, bits, vocab=64, seed=3,
+                     norms=True, dtype=np.float32):
+    """(jax cfg, params): a 2-layer llama of symmetric uniform ``bits``-bit
+    g128 linears (the scale range of ganq_tpu's synthetic models) made
+    with numpy and packed by the port's packer (ganq_tpu's bytes), random
+    norm weights in [0.5, 1.5) with ``norms``; no JAX compile."""
+    from ganq_tpu.models import synthetic as jsyn
+    from ganq_tpu.ops import qlinear as jql
+    from ganq_tpu_torch.ops.packing import pack_int_rows
+
+    jcfg = jsyn.llama_config(hidden=hidden, inter=inter, layers=2,
+                             heads=heads, kv_heads=kvh, vocab=vocab,
+                             max_pos=128)
+    rng = np.random.default_rng(seed)
+    q, kv = jcfg.q_dim, jcfg.kv_dim
+
+    def lin(out_f, in_f):
+        codes = rng.integers(0, 2 ** bits, size=(out_f, in_f))
+        scales = (rng.uniform(0.001, 0.004, size=(out_f, in_f // 128))
+                  * min(1.0, 16.0 / (1 << bits))).astype(np.float32)
+        return jql.QLinear("uniform", {
+            "qweight": jnp.asarray(pack_int_rows(
+                torch.from_numpy(codes), bits).numpy()),
+            "scales": jnp.asarray(scales)}, bits, in_f)
+
+    def norm():
+        w = rng.uniform(0.5, 1.5, size=(hidden,)) if norms \
+            else np.ones(hidden)
+        return {"weight": jnp.asarray(w.astype(dtype))}
+
+    params = {"embed_tokens": {"weight": jnp.asarray(
+        (rng.normal(size=(vocab, hidden)) * 0.02).astype(dtype))},
+        "final_norm": {"weight": jnp.ones((hidden,), dtype)}, "layers": [
+            {"input_norm": norm(), "post_norm": norm(),
+             "attn": {"q": lin(q, hidden), "k": lin(kv, hidden),
+                      "v": lin(kv, hidden), "o": lin(hidden, q)},
+             "mlp": {"gate": lin(inter, hidden), "up": lin(inter, hidden),
+                     "down": lin(hidden, inter)}} for _ in range(2)]}
+    return jcfg, params
+
+
+def zp_ao_pair(hidden, heads, kvh, inter, bits, asym, actorder, seed=3,
+               unbalanced=False, vocab=64):
+    """(jax cfg, jax params, port cfg, port model): a 2-layer uniform llama
+    (random norms, :func:`np_uniform_llama`) through :func:`inject_zp_ao`,
+    the same weights in both packages."""
+    from ganq_tpu_torch.models import hf_import as thf
+
+    from test_torch_serve import _flatten_jax
+    from test_torch_stacked import _port_cfg
+
+    jcfg, params = np_uniform_llama(hidden, heads, kvh, inter, bits, vocab,
+                                    seed)
+    inject_zp_ao(params, bits, asym, actorder, seed, unbalanced)
+    tcfg, tmodel = thf.params_from_numpy(
+        thf.config_to_hf(_port_cfg(hidden, heads, kvh, inter, vocab)),
+        _flatten_jax(params), device="cpu")
+    return jcfg, params, tcfg, tmodel
+
+
+def zp_ao_packs(jcfg, params, tcfg, tmodel, bits):
+    """Both packages' kernel 14 packs of the pair, act-order baked
+    (``actorder_transform``) and its activation routing attached: the
+    JAX package's Beneš masks, the port's column orders."""
+    sp = jst.stack_layers(params, recode="affine")
+    jtsp, masks = jlb.actorder_transform(jcfg, sp, bits)
+    jmp = dict(jlb.megapack_lowbit(jcfg, jtsp, bits))
+    jmp.update(masks)
+    ttsp, aps = tlb.actorder_transform(
+        tcfg, tst.stack_layers(tmodel, recode="affine"), bits)
+    tmp = tlb.megapack_lowbit(tcfg, ttsp, bits)
+    tmp.update(aps)
+    return sp, jmp, tmp
+
+
+# (bits, zero points, act-order, decode batch) at hidden 256, 2 heads, 1 kv
+# head, I = 512: the JAX tests' cases (tests/test_megastep_lowbit.py:429,
+# :681) at the smallest widths kernel 14 takes, for the test budget
+_ZP_AO = {"zp8": (8, True, False, 12), "ao4": (4, False, True, 8),
+          "zp_ao4": (4, True, True, 8)}
+
+
+@pytest.fixture(scope="module")
+def zp_ao():
+    """Per case of ``_ZP_AO``: (jax cfg, jax pack, port pack)."""
+    out = {}
+    for case, (bits, asym, actorder, _) in _ZP_AO.items():
+        pair = zp_ao_pair(256, 2, 1, 512, bits, asym, actorder)
+        out[case] = (pair[0], *zp_ao_packs(*pair, bits)[1:])
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_ZP_AO))
+def test_zero_point_actorder_packs_match_jax(zp_ao, case):
+    """With zero points the port's pack adds ganq_tpu's float32 corrections
+    ``qkv_sz``/``o_sz``/``gu_sz``/``dn_sz`` byte for byte; act-order packs
+    (columns group-sorted, gate/up rows with their scales and zeros in
+    down's order) equal ganq_tpu's byte for byte, and each column order
+    ``ap_q``/``ap_g``/``ap_o`` is the permutation ganq_tpu's Beneš masks
+    apply to ``arange``."""
+    from ganq_tpu.ops.lane_perm import apply_benes_np
+
+    _, asym, actorder, _ = _ZP_AO[case]
+    _, jmp, tmp = zp_ao[case]
+    assert sorted(tmp) == sorted(jmp)
+    assert ("qkv_sz" in tmp) == asym and ("ap_q" in tmp) == actorder
+    for k, v in jmp.items():
+        if k in ("ap_q", "ap_g", "ap_o"):
+            masks = np.asarray(jnp.asarray(v, jnp.float32))
+            n = masks.shape[-1]
+            want = np.stack([apply_benes_np(np.arange(n)[None], m)[0]
+                             for m in masks])
+            assert tmp[k].dtype == torch.int32
+            np.testing.assert_array_equal(tmp[k].numpy(), want, err_msg=k)
+            assert not np.array_equal(want[0], np.arange(n))
+            continue
+        assert tuple(tmp[k].shape) == v.shape, k
+        assert tmp[k].dtype == _t(v[:1]).dtype, k
+        np.testing.assert_array_equal(tmp[k].float().numpy(), _np(v),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("case", sorted(_ZP_AO))
+def test_zero_point_actorder_plain_matches_jax_interpret(zp_ao, case):
+    """The plain version of kernel 14 with zero points (bits 8, batch 12),
+    act-order (bits 4, batch 8) and both (bits 4, batch 8) against
+    ganq_tpu's kernel in interpret mode, each slot at its own history
+    length, within ``assert_kernel_close``'s bound (one bf16 ulp plus 5e-3
+    of the largest output: an int8 activation within the frameworks'
+    last-bit rounding differences of a tie flips by one code; with zero
+    points the flip also moves the group sum S by one, which adds +-sz,
+    inside the same bound)."""
+    bits, asym, actorder, B = _ZP_AO[case]
+    jcfg, jmp, tmp = zp_ao[case]
+    rng = np.random.default_rng(40 + B)
+    T, d = 64, 128
+    pos = [30, 3, 20, 63, 41, 7, 33, 12, 28, 50, 5, 60][:B]
+    x, jk, jv, cos, sin = _step_inputs(rng, jcfg, B, T, pos)
+    kw = dict(q_dim=jcfg.q_dim, kv_dim=jcfg.num_key_value_heads * d,
+              head_dim=d, rotary_dim=d, eps=1e-5, scale=float(1 / np.sqrt(d)),
+              bits=bits)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.block_until_ready(jlb.megastep_lowbit_decode(
+            x, jmp, jk, jv, jnp.asarray(pos, jnp.int32), jnp.asarray(cos),
+            jnp.asarray(sin), **kw))
+    got = tlb.megastep_lowbit_decode(_t(x), tmp, _t(jk), _t(jv),
+                                     torch.tensor(pos), torch.from_numpy(cos),
+                                     torch.from_numpy(sin), **kw)
+    for name, g, r in zip(("y", "k", "v"), got, ref):
+        assert tuple(g.shape) == r.shape and g.dtype == torch.bfloat16
+        assert_kernel_close(g.float().numpy(), _np(r), flips=5e-3,
+                            what=f"{case} {name} B={B}")

@@ -276,7 +276,10 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
     """A 2-layer llama (float32 embedding and norms) built by ganq_tpu's
     synthetic builder, layer i of kind ``kinds[i]`` (``bits`` for the
     ``uniform`` kind; an untied lm_head of kind ``lm_head``), and the same
-    weights in the port."""
+    weights in the port. The kinds ``uniform_zp``, ``uniform_ao``,
+    ``uniform_zp_ao`` and ``uniform_ao_unbalanced`` (both layers) are
+    ``uniform`` with random zero points and/or act-order artifacts
+    (``test_torch_megastep_lowbit.inject_zp_ao``)."""
     import jax
 
     from ganq_tpu.models import synthetic as jsyn
@@ -284,8 +287,18 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
     jcfg = jsyn.llama_config(hidden=hidden, inter=2 * hidden, layers=2,
                              heads=heads, kv_heads=max(heads // 2, 1),
                              vocab=VOCAB)
-    params = jsyn.make_model(jcfg, kind=kinds[0], seed=1, dtype=jnp.float32,
-                             bits=bits)
+    variant = kinds[0].split("_")[1:] if kinds[0].startswith("uniform_") \
+        else None
+    if variant:
+        from test_torch_megastep_lowbit import inject_zp_ao, np_uniform_llama
+        _, params = np_uniform_llama(hidden, heads, max(heads // 2, 1),
+                                     2 * hidden, bits, VOCAB, seed=1,
+                                     norms=False)
+        inject_zp_ao(params, bits, "zp" in variant, "ao" in variant,
+                     unbalanced="unbalanced" in variant)
+    else:
+        params = jsyn.make_model(jcfg, kind=kinds[0], seed=1,
+                                 dtype=jnp.float32, bits=bits)
     if kinds[1] != kinds[0]:
         params["layers"][1] = jsyn.make_model(jcfg, kind=kinds[1], seed=2,
                                               dtype=jnp.float32)["layers"][1]
@@ -392,6 +405,10 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
         ("uniform", 2, None, 512, 4, "cuda_a8", 8, 12, 4, "'w2'"),
         ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 4, "lm fold"),
         ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 1, None),
+        ("uniform_zp", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
+        ("uniform_zp", 8, None, 256, 2, "cuda_a8", 16, 2, 4, None),
+        ("uniform_ao", 4, None, 256, 2, "cuda_a8", 1, 12, 4, None),
+        ("uniform_zp_ao", 4, None, 256, 2, "cuda_a8", 64, 2, 4, None),
     ])
 def test_stacked_only_kernels_are_named_where_jax_runs_them(
         monkeypatch, kind, bits, lm, hidden, heads, backend, batch, prompt,
@@ -403,8 +420,8 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
     kernel 14's "w3", "w2" or "wl8", or picks "w4p"/"w8p" for a model whose
     lm_head ganq_tpu folds into the step (``mega_lm_operands``), for a
     request that decodes. The port's gate, on the card, gives the same
-    variant. Kernels 12 ("w8"), 13 ("w4") and 14's "w4p" and "w8p" serve
-    every other request."""
+    variant. Kernels 12 ("w8"), 13 ("w4") and 14's "w4p" and "w8p", with
+    zero points and act-order, serve every other request."""
     from ganq_tpu.ops import megastep_lowbit as jlb
     from ganq_tpu.serve import stacked as jst
 
@@ -455,6 +472,52 @@ def test_optimize_whole_step_greedy_matches_jax(monkeypatch):
     want = np.asarray(j.generate(ids, max_new_tokens=5, max_seq=32))
     np.testing.assert_array_equal(
         g.generate(ids, max_new_tokens=5, max_seq=32), want)
+
+
+def test_zero_point_actorder_whole_step_greedy_matches_jax(monkeypatch):
+    """A 2-layer head_dim-128 W4 llama with zero points and act-order
+    (a ``sym=False``, ``desc_act=True`` GPTQ checkpoint's artifacts) on the
+    stacked layout with the megastep forced on (``GANQ_MEGASTEP=1``): both
+    engines pack kernel 14's "w4p" with the zero-point corrections and the
+    act-order routing and decode a batch of 2 through it (ganq_tpu's
+    Pallas kernel in interpret mode, the port's plain version); greedy
+    tokens are equal."""
+    from ganq_tpu.serve import stacked as jst
+
+    from ganq_tpu_torch.serve import stacked as tst
+
+    jcfg, jparams, tmodel = _affine_model(("uniform_zp_ao",) * 2, 256, 2)
+    monkeypatch.setenv("GANQ_MEGASTEP", "1")
+    jeng = JEngine(jcfg, jparams, backend="reference", max_seq=32)
+    eng = teng.Engine(_port_cfg(256, 2), tmodel, backend="reference",
+                      device="cpu", max_seq=32)
+    assert {"qkv_sz", "ap_q"} <= set(jeng._sp["megapack_lb"])
+    assert eng.stacked and {"qkv_sz", "ap_q"} <= set(eng.model.megapack_lb)
+    assert jst.mega_enabled(jcfg, jeng._sp, "reference", 2) == "w4p"
+    assert tst.mega_enabled(eng.cfg, eng.model, "reference", 2, "cpu") == "w4p"
+    ids = _ids(9, (2, 6))
+    np.testing.assert_array_equal(
+        eng.generate(ids, max_new_tokens=3),
+        np.asarray(jeng.generate(ids, max_new_tokens=3)))
+
+
+def test_unbalanced_actorder_is_served_per_layer_as_jax(monkeypatch):
+    """An act-order model whose groups do not all hold the group size
+    (``actorder_transform`` raises ValueError): ganq_tpu's Engine serves it
+    per layer, and so does the port's (the model as given), with the
+    megastep forced on."""
+    from ganq_tpu_torch.ops import megastep_lowbit as tlb
+    from ganq_tpu_torch.serve import stacked as tst
+
+    jcfg, jparams, tmodel = _affine_model(("uniform_ao_unbalanced",) * 2,
+                                          256, 2)
+    monkeypatch.setenv("GANQ_MEGASTEP", "1")
+    jeng = JEngine(jcfg, jparams, backend="reference", max_seq=32)
+    eng = teng.Engine(_port_cfg(256, 2), tmodel, backend="reference",
+                      device="cpu", max_seq=32)
+    assert jeng._sp is None and not eng.stacked and eng.model is tmodel
+    with pytest.raises(ValueError, match="unbalanced"):
+        tlb.actorder_transform(eng.cfg, tst.stack_layers(tmodel), 4)
 
 
 @pytest.mark.parametrize("recode", ["auto", "affine", "u4", "w8", "none"])

@@ -161,8 +161,9 @@ def test_mega_gates_match_jax(monkeypatch, case):
 
 def test_prepack_routes_and_refuses_as_jax(monkeypatch):
     """``prepack`` at batch 1 packs the operands of the whole-step kernel
-    the variant takes (kernel 12's for w8, kernel 14's for uniform W4, and
-    kernel 13's at request time under ``GANQ_W4_PLANE=0``); where the
+    the variant takes (kernel 12's for w8, kernel 14's for uniform W4, with
+    zero points and act-order too, and kernel 13's at request time under
+    ``GANQ_W4_PLANE=0``); where the
     variant is one of kernel 14's later sub-slices ("w2" here) it raises,
     naming the kernel, and the engine serves such a model without it (its
     decoding requests raise through ``stacked_only_kernel``). Off by default
@@ -202,6 +203,15 @@ def test_prepack_routes_and_refuses_as_jax(monkeypatch):
     eng4 = teng.Engine(tcfg, u4, backend="reference", device="cpu")
     assert teng.stacked_only_kernel(tcfg, eng4.model, "cuda_a8", 4, 8,
                                     "cpu") is None
+    # zero points and act-order: kernel 14's pack carries the corrections
+    # and the activations' column orders, and the requests are served
+    from test_torch_megastep_lowbit import zp_ao_pair
+    _, _, tcfg3, zpao = zp_ao_pair(256, 2, 1, 512, 4, True, True)
+    sp = tst.prepack(tcfg3, tst.stack_layers(zpao, recode="affine"),
+                     "cuda_a8", 1, "cpu")
+    assert {"qkv_sz", "dn_sz", "ap_q", "ap_g", "ap_o"} <= set(sp.megapack_lb)
+    assert "g_idx" in sp.layers[0].attn["qkv"]       # prefill keeps g_idx
+    assert teng.stacked_only_kernel(tcfg3, sp, "cuda_a8", 4, 8, "cpu") is None
     monkeypatch.setenv("GANQ_MEGASTEP", "0")
     assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 8,
                                     "cpu") is None

@@ -68,10 +68,21 @@ Phases, each of which raises (exit code != 0) on failure:
    and through kernel 13 (``GANQ_W4_PLANE=0``) at batch 1 and 8: one
    whole-step launch per decode step, decode ms per step against
    ``layout="perlayer"``.
-Each run of phases 7-9 sets the launch counters to 0, must match its
+10. an 8B-width asym act-order W4 GPTQ model through kernel 14 "w4p";
+11. a Mixtral-8x7B-width model through kernel 15;
+12. continuous batching per layer on phase 4's checkpoint (kernel 1 at a
+    vector of per-slot positions), against the static engine's tokens;
+13. continuous batching through kernel 14 with the trailing-unembed lm
+    fold at Llama-3.1-8B widths (``phase_batching_path``: 12 requests on
+    8 slots, one launch a decode step, the folded logits against the
+    reference backend and the unfolded step, step ms at 1/8/16 slots,
+    tokens/s), then ``GanqModel.serve(use_batching=True)`` over HTTP.
+Phase 3 holds the fold itself against its plain version
+(``check_lm_fold``: the vocab phase bit for bit).
+Each run of phases 7-13 sets the launch counters to 0 and must match its
 expected launches exactly (``expected_launches``, the port's routing, which
-is the JAX package's), and holds a teacher-forced decode step against the
-reference backend.
+is the JAX package's); phases 7-11 and 13 hold a teacher-forced decode
+step against the reference backend.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -994,6 +1005,108 @@ def check_grouped_megasteps(gen) -> list:
     return entries
 
 
+def check_lm_fold(gen) -> dict:
+    """Kernel 14 "w8p" with the trailing-unembed fold at Llama-3.1-8B's
+    widths (ZP_AO_LAYERS layers, vocabulary 128256, a random int8 lm_head
+    with float32 row scales and final norm weights in [0.5, 1.5)) at batch
+    1, 8 and 16, slot b at position FUSED_POS + b. The vocab phase must
+    equal its plain version on the kernel's own int8 rows exactly
+    (``lm_vocab_plain``: max_abs_err 0); y, k, v and the logits are held
+    against the whole plain step within ``_spread_close``. The fold's own
+    time is the kernel's with the fold less the same launch's without it;
+    its bound is the lm_head bytes (V H int8, the scales, the norm, the
+    logits out) over 3.35 TB/s. Returns {batch: row}."""
+    from ganq_tpu_torch.models import synthetic
+    from ganq_tpu_torch.ops.megastep_lowbit import (lm_vocab_plain,
+                                                    megastep_lowbit_decode,
+                                                    megastep_lowbit_plain)
+
+    c8 = synthetic.llama_3_1_8b_config(ZP_AO_LAYERS)
+    H, I, q_dim, kv_dim, d, L = (c8.hidden_size, c8.intermediate_size,
+                                 c8.q_dim, c8.kv_dim, c8.head_dim,
+                                 ZP_AO_LAYERS)
+    V = c8.vocab_size
+    Dqkv, Hkv = q_dim + 2 * kv_dim, kv_dim // d
+    mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, 8, False)
+    w8 = torch.randint(-127, 128, (V, H), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.int8)
+    tv = next(c for c in (4096, 2048, 1024, 512, 256, 128)
+              if V % c == 0 and c * H <= 4 * 2**20)
+    lm = {"w8": w8, "scale": (torch.rand((V // tv, tv), generator=gen,
+                                         device="cuda") * 3e-4 + 1e-4),
+          "norm": torch.rand(H, generator=gen, device="cuda") + 0.5}
+    T = 256
+    ang = torch.rand(64, generator=gen, device="cuda") * 6.2831853
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+              scale=1.0 / math.sqrt(d), bits=8)
+    code_bytes = L * (Dqkv + q_dim + 3 * I) * H
+    scale_bytes = sum(v.numel() * v.element_size() for k, v in mp.items()
+                      if k.endswith("_s"))
+    rows = {}
+    for B in (1, 8, 16):
+        pos = [FUSED_POS + b for b in range(B)]
+        kc = (torch.randn((L, B * Hkv, T, d), generator=gen, device="cuda")
+              * 0.5).to(torch.bfloat16)
+        vc = (torch.randn((L, B * Hkv, T, d), generator=gen, device="cuda")
+              * 0.5).to(torch.bfloat16)
+        x = torch.randn((B, H), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        fold_rows = {}
+        got = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin, lm=lm,
+                                     fold_rows=fold_rows, **kw)
+        torch.cuda.synchronize()
+        fold_err = float((got[3] - lm_vocab_plain(
+            fold_rows["x8"], fold_rows["sx"], lm)).abs().max())
+        if fold_err != 0.0:
+            raise AssertionError(f"lm fold B={B}: the vocab phase differs "
+                                 f"from its plain version by {fold_err}")
+        ref = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, lm=lm,
+                                    **kw)
+        nudged = megastep_lowbit_plain(
+            x, dict(mp, attn_norm=mp["attn_norm"] * (1 + 2**-22),
+                    mlp_norm=mp["mlp_norm"] * (1 + 2**-22)),
+            kc, vc, pos, cos, sin, lm=lm, **kw)
+        torch.cuda.synchronize()
+        errs = [_spread_close(g, p, q, f"w8p+lm {n} B={B}")
+                for n, g, p, q in zip(("y", "k_new", "v_new", "logits"), got,
+                                      ref, nudged)]
+        del ref, nudged
+        k_ms = event_ms(lambda: megastep_lowbit_decode(
+            x, mp, kc, vc, pos_t, cos, sin, lm=lm, **kw), (), 10)
+        n_ms = event_ms(lambda: megastep_lowbit_decode(
+            x, mp, kc, vc, pos_t, cos, sin, **kw), (), 10)
+        p_ms = (event_ms(lambda: megastep_lowbit_plain(
+            x, mp, kc, vc, pos, cos, sin, lm=lm, **kw), (), 1)
+            if B == 1 else None)
+        lm_bytes = V * H + V * 4 + H * 4 + B * V * 4 + B * H
+        f_ms, f_by = bound(lm_bytes, 2.0 * B * V * H, INT8_OPS_PER_S)
+        nbytes = (code_bytes + scale_bytes + 2 * L * sum(pos) * kv_dim * 2
+                  + L * (2 * H + Dqkv) * 4 + 2 * B * H * 2
+                  + 2 * L * B * kv_dim * 2 + lm_bytes)
+        b_ms, b_by = bound(nbytes, 2.0 * B * (L * (Dqkv + q_dim + 3 * I)
+                                              + V) * H, INT8_OPS_PER_S)
+        rows[B] = dict(ms=k_ms, ms_no_fold=n_ms, fold_ms=k_ms - n_ms,
+                       fold_bound_ms=f_ms, fold_bound_by=f_by, bound_ms=b_ms,
+                       bound_by=b_by, plain_ms=p_ms, max_abs_err=fold_err,
+                       rel_l2=max(e[1] for e in errs),
+                       logits_max_abs_err=errs[3][0])
+        log(f"megastep_lowbit_decode (w8p+lm) L={L} H={H} V={V} "
+            f"pos={FUSED_POS}+b B={B}: vocab phase max_abs_err {fold_err} "
+            f"(tol 0) against its plain version on the kernel's int8 rows; "
+            f"rel_l2 y/k/v/logits={[f'{e[1]:.2e}' for e in errs]} (tol 2 x "
+            f"the plain version's spread {[f'{e[2]:.2e}' for e in errs]} + "
+            f"2^-8) kernel_ms={k_ms:.4f} without the fold {n_ms:.4f}: "
+            f"fold_ms={k_ms - n_ms:.4f} fold_bound_ms={f_ms:.4f} ({f_by}) "
+            f"plain_ms={p_ms if p_ms is None else round(p_ms, 3)} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        del kc, vc
+    del mp, lm, w8
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _moe_pack(gen, E, H, I, bits, gs=128):
     """Random kernel 15 operands in moe_megapack's layouts (any byte is a
     valid code byte)."""
@@ -1092,11 +1205,22 @@ def phase_kernels() -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.inference_mode():
-            return [check_lut_matmul(gen), check_flash_decode(gen),
-                    *check_s_step(gen), *check_uniform_kernels(gen),
-                    *check_w8_kernels(gen), *check_fused_w8a8(gen),
-                    check_megastep(gen), *check_grouped_megasteps(gen),
-                    check_moe_expert(gen)]
+            entries = [check_lut_matmul(gen), check_flash_decode(gen),
+                       *check_s_step(gen), *check_uniform_kernels(gen),
+                       *check_w8_kernels(gen), *check_fused_w8a8(gen),
+                       check_megastep(gen), *check_grouped_megasteps(gen),
+                       check_moe_expert(gen)]
+            # kernel 14's trailing-unembed fold joins its cases
+            k14 = next(e for e in entries
+                       if e["name"] == "megastep_lowbit_decode")
+            for B, row in check_lm_fold(gen).items():
+                k14["by_case"][f"w8p+lm_b{B}"] = {
+                    k: row[k] for k in ("ms", "bound_ms", "plain_ms",
+                                        "rel_l2", "ms_no_fold", "fold_ms",
+                                        "fold_bound_ms", "max_abs_err")}
+                k14["max_abs_err"] = max(k14["max_abs_err"],
+                                         row["max_abs_err"])
+            return entries
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
 
@@ -2033,6 +2157,331 @@ def phase_mixtral_path():
     return results
 
 
+BATCHING_LAYERS = 8                # depth of the batching path (PERF.md)
+
+
+class ByteTokenizer:
+    """UTF-8 bytes as token ids 0-255, and any id back as its value modulo
+    256 (no downloads): enough for the server's string requests on a random
+    model."""
+    eos_token_id = None
+    chat_template = None
+
+    def __call__(self, text):
+        return {"input_ids": list(text.encode("utf-8"))}
+
+    def decode(self, ids):
+        return bytes(i % 256 for i in ids).decode("utf-8", errors="replace")
+
+
+def _batching_traffic(eng, rng, vocab):
+    """BATCHING_REQUESTS seeded requests through ``eng`` (prompts of 16-256
+    tokens, 16-48 new tokens, the first 8 submitted at once and the rest
+    after the fourth step, so that freed slots take them), the launch
+    counters set to 0 just before and read just after. Returns (results,
+    decode steps, launches, seconds, tokens)."""
+    counters = _kernel_counters()
+    reqs = [(rng.integers(0, vocab, size=int(rng.integers(16, 257))),
+             int(rng.integers(16, 49))) for _ in range(12)]
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ids = {eng.submit(p, max_new_tokens=n): i for i, (p, n) in
+           enumerate(reqs[:8])}
+    results = {i: [] for i in range(len(reqs))}
+    steps = k = 0
+    while True:
+        if k == 4:
+            ids.update({eng.submit(p, max_new_tokens=n): 8 + i
+                        for i, (p, n) in enumerate(reqs[8:])})
+        busy = bool(eng.queue) or any(r is not None for r in eng.slot_req)
+        if not busy and k > 4:
+            break
+        steps += busy                   # a busy step decodes every slot
+        for rid, toks in eng.step().items():
+            results[ids[rid]].extend(toks)
+        k += 1
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    for i, (p, n) in enumerate(reqs):
+        r = results[i]
+        if len(r) != n or min(r) < 0 or max(r) >= vocab:
+            raise AssertionError(f"batching request {i}: {len(r)} tokens of "
+                                 f"{n}, range [{min(r)}, {max(r)}]")
+    return results, steps, launches, dt, sum(n for _, n in reqs)
+
+
+def phase_batching_path():
+    """The continuous-batching server's path at Llama-3.1-8B's published
+    widths (BATCHING_LAYERS of 32 layers, untied): a random 4-bit ``lut``
+    checkpoint with an 8-bit ``lut`` lm_head, saved, loaded and
+    ``optimize("w8")``d (every linear and the lm_head int8 per row). A
+    ``BatchingEngine`` (8 slots, max_seq 512, "cuda_a8") converts the
+    layers to uniform 8-bit ("w8p") and decodes every slot at its own
+    position in one kernel-14 launch a step with the lm_head folded in: 12
+    seeded requests (8 at once, 4 while the first decode), their launches
+    exact (one kernel 14 a decode step; per admission kernel 6 per prompt
+    linear and kernel 7 for the prompt's last row through the lm_head). A
+    teacher-forced step at per-slot positions holds the folded logits
+    against the reference backend and against the unfolded step (what
+    ``GANQ_LM_FOLD=0`` gives the static engine). Decode ms per step (host
+    clock) at 1, 8 and 16 slots with and without the fold. Then
+    ``GanqModel.serve(port=0, use_batching=True, slots=4)`` with a byte
+    tokenizer answers 4 concurrent completions and a streamed chat."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.ops.megastep_lowbit import mega_lm_operands
+    from ganq_tpu_torch.serve import batching, stacked
+
+    cfg = synthetic.llama_3_1_8b_config(BATCHING_LAYERS)
+    rng = np.random.default_rng(17)
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.time()
+        with torch.inference_mode():
+            model = synthetic.make_model(cfg, kind="lut", bits=4, seed=18,
+                                         device="cuda", dtype=torch.bfloat16,
+                                         lm_head_kind="lut", lm_head_bits=8)
+        save_quantized(ckpt, hf_import.config_to_hf(cfg), QuantizeConfig(
+            bits=4, quant_method="ganq", lm_head=True,
+            dynamic={"+:lm_head": {"bits": 8}}), model)
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.time()
+        # an 8-bit lut linear has no kernel of the port: the plain path
+        # until optimize("w8") recodes it (ROADMAP.md queue C)
+        q = GanqModel.load(ckpt, dtype=torch.bfloat16, backend="reference")
+        q.optimize("w8")
+        t2 = time.time()
+    lm = q.model.lm_head
+    if q.backend != "cuda_a8" or lm.kind != "w8":
+        raise AssertionError(f"batching model: backend {q.backend}, lm_head "
+                             f"{lm.kind}")
+    eng = batching.BatchingEngine(q.cfg, q.model, backend=q.backend,
+                                  slots=8, max_seq=512)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    fold = mega_lm_operands(q.cfg, eng._sp)
+    log(f"batching: built+saved the {BATCHING_LAYERS}-layer 8B-width lut "
+        f"checkpoint (8-bit lm_head) in {t1 - t0:.1f} s, loaded and "
+        f"optimize('w8') in {t2 - t1:.1f} s, BatchingEngine (stack, w8p, "
+        f"pack) in {t3 - t2:.1f} s: variant {eng._mega_variant}, fold "
+        f"{'engaged' if fold is not None else 'off'}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if eng._mega_variant != "w8p" or fold is None or eng.model is not None:
+        raise AssertionError("the batching engine is not on kernel 14's "
+                             "w8p whole step with the fold")
+    kernel_of = kernel_of_linear(q.backend)
+    eng.submit(rng.integers(0, cfg.vocab_size, size=20), max_new_tokens=4)
+    eng.run_all()                                             # warm-up
+    results, steps, launches, dt, n_tok = _batching_traffic(
+        eng, rng, cfg.vocab_size)
+    per_prompt = {}
+    for lp in eng._sp.layers:
+        for p in lp.attn.values():
+            per_prompt[kernel_of(p)] = per_prompt.get(kernel_of(p), 0) + 1
+        for p in lp.mlp.values():
+            per_prompt[kernel_of(p)] = per_prompt.get(kernel_of(p), 0) + 1
+    # the prompt's last row through the w8 lm_head at full precision
+    want = {k: 12 * v for k, v in per_prompt.items()}
+    want.update(megastep_lowbit_decode=steps, w8_matmul=12)
+    log(f"batching traffic: 12 requests, {n_tok} tokens in {steps} decode "
+        f"steps, {dt * 1e3:.1f} ms: {n_tok / dt:.1f} tokens/s (host clock, "
+        f"prefills included); launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("batching launches differ from the path's")
+    out["runs"] = [launches]
+    out["traffic"] = dict(requests=12, tokens=n_tok, steps=steps,
+                          seconds=dt, tokens_per_s=n_tok / dt)
+
+    # teacher-forced: two slots after 131-token prompts, a vector of
+    # positions; folded against unfolded and against the reference
+    # backend's per-layer step
+    sp, mp = eng._sp, eng._mp
+    T = 256
+    with torch.inference_mode():
+        ids = torch.randint(0, cfg.vocab_size, (2, 131),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+        ck, cv = stacked.init_cache(q.cfg, len(sp.layers), 2, T, "cuda")
+        lg0 = stacked.prefill(q.cfg, sp, ck, cv, ids, "reference")
+        tok = lg0.argmax(-1)
+        pos = torch.tensor([131, 131], dtype=torch.int32, device="cuda")
+        mk, mv = stacked._mega_cache(ck, cv)
+        a = batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, tok, pos,
+                                        "w8p", q.backend).float()
+        a0 = batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, tok, pos,
+                                         "w8p", q.backend,
+                                         fold=False).float()
+        b = stacked.decode_step(q.cfg, sp, ck, cv, tok, pos[0],
+                                "reference").float()
+    rel_ref = float((a - b).norm() / b.norm())
+    rel_unf = float((a - a0).norm() / a0.norm())
+    log(f"batching teacher-forced step (w8p, per-slot positions): logits "
+        f"{tuple(a.shape)} rel_l2(fold, reference)={rel_ref:.3e} "
+        f"rel_l2(fold, unfolded)={rel_unf:.3e} top1 agree "
+        f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.2f} "
+        f"(tol 1e-1 and 2e-2: int8 activations, and the int8 final "
+        f"activations of the fold, up to 1/254 of a row's largest)")
+    if (not torch.isfinite(a).all() or rel_ref > 1e-1 or rel_unf > 2e-2):
+        raise AssertionError("batching: folded logits off the reference")
+    out["teacher_forced"] = dict(rel_l2_reference=rel_ref,
+                                 rel_l2_unfolded=rel_unf)
+    del ck, cv, mk, mv
+
+    # decode ms per step by slot count, fold on and off (host clock)
+    step_ms = {}
+    for S in (1, 8, 16):
+        L, Hkv, d = len(sp.layers), q.cfg.num_key_value_heads, 128
+        mk = torch.zeros((L, S * Hkv, 512, d), dtype=torch.bfloat16,
+                         device="cuda")
+        mv = torch.zeros_like(mk)
+        toks = torch.randint(0, cfg.vocab_size, (S,), device="cuda")
+        pos = torch.tensor([200 + 3 * i for i in range(S)], dtype=torch.int32,
+                           device="cuda")
+        per = {}
+        for f in (True, False, False, True):
+            with torch.inference_mode():
+                for _ in range(2):
+                    batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, toks,
+                                                pos, "w8p", q.backend, fold=f)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                for _ in range(10):
+                    batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, toks,
+                                                pos, "w8p", q.backend, fold=f)
+                torch.cuda.synchronize()
+            per.setdefault("fold" if f else "unfolded", []).append(
+                (time.time() - t0) / 10 * 1e3)
+        step_ms[S] = {k: min(v) for k, v in per.items()}
+        log(f"batching decode step at {S} slots (pos ~200, host clock, best "
+            f"of 2, 10 steps each): fold {step_ms[S]['fold']:.3f} ms, "
+            f"unfolded {step_ms[S]['unfolded']:.3f} ms")
+        del mk, mv
+    out["decode_batching_w8p"] = step_ms
+    del eng, sp, mp
+    torch.cuda.empty_cache()
+
+    # the server: concurrent completions and a streamed chat
+    q.tokenizer = ByteTokenizer()
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    srv = q.serve(port=0, use_batching=True, slots=4, max_seq=512)
+    try:
+        srv.wait_until_ready(timeout=120)
+        base = f"http://127.0.0.1:{srv.port}"
+
+        def post(path, body):
+            req = urllib.request.Request(
+                base + path, data=_json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.read().decode()
+
+        texts = [None] * 4
+        t0 = time.time()
+
+        def worker(i):
+            texts[i] = _json.loads(post("/v1/completions", {
+                "prompt": f"request {i}: " + "tell me a story " * (i + 1),
+                "max_tokens": 24}))["choices"][0]["text"]
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        t_conc = time.time() - t0
+        raw = post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hello there"}],
+            "max_tokens": 16, "stream": True})
+    finally:
+        srv.shutdown()
+    events = [e[len("data: "):] for e in raw.split("\n\n") if e]
+    chunks = [_json.loads(e) for e in events[:-1]]
+    if (any(t is None for t in texts) or events[-1] != "[DONE]"
+            or chunks[0]["choices"][0]["delta"].get("role") != "assistant"):
+        raise AssertionError(f"server: completions {texts}, stream tail "
+                             f"{events[-1:]}")
+    served = {k: c.launches for k, c in counters.items() if c.launches}
+    log(f"server (use_batching, 4 slots): 4 concurrent completions in "
+        f"{t_conc * 1e3:.0f} ms ({[len(t) for t in texts]} chars), a "
+        f"streamed chat in {len(chunks)} chunks ending in [DONE]; launches "
+        f"{served}")
+    if not served.get("megastep_lowbit_decode"):
+        raise AssertionError("the server's requests ran no kernel 14 step")
+    out["runs"].append(served)
+    del q
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_batching_perlayer(ckpt_dir: str):
+    """The batching engine's per-layer mode on phase 4's 1B ``lut``
+    checkpoint (backend "cuda"; head_dim 64 keeps it off the whole step):
+    every decode step runs each layer at a vector of per-slot positions
+    (kernel 1 for each linear, the masked attention), 4 slots, 8 requests
+    of 24-100 tokens and 12 new; launches exact (kernel 1: prompt and
+    decode linears), and the greedy tokens agree with the static engine's
+    on at least BATCHING_AGREE of them (the engine's flash decode and the
+    masked attention round differently, and a random model's top-1
+    margins are small). Returns the launches."""
+    from ganq_tpu_torch import GanqModel
+    from ganq_tpu_torch.serve import batching
+
+    q = GanqModel.load(ckpt_dir, dtype=torch.bfloat16)
+    eng = batching.BatchingEngine(q.cfg, q.model, backend=q.backend,
+                                  slots=4, max_seq=128, prompt_buckets=(32,
+                                                                         64,
+                                                                         128))
+    if eng._mega_variant is not None or q.backend != "cuda":
+        raise AssertionError("the 1B batching engine is not per layer on "
+                             "cuda")
+    rng = np.random.default_rng(19)
+    reqs = [rng.integers(0, q.cfg.vocab_size, size=int(n))
+            for n in rng.integers(24, 101, size=8)]
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    ids = {eng.submit(p, max_new_tokens=12): i for i, p in enumerate(reqs)}
+    steps = 0
+    got = {i: [] for i in range(len(reqs))}
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        steps += 1
+        for rid, toks in eng.step().items():
+            got[ids[rid]].extend(toks)
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    # q/k/v/o and gate/up/down of every layer for each prompt and step;
+    # the tied lm_head is a plain matmul on the embedding
+    linears = sum(len(lp.attn) + len(lp.mlp) for lp in q.model.layers)
+    want = {"lut_matmul": linears * (len(reqs) + steps)}
+    agree = np.mean([a == b for i, p in enumerate(reqs)
+                     for a, b in zip(got[i], q.generate(
+                         p, max_new_tokens=12, max_seq=128)[0].tolist())])
+    log(f"batching per layer (1B lut, 4 slots): 8 requests in {steps} "
+        f"steps, launches {launches} (expected {want}); greedy tokens "
+        f"agree with the static engine on {agree:.3f} (tol >= "
+        f"{BATCHING_AGREE})")
+    if launches != want:
+        raise AssertionError("per-layer batching launches differ")
+    if agree < BATCHING_AGREE:
+        raise AssertionError("per-layer batching tokens off the engine's")
+    del q, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+BATCHING_AGREE = 0.5
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
@@ -2056,6 +2505,8 @@ def main() -> int:
         runs += phase_gptq_path(GPTQ_SIDE_LAYERS, desc_act=False,
                                 backends=(None, "cuda"))
         runs += phase_optimize_path(ckpt.name)
+        # continuous batching per layer on the same checkpoint (kernel 1)
+        runs.append(phase_batching_perlayer(ckpt.name))
     finally:
         ckpt.cleanup()
     # the stacked paths at Llama-3.2-3B (kernels 6 and 8-14)
@@ -2067,6 +2518,9 @@ def main() -> int:
     runs += eight_b["runs"]
     mixtral = phase_mixtral_path()
     runs += mixtral["runs"]
+    # continuous batching through kernel 14 with the lm fold, and the server
+    batching_run = phase_batching_path()
+    runs += batching_run["runs"]
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
                  "attn_half_decode_w8a8", "megastep_decode_w8a8",
@@ -2116,8 +2570,10 @@ def main() -> int:
                               "bound_ms_b8", "by_case") if x in k},
          "shape": k["shape"]} for k in kernels]}
     log("decode ms per step (host clock): " + json.dumps(
-        {k: v for d in (three_b, eight_b, mixtral) for k, v in d.items()
-         if k.startswith("decode_")}))
+        {k: v for d in (three_b, eight_b, mixtral, batching_run)
+         for k, v in d.items() if k.startswith("decode_")}))
+    log("batching: " + json.dumps({k: batching_run[k] for k in (
+        "traffic", "teacher_forced")}))
     log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

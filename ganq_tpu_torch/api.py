@@ -4,9 +4,11 @@ The port of ``ganq_tpu/api.py``'s main path: ``GanqModel.load`` a dense
 checkpoint with a ``QuantizeConfig``, ``quantize`` it (GANQ or GPTQ, layer by
 layer), ``save`` the packed checkpoint (``lut``, or the GPTQ v1/v2 layout),
 ``GanqModel.load`` that, ``optimize`` it (recode ``lut`` linears for the
-int8-activation kernels) and ``generate``. The model runs on the card unless
-the caller passes ``device="cpu"``. The server and the evals come with later
-slices of the port and raise ``NotImplementedError`` until then.
+int8-activation kernels) and ``generate`` (or ``generate_stream``), or
+``serve`` it over HTTP (the OpenAI-compatible server, continuous batching
+with ``use_batching=True``). The model runs on the card unless the caller
+passes ``device="cpu"``. The evals come with a later slice of the port and
+raise ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -143,6 +145,45 @@ class GanqModel:
             return self.tokenizer.decode([t for t in out[0].tolist() if t != eos])
         return out
 
+    def generate_stream(self, inputs: Union[str, Sequence[int], np.ndarray],
+                        max_new_tokens: int = 64, temperature: float = 0.0,
+                        top_k: int = 0, top_p: float = 1.0,
+                        max_seq: int = 2048, seed: int = 0):
+        """Incremental generate for one sequence: yields text deltas for a
+        string (with a tokenizer), token ids otherwise; stops at eos (the
+        server's SSE streaming mode). A text delta is the new suffix of the
+        re-decoded ids, held back while the text ends in U+FFFD (a
+        multi-byte character not yet complete), so no character splits
+        across deltas."""
+        is_str = isinstance(inputs, str)
+        if is_str:
+            if self.tokenizer is None:
+                raise ValueError("string input requires a tokenizer")
+            ids = np.asarray(self.tokenizer(inputs)["input_ids"], np.int64)
+        else:
+            ids = np.asarray(inputs, np.int64).reshape(-1)
+        eos = -1
+        if self.tokenizer is not None and self.tokenizer.eos_token_id is not None:
+            eos = int(self.tokenizer.eos_token_id)
+        eng = self._get_engine()
+        produced: list = []
+        prev_text = ""
+        for t in eng.stream(ids, max_new_tokens=max_new_tokens,
+                            temperature=temperature, top_k=top_k, top_p=top_p,
+                            eos_id=eos, seed=seed,
+                            max_seq=min(max_seq,
+                                        self.cfg.max_position_embeddings)):
+            if not is_str:
+                yield t
+                continue
+            produced.append(t)
+            text = self.tokenizer.decode(produced)
+            if text.endswith("\ufffd"):      # mid-character: hold it back
+                continue
+            if len(text) > len(prev_text):
+                yield text[len(prev_text):]
+                prev_text = text
+
     # -------------------------------------------------------------- quantize
     def quantize(self, calibration_dataset: Sequence[Any],
                  batch_size: int = 1,
@@ -268,10 +309,19 @@ class GanqModel:
             if bits and moe_mega_fusable(self.cfg, moe, bits):
                 moe["mega"] = Pack(moe_megapack(self.cfg, moe, bits))
 
-    # ------------------------------------------------ later slices of the port
+    # ----------------------------------------------------------------- serve
+    def serve(self, host: str = "127.0.0.1", port: int = 8000, **kw):
+        """Start the OpenAI-compatible server
+        (:class:`~ganq_tpu_torch.serve.openai_server.OpenAIServer`; ``kw``:
+        ``use_batching``, ``slots``, ``max_seq``, ``max_new_tokens``,
+        ``model_id``) on a thread of its own and return it; ``port=0``
+        takes a free port (``server.port``). ``server.shutdown()`` stops
+        it."""
+        from .serve.openai_server import OpenAIServer
 
-    def serve(self, *args: Any, **kw: Any):
-        raise _not_ported("serve", "the serving slice (batching and server)")
+        return OpenAIServer(self, host=host, port=port, **kw).start()
+
+    # ------------------------------------------------ later slices of the port
 
     def eval(self, *args: Any, **kw: Any):
         raise _not_ported("eval", "the evals slice")

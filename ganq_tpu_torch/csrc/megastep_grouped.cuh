@@ -2,14 +2,16 @@
 // weights with int8 activations, for Hopper (sm_90a): the phases and the
 // persistent kernel of kernel 13 (megastep4.cu, ganq_megastep4) and kernel
 // 14 (megastep_lowbit.cu, ganq_megastep_lowbit, variants "w4p" and "w8p";
-// with zero points or act-order megastep_lowbit_opt.cu).
+// with zero points or act-order megastep_lowbit_opt.cu; with the
+// trailing-unembed fold megastep_lowbit_lm.cu and megastep_lowbit_lm_opt.cu).
 //
 // Replaces ganq_tpu/ops/megastep4.py megastep4_decode (Pallas
 // _megastep4_kernel) and ganq_tpu/ops/megastep_lowbit.py
 // megastep_lowbit_decode (_megastep_lb_kernel, bits 4 and 8; of its
-// optional operands the zero points *_sz and the act-order orders ap_*). The TPU kernels are one pallas_call walking (layers, phases)
-// in order and dequantize by algebra on masked int8 MXU dots, because a TPU
-// has no gather. Here a byte's codes are decoded by shift and mask: a
+// optional operands the zero points *_sz, the act-order orders ap_* and the
+// trailing-unembed fold lm). The TPU kernels are one pallas_call walking
+// (layers, phases) in order and dequantize by algebra on masked int8 MXU
+// dots, because a TPU has no gather. Here a byte's codes are decoded by shift and mask: a
 // pair-nibble byte holds the codes of two output rows (or, in kernel 13's
 // K-major o and down, two output columns), and the warp that owns both
 // decodes it once. The numbers are the TPU kernels': per group of gs
@@ -45,7 +47,11 @@
 //      ti tiles in order (ma += y_t * sa_t, then x += ma); kernel 13 group
 //      partials as in 5, summed at the next layer's entry
 //
-// and after the last layer y = x. The residual stays float32 in device
+// and after the last layer y = x. Kernel 14 with the trailing-unembed fold
+// (the LM instantiations) then runs, after a barrier each, the final norm
+// and int8 rows (row_norm_quant with the final norm's weight: the rounding
+// of the TPU kernel's _quant_rows) and the vocab phase, a warp per two
+// int8 lm_head rows writing float32 logits. The residual stays float32 in device
 // memory. Row-major products (a warp per packed rows, a lane per group of
 // gs columns) stage up to 8 token rows of int8 activations in shared
 // memory; batches above 8 walk token groups of 8, the token group the inner
@@ -589,8 +595,77 @@ __device__ __forceinline__ void kmajor_mlp_residual(const W8A8Args& a,
   a.xs[e] = __fadd_rn(a.xs[e], ma);
 }
 
+// ------------------------------------------------- kernel 14: the lm fold
+// The trailing-unembed fold's vocab phase: a warp per two rows of the int8
+// lm_head lm_w8 [V, H] (16-byte loads, the lanes across the row) against
+// the final norm's int8 token rows x8 staged per token group of TB; each
+// lane's int32 dp4a partial sums are added over the warp (integers: exact
+// in any order), then logits[b][v] = (dv * sx[b]) * scale[v] in float32,
+// as the TPU kernel's vocab tiles compute them.
+template <int TB>
+__device__ void gphase_vocab(const W8A8Args& a, int8_t* xs) {
+  constexpr int NR = 2;
+  const int H = a.H, V = a.V, n16 = H / 16, xstride = (H >> 7) * kPad;
+  const int units = V / NR, nrb = (units + kWarps - 1) / kWarps;
+  const int groups = (a.B + TB - 1) / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int staged = -1;
+  for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
+    const int rb = bu / groups, grp = bu - rb * groups;
+    const int b0 = grp * TB, nb = min(TB, a.B - b0);
+    if (grp != staged) {
+      __syncthreads();
+      stage_rows_ld<TB>(a.x8, H, 0, b0, nb, H, xs);
+      staged = grp;
+    }
+    const int u = rb * kWarps + warp;
+    if (u >= units) continue;
+    const int8_t* rows = a.lm_w8 + (size_t)NR * u * H;
+    int acc[NR][TB];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int b = 0; b < TB; ++b) acc[r][b] = 0;
+    for (int c = lane; c < n16; c += 32) {
+      int4 w[NR];
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        w[r] = __ldg(reinterpret_cast<const int4*>(rows + (size_t)r * H +
+                                                   16 * c));
+      const int kp = padk(16 * c);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const int4 xv =
+            *reinterpret_cast<const int4*>(xs + (size_t)b * xstride + kp);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          int t = __dp4a(w[r].x, xv.x, acc[r][b]);
+          t = __dp4a(w[r].y, xv.y, t);
+          t = __dp4a(w[r].z, xv.z, t);
+          acc[r][b] = __dp4a(w[r].w, xv.w, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int v = NR * u + r;
+      const float sv = a.lm_scale[v];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const int dv = __reduce_add_sync(0xffffffffu, acc[r][b]);
+        if (lane == r * TB + b && b < nb)
+          a.logits[(size_t)(b0 + b) * V + v] =
+              __fmul_rn(__fmul_rn((float)dv, a.sx[b0 + b]), sv);
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------------- kernel
-template <int TB, int BITS, bool KMAJ, bool OPT>
+// LM: the instantiation with kernel 14's trailing-unembed fold (its own
+// source, megastep_lowbit_lm.cu), so that the kernels without it keep the
+// code and register allocation they have
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LM>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_megastep_kernel(W8A8Args a) {
   cg::grid_group grid = cg::this_grid();
@@ -690,11 +765,22 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (KMAJ) kmajor_mlp_residual(a, e);
     static_cast<float*>(a.y)[e] = a.xs[e];
   }
+  if constexpr (LM) {
+    // kernel 14's trailing-unembed fold: the final norm and int8 rows of
+    // the residual, then the vocab phase, after a barrier each
+    grid.sync();
+    for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+      row_norm_quant<float>(a.xs + (size_t)b * H, H, H, a.lm_norm, a.eps,
+                            a.rms_offset, a.x8 + (size_t)b * H, a.sx + b,
+                            red);
+    grid.sync();
+    gphase_vocab<TB>(a, xs_s);
+  }
 }
 
-template <int TB, int BITS, bool KMAJ, bool OPT>
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LM>
 cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
-  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT>;
+  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM>;
   size_t kmax = (size_t)a.H;
   if (!KMAJ) kmax = (size_t)std::max(a.H, std::max(a.q_dim, a.ti));
   size_t work = sizeof(float) * kAttnSmemFloats;
@@ -723,13 +809,21 @@ cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
                                      params, smem, s);
 }
 
-// OPT: the kernel that reads kernel 14's zero points and act-order orders
-template <int BITS, bool KMAJ, bool OPT>
+// OPT: the kernel that reads kernel 14's zero points and act-order orders;
+// LM: the one with its trailing-unembed fold
+template <int BITS, bool KMAJ, bool OPT, bool LM = false>
 cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
-  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ, OPT>(a, s);
-  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ, OPT>(a, s);
-  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ, OPT>(a, s);
-  return launch_grouped<kGroupTB, BITS, KMAJ, OPT>(a, s);
+  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ, OPT, LM>(a, s);
+  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ, OPT, LM>(a, s);
+  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ, OPT, LM>(a, s);
+  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM>(a, s);
+}
+
+// a kernel-14 call with the fold: row-major packs, batch <= 64, every lm
+// operand and an even vocabulary (the vocab phase's warps take row pairs)
+__host__ __forceinline__ bool lm_operands_ok(const W8A8Args* p) {
+  return !p->kmajor && p->B <= 64 && p->lm_w8 && p->lm_scale && p->lm_norm &&
+         p->logits && p->V > 0 && p->V % 2 == 0;
 }
 
 }  // namespace

@@ -25,11 +25,12 @@
 // qkv_out [B, Dqkv] bf16, x8 [B, H], sx [B], xs [B, H], act_a [B, I], amax
 // [B, I / ti], a8 [B, max(q_dim, I)], attn [B, q_dim], attn_amax [B Hkv].
 // Packs with zero points or act-order take ganq_megastep_lowbit_opt
-// (megastep_lowbit_opt.cu).
+// (megastep_lowbit_opt.cu), a step with the trailing-unembed fold
+// ganq_megastep_lowbit_lm (megastep_lowbit_lm.cu).
 // Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep_lowbit(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->kmajor || p->B > 64 || p->qkv_sz || p->ap_q)
+  if (p->kmajor || p->B > 64 || p->qkv_sz || p->ap_q || p->lm_w8)
     return (int)cudaErrorInvalidValue;
   if (p->bits == 4) return (int)launch_grouped_b<4, false, false>(*p, s);
   if (p->bits == 8) return (int)launch_grouped_b<8, false, false>(*p, s);

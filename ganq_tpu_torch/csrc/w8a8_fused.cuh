@@ -94,6 +94,14 @@ struct W8A8Args {
   const int* ap_q;
   const int* ap_g;
   const int* ap_o;
+  // kernel 14's trailing-unembed fold (lm_w8 null: no fold): the int8
+  // lm_head rows [V, H], their float32 scales [V], the final norm's
+  // float32 weight [H], and the logits out [B, V] float32
+  const int8_t* lm_w8;
+  const float* lm_scale;
+  const float* lm_norm;
+  float* logits;
+  int V;
 };
 
 namespace {

@@ -156,7 +156,9 @@ def _rand_dense_linear(gen: torch.Generator, out_f: int, in_f: int, device,
 
 def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
                seed: int = 0, device="cuda",
-               dtype: torch.dtype = torch.bfloat16) -> Model:
+               dtype: torch.dtype = torch.bfloat16,
+               lm_head_kind: Optional[str] = None,
+               lm_head_bits: int = 8) -> Model:
     """Random model with every layer linear of ``kind`` (``"dense"``: std
     0.02 weights in ``dtype``; ``"lut"``: ``bits``-bit codebooks and codes;
     ``"lut_affine"`` / ``"lut_affine_sym"``: 4-bit affine-grid codebooks;
@@ -164,16 +166,20 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     weights and an embedding of std 0.02 (tied, as ``llama_config`` sets;
     an untied config gets a dense lm_head of std 0.02). A MoE config
     (``num_experts``) gets per layer a dense router of std 0.02 and
-    ``num_experts`` experts of ``kind`` in place of the MLP."""
-    if kind not in ("dense", "lut", "lut_affine", "lut_affine_sym", "uniform",
-                    "w8"):
-        raise ValueError(f"unknown synthetic kind {kind!r}")
+    ``num_experts`` experts of ``kind`` in place of the MLP.
+    ``lm_head_kind`` gives the model a quantized lm_head of that kind at
+    ``lm_head_bits`` (``ganq_tpu/models/synthetic.py:181-228``: the
+    reference's 8-bit lm_head rule), untied whatever the config says."""
+    kinds = ("dense", "lut", "lut_affine", "lut_affine_sym", "uniform", "w8")
+    if kind not in kinds or lm_head_kind not in (None,) + kinds:
+        raise ValueError(f"unknown synthetic kind {kind!r} / "
+                         f"{lm_head_kind!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     h, q, kv, it = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
                     cfg.intermediate_size)
 
-    def lin(out_f, in_f):
+    def lin(out_f, in_f, kind=kind, bits=bits):
         if kind == "lut":
             return _rand_lut_linear(gen, out_f, in_f, bits, device)
         if kind in ("lut_affine", "lut_affine_sym"):
@@ -203,8 +209,11 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     layers = [layer() for _ in range(cfg.num_hidden_layers)]
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device)
              * 0.02).to(dtype)
-    lm_head = (None if cfg.tie_word_embeddings else
-               _rand_dense_linear(gen, cfg.vocab_size, h, device, dtype))
+    if lm_head_kind is not None:
+        lm_head = lin(cfg.vocab_size, h, lm_head_kind, lm_head_bits)
+    else:
+        lm_head = (None if cfg.tie_word_embeddings else
+                   _rand_dense_linear(gen, cfg.vocab_size, h, device, dtype))
     return Model(embed, torch.ones(h, dtype=dtype, device=device), layers,
                  lm_head)
 

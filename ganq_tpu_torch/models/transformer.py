@@ -239,13 +239,43 @@ def _rope_half_tables(cfg: ModelConfig, rope):
 
 def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
     """Write ``new`` [b, s, ...] into ``buf`` [b, T, ...] at rows pos.. in
-    place; ``pos`` is a python int or a 0-d device tensor (no host sync)."""
+    place; ``pos`` is a python int, a 0-d device tensor or, for slots at
+    their own positions, a [b] tensor (:func:`_cache_write_vec`); no host
+    sync."""
     new = new.to(buf.dtype)
     if isinstance(pos, int):
         buf[:, pos:pos + new.shape[1]] = new
+    elif pos.dim() == 1:
+        _cache_write_vec(buf, new, pos)
     else:
         rows = pos.reshape(1) + torch.arange(new.shape[1], device=buf.device)
         buf.index_copy_(1, rows, new)
+
+
+def _cache_write_vec(buf: torch.Tensor, new: torch.Tensor,
+                     pos: torch.Tensor) -> None:
+    """Write ``new`` [b, s, ...] into ``buf`` [b, T, ...] at each row's own
+    start position ``pos`` [b], in place (continuous-batching slots,
+    ``ganq_tpu/models/transformer.py::_cache_write_vec``); rows at or past
+    T are dropped, as the JAX gather + select drops them. One token a row
+    is a scatter; longer writes select over the whole buffer."""
+    b, s = new.shape[:2]
+    T = buf.shape[1]
+    if s == 1:
+        p = pos.to(torch.int64)
+        rows = torch.arange(b, device=buf.device)
+        at = p.clamp(max=T - 1)
+        keep = (p < T).reshape((b,) + (1,) * (new.dim() - 2))
+        buf[rows, at] = torch.where(keep, new[:, 0], buf[rows, at])
+        return
+    off = (torch.arange(T, device=buf.device)[None, :]
+           - pos.to(torch.int64)[:, None])                      # [b, T]
+    sel = (off >= 0) & (off < s)
+    extra = (1,) * (buf.dim() - 2)
+    idx = off.clamp(0, s - 1).reshape(off.shape + extra).expand(
+        (b, T) + tuple(new.shape[2:]))
+    buf.copy_(torch.where(sel.reshape(sel.shape + extra),
+                          torch.gather(new, 1, idx), buf))
 
 
 # ---------------------------------------------------------------------- layer
@@ -263,12 +293,16 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
                   want_taps: bool = False):
     """One decoder layer; writes this layer's k/v into ``cache`` (in place).
 
-    ``cache_pos`` is the python int 0 for prefill and a 0-d tensor for a
-    decode step. Prefilling from position 0 attends over the fresh k/v only.
-    A decode step on a CUDA backend (``"cuda"`` or ``"cuda_a8"``) runs the
-    flash decode kernel over the cache (which launches or raises), or kernel
-    11 where it is opted in; on the reference backend it runs the masked
-    plain attention. The fused kernels of the stacked layout run under the
+    ``cache_pos`` is the python int 0 for prefill, a 0-d tensor for a
+    decode step, or a [b] tensor for a decode step whose rows sit at their
+    own positions (continuous batching: each row's k/v is written at its
+    position, and ``mask`` [b, 1, 1, T] is the caller's per-row history).
+    Prefilling from position 0 attends over the fresh k/v only. A decode
+    step at a 0-d position on a CUDA backend (``"cuda"`` or ``"cuda_a8"``)
+    runs the flash decode kernel over the cache (which launches or raises),
+    or kernel 11 where it is opted in; on the reference backend, and at
+    vector positions on every backend (as ``ganq_tpu``'s ``_plain_decode``
+    gate does), it runs the masked plain attention. The fused kernels of the stacked layout run under the
     JAX package's conditions (``ganq_tpu/models/transformer.py:989-1085,
     1214-1239``).
 
@@ -282,7 +316,8 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     is_prefill = cache is None or (isinstance(cache_pos, int) and cache_pos == 0
                                    and s > 1)
     use_flash_decode = (backend in ("cuda", "cuda_a8") and cache is not None
-                        and isinstance(cache_pos, torch.Tensor))
+                        and isinstance(cache_pos, torch.Tensor)
+                        and cache_pos.dim() == 0)
     if use_flash_decode and s != 1:
         raise ValueError(f"a decode step on a cuda backend takes one token "
                          f"per sequence, got {s}")

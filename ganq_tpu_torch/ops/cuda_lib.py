@@ -25,7 +25,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 KERNEL_SOURCES = ("lut_matmul", "flash_decode", "ganq_sstep", "uniform_matmul",
                   "w8_matmul", "w8a8_fused", "megastep_w8", "megastep4",
-                  "megastep_lowbit", "megastep_lowbit_opt", "moe_expert")
+                  "megastep_lowbit", "megastep_lowbit_opt",
+                  "megastep_lowbit_lm", "megastep_lowbit_lm_opt",
+                  "moe_expert")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

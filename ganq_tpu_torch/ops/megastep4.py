@@ -322,7 +322,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     (or None) through which the qkv, gate/up and o products read their
     activations. ``pos`` [B] holds each slot's
     history length; cos/sin_half are [rotary_dim / 2] or [B, rotary_dim /
-    2]. Returns (y in x's type, k_new, v_new [L, B, kv_dim] bf16)."""
+    2]. Returns (y, the float32 residual after the last layer; k_new,
+    v_new [L, B, kv_dim] bf16)."""
     B, H = x.shape
     d = head_dim
     Hq, Hkv = q_dim // d, kv_dim // d
@@ -378,7 +379,7 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
             ma = ma + group_linear(a8m, dn_codes[:, cols], dn_s[grp], gs,
                                    tile(dn_sz, grp)) * sam
         xs = xs + ma
-    return xs.to(x.dtype), torch.stack(kns), torch.stack(vns)
+    return xs, torch.stack(kns), torch.stack(vns)
 
 
 def _layer_ops4(mp: Dict[str, torch.Tensor], ti: int, tq: int, gs: int):
@@ -429,12 +430,13 @@ def megastep4_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     """Plain version of kernel 13, with the kernel's arithmetic. Shapes as
     :func:`megastep4_decode`."""
     tq, ti, gs, Tb = _plan4(x, mp, k_cache, head_dim, block_t)
-    return grouped_step_plain(
+    y, kn, vn = grouped_step_plain(
         x, _layer_ops4(mp, ti, tq, gs), mp["qkv_p4"].shape[0], k_cache,
         v_cache, pos, cos_half, sin_half, q_dim=q_dim, kv_dim=kv_dim,
         head_dim=head_dim, rotary_dim=rotary_dim, interleaved=interleaved,
         eps=eps, rms_offset=rms_offset, scale=scale, act=act, Tb=Tb, ti=ti,
         gs=gs, partner_bf16=True)
+    return y.to(x.dtype), kn, vn
 
 
 def megastep4_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],

@@ -11,11 +11,16 @@ JAX package's planes (keys, shapes and bytes) and zero-point corrections,
 and gives the column orders of the activations, and
 :func:`megastep_lowbit_decode` launches ``csrc/megastep_lowbit.cu``
 (``ganq_megastep_lowbit``, one cooperative launch; packs with zero points or
-act-order ``csrc/megastep_lowbit_opt.cu``) for CUDA tensors and runs
+act-order ``csrc/megastep_lowbit_opt.cu``, with the lm fold
+``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``) for CUDA
+tensors and runs
 :func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
-counts kernel calls. It raises NotImplementedError naming the feature for
-every operand of a later sub-slice: w3/w2, the Walsh LUTs, EoRA, biases,
-qk-norm, sandwich norms, windows, softcap and the trailing-unembed lm fold.
+counts kernel calls. With ``lm`` (:func:`mega_lm_operands`) the step also
+folds the final norm and a ``w8`` lm_head in (the trailing-unembed fold,
+:func:`lm_fold_plain`) and returns the logits. It raises
+NotImplementedError naming the feature for every operand of a later
+sub-slice: w3/w2, the Walsh LUTs, EoRA, biases, qk-norm, sandwich norms,
+windows and softcap.
 
 The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
 product sums, over its groups in order, the group's bf16 scale times the
@@ -45,7 +50,9 @@ import torch
 from .megastep4 import (_codes, _dn_layout, _gu_layout, _scales_t,
                         _uniform_mats, common_pack_ops, grouped_step_plain,
                         nibble_rows)
+from .fused_attention import rms_rows
 from .packing import pack_factor, pack_int_rows, unpack_int_rows
+from .uniform_matmul import quantize_rows
 
 # field plans: per plane, (row_block, src_shift, width) high bits -> low
 # (megastep_lowbit.py:69)
@@ -551,18 +558,76 @@ def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                           interleaved: bool = False, eps: float = 1e-5,
                           rms_offset: float = 0.0, scale: float = 1.0,
                           act: str = "silu", block_t: int = 128,
-                          bits: int = 4, qkv_cap_mb: int = 12):
-    """Plain version of kernel 14 ("w4p", "w8p"), with the kernel's
-    arithmetic. Shapes as :func:`megastep_lowbit_decode`."""
+                          bits: int = 4, lm=None, qkv_cap_mb: int = 12):
+    """Plain version of kernel 14 ("w4p", "w8p", with the lm fold where
+    ``lm`` is given), with the kernel's arithmetic. Shapes and results as
+    :func:`megastep_lowbit_decode`."""
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
                     qkv_cap_mb)
     gs = x.shape[1] // mp["qkv_s"].shape[1]
-    return grouped_step_plain(
+    xs, kn, vn = grouped_step_plain(
         x, _layer_ops_lb(mp, bits, plan["tq"], plan["ti"], gs),
         mp["qkv_pk"].shape[0], k_cache, v_cache, pos, cos_half, sin_half,
         q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim, rotary_dim=rotary_dim,
         interleaved=interleaved, eps=eps, rms_offset=rms_offset, scale=scale,
         act=act, Tb=plan["Tb"], ti=plan["ti"], gs=gs, partner_bf16=False)
+    if lm is None:
+        return xs.to(x.dtype), kn, vn
+    return xs.to(x.dtype), kn, vn, lm_fold_plain(xs, lm, eps, rms_offset)
+
+
+def lm_fold_plain(xs: torch.Tensor, lm: Dict[str, torch.Tensor], eps: float,
+                  rms_offset: float = 0.0) -> torch.Tensor:
+    """The trailing-unembed fold of kernel 14 (``megastep_lowbit.py:
+    893-914``): the final rmsnorm of the float32 residual ``xs`` [B, H],
+    its int8 rows (``quantize_rows``: a true division, ties to even), the
+    exact integer dot with the int8 lm_head rows, and ``(dv * sx) * scale``
+    in float32: logits [B, V]. ``lm`` from :func:`mega_lm_operands`."""
+    x8, sx = quantize_rows(rms_rows(xs, lm["norm"], eps, rms_offset))
+    return lm_vocab_plain(x8, sx, lm)
+
+
+def lm_vocab_plain(x8: torch.Tensor, sx: torch.Tensor,
+                   lm: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The fold's vocab phase: int8 rows x8 [B, H] (any integer type) with
+    scales sx [B] or [B, 1] -> ``(float(x8 . w8) * sx) * scale`` [B, V]
+    float32. The integer products stay below 2^53, so their float64 sum is
+    exact in any order, and rounds to float32 as the int32 dot does."""
+    dv = x8.to(torch.float64) @ lm["w8"].to(torch.float64).T
+    return (dv.to(torch.float32) * sx.reshape(-1, 1).to(torch.float32)
+            * lm["scale"].reshape(1, -1))
+
+
+def mega_lm_operands(cfg, sp, max_tile_bytes: int = 4 * 1024 * 1024
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+    """Operands of the trailing-unembed fold (``lm=`` of
+    :func:`megastep_lowbit_decode`; ``megastep_lowbit.py:1870-1902``), or
+    None where the model's unembed cannot fold: the lm_head is not ``w8``,
+    has a bias or no per-row scale, the model has no final rmsnorm or has a
+    ``project_out``, or no vocabulary tile ``tv`` in 4096 .. 128 divides V
+    within ``max_tile_bytes``. ``{"w8": [V, H] int8, "scale": [NV, tv]
+    float32, "norm": [H] float32}``; the TPU's 8-sublane copy of the scales
+    is not needed here. logit_scale and softcap stay with the caller."""
+    from .qlinear import QLinear
+
+    lm = sp.lm_head
+    if not isinstance(lm, QLinear) or lm.kind != "w8" or "bias" in lm:
+        return None
+    w8 = lm["w8"]
+    V, H = w8.shape
+    if lm["scale"].numel() != V:
+        return None
+    if (not getattr(cfg, "final_layer_norm", True)
+            or getattr(cfg, "norm", "rmsnorm") != "rmsnorm"
+            or getattr(sp, "project_out", None) is not None):
+        return None
+    tv = next((c for c in (4096, 2048, 1024, 512, 256, 128)
+               if V % c == 0 and c * H <= max_tile_bytes), None)
+    if tv is None:
+        return None
+    return {"w8": w8,
+            "scale": lm["scale"].to(torch.float32).reshape(V // tv, tv),
+            "norm": sp.final_norm.weight.to(torch.float32).reshape(H)}
 
 
 # operands of kernel 14's later sub-slices and what each serves
@@ -572,7 +637,7 @@ _LATER_OPERANDS = {"la_q": "EoRA adapters", "qk_nm": "qk-norm",
 
 
 def _later_feature(mp, bits: int, softcap=0.0, windows=None,
-                   rope_sel=None, lm=None, walsh: int = 0) -> Optional[str]:
+                   rope_sel=None, walsh: int = 0) -> Optional[str]:
     """The first feature of a kernel 14 call that a later slice of the port
     brings, or None."""
     if walsh:
@@ -588,8 +653,6 @@ def _later_feature(mp, bits: int, softcap=0.0, windows=None,
         return "the attention softcap"
     if rope_sel is not None:
         return "dual rope tables"
-    if lm is not None:
-        return "the trailing-unembed lm fold"
     return None
 
 
@@ -616,10 +679,17 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
                    cos_half, sin_half, *, bits: int, kmajor: bool, tq: int,
                    ti: int, gs: int, Tb: int, q_dim: int, kv_dim: int,
                    head_dim: int, rotary_dim: int, interleaved: bool,
-                   eps: float, rms_offset: float, scale: float, act: str):
+                   eps: float, rms_offset: float, scale: float, act: str,
+                   lm: Optional[Dict[str, torch.Tensor]] = None,
+                   fold_rows: Optional[dict] = None):
     """Check the operands of a whole-step kernel 13 or 14 call and launch it
     (``csrc/<library>.cu``). ``keys`` names the pack's code operands. The
-    kernel reads x and writes y in float32; y is returned in x's type."""
+    kernel reads x and writes y in float32; y is returned in x's type. With
+    kernel 14's ``lm`` (:func:`mega_lm_operands`) the kernel folds the
+    unembed in and the logits come fourth; ``fold_rows``, a dict, then
+    receives the fold's int8 rows ``x8`` [B, H] and scales ``sx`` [B] (the
+    kernel's scratch), so that a check can hold its vocab phase bit for
+    bit."""
     from .w8a8_args import ACT_CODES, launch
 
     B, H = x.shape
@@ -673,12 +743,32 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         raise ValueError(f"{what}: zero points and act-order orders come "
                          "for all four projections")
     dev = x.device
+    V = 0
+    if lm is not None:
+        V = lm["w8"].shape[0]
+        if (kmajor or lm["w8"].dtype != torch.int8
+                or tuple(lm["w8"].shape) != (V, H) or V % 128
+                or not lm["w8"].is_contiguous()
+                or lm["scale"].dtype != torch.float32
+                or lm["scale"].numel() != V
+                or lm["norm"].dtype != torch.float32
+                or lm["norm"].numel() != H):
+            raise ValueError(f"{what}: lm must be w8 [V, H] int8 (V a "
+                             "multiple of 128), float32 scale [V] and "
+                             "norm [H] (kernel 14)")
+        extra.update(lm_w8=lm["w8"],
+                     lm_scale=lm["scale"].reshape(V).contiguous(),
+                     lm_norm=lm["norm"].reshape(H).contiguous(),
+                     logits=torch.empty((B, V), dtype=torch.float32,
+                                        device=dev))
     ng = I // ti
     cos_t, sin_t = rope_rows_for(cos_half, sin_half, B, rd, dev)
     y = torch.empty((B, H), dtype=torch.float32, device=dev)
     kn = torch.empty((L, B, kv_dim), dtype=torch.bfloat16, device=dev)
     vn = torch.empty((L, B, kv_dim), dtype=torch.bfloat16, device=dev)
     scratch = functools.partial(torch.empty, device=dev)
+    x8 = scratch((B, H), dtype=torch.int8)
+    sx = scratch((B,), dtype=torch.float32)
     launch(library, symbol, what, dict(
         x=x.to(torch.float32).contiguous(), attn_norm=mp["attn_norm"],
         mlp_norm=mp["mlp_norm"], qkv_bias=mp["qkv_bias"], cos_half=cos_t,
@@ -687,9 +777,7 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         dn_pk=dn_pk, qkv_gs=mp["qkv_s"], o_gs=mp["o_s"], gu_gs=mp["gu_s"],
         dn_gs=mp["dn_s"], y=y, kn=kn, vn=vn,
         qkv_out=scratch((B, Dqkv), dtype=torch.bfloat16),
-        x8=scratch((B, H), dtype=torch.int8),
-        sx=scratch((B,), dtype=torch.float32),
-        xs=scratch((B, H), dtype=torch.float32),
+        x8=x8, sx=sx, xs=scratch((B, H), dtype=torch.float32),
         act_a=scratch((B, I), dtype=torch.float32),
         amax=scratch((B, ng), dtype=torch.int32),
         a8=scratch((B, max(q_dim, I)), dtype=torch.int8),
@@ -702,8 +790,13 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         act=ACT_CODES[act], eps=eps, rms_offset=rms_offset, scale=scale,
         cache_sb=Hkv * T * d, cache_sg=T * d, cache_st=d,
         cache_sl=B * Hkv * T * d, gs=gs, bits=bits, tq=tq,
-        gtp=mp["dn_s"].shape[1] // ng, cos_ld=rd // 2, kmajor=int(kmajor))
-    return y.to(x.dtype), kn, vn
+        gtp=mp["dn_s"].shape[1] // ng, cos_ld=rd // 2, kmajor=int(kmajor),
+        V=V)
+    if lm is None:
+        return y.to(x.dtype), kn, vn
+    if fold_rows is not None:
+        fold_rows.update(x8=x8, sx=sx)
+    return y.to(x.dtype), kn, vn, extra["logits"]
 
 
 def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
@@ -716,7 +809,8 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                            act: str = "silu", block_t: int = 128,
                            bits: int = 3, softcap: float = 0.0, windows=None,
                            rope_sel=None, lm=None, walsh: int = 0,
-                           qkv_cap_mb: int = 12):
+                           qkv_cap_mb: int = 12,
+                           fold_rows: Optional[dict] = None):
     """Kernel 14, one decode step over all layers ("w4p" at ``bits=4``,
     "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
     ``mp`` from :func:`megapack_lowbit`, with the zero-point corrections
@@ -725,13 +819,16 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B] int
     tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at each
     slot's position. Returns (y [B, H], the hidden state before the final
-    norm, in x's type; k_new and v_new [L, B, kv_dim] bf16). The other
-    arguments are the JAX wrapper's; each of them, and every other optional
-    operand of ``mp``, raises NotImplementedError naming its feature."""
+    norm, in x's type; k_new and v_new [L, B, kv_dim] bf16), and with
+    ``lm`` (:func:`mega_lm_operands`: the trailing-unembed fold) the
+    float32 logits [B, V] fourth. ``fold_rows``: see :func:`launch_grouped`
+    (the card only). The other arguments are the JAX wrapper's; each of
+    them, and every other optional operand of ``mp``, raises
+    NotImplementedError naming its feature."""
     B, H = x.shape
     if B > 64:
         raise ValueError("megastep_lowbit_decode: B <= 64")
-    later = _later_feature(mp, bits, softcap, windows, rope_sel, lm, walsh)
+    later = _later_feature(mp, bits, softcap, windows, rope_sel, walsh)
     if later:
         raise NotImplementedError(
             f"megastep_lowbit_decode: {later} comes with a later slice of the "
@@ -743,28 +840,31 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                                      interleaved=interleaved, eps=eps,
                                      rms_offset=rms_offset, scale=scale,
                                      act=act, block_t=block_t, bits=bits,
-                                     qkv_cap_mb=qkv_cap_mb)
+                                     lm=lm, qkv_cap_mb=qkv_cap_mb)
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
                     qkv_cap_mb)
     # packs with zero points or act-order run the kernel's other
-    # instantiation (csrc/megastep_lowbit_opt.cu)
-    lib = ("megastep_lowbit_opt" if "qkv_sz" in mp or "ap_q" in mp
-           else "megastep_lowbit")
-    y, kn, vn = launch_grouped(
+    # instantiation (csrc/megastep_lowbit_opt.cu), steps with the fold
+    # theirs (csrc/megastep_lowbit_lm.cu, megastep_lowbit_lm_opt.cu)
+    lib = "megastep_lowbit" + ("_lm" if lm is not None else "") + (
+        "_opt" if "qkv_sz" in mp or "ap_q" in mp else "")
+    out = launch_grouped(
         lib, f"ganq_{lib}", "megastep_lowbit_decode",
         x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},
         k_cache, v_cache, pos, cos_half, sin_half, bits=bits, kmajor=False,
         tq=plan["tq"], ti=plan["ti"], gs=H // mp["qkv_s"].shape[1],
         Tb=plan["Tb"], q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim,
         rotary_dim=rotary_dim, interleaved=interleaved, eps=eps,
-        rms_offset=rms_offset, scale=scale, act=act)
+        rms_offset=rms_offset, scale=scale, act=act, lm=lm,
+        fold_rows=fold_rows)
     megastep_lowbit_decode.launches += 1
-    return y, kn, vn
+    return out
 
 
 megastep_lowbit_decode.launches = 0
 
 __all__ = ["megastep_lowbit_decode", "megastep_lowbit_plain",
+           "lm_fold_plain", "lm_vocab_plain", "mega_lm_operands",
            "megapack_lowbit", "megastep_lowbit_plan",
            "megastep_lowbit_fusable", "megastep_walsh_fusable", "_PLAN",
            "_plan_meta", "_mlp_plan"]

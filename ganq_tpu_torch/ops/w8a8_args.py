@@ -5,7 +5,8 @@ point (``ganq_fused_mlp``, ``ganq_fused_qkv_rope``, ``ganq_attn_half``,
 ``ganq_megastep_w8``, ``ganq_megastep4``, ``ganq_megastep_lowbit``) takes a
 pointer to one; the group-scaled kernels 13 and 14 read the fields after
 ``x_bf16`` and after ``part`` too (kernel 14 alone the zero-point
-corrections and act-order column orders at the end). Field order and types must
+corrections, the act-order column orders and the lm fold's operands and
+vocabulary size ``V`` at the end). Field order and types must
 match the header's. Pointers are tensors' ``data_ptr()`` (0 for an unused
 field); the kernels read and write them on the caller's stream, so every
 tensor named here must stay alive until the launch has been enqueued, which
@@ -33,7 +34,8 @@ _POINTERS = ("x", "attn_norm", "mlp_norm", "qkv_w8", "qkv_scale", "qkv_bias",
              "act_a", "amax", "a8", "attn", "attn_amax", "o32", "part",
              "qkv_pk", "o_pk", "gu_pk", "dn_pk", "qkv_gs", "o_gs", "gu_gs",
              "dn_gs", "partf", "qkv_sz", "o_sz", "gu_sz", "dn_sz", "ap_q",
-             "ap_g", "ap_o")
+             "ap_g", "ap_o", "lm_w8", "lm_scale", "lm_norm", "logits")
+_TAIL_INTS = ("V",)
 
 ACT_CODES = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 
@@ -42,7 +44,8 @@ class W8A8Args(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in _INTS]
                 + [(n, ctypes.c_float) for n in _FLOATS]
                 + [(n, ctypes.c_longlong) for n in _STRIDES]
-                + [(n, ctypes.c_void_p) for n in _POINTERS])
+                + [(n, ctypes.c_void_p) for n in _POINTERS]
+                + [(n, ctypes.c_int) for n in _TAIL_INTS])
 
 
 def launch(library: str, symbol: str, what: str,

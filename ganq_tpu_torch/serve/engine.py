@@ -24,11 +24,12 @@ groups are not balanced (``prepack`` raises ValueError).
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.backend import resolve_device, select_backend
 from ..models.transformer import (Model, ModelConfig, causal_mask, embed,
                                   layer_forward, rope_tables, unembed)
@@ -95,13 +96,16 @@ def decode_step(cfg: ModelConfig, model: Model, cache: Cache,
     return unembed(cfg, model, x, backend)[:, 0, :]
 
 
-def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+def sample(logits: torch.Tensor, key: Optional[torch.Tensor],
            temperature: float, top_k: int, top_p: float = 1.0) -> torch.Tensor:
     """Greedy (temperature <= 0) or temperature / top-k / top-p sampling of
-    one token per row, as int64."""
+    one token per row, as int64: the Gumbel-max draw of ``key`` (a
+    ``core/prng`` key) over the filtered logits, in their type, as
+    ``ganq_tpu/serve/engine.py::_sample`` draws with
+    ``jax.random.categorical``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits.float() / temperature
+    logits = logits / torch.full_like(logits, temperature)
     if top_k > 0:
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = torch.where(logits < kth, float("-inf"), logits)
@@ -114,22 +118,35 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
         min_keep = torch.min(torch.where(keep, sorted_logits, float("inf")),
                              dim=-1, keepdim=True).values
         logits = torch.where(logits < min_keep, float("-inf"), logits)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return prng.categorical(key, logits)
+
+
+def next_key(key: Optional[torch.Tensor], temperature: float = 1.0
+             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(key, subkey) = ``jax.random.split(key)``: the engine's chain, split
+    once per sampled step. A greedy request (temperature <= 0) draws
+    nothing, so its chain is not split (the same tokens, no device work)."""
+    if temperature <= 0.0:
+        return key, None
+    k = prng.split(key)
+    return k[0], k[1]
 
 
 @torch.inference_mode()
 def generate_tokens(cfg: ModelConfig, model: Model, cache: Cache,
-                    input_ids: torch.Tensor, generator: Optional[torch.Generator],
+                    input_ids: torch.Tensor, key: Optional[torch.Tensor],
                     max_new_tokens: int, temperature: float = 0.0,
                     top_k: int = 0, top_p: float = 1.0, eos_id: int = -1,
                     backend: str = "reference") -> torch.Tensor:
     """Prefill + decode loop: input_ids [B, S] -> tokens [B, max_new_tokens]
-    (rows that produced ``eos_id`` are padded with it afterwards)."""
+    (rows that produced ``eos_id`` are padded with it afterwards). ``key``
+    (``core/prng.prng_key(seed)``) is split once per sampled step, as the
+    JAX engine's scan splits it."""
     b, s = input_ids.shape
     dev = input_ids.device
     logits = prefill(cfg, model, cache, input_ids, backend)
-    tok = sample(logits, generator, temperature, top_k, top_p)
+    key, sub = next_key(key, temperature)
+    tok = sample(logits, sub, temperature, top_k, top_p)
     done = (tok == eos_id) if eos_id >= 0 else torch.zeros(b, dtype=torch.bool,
                                                            device=dev)
     pad = eos_id if eos_id >= 0 else 0
@@ -137,7 +154,8 @@ def generate_tokens(cfg: ModelConfig, model: Model, cache: Cache,
     toks = [tok]
     for _ in range(max_new_tokens - 1):
         logits = decode_step(cfg, model, cache, tok, pos, backend)
-        nxt = sample(logits, generator, temperature, top_k, top_p)
+        key, sub = next_key(key, temperature)
+        nxt = sample(logits, sub, temperature, top_k, top_p)
         nxt = torch.where(done, pad, nxt)
         if eos_id >= 0:
             done = done | (nxt == eos_id)
@@ -201,8 +219,8 @@ class Engine:
                              f"{max_seq or self.max_seq}")
         return ids
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _key(self, seed: int) -> torch.Tensor:
+        return prng.prng_key(seed, device=self.device)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
@@ -230,13 +248,13 @@ class Engine:
             ck, cv = stacked.init_cache(self.cfg, len(self.model.layers),
                                         ids.shape[0], T, self.device)
             out = stacked.generate_tokens(
-                self.cfg, self.model, ck, cv, ids, self._generator(seed),
+                self.cfg, self.model, ck, cv, ids, self._key(seed),
                 max_new_tokens, temperature, top_k, top_p, eos_id,
                 self.backend)
         else:
             cache = init_cache(self.cfg, ids.shape[0], T, self.device)
             out = generate_tokens(self.cfg, self.model, cache, ids,
-                                  self._generator(seed), max_new_tokens,
+                                  self._key(seed), max_new_tokens,
                                   temperature, top_k, top_p, eos_id,
                                   self.backend)
         return out.cpu().numpy().astype(np.int32)
@@ -244,19 +262,22 @@ class Engine:
     @torch.inference_mode()
     def stream(self, input_ids, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               eos_id: int = -1, seed: int = 0) -> Iterator[int]:
+               eos_id: int = -1, seed: int = 0,
+               max_seq: Optional[int] = None) -> Iterator[int]:
         """Token-by-token generator for one sequence: yields each token as it
         is produced (one host sync per token); stops at eos. Decode steps
-        run layer by layer, as the JAX engine's ``stream`` does."""
-        ids = self._prepare(input_ids, max_new_tokens)
+        run layer by layer, as the JAX engine's ``stream`` does; ``max_seq``
+        sizes the KV cache (default the engine's)."""
+        ids = self._prepare(input_ids, max_new_tokens, max_seq)
         if ids.shape[0] != 1:
             raise ValueError("stream() is single-sequence (batch=1)")
-        gen = self._generator(seed)
-        cache = init_cache(self.cfg, 1, self.max_seq, self.device)
+        key = self._key(seed)
+        cache = init_cache(self.cfg, 1, max_seq or self.max_seq, self.device)
         logits = prefill(self.cfg, self.model, cache, ids, self.backend)
         pos = torch.tensor(ids.shape[1], dtype=torch.int32, device=self.device)
         for _ in range(max_new_tokens):
-            tok = sample(logits, gen, temperature, top_k, top_p)
+            key, sub = next_key(key, temperature)
+            tok = sample(logits, sub, temperature, top_k, top_p)
             t = int(tok[0])
             if eos_id >= 0 and t == eos_id:
                 return
@@ -267,4 +288,4 @@ class Engine:
 
 
 __all__ = ["Engine", "init_cache", "prefill", "decode_step", "generate_tokens",
-           "sample", "stacked_only_kernel"]
+           "sample", "next_key", "stacked_only_kernel"]

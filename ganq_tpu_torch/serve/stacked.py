@@ -13,9 +13,9 @@ variant of a request from the gates of the whole-step kernels, in the JAX
 order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
 (``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
 (``ops/megastep_lowbit.py``); kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"``,
-and its variants with optional operands other than zero points and
-act-order (EoRA, biases, the lm fold), come with later slices (:func:`missing_kernel`,
-``ROADMAP.md`` queue B). The decode steps of a request with a variant run
+and its variants with optional operands other than zero points,
+act-order and the trailing-unembed lm fold (EoRA, biases), come with later
+slices (:func:`missing_kernel`, ``ROADMAP.md`` queue B). The decode steps of a request with a variant run
 the megastep once per step; the others, and every prefill, run the layers
 one by one (``models/transformer.layer_forward``), where the fused MLP
 (kernel 9) and the opt-in kernels 10 and 11 live. The environment switches
@@ -41,7 +41,7 @@ from ..ops.qlinear import (QLinear, certify_uniform, concat_rows, recode_w8,
                            w8_to_uniform8)
 from .engine import decode_step as _decode_layers
 from .engine import prefill as _prefill_layers
-from .engine import sample
+from .engine import next_key, sample
 
 # whole-step variants and the kernel that serves each; kernel 14's variants
 # by their plane bits (``stacked.py:195``)
@@ -222,20 +222,32 @@ def _lb_kv_dim(cfg: ModelConfig, mp, bits: int) -> int:
 
 
 def lm_fold_engages(cfg: ModelConfig, sp: Model) -> bool:
-    """Whether the JAX package's kernel 14 call folds the final norm and the
-    lm_head into the step (``mega_lm_operands``, ``megastep_lowbit.py:
-    1870``, unless ``GANQ_LM_FOLD=0``): a ``w8`` lm_head without bias with
-    one scale per row and a vocabulary tile of at most 4 MB."""
+    """Whether a kernel 14 step of the static engine folds the final norm
+    and the lm_head in (``ganq_tpu/serve/stacked.py:462-471``): unless
+    ``GANQ_LM_FOLD=0``, wherever ``ops/megastep_lowbit.mega_lm_operands``
+    gives operands (a ``w8`` lm_head without bias with one scale per row
+    and a vocabulary tile of at most 4 MB)."""
+    from ..ops.megastep_lowbit import mega_lm_operands
+
     if os.environ.get("GANQ_LM_FOLD", "1") == "0":
         return False
-    lm = sp.lm_head
-    if not isinstance(lm, QLinear) or lm.kind != "w8" or "bias" in lm:
-        return False
-    V, H = lm["w8"].shape
-    if lm["scale"].numel() != V:
-        return False
-    return any(V % tv == 0 and tv * H <= 4 * 1024 * 1024
-               for tv in (4096, 2048, 1024, 512, 256, 128))
+    return mega_lm_operands(cfg, sp) is not None
+
+
+def _fold_logit_epilogue(cfg: ModelConfig, logits: torch.Tensor
+                         ) -> torch.Tensor:
+    """logit_scale and softcap on the folded logits: the tail of the
+    unembed that stays outside the kernel (``ganq_tpu/serve/stacked.py:
+    494-502``). The port's configurations carry neither yet, so this is
+    the identity for them."""
+    ls = getattr(cfg, "logit_scale", None)
+    if ls is not None:
+        logits = logits * torch.tensor(ls, dtype=logits.dtype,
+                                       device=logits.device)
+    cap = getattr(cfg, "logit_softcap", None)
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def _later_operands(sp: Model) -> Optional[str]:
@@ -254,15 +266,12 @@ def missing_kernel(cfg: ModelConfig, sp: Optional[Model],
                    variant: Optional[str]) -> Optional[str]:
     """What of the whole-step kernel that serves ``variant`` on ``sp`` the
     port has not ported, or None: kernel 14's "w3", "w2" and "wl8" variants,
-    and "w4p"/"w8p" with an operand of a later sub-slice or where the JAX
-    package folds the lm_head into the step."""
+    and "w4p"/"w8p" with an operand of a later sub-slice."""
     if variant is None or variant in ("w8", "w4"):
         return None
     if variant not in _PACK_ATTR:
         return _KERNEL_OF[variant]
     feature = _later_operands(sp)
-    if feature is None and lm_fold_engages(cfg, sp):
-        feature = "the trailing-unembed lm fold"
     return f"{_KERNEL_OF[variant]} with {feature}" if feature else None
 
 
@@ -373,12 +382,13 @@ def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
     """One decode step through the whole-step kernel of ``variant`` (kernel
     12 for "w8", 13 for "w4", 14 for "w4p"/"w8p"). ck/cv in the megastep
     layout, updated in place with the step's k/v at ``pos`` after the
-    kernel; then the full-precision unembed. Where the JAX package folds the
-    lm_head into kernel 14's step it raises (``GANQ_LM_FOLD=0`` serves the
-    step without the fold, as the JAX package then does)."""
+    kernel. Kernel 14 folds the final norm and a ``w8`` lm_head into the
+    step where :func:`lm_fold_engages` (the int8 final activations of the
+    TPU kernel's fold); every other step ends with the full-precision
+    unembed."""
     from ..ops.megastep import megastep_decode_w8a8
     from ..ops.megastep4 import megastep4_decode
-    from ..ops.megastep_lowbit import megastep_lowbit_decode
+    from ..ops.megastep_lowbit import megastep_lowbit_decode, mega_lm_operands
 
     b = token.shape[0]
     L = ck.shape[0]
@@ -388,14 +398,11 @@ def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
         kv_dim = (mp["qkv_p4"].shape[1] * 2 - cfg.q_dim) // 2
         step_fn = megastep4_decode
     elif variant in _LB_BITS:
-        if lm_fold_engages(cfg, sp):
-            raise NotImplementedError(
-                f"{_KERNEL_OF[variant]} with the trailing-unembed lm fold "
-                "comes with a later slice of the port (ROADMAP.md queue A "
-                "item 4); GANQ_LM_FOLD=0 serves the step without it")
         kv_dim = _lb_kv_dim(cfg, mp, _LB_BITS[variant])
         step_fn = megastep_lowbit_decode
         kw["bits"] = _LB_BITS[variant]
+        if lm_fold_engages(cfg, sp):
+            kw["lm"] = mega_lm_operands(cfg, sp)
     else:
         kv_dim = (mp["qkv_w8"].shape[1] - cfg.q_dim) // 2
         step_fn = megastep_decode_w8a8
@@ -403,20 +410,23 @@ def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
     x = embed(sp, token[:, None])[:, 0, :]
     rd, cos_h, sin_h = _rope_half_tables(cfg, rope_tables(cfg, positions))
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(d)
-    y, kn, vn = step_fn(
+    out = step_fn(
         x, mp, ck, cv, pos, cos_h, sin_h, q_dim=cfg.q_dim, kv_dim=kv_dim,
         head_dim=d, rotary_dim=rd, eps=cfg.norm_eps, scale=scale,
         act=_fused_act_kind(cfg), **kw)
+    y, kn, vn = out[:3]
     at = pos.reshape(1).to(torch.int64)
     ck.index_copy_(2, at, kn.reshape(L, -1, 1, d).to(ck.dtype))
     cv.index_copy_(2, at, vn.reshape(L, -1, 1, d).to(cv.dtype))
+    if len(out) == 4:                     # the trailing-unembed fold
+        return _fold_logit_epilogue(cfg, out[3])
     return unembed(cfg, sp, y[:, None, :], backend)[:, 0, :]
 
 
 @torch.inference_mode()
 def generate_tokens(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, input_ids: torch.Tensor,
-                    generator: Optional[torch.Generator], max_new_tokens: int,
+                    key: Optional[torch.Tensor], max_new_tokens: int,
                     temperature: float = 0.0, top_k: int = 0,
                     top_p: float = 1.0, eos_id: int = -1,
                     backend: str = "reference") -> torch.Tensor:
@@ -427,7 +437,8 @@ def generate_tokens(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
     dev = input_ids.device
     variant = mega_enabled(cfg, sp, backend, b, dev)
     logits = prefill(cfg, sp, cache_k, cache_v, input_ids, backend)
-    tok = sample(logits, generator, temperature, top_k, top_p)
+    key, sub = next_key(key, temperature)
+    tok = sample(logits, sub, temperature, top_k, top_p)
     done = (tok == eos_id) if eos_id >= 0 else torch.zeros(b, dtype=torch.bool,
                                                            device=dev)
     pad = eos_id if eos_id >= 0 else 0
@@ -445,7 +456,8 @@ def generate_tokens(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
             return decode_step(cfg, sp, cache_k, cache_v, t, p, backend)
     for _ in range(max_new_tokens - 1):
         logits = step(tok, pos)
-        nxt = sample(logits, generator, temperature, top_k, top_p)
+        key, sub = next_key(key, temperature)
+        nxt = sample(logits, sub, temperature, top_k, top_p)
         nxt = torch.where(done, pad, nxt)
         if eos_id >= 0:
             done = done | (nxt == eos_id)

@@ -768,6 +768,71 @@ def test_megastep_lowbit_zero_points_actorder_match_plain(
     _close(y, py, rel, what + " y")
 
 
+def _lm_operands(gen, V, H):
+    """Random operands of kernel 14's fold (``mega_lm_operands``' layout):
+    int8 lm_head rows, float32 row scales in [1e-4, 4e-4) as vocabulary
+    tiles, final norm weights in [0.5, 1.5)."""
+    w8, scale = _w8(gen, V, H)
+    tv = next(c for c in (4096, 2048, 1024, 512, 256, 128) if V % c == 0)
+    return {"w8": w8, "scale": scale.reshape(V // tv, tv),
+            "norm": _norm_w(gen, H)}
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 9, 64])
+@pytest.mark.parametrize("V,zp_ao", [(384, False), (32000, False),
+                                     (384, True)])
+def test_megastep_lowbit_lm_fold_matches_plain(gen, L, H, q_dim, kv_dim, I,
+                                               bits, B, V, zp_ao):
+    """Kernel 14 with the trailing-unembed fold (``zp_ao``: on a pack with
+    zero points and act-order, ``megastep_lowbit_lm_opt.cu``): y, k and v
+    equal the same launch's without the fold bit for bit; the vocab phase equals its plain
+    version on the kernel's own int8 rows exactly (max_abs_err 0: an exact
+    integer dot, then two float32 products); those rows are the plain
+    version's of the kernel's float32 residual but for codes at a rounding
+    tie (the block sum's order against torch's mean: at most one code, on
+    at most 1% of them; sx within 4 float32 ulps, rsqrtf rounding within
+    2); so the logits are within 5e-3 of the largest of the plain fold of
+    the kernel's own residual (a code flipped at a tie moves a logit by at
+    most 127 sx scale). The layers against the plain step:
+    ``test_megastep_lowbit_matches_plain``."""
+    from ganq_tpu_torch.ops.fused_attention import rms_rows
+    from ganq_tpu_torch.ops.megastep_lowbit import (lm_fold_plain,
+                                                    lm_vocab_plain)
+    from ganq_tpu_torch.ops.uniform_matmul import quantize_rows
+
+    mp = _zp_ao_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I,
+                                            bits, False),
+                         L, H, q_dim, bits, zp_ao, zp_ao)
+    lm = _lm_operands(gen, V, H)
+    T, pos0 = 64, 50
+    pos = [(pos0 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=bits)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    rows = {}
+    before = megastep_lowbit_decode.launches
+    y, kn, vn, lg = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos,
+                                           sin, lm=lm, fold_rows=rows, **kw)
+    assert megastep_lowbit_decode.launches == before + 1
+    y0, kn0, vn0 = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos,
+                                          sin, **kw)
+    torch.cuda.synchronize()
+    what = f"lm fold bits={bits} H={H} B={B} V={V} zp_ao={zp_ao}"
+    assert lg.shape == (B, V) and lg.dtype == torch.float32
+    for g, w in ((y, y0), (kn, kn0), (vn, vn0)):
+        assert torch.equal(g, w), what
+    assert torch.equal(lg, lm_vocab_plain(rows["x8"], rows["sx"], lm)), what
+    x8p, sxp = quantize_rows(rms_rows(y, lm["norm"], 1e-5))
+    dx = (rows["x8"].float() - x8p).abs()
+    assert float(dx.max()) <= 1 and float(dx.mean()) <= 1e-2, what
+    torch.testing.assert_close(rows["sx"], sxp[:, 0], rtol=4.8e-7, atol=0)
+    _close(lg, lm_fold_plain(y, lm, 1e-5), 5e-3, what + " logits")
+
+
 # ------------------------------------------------------------- kernel 15
 from ganq_tpu_torch.models.transformer import moe_slots
 from ganq_tpu_torch.ops.moe_expert import moe_expert_decode, moe_expert_plain

@@ -86,6 +86,33 @@ def test_entry_points_do_not_silently_run_on_cpu(tmp_path):
     assert out.shape == (1, 2)
 
 
+def test_serving_entry_points_run_on_the_card_by_default():
+    """The batching engine, its threaded front and ``GanqModel`` (whose
+    ``serve`` and ``generate_stream`` they back) take the card unless
+    ``device="cpu"`` is asked for; the whole-step batching mode runs on the
+    CPU only with ``GANQ_MEGASTEP=1``, and a variant whose kernel is not
+    ported raises at construction instead of serving per layer."""
+    from ganq_tpu_torch.serve import batching, stacked
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    cfg = synthetic.llama_config(hidden=32, inter=64, layers=2, heads=2,
+                                 kv_heads=1, vocab=64)
+    model = synthetic.make_model(cfg, kind="dense", device="cpu")
+    for entry in (lambda: batching.BatchingEngine(cfg, model),
+                  lambda: batching.ThreadedBatcher(cfg, model),
+                  lambda: GanqModel(cfg, model)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    eng = batching.BatchingEngine(cfg, model, device="cpu", max_seq=16)
+    assert eng._mega_variant is None and eng.backend == "reference"
+    assert not stacked.mega_env_enabled("cuda_a8", 4, "cpu")
+    import inspect
+    src = inspect.getsource(batching.BatchingEngine.__init__)
+    assert "except NotImplementedError" not in src
+    assert src.count("stacked.prepack(") == 1
+
+
 def test_kernel_wrappers_never_fall_back_for_cuda_tensors():
     """On a CUDA tensor the wrappers launch or raise: their only branch to
     the plain version tests for a CPU tensor. The a8 wrappers' other branch

@@ -274,7 +274,8 @@ def test_plain_matches_jax_interpret(packed, variant, B):
 def test_wrappers_refuse_later_features(packed):
     """Each operand or argument of a later sub-slice of kernel 14 raises
     NotImplementedError naming its feature, on the CPU as on the card (zero
-    points and act-order are served: ``test_zero_point_actorder_*``)."""
+    points and act-order are served: ``test_zero_point_actorder_*``; the
+    lm fold: ``test_lm_fold_*``)."""
     jcfg, _, _, _, tmp, _ = packed["w8p"]
     B, T, d = 1, 64, 128
     x = torch.zeros((B, jcfg.hidden_size), dtype=torch.bfloat16)
@@ -282,7 +283,7 @@ def test_wrappers_refuse_later_features(packed):
                      dtype=torch.bfloat16)
     kw = dict(q_dim=jcfg.q_dim, kv_dim=jcfg.num_key_value_heads * d,
               head_dim=d, bits=8)
-    for extra, what in (({"lm": {}}, "lm fold"), ({"walsh": 7}, "Walsh"),
+    for extra, what in (({"walsh": 7}, "Walsh"),
                         ({"softcap": 30.0}, "softcap"),
                         ({"windows": [T, T]}, "windows"),
                         ({"bits": 3}, "w3/w2")):
@@ -496,3 +497,169 @@ def test_zero_point_actorder_plain_matches_jax_interpret(zp_ao, case):
         assert tuple(g.shape) == r.shape and g.dtype == torch.bfloat16
         assert_kernel_close(g.float().numpy(), _np(r), flips=5e-3,
                             what=f"{case} {name} B={B}")
+
+
+# ------------------------------------------------ the trailing-unembed fold
+def _lm_pair(bits, vocab=256, seed=5):
+    """(jax cfg, jax stacked params, port cfg, port stacked model, lm_head
+    arrays): :func:`np_uniform_llama` at kernel 14's smallest shapes of
+    ``_ZP_AO`` (hidden 256, 2 heads, 1 kv head, I = 512) with a random
+    ``w8`` lm_head (int8 rows, float32 row scales) and final norm weights in
+    [0.5, 1.5) (``tests/test_megastep_lowbit.py::
+    test_megastep_lowbit_lm_fold``), the same in both packages."""
+    from ganq_tpu.ops import qlinear as jql
+    from ganq_tpu_torch.models import hf_import as thf
+    from ganq_tpu_torch.ops import qlinear as tql
+
+    from test_torch_serve import _flatten_jax
+    from test_torch_stacked import _port_cfg
+
+    H = 256
+    jcfg, params = np_uniform_llama(H, 2, 1, 512, bits, vocab, seed)
+    tcfg, tmodel = thf.params_from_numpy(
+        thf.config_to_hf(_port_cfg(H, 2, 1, 512, vocab)),
+        _flatten_jax(params), device="cpu")
+    rng = np.random.default_rng(seed)
+    arrays = {"w8": rng.integers(-127, 128, size=(vocab, H)).astype(np.int8),
+              "scale": rng.uniform(1e-4, 4e-4, size=(vocab, 1)).astype(
+                  np.float32),
+              "norm": rng.uniform(0.5, 1.5, size=(H,)).astype(np.float32)}
+    sp = jst.stack_layers(params, recode="affine")
+    sp["lm_head"] = jql.QLinear("w8", {"w8": jnp.asarray(arrays["w8"]),
+                                       "scale": jnp.asarray(arrays["scale"])},
+                                8, H)
+    sp["final_norm"] = {"weight": jnp.asarray(arrays["norm"])}
+    tsp = tst.stack_layers(tmodel, recode="affine")
+    tsp.lm_head = tql.QLinear("w8", {
+        "w8": torch.from_numpy(arrays["w8"]),
+        "scale": torch.from_numpy(arrays["scale"])}, bits=8, in_features=H)
+    tsp.final_norm.weight = torch.from_numpy(arrays["norm"])
+    return jcfg, sp, tcfg, tsp, arrays
+
+
+@pytest.fixture(scope="module")
+def lm_fold():
+    return _lm_pair(8)
+
+
+def test_lm_fold_plain_matches_jax_interpret(lm_fold):
+    """Kernel 14 "w8p" with the trailing-unembed fold (batch 4, each slot at
+    its own history length): the port's plain version against ganq_tpu's
+    kernel in interpret mode. y, k and v are those of the step without the
+    fold, bit for bit, and within ``assert_kernel_close`` of ganq_tpu's;
+    the fold's operands equal ganq_tpu's (the scales without the TPU's
+    8-sublane copy). From one float32 residual both packages' final norm
+    and int8 rows (``_quant_rows``) give equal x8 and sx, and the plain
+    fold's logits then equal ganq_tpu's formula ``(dv * sx) * scale`` bit
+    for bit. Against the interpret-mode kernel, whose residual differs from
+    the plain version's by the frameworks' last-bit rounding, the logits
+    agree within 2e-2 of their largest magnitude (an int8 code that flips
+    at a tie moves a logit by at most 127 * sx * scale) and correlate above
+    0.9999."""
+    from ganq_tpu.ops.megastep4 import _quant_rows
+
+    jcfg, sp, tcfg, tsp, arrays = lm_fold
+    jlm = jlb.mega_lm_operands(jcfg, sp)
+    tlm = tlb.mega_lm_operands(tcfg, tsp)
+    assert jlm is not None and tlm is not None
+    np.testing.assert_array_equal(tlm["w8"].numpy(), np.asarray(jlm["w8"]))
+    np.testing.assert_array_equal(tlm["scale"].numpy(),
+                                  np.asarray(jlm["scale"])[:, 0, :])
+    np.testing.assert_array_equal(tlm["norm"].numpy(),
+                                  np.asarray(jlm["norm"]).reshape(-1))
+    jmp = jlb.megapack_lowbit(jcfg, sp, 8)
+    tmp = tlb.megapack_lowbit(tcfg, tsp, 8)
+    B, T, d = 4, 64, 128
+    pos = [17, 5, 40, 63]
+    rng = np.random.default_rng(61)
+    x, jk, jv, cos, sin = _step_inputs(rng, jcfg, B, T, pos)
+    kw = dict(q_dim=jcfg.q_dim, kv_dim=jcfg.num_key_value_heads * d,
+              head_dim=d, rotary_dim=d, eps=1e-5, scale=float(1 / np.sqrt(d)),
+              bits=8)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.block_until_ready(jlb.megastep_lowbit_decode(
+            x, jmp, jk, jv, jnp.asarray(pos, jnp.int32), jnp.asarray(cos),
+            jnp.asarray(sin), lm=jlm, **kw))
+    args = (tmp, _t(jk), _t(jv), torch.tensor(pos), torch.from_numpy(cos),
+            torch.from_numpy(sin))
+    got = tlb.megastep_lowbit_decode(_t(x), *args, lm=tlm, **kw)
+    plain = tlb.megastep_lowbit_decode(_t(x), *args, **kw)
+    assert len(got) == 4 and len(plain) == 3
+    for g, p in zip(got[:3], plain):
+        assert torch.equal(g, p)
+    for name, g, r in zip(("y", "k", "v"), got[:3], ref[:3]):
+        assert_kernel_close(g.float().numpy(), _np(r), flips=5e-3,
+                            what=f"lm fold {name}")
+    lg, rlg = got[3].numpy(), np.asarray(ref[3])
+    assert lg.shape == rlg.shape == (B, 256) and got[3].dtype == torch.float32
+    assert np.abs(lg - rlg).max() <= 2e-2 * np.abs(rlg).max()
+    assert np.corrcoef(lg.ravel(), rlg.ravel())[0, 1] > 0.9999
+    # the fold from one float32 residual: the port's float32 y is it
+    xs = tlb.megastep_lowbit_decode(_t(x).float(), *args, **kw)[0]
+    assert xs.dtype == torch.float32
+    xj = jnp.asarray(xs.numpy())
+    var = jnp.mean(xj * xj, axis=1, keepdims=True)
+    x8j, sxj = _quant_rows(xj * jax.lax.rsqrt(var + 1e-5)
+                           * (jnp.asarray(arrays["norm"]) + 0.0))
+    from ganq_tpu_torch.ops.fused_attention import rms_rows
+    from ganq_tpu_torch.ops.uniform_matmul import quantize_rows
+    x8t, sxt = quantize_rows(rms_rows(xs, tlm["norm"], 1e-5))
+    np.testing.assert_array_equal(x8t.numpy(), np.asarray(x8j, np.float32))
+    np.testing.assert_array_equal(sxt.numpy(), np.asarray(sxj))
+    dv = jax.lax.dot_general(x8j, jnp.asarray(arrays["w8"]),
+                             (((1,), (1,)), ((), ())),
+                             preferred_element_type=jnp.int32)
+    want = np.asarray(dv.astype(jnp.float32) * sxj
+                      * jnp.asarray(arrays["scale"]).reshape(1, -1))
+    np.testing.assert_array_equal(
+        tlb.lm_fold_plain(xs, tlm, 1e-5).numpy(), want)
+
+
+def test_lm_fold_operands_none_where_jax(lm_fold):
+    """``mega_lm_operands`` gives operands, and the same vocabulary tile,
+    exactly where ganq_tpu's does: None without an lm_head, for a dense
+    one, with a bias, with a per-tensor scale, or where no tile of 4096 ..
+    128 rows divides the vocabulary within the byte cap."""
+    from ganq_tpu.ops import qlinear as jql
+    from ganq_tpu_torch.ops import qlinear as tql
+
+    jcfg, sp, tcfg, tsp, arrays = lm_fold
+    w8, sc = arrays["w8"], arrays["scale"]
+    H = w8.shape[1]
+
+    def pair(kind, arrs):
+        j = jql.QLinear(kind, {k: jnp.asarray(v) for k, v in arrs.items()},
+                        8, H)
+        t = tql.QLinear(kind, {k: torch.from_numpy(v)
+                               for k, v in arrs.items()},
+                        bits=8, in_features=H)
+        return j, t
+
+    cases = {
+        "w8": pair("w8", {"w8": w8, "scale": sc}),
+        "none": (None, None),
+        "dense": pair("dense", {"weight": w8.astype(np.float32)}),
+        "bias": pair("w8", {"w8": w8, "scale": sc,
+                            "bias": np.zeros(len(w8), np.float32)}),
+        "per_tensor": pair("w8", {"w8": w8, "scale": sc[:1]}),
+        "vocab_200": pair("w8", {"w8": w8[:200], "scale": sc[:200]}),
+        "vocab_384": pair("w8", {"w8": np.concatenate([w8, w8[:128]]),
+                                 "scale": np.concatenate([sc, sc[:128]])}),
+    }
+    for name, (jl, tl) in cases.items():
+        jsp = dict(sp)
+        if jl is None:
+            jsp.pop("lm_head")
+        else:
+            jsp["lm_head"] = jl
+        tsp.lm_head = tl
+        jo = jlb.mega_lm_operands(jcfg, jsp)
+        to = tlb.mega_lm_operands(tcfg, tsp)
+        assert (jo is None) == (to is None), name
+        if to is not None:
+            assert tuple(to["scale"].shape) == tuple(
+                np.asarray(jo["scale"]).shape[::2]), name
+        jo = jlb.mega_lm_operands(jcfg, jsp, max_tile_bytes=64 * H)
+        to = tlb.mega_lm_operands(tcfg, tsp, max_tile_bytes=64 * H)
+        assert jo is None and to is None, name
+    tsp.lm_head = cases["w8"][1]

@@ -403,7 +403,7 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
         ("uniform", 4, None, 256, 2, "cuda_a8", 8, 12, 1, None),
         ("uniform", 8, None, 256, 2, "cuda_a8", 16, 2, 4, None),
         ("uniform", 2, None, 512, 4, "cuda_a8", 8, 12, 4, "'w2'"),
-        ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 4, "lm fold"),
+        ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 4, None),
         ("uniform", 8, "w8", 256, 2, "cuda_a8", 8, 12, 1, None),
         ("uniform_zp", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
         ("uniform_zp", 8, None, 256, 2, "cuda_a8", 16, 2, 4, None),
@@ -417,12 +417,11 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
     stacked layout serves through a whole-step variant the port has not
     ported: where ganq_tpu's ``mega_enabled`` (on by default for
     "pallas_a8" on a TPU, here forced with ``GANQ_MEGASTEP=1``) picks
-    kernel 14's "w3", "w2" or "wl8", or picks "w4p"/"w8p" for a model whose
-    lm_head ganq_tpu folds into the step (``mega_lm_operands``), for a
-    request that decodes. The port's gate, on the card, gives the same
-    variant. Kernels 12 ("w8"), 13 ("w4") and 14's "w4p" and "w8p", with
-    zero points and act-order, serve every other request."""
-    from ganq_tpu.ops import megastep_lowbit as jlb
+    kernel 14's "w3", "w2" or "wl8" for a request that decodes. The port's
+    gate, on the card, gives the same variant. Kernels 12 ("w8"), 13 ("w4")
+    and 14's "w4p" and "w8p", with zero points, act-order and the
+    trailing-unembed fold of a ``w8`` lm_head (``mega_lm_operands``), serve
+    every other request."""
     from ganq_tpu.serve import stacked as jst
 
     jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads, bits,
@@ -433,9 +432,7 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
     variant = jst.mega_enabled(jcfg, sp, "pallas_a8" if backend == "cuda_a8"
                                else "pallas", batch)
     monkeypatch.delenv("GANQ_MEGASTEP", raising=False)
-    later = variant in ("w3", "w2", "wl8") or (
-        variant in ("w4p", "w8p") and jlb.mega_lm_operands(jcfg, sp)
-        is not None)
+    later = variant in ("w3", "w2", "wl8")
     refused = new > 1 and later
     eng = teng.Engine(_port_cfg(hidden, heads), tmodel, backend="reference",
                       device="cpu")

@@ -76,9 +76,20 @@ Phases, each of which raises (exit code != 0) on failure:
     fold at Llama-3.1-8B widths (``phase_batching_path``: 12 requests on
     8 slots, one launch a decode step, the folded logits against the
     reference backend and the unfolded step, step ms at 1/8/16 slots,
-    tokens/s), then ``GanqModel.serve(use_batching=True)`` over HTTP.
+    tokens/s), then ``GanqModel.serve(use_batching=True)`` over HTTP;
+14. EoRA adapters at Llama-3.1-8B widths (``phase_eora_path``): GPTQ W4
+    with adapters (``QuantizeConfig(adapter={"rank": 64})``) through kernel
+    14 "w4p" with zero points, act-order and the EoRA epilogue; a ``lut``
+    checkpoint's post-quant ``eora_generate`` (seconds a layer by part,
+    the logits' error to the dense model with and without adapters),
+    ``optimize()`` and "w8p" with the epilogue; the batching engine with the
+    epilogue and the lm fold.
 Phase 3 holds the fold itself against its plain version
-(``check_lm_fold``: the vocab phase bit for bit).
+(``check_lm_fold``: the vocab phase bit for bit), and kernel 14's EoRA
+epilogue (``check_lora``: "w8p"/"w4p" at 3B widths, zero points with
+act-order and the fold at 8B widths) against its, beside the same launch
+without adapters; those cases also go on a line of their own
+(``{"k14_lora": ...}``) before the kernels line.
 Each run of phases 7-13 sets the launch counters to 0 and must match its
 expected launches exactly (``expected_launches``, the port's routing, which
 is the JAX package's); phases 7-11 and 13 hold a teacher-forced decode
@@ -104,9 +115,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
-QUANTIZE_LAYERS = 16               # depth of the quantize path (see PERF.md)
+QUANTIZE_LAYERS = 8                # depth of the quantize path (see PERF.md)
 PALLAS_PATH_LAYERS = 2             # depth of its solver_backend="pallas" run
-GPTQ_LAYERS = 16                   # depth of the GPTQ path (see PERF.md)
+GPTQ_LAYERS = 8                    # depth of the GPTQ path (see PERF.md)
 GPTQ_SIDE_LAYERS = 2               # depth of its desc_act=False runs
 L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
 LLAMA_1B_LINEARS = {"q/o": (2048, 2048), "k/v": (512, 2048),
@@ -896,6 +907,24 @@ def _zp_ao_operands(gen, mp, L, H, q_dim, bits, zp, ao):
     return mp
 
 
+def _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, r):
+    """Kernel 14's EoRA operands (megapack_lowbit's layouts, bf16) added to
+    a random pack: A [r, K] with rows of norm ~1, B with entries of 5e-2,
+    so that the rank-r terms move each layer's q/k/v and residual by a few
+    percent, more than the checks' tolerances."""
+    Dqkv = q_dim + 2 * kv_dim
+
+    def rnd(*shape, s):
+        return (torch.randn((L, *shape), generator=gen, device="cuda")
+                * s).to(torch.bfloat16)
+
+    mp.update(la_q=rnd(r, H, s=H ** -0.5), lb_q=rnd(Dqkv, r, s=5e-2),
+              la_o=rnd(r, q_dim, s=q_dim ** -0.5), lb_o=rnd(H, r, s=5e-2),
+              la_g=rnd(r, H, s=H ** -0.5), lb_g=rnd(2 * I, r, s=5e-2),
+              la_d=rnd(r, I, s=I ** -0.5), lb_d=rnd(H, r, s=5e-2))
+    return mp
+
+
 def check_grouped_megasteps(gen) -> list:
     """Kernels 14 ("w4p" and "w8p", batch 1, 8 and 64) and 13 (batch 1 and
     8) over the 28 layers of Llama-3.2-3B (random packs, slot b at decode
@@ -1107,6 +1136,126 @@ def check_lm_fold(gen) -> dict:
     return rows
 
 
+EORA_RANK = 64                     # adapter rank of the EoRA cases
+
+
+def check_lora(gen) -> dict:
+    """Kernel 14 with the EoRA epilogue (``megastep_lowbit_lora*.cu``),
+    rank EORA_RANK on every projection (``_lora_operands``), against its
+    plain version within ``_spread_close`` (the spread with the A factors
+    also nudged by 2^-13, about the float-order error of the kernel's
+    K-term A dots): "w8p" and "w4p" over the 28
+    layers of Llama-3.2-3B at batch 1, 8 and 64; at Llama-3.1-8B's widths
+    (ZP_AO_LAYERS layers) "w4p" with zero points and act-order at batch 1,
+    8 and 64 and "w8p" with the lm fold (vocabulary 128256) at 1, 8 and 16;
+    slot b at position FUSED_POS + b. Each case is timed with CUDA events
+    beside the same launch without the adapters (the kernels without the
+    epilogue); its bound counts the adapters' bf16 factors with the step's
+    bytes. Returns {case: row}."""
+    from ganq_tpu_torch.models import synthetic
+    from ganq_tpu_torch.ops.megastep_lowbit import (_LORA_KEYS,
+                                                    megastep_lowbit_decode,
+                                                    megastep_lowbit_plain)
+
+    c8 = synthetic.llama_3_1_8b_config(ZP_AO_LAYERS)
+    widths = {"3b": _l3b_widths(),
+              "8b": (c8.hidden_size, c8.intermediate_size, c8.q_dim,
+                     c8.kv_dim, c8.head_dim, ZP_AO_LAYERS)}
+    T = 256
+    ang = torch.rand(64, generator=gen, device="cuda") * 6.2831853
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    rows = {}
+    for variant, bits, batches, model, zpao, fold in (
+            ("w8p_lora", 8, (1, 8, 64), "3b", False, False),
+            ("w4p_lora", 4, (1, 8, 64), "3b", False, False),
+            ("w4p_zp_ao_lora", 4, (1, 8, 64), "8b", True, False),
+            ("w8p_lm_lora", 8, (1, 8, 16), "8b", False, True)):
+        H, I, q_dim, kv_dim, d, L = widths[model]
+        Dqkv, Hkv = q_dim + 2 * kv_dim, kv_dim // d
+        mp = _lora_operands(gen, _zp_ao_operands(
+            gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False),
+            L, H, q_dim, bits, zpao, zpao), L, H, q_dim, kv_dim, I,
+            EORA_RANK)
+        bare = {k: v for k, v in mp.items() if k not in _LORA_KEYS}
+        lm, lm_bytes = None, 0
+        if fold:
+            V = c8.vocab_size
+            tv = next(c for c in (4096, 2048, 1024, 512, 256, 128)
+                      if V % c == 0 and c * H <= 4 * 2**20)
+            lm = {"w8": torch.randint(-127, 128, (V, H), generator=gen,
+                                      device="cuda",
+                                      dtype=torch.int32).to(torch.int8),
+                  "scale": (torch.rand((V // tv, tv), generator=gen,
+                                       device="cuda") * 3e-4 + 1e-4),
+                  "norm": torch.rand(H, generator=gen, device="cuda") + 0.5}
+        kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+                  scale=1.0 / math.sqrt(d), bits=bits, lm=lm)
+        code_bytes = L * (Dqkv + q_dim + 3 * I) * H * bits // 8
+        side_bytes = sum(v.numel() * v.element_size() for k, v in mp.items()
+                         if k.endswith(("_s", "_sz")) or k[:3] == "ap_")
+        lora_bytes = sum(mp[k].numel() * 2 for k in _LORA_KEYS)
+        for B in batches:
+            pos = [FUSED_POS + b for b in range(B)]
+            kc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            vc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            x = torch.randn((B, H), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            got = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin, **kw)
+            ref = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, **kw)
+            # the spread: norm weights two float32 ulps larger, and the A
+            # factors 1 + 2^-13 larger (about the kernel's float-order
+            # error in its K-term A dots, sqrt(K) ulps)
+            nudged = megastep_lowbit_plain(
+                x, dict(mp, attn_norm=mp["attn_norm"] * (1 + 2**-22),
+                        mlp_norm=mp["mlp_norm"] * (1 + 2**-22),
+                        **{k: mp[k].float() * (1 + 2**-13)
+                           for k in ("la_q", "la_o", "la_g", "la_d")}),
+                kc, vc, pos, cos, sin, **kw)
+            torch.cuda.synchronize()
+            names = ("y", "k_new", "v_new", "logits")
+            errs = [_spread_close(g, p, n_, f"{variant} {n} B={B}")
+                    for n, g, p, n_ in zip(names, got, ref, nudged)]
+            del ref, nudged
+            k_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, mp, kc, vc, pos_t, cos, sin, **kw), (), 10)
+            n_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, bare, kc, vc, pos_t, cos, sin, **kw), (), 10)
+            p_ms = (event_ms(lambda: megastep_lowbit_plain(
+                x, mp, kc, vc, pos, cos, sin, **kw), (), 1)
+                if B == 1 else None)
+            if fold:
+                V = lm["w8"].shape[0]
+                lm_bytes = V * H + V * 4 + H * 4 + B * V * 4 + B * H
+            nbytes = (code_bytes + side_bytes + lora_bytes
+                      + 2 * L * sum(pos) * kv_dim * 2
+                      + L * (2 * H + Dqkv) * 4 + 2 * B * H * 2
+                      + 2 * L * B * kv_dim * 2 + lm_bytes)
+            ops = 2.0 * B * (L * (Dqkv + q_dim + 3 * I) * H
+                             + (lm["w8"].shape[0] * H if fold else 0))
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
+            rows[(variant, B)] = dict(
+                ms=k_ms, ms_no_lora=n_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, lora_mb=lora_bytes / 1e6,
+                max_abs_err=max(e[0] for e in errs),
+                rel_l2=max(e[1] for e in errs))
+            log(f"megastep_lowbit_decode ({variant}, r={EORA_RANK}) L={L} "
+                f"H={H} pos={FUSED_POS}+b B={B}: rel_l2 "
+                f"{[f'{e[1]:.2e}' for e in errs]} (tol 2 x the plain "
+                f"version's spread {[f'{e[2]:.2e}' for e in errs]} + 2^-8) "
+                f"kernel_ms={k_ms:.4f} without adapters {n_ms:.4f} "
+                f"(epilogue {k_ms - n_ms:+.4f}) plain_ms="
+                f"{p_ms if p_ms is None else round(p_ms, 3)} "
+                f"bound_ms={b_ms:.4f} ({b_by}; adapters "
+                f"{lora_bytes / 1e6:.1f} MB)")
+            del kc, vc, got
+        del mp, bare, lm
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _moe_pack(gen, E, H, I, bits, gs=128):
     """Random kernel 15 operands in moe_megapack's layouts (any byte is a
     valid code byte)."""
@@ -1220,6 +1369,15 @@ def phase_kernels() -> list:
                                         "fold_bound_ms", "max_abs_err")}
                 k14["max_abs_err"] = max(k14["max_abs_err"],
                                          row["max_abs_err"])
+            # and its EoRA epilogue, on a line of its own as well
+            lora = check_lora(gen)
+            for (v, B), row in lora.items():
+                k14["by_case"][f"{v}_b{B}"] = {
+                    k: row[k] for k in ("ms", "ms_no_lora", "bound_ms",
+                                        "plain_ms", "rel_l2")}
+                k14["max_abs_err"] = max(k14["max_abs_err"],
+                                         row["max_abs_err"])
+            k14["lora"] = {f"{v}_b{B}": row for (v, B), row in lora.items()}
             return entries
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
@@ -1382,6 +1540,16 @@ def _kernel_counters():
             "moe_expert_decode": moe_expert_decode}
 
 
+def _w8_mlp(lp) -> bool:
+    """A layer whose MLP the fused W8A8 MLP (kernel 9) takes: fused ``w8``
+    gate/up and down without adapter or bias."""
+    mlp = lp.mlp
+    return ("gateup" in mlp and mlp["gateup"].kind == "w8"
+            and mlp["down"].kind == "w8"
+            and not any(x in m for m in (mlp["gateup"], mlp["down"])
+                        for x in ("lora_a", "bias")))
+
+
 def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     """The launches of one request on the port's routing (the JAX
     package's): per layer of the prompt (B * S token rows) one
@@ -1392,7 +1560,9 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     "w8p"), else per layer the attention
     half (kernel 11, ``GANQ_FUSED_LAYER=1``, B <= 8) or the fused qkv
     (kernel 10, ``GANQ_FUSED_QKV``) or the qkv linear, one flash decode
-    unless kernel 11 ran, o, and the MLP as for the prompt. A MoE layer's
+    unless kernel 11 ran, o, and the MLP as for the prompt; a quantized
+    lm_head once for the prompt and once a step (none where kernel 14
+    folds it in). A MoE layer's
     experts run the fused expert kernel (15) once for a step of at most 32
     token rows on "cuda_a8" where the layer has its pack (unless
     ``GANQ_MOE_MEGA=0``), else each expert's gate, up and down."""
@@ -1416,8 +1586,7 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
                 for e in lp.moe["experts"]:
                     for p in e.values():
                         add(kernel_of(p))
-        elif (a8 and "gateup" in mlp and mlp["gateup"].kind == "w8"
-                and mlp["down"].kind == "w8" and rows <= 64):
+        elif a8 and _w8_mlp(lp) and rows <= 64:
             add("fused_mlp_w8a8")
         elif rows < 1024:
             for p in mlp.values():
@@ -1430,6 +1599,18 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
                 add(kernel_of(p))
         mlp_of(lp, rows)
     steps = new - 1
+    # a quantized lm_head (full-precision kernels on "cuda_a8" too): the
+    # prompt's last row, and each decode step's unless kernel 14 folds it in
+    from ganq_tpu_torch.ops.qlinear import QLinear
+    from ganq_tpu_torch.serve import stacked
+
+    lm = getattr(model, "lm_head", None)
+    if isinstance(lm, QLinear) and lm.kind != "dense":
+        lm_kernel = kernel_of_linear("cuda" if a8 else backend)(lm)
+        add(lm_kernel)
+        if not (variant in ("w4p", "w8p")
+                and stacked.lm_fold_engages(q.cfg, model)):
+            add(lm_kernel, steps)
     if variant:
         add({"w8": "megastep_decode_w8a8", "w4": "megastep4_decode",
              "w4p": "megastep_lowbit_decode",
@@ -1437,15 +1618,15 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
         return out
     for _ in range(steps):
         for lp in model.layers:
-            w8_mlp = ("gateup" in lp.mlp and lp.mlp["gateup"].kind == "w8"
-                      and lp.mlp["down"].kind == "w8")
-            if (a8 and fused_layer and B <= 8 and w8_mlp
-                    and lp.o_t_w8 is not None and q.cfg.head_dim == 128):
+            if (a8 and fused_layer and B <= 8 and _w8_mlp(lp)
+                    and lp.o_t_w8 is not None and q.cfg.head_dim == 128
+                    and "lora_a" not in lp.attn["qkv"]):
                 add("attn_half_decode_w8a8")
                 add("fused_mlp_w8a8")
                 continue
             for name, p in lp.attn.items():
-                if name == "qkv" and a8 and fused_qkv and p.kind == "w8":
+                if (name == "qkv" and a8 and fused_qkv and p.kind == "w8"
+                        and "lora_a" not in p):
                     add("fused_qkv_rope_w8a8")
                 else:
                     add(kernel_of(p))
@@ -2213,6 +2394,26 @@ def _batching_traffic(eng, rng, vocab):
     return results, steps, launches, dt, sum(n for _, n in reqs)
 
 
+def _fold_and_residual(cfg, sp, mp, mk, mv, tok, pos, backend):
+    """Kernel 14's folded "w8p" launch as ``batching._mega_decode_slots``
+    makes it: (its logits, its residual unembedded in full precision)."""
+    from ganq_tpu_torch.models.transformer import (_fused_act_kind, embed,
+                                                   rope_tables, unembed)
+    from ganq_tpu_torch.ops.megastep_lowbit import (mega_lm_operands,
+                                                    megastep_lowbit_decode)
+    from ganq_tpu_torch.serve import stacked
+
+    d = cfg.head_dim
+    cos, sin = rope_tables(cfg, pos[:, None])
+    y, _, _, lg = megastep_lowbit_decode(
+        embed(sp, tok[:, None])[:, 0, :], mp, mk, mv, pos,
+        cos[:, 0, :d // 2], sin[:, 0, :d // 2], q_dim=cfg.q_dim,
+        kv_dim=stacked._lb_kv_dim(cfg, mp, 8), head_dim=d, rotary_dim=d,
+        eps=cfg.norm_eps, scale=1.0 / math.sqrt(d),
+        act=_fused_act_kind(cfg), bits=8, lm=mega_lm_operands(cfg, sp))
+    return lg, unembed(cfg, sp, y[:, None, :], backend)[:, 0, :].float()
+
+
 def phase_batching_path():
     """The continuous-batching server's path at Llama-3.1-8B's published
     widths (BATCHING_LAYERS of 32 layers, untied): a random 4-bit ``lut``
@@ -2225,8 +2426,9 @@ def phase_batching_path():
     exact (one kernel 14 a decode step; per admission kernel 6 per prompt
     linear and kernel 7 for the prompt's last row through the lm_head). A
     teacher-forced step at per-slot positions holds the folded logits
-    against the reference backend and against the unfolded step (what
-    ``GANQ_LM_FOLD=0`` gives the static engine). Decode ms per step (host
+    against the reference backend and against the same launch's residual
+    unembedded in full precision (the fold's own rounding: its int8 final
+    activations). Decode ms per step (host
     clock) at 1, 8 and 16 slots with and without the fold. Then
     ``GanqModel.serve(port=0, use_batching=True, slots=4)`` with a byte
     tokenizer answers 4 concurrent completions and a streamed chat."""
@@ -2316,16 +2518,20 @@ def phase_batching_path():
         mk, mv = stacked._mega_cache(ck, cv)
         a = batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, tok, pos,
                                         "w8p", q.backend).float()
-        a0 = batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, tok, pos,
-                                         "w8p", q.backend,
-                                         fold=False).float()
+        # the same launch again, and its residual unembedded in full
+        # precision (an unfolded launch may take another flash block: the
+        # plan counts the fold's operands, as the JAX wrapper's does)
+        lg, a0 = _fold_and_residual(q.cfg, sp, mp, mk, mv, tok, pos,
+                                    q.backend)
+        if not torch.equal(lg.float(), a):
+            raise AssertionError("batching: the folded launch differs")
         b = stacked.decode_step(q.cfg, sp, ck, cv, tok, pos[0],
                                 "reference").float()
     rel_ref = float((a - b).norm() / b.norm())
     rel_unf = float((a - a0).norm() / a0.norm())
     log(f"batching teacher-forced step (w8p, per-slot positions): logits "
         f"{tuple(a.shape)} rel_l2(fold, reference)={rel_ref:.3e} "
-        f"rel_l2(fold, unfolded)={rel_unf:.3e} top1 agree "
+        f"rel_l2(fold, its residual unfolded)={rel_unf:.3e} top1 agree "
         f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.2f} "
         f"(tol 1e-1 and 2e-2: int8 activations, and the int8 final "
         f"activations of the fold, up to 1/254 of a row's largest)")
@@ -2481,6 +2687,220 @@ def phase_batching_perlayer(ckpt_dir: str):
 
 BATCHING_AGREE = 0.5
 
+EORA_LAYERS = 4                    # depth of the EoRA path (see PERF.md)
+
+
+def _quantile_lut_model(dense, cfg, lm_bits: int = 8):
+    """A 4-bit ``lut`` model of a dense one: each row's codebook the 16
+    quantiles (at (i + 0.5) / 16) of its first 1024 weights, each weight
+    the nearest codeword; the lm_head the same at ``lm_bits`` bits. Free
+    (non-affine) codebooks, so ``optimize()`` recodes them to uniform 8-bit
+    ("w8p")."""
+    from ganq_tpu_torch.models.transformer import Layer, Model
+    from ganq_tpu_torch.ops.qlinear import QLinear, lut_linear
+
+    def lut_of(w, bits):
+        k = 1 << bits
+        parts = []
+        for r0 in range(0, w.shape[0], 16384):       # bounded scratch
+            wr = w[r0:r0 + 16384].float()
+            srt = torch.sort(wr[:, :1024], dim=1).values
+            at = ((torch.arange(k, device=w.device) + 0.5) / k
+                  * srt.shape[1]).long()
+            q = srt[:, at].contiguous()                      # [R, k] sorted
+            idx = torch.searchsorted((q[:, 1:] + q[:, :-1]) / 2,
+                                     wr.contiguous())
+            parts.append(lut_linear(q, idx, bits))
+        return QLinear("lut", {n: torch.cat([p[n] for p in parts])
+                               for n in ("lut", "idx_packed")},
+                       bits=bits, in_features=w.shape[1])
+
+    layers = [Layer(lp.input_norm.weight, lp.post_norm.weight,
+                    {n: lut_of(m["weight"], 4) for n, m in lp.attn.items()},
+                    {n: lut_of(m["weight"], 4) for n, m in lp.mlp.items()})
+              for lp in dense.layers]
+    return Model(dense.embed_tokens.weight, dense.final_norm.weight, layers,
+                 lut_of(dense.lm_head["weight"], lm_bits))
+
+
+def phase_eora_path():
+    """EoRA end to end at Llama-3.1-8B's published widths, EORA_LAYERS of
+    its 32 layers. (a) A dense random directory, quantized with GPTQModel's
+    default W4 g128 (``sym=False``, ``desc_act=True``) and an adapter of
+    rank EORA_RANK on every module (``QuantizeConfig(adapter=...)``, 8
+    calibration rows of 2048 tokens),
+    saved (GPTQ v1 and the PEFT adapter files), loaded on the card:
+    requests at batch 1 and 8 decode through kernel 14 "w4p" with zero
+    points, act-order and the EoRA epilogue, one launch a step. (b) A 4-bit
+    ``lut`` checkpoint of the same dense weights (quantile codebooks, an
+    8-bit lm_head): ``eora_generate(dense_dir, rows, rank=EORA_RANK,
+    save_adapter_to=...)``, its seconds a layer by part; the logits' error
+    to the dense model with and without the adapters. (c) That checkpoint
+    loaded again (the adapters attached) and ``optimize()``d: requests at
+    batch 1, 8 and 16 through "w8p" with the epilogue. (d) A
+    ``BatchingEngine`` on it, the lm_head int8 per row (``recode_w8``, as
+    ``optimize("w8")`` makes it) so that it folds: 12 requests, one kernel
+    14 launch a decode step. Launches exact throughout; each static request
+    is followed by a teacher-forced step against the reference backend."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense, save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.models.transformer import forward
+    from ganq_tpu_torch.ops.megastep_lowbit import mega_lm_operands
+    from ganq_tpu_torch.ops.qlinear import recode_w8
+    from ganq_tpu_torch.serve import batching
+
+    cfg = synthetic.llama_3_1_8b_config(EORA_LAYERS)
+    rng = np.random.default_rng(19)
+    # more calibration tokens than the widest input (14336): full-rank
+    # covariances, as a real calibration set gives
+    rows = rng.integers(0, cfg.vocab_size, size=(8, 2048))
+    probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 64)),
+                            device="cuda")
+    out = {"runs": []}
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as gdir, \
+            tempfile.TemporaryDirectory() as ldir:
+        t0 = time.time()
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=20,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        t1 = time.time()
+
+        # (a) GPTQ W4 (sym=False, desc_act) with adapters
+        qcfg = QuantizeConfig(sym=False, desc_act=True,
+                              adapter={"rank": EORA_RANK})
+        g = GanqModel.load(dense_dir, qcfg)
+        qlog = g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        g.save(gdir)
+        del g
+        torch.cuda.empty_cache()
+        eora_s = sum(e.extra.get("eora", 0.0) for e in qlog)
+        log(f"EoRA path: dense {EORA_LAYERS}-layer 8B-width directory in "
+            f"{t1 - t0:.1f} s; GPTQ W4 g128 sym=False desc_act with rank-"
+            f"{EORA_RANK} adapters: {t2 - t1:.1f} s for {len(qlog)} modules "
+            f"({(t2 - t1) / EORA_LAYERS:.1f} s a layer, of which EoRA "
+            f"{eora_s / EORA_LAYERS:.2f} s)")
+        q = GanqModel.load(gdir, dtype=torch.bfloat16)
+        eng = q._get_engine()
+        mp = getattr(eng.model, "megapack_lb", None)
+        if (q.backend != "cuda_a8" or mp is None
+                or not {"la_q", "lb_d", "qkv_sz", "ap_q"} <= set(mp)
+                or mp["la_q"].shape[1] != 3 * EORA_RANK):
+            raise AssertionError("the GPTQ EoRA model is not on kernel 14's "
+                                 "zero-point act-order EoRA path")
+        q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+                   max_new_tokens=3, max_seq=32)                  # warm-up
+        out["runs"] += list(_run_requests(q, "EoRA GPTQ W4", (
+            ("w4p_zp_ao_lora_b1", 1, 128, 16, {}),
+            ("w4p_zp_ao_lora_b8", 8, 64, 8, {})), rng,
+            want_variant="w4p").values())
+        out["decode_eora_w4p"] = _decode_ms(
+            q, "EoRA GPTQ W4 (kernel 14 w4p with the epilogue)",
+            ((1, 128, 16),), rng, layouts=("auto",))
+        # the same teacher-forced step with the adapters taken off: how
+        # much of its distance to the reference backend is the adapters'
+        # (applied there to bf16 activations, in float32 in the kernel)
+        for lp in q.model.layers:
+            for m in list(lp.attn.values()) + list(lp.mlp.values()):
+                m._buffers.pop("lora_a", None)
+                m._buffers.pop("lora_b", None)
+        q._engines = {}
+        out["rel_l2_reference_without_adapters"] = phase_reference_check(
+            q, "EoRA GPTQ W4, its adapters taken off", batch=1)
+        del q, eng, mp
+        torch.cuda.empty_cache()
+
+        # (b) a lut checkpoint of the same weights, post-quant adapters
+        with torch.inference_mode():
+            save_quantized(ldir, hf_import.config_to_hf(cfg), QuantizeConfig(
+                bits=4, quant_method="ganq", lm_head=True,
+                dynamic={"+:lm_head": {"bits": 8}}),
+                _quantile_lut_model(dense, cfg))
+            ref = forward(cfg, dense, probe).float()
+        # an 8-bit lut linear has no kernel of the port: the plain path
+        # until optimize() recodes it (ROADMAP.md queue C)
+        q = GanqModel.load(ldir, dtype=torch.bfloat16, backend="reference")
+
+        def err():
+            with torch.inference_mode():
+                a = forward(cfg, q.model, probe).float()
+            return float((a - ref).norm() / ref.norm())
+
+        before = err()
+        timings = {}
+        t0 = time.time()
+        done = q.eora_generate(dense_dir, list(rows), rank=EORA_RANK,
+                               save_adapter_to=ldir, timings=timings)
+        torch.cuda.synchronize()
+        t_eora = time.time() - t0
+        after = err()
+        per = {k: round(v / EORA_LAYERS, 3) for k, v in timings.items()}
+        log(f"EoRA path: eora_generate on the lut checkpoint: {len(done)} "
+            f"modules in {t_eora:.1f} s ({t_eora / EORA_LAYERS:.2f} s a "
+            f"layer; by part, s a layer: {json.dumps(per)}); logits rel_l2 "
+            f"to the dense model {before:.4e} without adapters, {after:.4e} "
+            f"with them")
+        if len(done) != 7 * EORA_LAYERS or not after < before:
+            raise AssertionError("eora_generate did not adapt every module "
+                                 "or did not reduce the error")
+        out["eora_generate"] = dict(s_per_layer=t_eora / EORA_LAYERS,
+                                    split_s_per_layer=per,
+                                    rel_l2_without=before, rel_l2_with=after)
+        del q, dense, ref
+        torch.cuda.empty_cache()
+
+        # (c) load (adapters attached) -> optimize() -> "w8p" with them
+        q = GanqModel.load(ldir, dtype=torch.bfloat16, backend="reference")
+        q.optimize()
+    eng = q._get_engine()
+    mp = getattr(eng.model, "megapack_lb", None)
+    if q.backend != "cuda_a8" or mp is None or "la_q" not in mp:
+        raise AssertionError("the optimize()d EoRA model is not on kernel "
+                             "14's w8p EoRA path")
+    q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+               max_new_tokens=3, max_seq=32)                      # warm-up
+    out["runs"] += list(_run_requests(q, "EoRA optimize()", (
+        ("w8p_lora_b1", 1, 128, 16, {}), ("w8p_lora_b8", 8, 64, 8, {}),
+        ("w8p_lora_b16", 16, 32, 8, {})), rng,
+        want_variant="w8p").values())
+    del eng, mp
+    torch.cuda.empty_cache()
+
+    # (d) continuous batching with the fold
+    q.model.lm_head = recode_w8(q.model.lm_head)
+    eng = batching.BatchingEngine(q.cfg, q.model, backend=q.backend,
+                                  slots=8, max_seq=512)
+    if (eng._mega_variant != "w8p" or "la_q" not in eng._mp
+            or mega_lm_operands(q.cfg, eng._sp) is None):
+        raise AssertionError("the batching engine is not on kernel 14's w8p "
+                             "EoRA path with the fold")
+    kernel_of = kernel_of_linear(q.backend)
+    eng.submit(rng.integers(0, cfg.vocab_size, size=20), max_new_tokens=4)
+    eng.run_all()                                             # warm-up
+    _, steps, launches, dt, n_tok = _batching_traffic(eng, rng,
+                                                      cfg.vocab_size)
+    want = {}
+    for lp in eng._sp.layers:
+        for p in list(lp.attn.values()) + list(lp.mlp.values()):
+            want[kernel_of(p)] = want.get(kernel_of(p), 0) + 12
+    want.update(megastep_lowbit_decode=steps, w8_matmul=12)
+    log(f"EoRA batching (w8p, epilogue and fold): 12 requests, {n_tok} "
+        f"tokens in {steps} decode steps, {dt * 1e3:.1f} ms: "
+        f"{n_tok / dt:.1f} tokens/s (host clock, prefills included); "
+        f"launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("EoRA batching launches differ from the path's")
+    out["runs"].append(launches)
+    out["batching"] = dict(tokens=n_tok, steps=steps, seconds=dt,
+                           tokens_per_s=n_tok / dt)
+    del q, eng
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     t_start = time.time()
@@ -2521,6 +2941,10 @@ def main() -> int:
     # continuous batching through kernel 14 with the lm fold, and the server
     batching_run = phase_batching_path()
     runs += batching_run["runs"]
+    # EoRA: quantize with adapters, post-quant adapters, kernel 14's
+    # epilogue in the static engine and the batching engine
+    eora = phase_eora_path()
+    runs += eora["runs"]
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
                  "attn_half_decode_w8a8", "megastep_decode_w8a8",
@@ -2570,11 +2994,15 @@ def main() -> int:
                               "bound_ms_b8", "by_case") if x in k},
          "shape": k["shape"]} for k in kernels]}
     log("decode ms per step (host clock): " + json.dumps(
-        {k: v for d in (three_b, eight_b, mixtral, batching_run)
+        {k: v for d in (three_b, eight_b, mixtral, batching_run, eora)
          for k, v in d.items() if k.startswith("decode_")}))
     log("batching: " + json.dumps({k: batching_run[k] for k in (
         "traffic", "teacher_forced")}))
+    log("EoRA path: " + json.dumps({k: eora[k] for k in (
+        "eora_generate", "batching", "rel_l2_reference_without_adapters")}))
     log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
+    k14 = next(k for k in kernels if k["name"] == "megastep_lowbit_decode")
+    log(json.dumps({"k14_lora": k14["lora"]}))
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ layer), ``save`` the packed checkpoint (``lut``, or the GPTQ v1/v2 layout),
 ``GanqModel.load`` that, ``optimize`` it (recode ``lut`` linears for the
 int8-activation kernels) and ``generate`` (or ``generate_stream``), or
 ``serve`` it over HTTP (the OpenAI-compatible server, continuous batching
-with ``use_batching=True``). The model runs on the card unless the caller
+with ``use_batching=True``). EoRA adapters come from ``quantize`` with an
+adapter rank (``QuantizeConfig(adapter={"rank": r})``) or, after it, from
+``eora_generate``; ``save`` and ``load`` carry them in the PEFT layout.
+The model runs on the card unless the caller
 passes ``device="cpu"``. The evals come with a later slice of the port and
 raise ``NotImplementedError`` until then.
 """
@@ -89,6 +92,19 @@ class GanqModel:
         log.info(f"loaded dense checkpoint from {model_dir}")
         return cls(cfg, model, quantize_config, tokenizer, model_dir, dev,
                    backend, quantized=False)
+
+    @classmethod
+    def from_torch_model(cls, model,
+                         quantize_config: Optional[QuantizeConfig] = None,
+                         tokenizer=None, device="cuda",
+                         dtype: torch.dtype = torch.float32) -> "GanqModel":
+        """A dense model from a live ``transformers`` causal LM (its state
+        dict and config), ready for :meth:`quantize`."""
+        cfg, m = hf_import.params_from_state_dict(
+            {k: v.detach() for k, v in model.state_dict().items()},
+            model.config.to_dict(), dtype, device)
+        return cls(cfg, m, quantize_config, tokenizer, None, device,
+                   quantized=False)
 
     @staticmethod
     def _try_tokenizer(model_dir: str):
@@ -228,6 +244,51 @@ class GanqModel:
                                                           "config.json")):
             return hf_import.load_hf_config(self.model_dir)
         return hf_import.config_to_hf(self.cfg)
+
+    # ------------------------------------------------------------------ eora
+    def eora_generate(self, fp_model, calibration_dataset: Sequence[Any],
+                      rank: int = 64, batch_size: int = 1,
+                      save_adapter_to: Optional[str] = None,
+                      timings: Optional[Dict[str, float]] = None) -> List[str]:
+        """Post-quant EoRA accuracy-recovery adapters (reference
+        ``GPTQModel.adapter.generate``, auto.py:566-618; the JAX package's
+        ``eora_generate``). ``fp_model``: the float checkpoint this model was
+        quantized from, a local HF directory or a live ``transformers``
+        model. Attaches rank-``rank`` ``lora_a``/``lora_b`` to every
+        quantized linear and, with ``save_adapter_to``, writes them as
+        PEFT ``adapter_model.safetensors`` and ``adapter_config.json``,
+        which :meth:`load` attaches again. ``timings``: seconds by part
+        (``quant/eora_flow.generate_eora``). Returns the adapted module
+        names."""
+        if not self.quantized:
+            raise RuntimeError("eora_generate needs a quantized model; "
+                               "load a quantized checkpoint first")
+        if isinstance(fp_model, str):
+            fcfg, fmodel = hf_import.params_from_dir(fp_model, torch.float32,
+                                                     self.device)
+        else:
+            fcfg, fmodel = hf_import.params_from_state_dict(
+                {k: v.detach() for k, v in fp_model.state_dict().items()},
+                fp_model.config.to_dict(), torch.float32, self.device)
+        if (fcfg.model_type, fcfg.hidden_size) != (self.cfg.model_type,
+                                                   self.cfg.hidden_size):
+            raise ValueError(
+                f"fp model {fcfg.model_type}/{fcfg.hidden_size} does not "
+                f"match quantized {self.cfg.model_type}/{self.cfg.hidden_size}")
+        from .quant.eora_flow import generate_eora
+
+        spec = get_spec(self.cfg.model_type).expand(self.cfg.num_experts)
+        batches = prepare_dataset(calibration_dataset, self.tokenizer,
+                                  batch_size)
+        done = generate_eora(self.cfg, fmodel, self.model, spec, rank,
+                             batches, timings)
+        self._engines = {}
+        log.info(f"attached EoRA rank-{rank} adapters to {len(done)} modules")
+        if save_adapter_to:
+            n = checkpoint.save_adapter(save_adapter_to, spec, self.model,
+                                        self.cfg.num_hidden_layers)
+            log.info(f"saved {n} adapters to {save_adapter_to}")
+        return done
 
     # -------------------------------------------------------------- optimize
     def optimize(self, recode: str = "auto") -> "GanqModel":

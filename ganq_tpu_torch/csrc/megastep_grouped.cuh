@@ -3,13 +3,14 @@
 // persistent kernel of kernel 13 (megastep4.cu, ganq_megastep4) and kernel
 // 14 (megastep_lowbit.cu, ganq_megastep_lowbit, variants "w4p" and "w8p";
 // with zero points or act-order megastep_lowbit_opt.cu; with the
-// trailing-unembed fold megastep_lowbit_lm.cu and megastep_lowbit_lm_opt.cu).
+// trailing-unembed fold megastep_lowbit_lm.cu and megastep_lowbit_lm_opt.cu;
+// with the EoRA epilogue megastep_lowbit_lora*.cu).
 //
 // Replaces ganq_tpu/ops/megastep4.py megastep4_decode (Pallas
 // _megastep4_kernel) and ganq_tpu/ops/megastep_lowbit.py
 // megastep_lowbit_decode (_megastep_lb_kernel, bits 4 and 8; of its
-// optional operands the zero points *_sz, the act-order orders ap_* and the
-// trailing-unembed fold lm). The TPU kernels are one pallas_call walking
+// optional operands the zero points *_sz, the act-order orders ap_*, the
+// trailing-unembed fold lm and the EoRA adapters la_* / lb_*). The TPU kernels are one pallas_call walking
 // (layers, phases) in order and dequantize by algebra on masked int8 MXU
 // dots, because a TPU has no gather. Here a byte's codes are decoded by shift and mask: a
 // pair-nibble byte holds the codes of two output rows (or, in kernel 13's
@@ -47,6 +48,20 @@
 //      ti tiles in order (ma += y_t * sa_t, then x += ma); kernel 13 group
 //      partials as in 5, summed at the next layer's entry
 //
+// Kernel 14 with the EoRA epilogue (the LORA instantiations) adds, without a
+// barrier of its own, the rank-r terms of the TPU kernel: phase 1 forms
+// xa_q = xf . la_q^T from the normed float rows (xf before their int8
+// rows), which phase 2 adds as xa_q . lb_q[row]^T after the qkv bias and
+// before rope; phase 4 forms xa_o from the float attention output, which
+// phase 5 adds with the o product before the residual; phase 6 forms xa_g,
+// which phase 7 adds to gate and up before the activation; phase 8 forms
+// xa_d = sum over the MLP tiles, in tile order, of a_t . la_d[:, t]^T from
+// the float activation, which phase 9 adds with the down product. The A
+// products are float32 dots (a block per 8 token rows and 4 ranks, its
+// warps splitting the columns, 16-byte loads of A), the B products r
+// float32 multiply-adds per output by the lane that owns it, reading lb_*
+// in bf16.
+//
 // and after the last layer y = x. Kernel 14 with the trailing-unembed fold
 // (the LM instantiations) then runs, after a barrier each, the final norm
 // and int8 rows (row_norm_quant with the final norm's weight: the rounding
@@ -63,7 +78,8 @@
 //
 // Bound on this card: the weight bytes, L (Dqkv + Dq + 3 I) H bits / 8
 // (1.41 GB at Llama-3.2-3B for 4 bits, 2.82 GB for 8), plus their bf16
-// scales and the K/V history, over 3.35 TB/s. This first form pays 10-11
+// scales, the K/V history and, with EoRA, the bf16 factors (161 MB at 3B
+// and r = 64), over 3.35 TB/s. This first form pays 10-11
 // grid barriers a layer and leaves most blocks idle in the row and
 // attention phases, as kernel 12 does.
 
@@ -286,13 +302,194 @@ __device__ __forceinline__ float bf(const bf16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
+// ------------------------------------------------ kernel 14: EoRA epilogue
+constexpr int kLoraR = 4;          // ranks of one lora_xa unit
+static_assert(kLoraR * kWarps == 32, "a lane per (rank, row) slot");
+
+// The A products of the rank-r epilogue (the TPU kernel's _lora_dot into
+// xaq_s, xao, xag_s and xad_s): xa[b][j] = sum_k v_b(k) la[j][k] for token
+// rows b < B and ranks j < r, la [r, K] bf16 in the pack's column order.
+// v_b(k) = src[b][perm[k]] (perm null: k) and, with a norm weight nw, times
+// nw[perm[k]] + offset and the row's rms scale: the normed float activation
+// before its int8 rows (the scale, one per row, multiplies the finished
+// dot). The K columns are summed tile by tile (``tile`` columns each:
+// down's MLP tiles, K otherwise) and the tiles' sums added in tile order, as
+// the TPU kernel accumulates down's over its tile walk. A block per (group
+// of kWarps token rows, kLoraR ranks); its warps split each tile's columns,
+// 8 a lane and step in 16-byte loads, and their partial sums meet in shared
+// memory, where warp 0 adds them in warp order and the tiles in tile order.
+// The dependent chain is a few steps per warp, where one warp walking all K
+// columns was latency bound. One owner per output, no atomics: nothing
+// depends on the blocks' order. red: kWarps * kWarps * (kLoraR + 1) floats
+// of shared memory.
+__device__ void lora_xa(const W8A8Args& a, const float* src, int K, int tile,
+                        const int* __restrict__ perm,
+                        const float* __restrict__ nw,
+                        const bf16* __restrict__ la, int r, float* xa,
+                        float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = (a.B + kWarps - 1) / kWarps;
+  const int chunks = (r + kLoraR - 1) / kLoraR;
+  const int cw = tile / kWarps;                 // a warp's columns a tile
+  constexpr int kSlots = kLoraR * kWarps;       // (rank, row) sums a unit
+  float* part = red;                            // [kWarps][kSlots]
+  float* psq = red + kWarps * kSlots;           // [kWarps][kWarps]
+  for (int u = blockIdx.x; u < groups * chunks; u += gridDim.x) {
+    const int grp = u / chunks, ch = u - grp * chunks;
+    const int b0 = grp * kWarps, nb = min(kWarps, a.B - b0);
+    const int j0 = ch * kLoraR, nr = min(kLoraR, r - j0);
+    float tot = 0.f, sqt = 0.f;   // warp 0: slot lane, and row lane's squares
+    for (int t0 = 0; t0 < K; t0 += tile) {
+      float acc[kLoraR][kWarps], sq[kWarps];
+#pragma unroll
+      for (int b = 0; b < kWarps; ++b) {
+        sq[b] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kLoraR; ++i) acc[i][b] = 0.f;
+      }
+      const int c0 = t0 + warp * cw;
+      for (int k = c0 + lane * 8; k < c0 + cw; k += 256) {
+        float w[kLoraR][8];
+#pragma unroll
+        for (int i = 0; i < kLoraR; ++i) {
+          const uint4 raw = i < nr ? __ldg(reinterpret_cast<const uint4*>(
+                                         la + (size_t)(j0 + i) * K + k))
+                                   : make_uint4(0, 0, 0, 0);
+          bf16x4(make_uint2(raw.x, raw.y), w[i]);
+          bf16x4(make_uint2(raw.z, raw.w), w[i] + 4);
+        }
+        int pk[8];
+        float g[8];
+        if (perm) {
+          const int4 p0 = __ldg(reinterpret_cast<const int4*>(perm + k));
+          const int4 p1 = __ldg(reinterpret_cast<const int4*>(perm + k + 4));
+          pk[0] = p0.x, pk[1] = p0.y, pk[2] = p0.z, pk[3] = p0.w;
+          pk[4] = p1.x, pk[5] = p1.y, pk[6] = p1.z, pk[7] = p1.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) pk[e] = k + e;
+        }
+        if (nw) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) g[e] = __ldg(nw + pk[e]) + a.rms_offset;
+        }
+#pragma unroll
+        for (int b = 0; b < kWarps; ++b) {
+          if (b >= nb) break;
+          const float* xr = src + (size_t)(b0 + b) * K;
+          float v[8];
+          if (perm) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = xr[pk[e]];
+          } else {
+            const float4 x0 = *reinterpret_cast<const float4*>(xr + k);
+            const float4 x1 = *reinterpret_cast<const float4*>(xr + k + 4);
+            v[0] = x0.x, v[1] = x0.y, v[2] = x0.z, v[3] = x0.w;
+            v[4] = x1.x, v[5] = x1.y, v[6] = x1.z, v[7] = x1.w;
+          }
+          if (nw) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              sq[b] = fmaf(v[e], v[e], sq[b]);
+              v[e] = __fmul_rn(v[e], g[e]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kLoraR; ++i) {
+            float t = acc[i][b];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) t = fmaf(v[e], w[i][e], t);
+            acc[i][b] = t;
+          }
+        }
+      }
+      // the warps' partial sums of this tile, then (warp 0) their sum in
+      // warp order, added to the running total in tile order
+#pragma unroll
+      for (int b = 0; b < kWarps; ++b) {
+        if (b >= nb) break;
+#pragma unroll
+        for (int i = 0; i < kLoraR; ++i) {
+          const float s = warp_sum(acc[i][b]);
+          if (lane == 0) part[warp * kSlots + i * kWarps + b] = s;
+        }
+        if (nw) {
+          const float s = warp_sum(sq[b]);
+          if (lane == 0) psq[warp * kWarps + b] = s;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float s = 0.f;
+        for (int w_ = 0; w_ < kWarps; ++w_)
+          s = __fadd_rn(s, part[w_ * kSlots + lane]);
+        tot = __fadd_rn(tot, s);
+        if (nw && lane < kWarps) {
+          float q = 0.f;
+          for (int w_ = 0; w_ < kWarps; ++w_) q += psq[w_ * kWarps + lane];
+          sqt += q;
+        }
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {
+      const int i = lane / kWarps, b = lane - i * kWarps;   // slot lane
+      float x = tot;
+      if (nw) {
+        const float ss = __shfl_sync(0xffffffffu, sqt, b);
+        x = __fmul_rn(x, rsqrtf(ss / (float)K + a.eps));
+      }
+      if (i < nr && b < nb) xa[(size_t)(b0 + b) * r + j0 + i] = x;
+    }
+  }
+}
+
+// The B product of one output row: sum_j xa[j] lb[j] over the r ranks (xa
+// float32, lb bf16; 16-byte loads where r is a multiple of 8)
+__device__ __forceinline__ float lora_b(const float* xa,
+                                        const bf16* __restrict__ lb, int r) {
+  float s = 0.f;
+  if ((r & 7) == 0) {
+#pragma unroll 4
+    for (int j = 0; j < r; j += 8) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(lb + j));
+      float w[8];
+      bf16x4(make_uint2(raw.x, raw.y), w);
+      bf16x4(make_uint2(raw.z, raw.w), w + 4);
+      const float4 x0 = *reinterpret_cast<const float4*>(xa + j);
+      const float4 x1 = *reinterpret_cast<const float4*>(xa + j + 4);
+      s = fmaf(x0.x, w[0], s);
+      s = fmaf(x0.y, w[1], s);
+      s = fmaf(x0.z, w[2], s);
+      s = fmaf(x0.w, w[3], s);
+      s = fmaf(x1.x, w[4], s);
+      s = fmaf(x1.y, w[5], s);
+      s = fmaf(x1.z, w[6], s);
+      s = fmaf(x1.w, w[7], s);
+    }
+    return s;
+  }
+  for (int j = 0; j < r; ++j) s = fmaf(xa[j], bf(lb, j), s);
+  return s;
+}
+
+// The B products of the warp's V outputs (output v owned by lane v, V <=
+// 32): out_v = lora_b(xa_of(v), lb_of(v), r), 0 where xa_of(v) is null
+template <int V, typename XaOf, typename LbOf>
+__device__ __forceinline__ float lora_out(int r, XaOf xa_of, LbOf lb_of) {
+  const int lane = threadIdx.x & 31;
+  const float* xv = lane < V ? xa_of(lane) : nullptr;
+  return xv ? lora_b(xv, lb_of(lane), r) : 0.f;
+}
+
 // ------------------------------------------------------------ qkv + rope
 // Packed qkv rows in rope pairs (rows of one pair share their 128-lane
 // position, so the pairs of packed rows are the output rows' pairs in every
 // row block); y = (sum_g s_g z_g) * sx + bias, rope with the partner read
 // in float32 (kernel 14, lane rolls) or rounded to bf16 (kernel 13, sign
-// permutation), out in bf16 to qkv_out and the layer's kn/vn.
-template <int TB, int BITS, bool KMAJ, bool OPT>
+// permutation), out in bf16 to qkv_out and the layer's kn/vn. LORA adds
+// xa_q . lb_q[row]^T after the bias.
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA>
 __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -334,12 +531,25 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
         [&](int v, int g) { return bf(sc, (size_t)g * Dqkv + row_of(v)); },
         szs,
         [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; });
+    float lora = 0.f;
+    if constexpr (LORA)
+      lora = lora_out<2 * FT>(
+          a.r_q,
+          [&](int v) {
+            return v % TB < nb ? a.xa_q + (size_t)(b0 + v % TB) * a.r_q
+                               : nullptr;
+          },
+          [&](int v) {
+            return a.lb_q + ((size_t)l * Dqkv + row_of(v)) * a.r_q;
+          });
     const int b = lane % TB;
     const bool mine = lane < 2 * FT && b < nb;
     const int row = row_of(lane < 2 * FT ? lane : 0);
     float yv = 0.f;
-    if (mine)
+    if (mine) {
       yv = __fadd_rn(__fmul_rn(y, a.sx[b0 + b]), bias[row]);
+      if constexpr (LORA) yv = __fadd_rn(yv, lora);
+    }
     const float yp = __shfl_sync(0xffffffffu, yv,
                                  lane < FT ? lane + FT : lane - FT);
     if (!mine) continue;
@@ -362,8 +572,10 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // --------------------------------------------------------------- gate/up
 // A warp per (gate, up) packed row pair of gu_pk [2 I / F, H] (gate tiles,
 // then up tiles; tile-major scales gu_gs [G, 2 I]): act(g * sx) * (u * sx)
-// into act_a [B, I] and max|a| per (token row, tile) into amax.
-template <int TB, int BITS, bool KMAJ, bool OPT>
+// into act_a [B, I] and max|a| per (token row, tile) into amax. LORA adds
+// xa_g . lb_g[row]^T to gate and up before the activation (lb_g's rows
+// tile-major like the scales' columns).
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA>
 __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -398,12 +610,34 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
         [&](int v, int g) { return bf(sc, (size_t)g * 2 * I + col(v)); },
         szs,
         [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; });
-    const float yu = __shfl_sync(0xffffffffu, y,
-                                 lane < FT ? lane + FT : lane);
     const int b = lane % TB, f = (lane / TB) % F;
-    if (lane >= FT || b >= nb) continue;
-    const float sxb = a.sx[b0 + b];
-    const float v = gated(__fmul_rn(y, sxb), __fmul_rn(yu, sxb), a.act);
+    float v;
+    if constexpr (LORA) {
+      // gate (lanes < FT) and up (FT .. 2 FT) each add their rank-r term
+      // to y * sx, then the up value goes to its gate lane
+      const float lora = lora_out<2 * FT>(
+          a.r_g,
+          [&](int w) {
+            return w % TB < nb ? a.xa_g + (size_t)(b0 + w % TB) * a.r_g
+                               : nullptr;
+          },
+          [&](int w) {
+            return a.lb_g + ((size_t)l * 2 * I + col(w)) * a.r_g;
+          });
+      const bool ok = lane < 2 * FT && b < nb;
+      float yy = 0.f;
+      if (ok) yy = __fadd_rn(__fmul_rn(y, a.sx[b0 + b]), lora);
+      const float yu = __shfl_sync(0xffffffffu, yy,
+                                   lane < FT ? lane + FT : lane);
+      if (lane >= FT || b >= nb) continue;
+      v = gated(yy, yu, a.act);
+    } else {
+      const float yu = __shfl_sync(0xffffffffu, y,
+                                   lane < FT ? lane + FT : lane);
+      if (lane >= FT || b >= nb) continue;
+      const float sxb = a.sx[b0 + b];
+      v = gated(__fmul_rn(y, sxb), __fmul_rn(yu, sxb), a.act);
+    }
     const int m = t * ti + f * tF + i;
     a.act_a[(size_t)(b0 + b) * I + m] = v;
     atomicMax(a.amax + (size_t)(b0 + b) * ng + t, __float_as_int(fabsf(v)));
@@ -413,8 +647,9 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // ------------------------------------------- kernel 14: row-major o, down
 // o_pk [H / F, q_dim]: a warp per two output rows (NR = 2 / F packed
 // rows); x[b][n] += (sum_g s_g z_g) * sa[b] for the rows n it owns (a8
-// staged from the quantized attention output).
-template <int TB, int BITS, bool OPT>
+// staged from the quantized attention output). LORA adds xa_o . lb_o[n]^T
+// to the product before the residual.
+template <int TB, int BITS, bool OPT, bool LORA>
 __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
                               float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -449,10 +684,21 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
         rows, K, xs, a.gs, true, pf,
         [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); },
         szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; });
+    float lora = 0.f;
+    if constexpr (LORA)
+      lora = lora_out<2 * TB>(
+          a.r_o,
+          [&](int v) {
+            return v % TB < nb ? a.xa_o + (size_t)(b0 + v % TB) * a.r_o
+                               : nullptr;
+          },
+          [&](int v) { return a.lb_o + ((size_t)l * H + row_of(v)) * a.r_o; });
     const int b = lane % TB;
     if (lane >= 2 * TB || b >= nb) continue;
+    float upd = __fmul_rn(y, sa_s[b]);
+    if constexpr (LORA) upd = __fadd_rn(upd, lora);
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
-    *xr = __fadd_rn(*xr, __fmul_rn(y, sa_s[b]));
+    *xr = __fadd_rn(*xr, upd);
   }
 }
 
@@ -460,7 +706,8 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
 // order, ma += (sum over the tile's groups of s_g z_g) * sa_t, then adds ma
 // to the residual rows it owns (a8 staged per tile from the quantized
 // activation; dn_gs [NG * gtp, H], each tile's groups padded to gtp rows).
-template <int TB, int BITS, bool OPT>
+// LORA adds xa_d . lb_d[n]^T to ma before the residual.
+template <int TB, int BITS, bool OPT, bool LORA>
 __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
                                  float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -502,8 +749,19 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
           ma = __fadd_rn(ma, __fmul_rn(y, sa_s[lane % TB]));
       }
     }
+    if (u >= units) continue;
+    float lora = 0.f;
+    if constexpr (LORA)
+      lora = lora_out<2 * TB>(
+          a.r_d,
+          [&](int v) {
+            return v % TB < nb ? a.xa_d + (size_t)(b0 + v % TB) * a.r_d
+                               : nullptr;
+          },
+          [&](int v) { return a.lb_d + ((size_t)l * H + row_of(v)) * a.r_d; });
     const int b = lane % TB;
-    if (u >= units || lane >= 2 * TB || b >= nb) continue;
+    if (lane >= 2 * TB || b >= nb) continue;
+    if constexpr (LORA) ma = __fadd_rn(ma, lora);
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
     *xr = __fadd_rn(*xr, ma);
   }
@@ -664,10 +922,12 @@ __device__ void gphase_vocab(const W8A8Args& a, int8_t* xs) {
 // ----------------------------------------------------------------- kernel
 // LM: the instantiation with kernel 14's trailing-unembed fold (its own
 // source, megastep_lowbit_lm.cu), so that the kernels without it keep the
-// code and register allocation they have
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LM>
+// code and register allocation they have; LORA: the one with the EoRA
+// epilogue (megastep_lowbit_lora*.cu), for the same reason
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_megastep_kernel(W8A8Args a) {
+  static_assert(!(LORA && KMAJ), "the EoRA epilogue is kernel 14's");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);
@@ -696,10 +956,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
                             a.attn_norm + (size_t)l * H, a.eps, a.rms_offset,
                             a.x8 + (size_t)b * H, a.sx + b, red);
+    if constexpr (LORA)
+      lora_xa(a, a.xs, H, H, a.ap_q ? a.ap_q + (size_t)l * H : nullptr,
+              a.attn_norm + (size_t)l * H, a.la_q + (size_t)l * a.r_q * H,
+              a.r_q, a.xa_q, reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 2: qkv + rope; zero the MLP tile maxima
     for (size_t e = tid; e < (size_t)a.B * ng; e += nthreads) a.amax[e] = 0;
-    gphase_qkv<TB, BITS, KMAJ, OPT>(a, l, xs_s, pf);
+    gphase_qkv<TB, BITS, KMAJ, OPT, LORA>(a, l, xs_s, pf);
     grid.sync();
     // 3: attention
     for (int u = blockIdx.x; u < a.B * Hkv; u += gridDim.x) {
@@ -713,6 +977,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     // 4: the attention output's int8 rows
     for (size_t e = tid; e < (size_t)a.B * a.q_dim; e += nthreads)
       a.a8[e] = (int8_t)quant8(a.attn[e], attn_scale(a, (int)(e / a.q_dim)));
+    if constexpr (LORA)
+      lora_xa(a, a.attn, a.q_dim, a.q_dim,
+              a.ap_o ? a.ap_o + (size_t)l * a.q_dim : nullptr, nullptr,
+              a.la_o + (size_t)l * a.r_o * a.q_dim, a.r_o, a.xa_o,
+              reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 5: o
     if constexpr (KMAJ) {
@@ -730,7 +999,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
       }
     } else {
-      gphase_o_rows<TB, BITS, OPT>(a, l, xs_s, sa_s, pf);
+      gphase_o_rows<TB, BITS, OPT, LORA>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
     // 6: MLP norm and int8 rows
@@ -738,15 +1007,23 @@ __global__ void __launch_bounds__(kThreads, 2)
       row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
                             a.mlp_norm + (size_t)l * H, a.eps, a.rms_offset,
                             a.x8 + (size_t)b * H, a.sx + b, red);
+    if constexpr (LORA)
+      lora_xa(a, a.xs, H, H, a.ap_g ? a.ap_g + (size_t)l * H : nullptr,
+              a.mlp_norm + (size_t)l * H, a.la_g + (size_t)l * a.r_g * H,
+              a.r_g, a.xa_g, reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 7: gate/up
-    gphase_gateup<TB, BITS, KMAJ, OPT>(a, l, xs_s, pf);
+    gphase_gateup<TB, BITS, KMAJ, OPT, LORA>(a, l, xs_s, pf);
     grid.sync();
     // 8: the activation's int8 rows per tile
     for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
       const int b = (int)(e / I), m = (int)(e % I);
       a.a8[e] = (int8_t)quant8(a.act_a[e], tile_scale(a.amax, b, ng, m / a.ti));
     }
+    if constexpr (LORA)
+      lora_xa(a, a.act_a, I, a.ti, nullptr, nullptr,
+              a.la_d + (size_t)l * a.r_d * I, a.r_d, a.xa_d,
+              reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 9: down
     if constexpr (KMAJ) {
@@ -757,7 +1034,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                           return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
                         });
     } else {
-      gphase_down_rows<TB, BITS, OPT>(a, l, xs_s, sa_s, pf);
+      gphase_down_rows<TB, BITS, OPT, LORA>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
   }
@@ -778,9 +1055,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LM>
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA>
 cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
-  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM>;
+  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA>;
   size_t kmax = (size_t)a.H;
   if (!KMAJ) kmax = (size_t)std::max(a.H, std::max(a.q_dim, a.ti));
   size_t work = sizeof(float) * kAttnSmemFloats;
@@ -810,13 +1087,29 @@ cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
 }
 
 // OPT: the kernel that reads kernel 14's zero points and act-order orders;
-// LM: the one with its trailing-unembed fold
-template <int BITS, bool KMAJ, bool OPT, bool LM = false>
+// LM: the one with its trailing-unembed fold; LORA: the one with its EoRA
+// epilogue
+template <int BITS, bool KMAJ, bool OPT, bool LM = false, bool LORA = false>
 cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
-  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ, OPT, LM>(a, s);
-  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ, OPT, LM>(a, s);
-  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ, OPT, LM>(a, s);
-  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM>(a, s);
+  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA>(a, s);
+  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA>(a, s);
+  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA>(a, s);
+  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA>(a, s);
+}
+
+// whether any EoRA operand is set, and whether all of them are (a
+// LORA launch needs every one and positive ranks; the others none)
+__host__ __forceinline__ bool lora_any(const W8A8Args* p) {
+  return p->la_q || p->lb_q || p->la_o || p->lb_o || p->la_g || p->lb_g ||
+         p->la_d || p->lb_d || p->xa_q || p->xa_o || p->xa_g || p->xa_d;
+}
+
+__host__ __forceinline__ bool lora_all(const W8A8Args* p) {
+  return p->la_q && p->lb_q && p->la_o && p->lb_o && p->la_g && p->lb_g &&
+         p->la_d && p->lb_d && p->xa_q && p->xa_o && p->xa_g && p->xa_d &&
+         p->r_q > 0 && p->r_o > 0 && p->r_g > 0 && p->r_d > 0 &&
+         !p->kmajor && p->B <= 64 && p->H % 8 == 0 && p->q_dim % 8 == 0 &&
+         p->ti % 8 == 0;
 }
 
 // a kernel-14 call with the fold: row-major packs, batch <= 64, every lm

@@ -26,11 +26,13 @@
 // [B, I / ti], a8 [B, max(q_dim, I)], attn [B, q_dim], attn_amax [B Hkv].
 // Packs with zero points or act-order take ganq_megastep_lowbit_opt
 // (megastep_lowbit_opt.cu), a step with the trailing-unembed fold
-// ganq_megastep_lowbit_lm (megastep_lowbit_lm.cu).
+// ganq_megastep_lowbit_lm (megastep_lowbit_lm.cu), a pack with EoRA
+// adapters ganq_megastep_lowbit_lora (megastep_lowbit_lora.cu).
 // Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep_lowbit(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->kmajor || p->B > 64 || p->qkv_sz || p->ap_q || p->lm_w8)
+  if (p->kmajor || p->B > 64 || p->qkv_sz || p->ap_q || p->lm_w8 ||
+      lora_any(p))
     return (int)cudaErrorInvalidValue;
   if (p->bits == 4) return (int)launch_grouped_b<4, false, false>(*p, s);
   if (p->bits == 8) return (int)launch_grouped_b<8, false, false>(*p, s);

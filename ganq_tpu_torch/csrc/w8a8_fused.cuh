@@ -102,6 +102,23 @@ struct W8A8Args {
   const float* lm_norm;
   float* logits;
   int V;
+  // kernel 14's EoRA epilogue (la_q null: none): the bf16 factors A [L, r,
+  // K] and B [L, N, r] of q (K = H, N = Dqkv), o (q_dim, H), gate/up (H,
+  // 2 I, rows tile-major like gu_gs) and down (I, H), in the pack's column
+  // orders; float32 scratch x @ A^T [B, r] of each; the four ranks
+  const __nv_bfloat16* la_q;
+  const __nv_bfloat16* lb_q;
+  const __nv_bfloat16* la_o;
+  const __nv_bfloat16* lb_o;
+  const __nv_bfloat16* la_g;
+  const __nv_bfloat16* lb_g;
+  const __nv_bfloat16* la_d;
+  const __nv_bfloat16* lb_d;
+  float* xa_q;
+  float* xa_o;
+  float* xa_g;
+  float* xa_d;
+  int r_q, r_o, r_g, r_d;
 };
 
 namespace {

@@ -12,8 +12,12 @@ mirrored in) and ``quant_log.csv``. A ``lut`` linear is stored as
 or v2 layout (``formats/gptq_compat.py``: ``qweight``, ``qzeros`` and
 ``g_idx`` int32, ``scales`` fp16). A freshly quantized model is written from
 its solver artifacts, as the JAX writer does; a packed ``lut`` model from
-its bf16 codebooks. A directory written by either package loads in the
-other.
+its bf16 codebooks. EoRA adapters go beside them in the PEFT layout
+(``adapter_model.safetensors``: ``base_model.model.{module}.lora_A.weight``
+[r, in] and ``lora_B.weight`` [out, r] in fp16, and
+``adapter_config.json``), written from the artifacts or, after a post-quant
+``eora_generate``, by :func:`save_adapter`, and attached in float32 at
+load. A directory written by either package loads in the other.
 :func:`save_dense` writes an unquantized model as an HF checkpoint
 directory.
 """
@@ -38,7 +42,7 @@ from ..ops import qlinear
 from ..ops.packing import pack_factor, pack_int_rows, unpack_int_rows
 from ..utils.logger import get_logger
 from . import gptq_compat
-from .safetensors_io import save_file
+from .safetensors_io import load_file, save_file
 
 log = get_logger(__name__)
 
@@ -189,9 +193,71 @@ def save_quantized(save_dir: str, hf_config: Dict[str, Any],
     hf_out["quantization_config"] = qcfg_dict
     with open(os.path.join(save_dir, "config.json"), "w") as f:
         json.dump(hf_out, f, indent=2)
+
+    # EoRA adapters of the artifacts (reference writer.py:75-121)
+    lora: Dict[str, Tuple[str, torch.Tensor, torch.Tensor]] = {}
+    for full_name, art in (artifacts or {}).items():
+        if getattr(art, "lora_a", None) is None:
+            continue
+        if full_name == spec.lm_head_name:
+            prefix, target = spec.lm_head_name, None
+        else:
+            rest = full_name[len(spec.layers_prefix) + 1:]
+            li_s, mod = rest.split(".", 1)
+            prefix = _hf_module_prefix(spec, int(li_s), mod)
+            target = mod.rsplit(".", 1)[-1]
+        lora[prefix] = (target, art.lora_a, art.lora_b)
+    _write_adapter(save_dir, lora)
     if quant_log:
         _write_quant_log(save_dir, quant_log)
     log.info(f"saved quantized checkpoint to {save_dir}")
+
+
+def _write_adapter(save_dir: str,
+                   lora: Dict[str, Tuple[Optional[str], torch.Tensor,
+                                         torch.Tensor]]) -> int:
+    """Write ``{hf prefix: (target module or None, A, B)}`` as PEFT
+    ``adapter_model.safetensors`` (fp16) and ``adapter_config.json``, the
+    JSON fields of the JAX writer; nothing when ``lora`` is empty. Returns
+    the number of adapted modules."""
+    if not lora:
+        return 0
+    state: Dict[str, torch.Tensor] = {}
+    rank = 0
+    targets = set()
+    for prefix, (target, a, b) in lora.items():
+        if target is not None:
+            targets.add(target)
+        state[f"base_model.model.{prefix}.lora_A.weight"] = a.to(torch.float16)
+        state[f"base_model.model.{prefix}.lora_B.weight"] = b.to(torch.float16)
+        rank = a.shape[0]
+    os.makedirs(save_dir, exist_ok=True)
+    save_file(state, os.path.join(save_dir, "adapter_model.safetensors"))
+    with open(os.path.join(save_dir, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": rank, "lora_alpha": rank,
+                   "target_modules": sorted(targets),
+                   "task_type": "CAUSAL_LM"}, f, indent=2)
+    return len(lora)
+
+
+def save_adapter(save_dir: str, spec: ArchSpec, model: Model,
+                 num_layers: int) -> int:
+    """Write the EoRA adapters attached to ``model``'s linears (a post-quant
+    ``eora_generate``) in the PEFT layout of :func:`save_quantized`
+    (reference writer.py eora_save). Returns the number of adapted
+    modules."""
+    lora: Dict[str, Tuple[Optional[str], torch.Tensor, torch.Tensor]] = {}
+    for li in range(num_layers):
+        for mod, slot in spec.module_slots.items():
+            p = hf_import.get_module(model, li, slot)
+            if p is None or "lora_a" not in p:
+                continue
+            lora[_hf_module_prefix(spec, li, mod)] = (
+                mod.rsplit(".", 1)[-1], p["lora_a"], p["lora_b"])
+    p = model.lm_head
+    if isinstance(p, qlinear.QLinear) and "lora_a" in p:
+        lora[spec.lm_head_name] = (None, p["lora_a"], p["lora_b"])
+    return _write_adapter(save_dir, lora)
 
 
 def _write_quant_log(save_dir: str, quant_log: Iterable[Any]) -> None:
@@ -255,8 +321,6 @@ def load_quantized(model_dir: str, device="cuda",
             actual = sha256_file(os.path.join(model_dir, fname))
             if actual != expected:
                 raise ValueError(f"hash mismatch for {fname}: {actual} != {expected}")
-    if os.path.isfile(os.path.join(model_dir, "adapter_model.safetensors")):
-        raise NotImplementedError("EoRA adapters are not ported yet")
 
     state = dict(hf_import.iter_safetensors(model_dir))
     cfg, model = hf_import.params_from_state_dict(state, hf_config, dtype, device)
@@ -301,7 +365,24 @@ def load_quantized(model_dir: str, device="cuda",
     ql = build_qlinear(spec.lm_head_name, eff.bits if eff else qcfg.bits)
     if ql is not None:
         model.lm_head = ql
+
+    # attach the EoRA adapters where the directory has them
+    adapter_path = os.path.join(model_dir, "adapter_model.safetensors")
+    if os.path.isfile(adapter_path):
+        lora = load_file(adapter_path)
+        for li in range(cfg.num_hidden_layers):
+            for mod, slot in spec.module_slots.items():
+                prefix = _hf_module_prefix(spec, li, mod)
+                a_key = f"base_model.model.{prefix}.lora_A.weight"
+                m = hf_import.get_module(model, li, slot)
+                if a_key in lora and m is not None:
+                    m.register_buffer("lora_a", lora[a_key].to(
+                        device, torch.float32))
+                    m.register_buffer("lora_b", lora[
+                        f"base_model.model.{prefix}.lora_B.weight"].to(
+                            device, torch.float32))
     return cfg, model, qcfg
 
 
-__all__ = ["save_quantized", "save_dense", "load_quantized", "sha256_file", "MAX_SHARD_BYTES"]
+__all__ = ["save_quantized", "save_dense", "load_quantized", "save_adapter",
+           "sha256_file", "MAX_SHARD_BYTES"]

@@ -280,9 +280,16 @@ def _cache_write_vec(buf: torch.Tensor, new: torch.Tensor,
 
 # ---------------------------------------------------------------------- layer
 def _w8_gateup(lp: Layer) -> bool:
+    """Kernel 9's operands: a fused ``w8`` gate/up and a ``w8`` down, with
+    no EoRA adapter and no bias, which the kernel has no operand for.
+    ``ganq_tpu``'s gate (``models/transformer.py:1214-1220``) reads the
+    kinds only, and drops an adapter or bias there (``ROADMAP.md`` queue
+    C)."""
     mlp = lp.mlp
     return ("gateup" in mlp and mlp["gateup"].kind == "w8"
-            and mlp["down"].kind == "w8")
+            and mlp["down"].kind == "w8"
+            and not any(extra in m for m in (mlp["gateup"], mlp["down"])
+                        for extra in ("lora_a", "bias")))
 
 
 def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
@@ -351,6 +358,7 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     # norm + qkv + rope in one kernel (10): opt-in
     use_fused_qkv = False
     if (plain_decode and a8 and "qkv" in attn and attn["qkv"].kind == "w8"
+            and "lora_a" not in attn["qkv"]
             and os.environ.get("GANQ_FUSED_QKV", "0") != "0"):
         kvd = (attn["qkv"]["w8"].shape[0] - cfg.q_dim) // 2
         use_fused_qkv = qkv_fusable_tile(cfg.q_dim, kvd, hd) is not None

@@ -27,6 +27,8 @@ KERNEL_SOURCES = ("lut_matmul", "flash_decode", "ganq_sstep", "uniform_matmul",
                   "w8_matmul", "w8a8_fused", "megastep_w8", "megastep4",
                   "megastep_lowbit", "megastep_lowbit_opt",
                   "megastep_lowbit_lm", "megastep_lowbit_lm_opt",
+                  "megastep_lowbit_lora", "megastep_lowbit_lora_opt",
+                  "megastep_lowbit_lora_lm", "megastep_lowbit_lora_lm_opt",
                   "moe_expert")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -128,15 +128,15 @@ def attn_half_plain(x: torch.Tensor, norm_w: Optional[torch.Tensor],
 
 def attn_half_fusable(cfg, lp) -> bool:
     """The JAX package's gate of kernel 11 (``fused_layer.py:365``) for the
-    port's llama layers: a fused ``w8`` qkv and the transposed o weight, no
-    bias on o, head_dim 128 and a 128-multiple hidden width, and a qkv row
+    port's llama layers: a fused ``w8`` qkv without an EoRA adapter and the
+    transposed o weight, no bias on o, head_dim 128 and a 128-multiple hidden width, and a qkv row
     tile (the architecture conditions of the JAX gate hold for every llama
     layer the port builds)."""
     attn = lp.attn
     qkv = attn["qkv"] if "qkv" in attn else None
     if qkv is None or getattr(lp, "o_t_w8", None) is None or qkv.kind != "w8":
         return False
-    if "bias" in attn["o"]:
+    if "lora_a" in qkv or "bias" in attn["o"]:
         return False
     if cfg.head_dim != 128 or cfg.hidden_size % 128:
         return False

@@ -93,8 +93,8 @@ def megapack(cfg, sp) -> Dict[str, torch.Tensor]:
 
 def megastep_fusable(cfg, sp) -> bool:
     """The JAX gate of kernel 12 (``megastep.py:442``) on the port's stacked
-    model: fused ``w8`` qkv, gateup and down with the transposed o, no bias
-    on gateup or down, head_dim 128, a 128-multiple hidden width, gateup
+    model: fused ``w8`` qkv, gateup and down with the transposed o, no EoRA
+    adapter on them, no bias on gateup or down, head_dim 128, a 128-multiple hidden width, gateup
     unpadded, and a qkv row tile. The JAX gate's architecture conditions
     (rope, pre-norm rmsnorm, gated MLP, no window, no MoE, ...) hold for
     every llama model the port builds."""
@@ -108,6 +108,8 @@ def megastep_fusable(cfg, sp) -> bool:
             or getattr(lp, "o_t_w8", None) is None:
         return False
     if any(m.kind != "w8" for m in (qkv, gu, dn)):
+        return False
+    if any("lora_a" in m for m in (qkv, gu, dn)):
         return False
     if "bias" in dn or "bias" in gu:
         return False

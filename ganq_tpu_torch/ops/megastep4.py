@@ -35,6 +35,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..core.backend import full_f32_matmul
 from .fused_attention import rms_rows, rope_tile_operands
 from .fused_layer import attn_out_int8, flash_rows
 from .fused_mlp import activation
@@ -82,9 +83,9 @@ def _pair_cols(codes_t: torch.Tensor) -> torch.Tensor:
 
 def _uniform_mats(sp, bits: int, zeros: bool = False):
     """The four fused linears of every layer, checked to be the uniform
-    ``bits``-bit artifacts the whole-step kernels take: symmetric, or with
-    zero points where ``zeros`` (kernel 14)."""
-    later = ("g_idx", "lora_a") if zeros else ("zeros", "g_idx", "lora_a")
+    ``bits``-bit artifacts the whole-step kernels take: symmetric, or, where
+    ``zeros`` (kernel 14), with zero points and EoRA adapters."""
+    later = ("g_idx",) if zeros else ("zeros", "g_idx", "lora_a")
     out = []
     for lp in sp.layers:
         mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
@@ -320,7 +321,17 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     (codes, scales, sz or None)), its qkv ``bias``, its two norm weights
     and, for act-order packs, the column orders ``ap_q``/``ap_g``/``ap_o``
     (or None) through which the qkv, gate/up and o products read their
-    activations. ``pos`` [B] holds each slot's
+    activations, and for packs with EoRA adapters (kernel 14) their bf16
+    factors ``la_q``/``lb_q``, ``la_o``/``lb_o``, ``la_g`` with ``lb_gate``
+    and ``lb_up``, ``la_d``/``lb_d`` (in the pack's column orders), whose
+    rank-r terms are float32 products at the TPU kernel's points
+    (``megastep_lowbit.py:511-512, 587-591, 756-758, 772-774, 827-831,
+    844-846, 876-877``): q's on the normed activation before its int8
+    rows, added after the qkv bias and before rope; o's on the float
+    attention output; gate/up's at the MLP norm, added before the
+    activation; down's ``x @ A^T`` summed over the MLP tiles in tile order
+    from each tile's float activation, and both o's and down's added to
+    the product before the residual. ``pos`` [B] holds each slot's
     history length; cos/sin_half are [rotary_dim / 2] or [B, rotary_dim /
     2]. Returns (y, the float32 residual after the last layer; k_new,
     v_new [L, B, kv_dim] bf16)."""
@@ -339,12 +350,21 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     def perm(v, order):
         return v if order is None else v[:, order]
 
+    def rank_r(v, w):
+        with full_f32_matmul():
+            return v @ w.to(torch.float32).T
+
     for li in range(L):
         op = layer_ops(li)
-        x8, sx = quantize_rows(rms_rows(xs, op["attn_norm"], eps, rms_offset))
+        lora = "la_q" in op
+        xf = rms_rows(xs, op["attn_norm"], eps, rms_offset)
+        x8, sx = quantize_rows(xf)
         c, s, z = op["qkv"]
         y = group_linear(perm(x8, op.get("ap_q")), c, s, gs, z) * sx \
             + op["bias"]
+        if lora:
+            y = y + rank_r(rank_r(perm(xf, op.get("ap_q")), op["la_q"]),
+                           op["lb_q"])
         if rotary_dim:
             y = rope_rows_per_slot(y, cos_b, sin_b, q_dim + kv_dim, d,
                                    rotary_dim, interleaved, partner_bf16)
@@ -359,9 +379,18 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        scale, Tb)
         a8, sa = attn_out_int8(a.reshape(B, q_dim))
         c, s, z = op["o"]
-        xs = xs + group_linear(perm(a8, op.get("ap_o")), c, s, gs, z) * sa
-        x8, sx = quantize_rows(rms_rows(xs, op["mlp_norm"], eps, rms_offset))
-        x8 = perm(x8, op.get("ap_g"))
+        upd = group_linear(perm(a8, op.get("ap_o")), c, s, gs, z) * sa
+        if lora:
+            af = perm(a.reshape(B, q_dim).to(torch.float32), op.get("ap_o"))
+            upd = upd + rank_r(rank_r(af, op["la_o"]), op["lb_o"])
+        xs = xs + upd
+        xf = perm(rms_rows(xs, op["mlp_norm"], eps, rms_offset),
+                  op.get("ap_g"))
+        x8, sx = quantize_rows(xf)
+        if lora:
+            xa_g = rank_r(xf, op["la_g"])
+            xa_d = torch.zeros((B, op["la_d"].shape[0]), dtype=torch.float32,
+                               device=x.device)
         dn_codes, dn_s, dn_sz = op["down"]
         I = dn_codes.shape[1]
         gti = ti // gs
@@ -374,10 +403,18 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
             gu = [group_linear(x8, c[cols], s[:, cols], gs,
                                tile(z, (slice(None), cols))) * sx
                   for c, s, z in (op["gate"], op["up"])]
-            a8m, sam = quantize_rows(activation(gu[0], act) * gu[1])
+            if lora:
+                gu = [g + rank_r(xa_g, op[k][cols])
+                      for g, k in zip(gu, ("lb_gate", "lb_up"))]
+            at = activation(gu[0], act) * gu[1]
+            a8m, sam = quantize_rows(at)
+            if lora:
+                xa_d = xa_d + rank_r(at, op["la_d"][:, cols])
             grp = slice(t * gti, (t + 1) * gti)
             ma = ma + group_linear(a8m, dn_codes[:, cols], dn_s[grp], gs,
                                    tile(dn_sz, grp)) * sam
+        if lora:
+            ma = ma + rank_r(xa_d, op["lb_d"])
         xs = xs + ma
     return xs, torch.stack(kns), torch.stack(vns)
 

@@ -5,21 +5,22 @@ The port of ``ganq_tpu/ops/megastep_lowbit.py``. ``ganq_tpu`` serves
 homogeneous uniform W4/W3/W2/W8 models ("w4p", "w3", "w2", "w8p") and true
 8-entry 3-bit codebooks ("wl8", the Walsh plane expansion) at decode batch
 <= 64 through ``megastep_lowbit_decode``. The port has the "w4p" and "w8p"
-variants, with zero points and act-order: :func:`megapack_lowbit` packs the
-JAX package's planes (keys, shapes and bytes) and zero-point corrections,
+variants, with zero points, act-order and EoRA adapters:
+:func:`megapack_lowbit` packs the JAX package's planes (keys, shapes and
+bytes), zero-point corrections and adapter factors,
 :func:`actorder_transform` bakes act-order artifacts into a pack-only copy
 and gives the column orders of the activations, and
 :func:`megastep_lowbit_decode` launches ``csrc/megastep_lowbit.cu``
 (``ganq_megastep_lowbit``, one cooperative launch; packs with zero points or
 act-order ``csrc/megastep_lowbit_opt.cu``, with the lm fold
-``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``) for CUDA
-tensors and runs
+``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``, with EoRA
+adapters ``csrc/megastep_lowbit_lora*.cu``) for CUDA tensors and runs
 :func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
 counts kernel calls. With ``lm`` (:func:`mega_lm_operands`) the step also
 folds the final norm and a ``w8`` lm_head in (the trailing-unembed fold,
 :func:`lm_fold_plain`) and returns the logits. It raises
 NotImplementedError naming the feature for every operand of a later
-sub-slice: w3/w2, the Walsh LUTs, EoRA, biases, qk-norm, sandwich norms,
+sub-slice: w3/w2, the Walsh LUTs, biases, qk-norm, sandwich norms,
 windows and softcap.
 
 The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
@@ -42,6 +43,7 @@ does.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -158,8 +160,8 @@ def _fused(sp):
 def megastep_walsh_fusable(cfg, sp) -> bool:
     """The JAX gate of the Walsh LUT variant ("wl8",
     ``megastep_lowbit.py:1824``): all four projections 3-bit ``lut`` with
-    8-entry codebooks and exact-width packs, lane-aligned field blocks and
-    tiles."""
+    8-entry codebooks and exact-width packs, EoRA adapters on all four or on
+    none, lane-aligned field blocks and tiles."""
     mats = _fused(sp)
     if mats is None:
         return False
@@ -167,6 +169,8 @@ def megastep_walsh_fusable(cfg, sp) -> bool:
     if any(m.kind != "lut" or m.bits != 3 for m in mats):
         return False
     if any(m["lut"].shape[-1] != 8 for m in mats):
+        return False
+    if sum("lora_a" in m for m in mats) not in (0, 4):
         return False
     for m in mats:
         if m["idx_packed"].shape[-1] * pack_factor(3) != m.in_features:
@@ -189,9 +193,10 @@ def megastep_walsh_fusable(cfg, sp) -> bool:
 
 def megastep_lowbit_fusable(cfg, sp, bits: int) -> bool:
     """The JAX gate of the plane variants (``megastep_lowbit.py:1946``):
-    all four projections ``uniform`` at ``bits``, act-order only at
-    power-of-two widths, zeros laid out as the scales, one 128-multiple
-    group size, lane-aligned field blocks and tiles."""
+    all four projections ``uniform`` at ``bits``, EoRA adapters on all four
+    or on none, act-order only at power-of-two widths, zeros laid out as
+    the scales, one 128-multiple group size, lane-aligned field blocks and
+    tiles."""
     if bits not in _PLAN:
         return False
     _, _, _, g_r = _plan_meta(bits)
@@ -200,6 +205,10 @@ def megastep_lowbit_fusable(cfg, sp, bits: int) -> bool:
         return False
     qkv, o, gu, dn = mats
     if any(m.kind != "uniform" or m.bits != bits for m in mats):
+        return False
+    # EoRA adapters: all four projections, or none (a partial set is
+    # served per layer)
+    if sum("lora_a" in m for m in mats) not in (0, 4):
         return False
 
     def _pow2(v):
@@ -276,7 +285,12 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     ``gu_pk`` (gate tiles, then up tiles), ``dn_pk``, bf16 scales with the
     groups leading (``gu_s`` and ``dn_s`` tile-major), the qkv bias and the
     norms; where any projection has zero points, the float32 corrections
-    ``qkv_sz``, ``o_sz``, ``gu_sz`` and ``dn_sz`` in the scales' layouts.
+    ``qkv_sz``, ``o_sz``, ``gu_sz`` and ``dn_sz`` in the scales' layouts;
+    where all four carry EoRA adapters, their factors rounded to bf16
+    (``megastep_lowbit.py:1746-1763``): ``la_q`` [L, rq, H], ``lb_q`` [L,
+    Dqkv, rq], ``la_o`` [L, ro, q_dim], ``lb_o`` [L, H, ro], ``la_g`` [L,
+    rg, H], ``lb_g`` [L, 2I, rg] with its rows tile-major like ``gu_s``
+    (gate tile, then up tile), ``la_d`` [L, rd, I] and ``lb_d`` [L, H, rd].
     Bits 4 and 8; packs one layer at a time. Act-order artifacts go through
     :func:`actorder_transform` first (ValueError here)."""
     if bits not in (4, 8):
@@ -297,10 +311,13 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     tq = _qkv_tile_lb(Dqkv, cfg.head_dim, g_r)
     ti = _mlp_plan(I, bits, H)[0]
     zp = any("zeros" in m for m in mats[0])
+    lora = all("lora_a" in m for m in mats[0])
     keys = ["qkv_pk", "qkv_s", "o_pk", "o_s", "gu_pk", "gu_s", "dn_pk",
             "dn_s"]
     if zp:
         keys += ["qkv_sz", "o_sz", "gu_sz", "dn_sz"]
+    if lora:
+        keys += list(_LORA_KEYS)
     out = {k: [] for k in keys}
     for qkv, o, gu, dn in mats:
         gcodes = _codes(gu)
@@ -318,9 +335,21 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
             out["o_sz"].append(_sz_t(o, bits))
             out["gu_sz"].append(_gu_layout(_sz_t(gu, bits), I, ti))
             out["dn_sz"].append(_dn_layout(_sz_t(dn, bits), I, ti, gs))
+        if lora:
+            lbg = gu["lora_b"]
+            lbg = torch.cat([lbg[a * I + t * ti:a * I + (t + 1) * ti]
+                             for t in range(I // ti) for a in (0, 1)])
+            for name, m, lb in (("q", qkv, qkv["lora_b"]), ("o", o, o["lora_b"]),
+                                ("g", gu, lbg), ("d", dn, dn["lora_b"])):
+                out[f"la_{name}"].append(m["lora_a"].to(torch.bfloat16))
+                out[f"lb_{name}"].append(lb.to(torch.bfloat16))
     mp = {k: torch.stack(v) for k, v in out.items()}
     mp.update(common_pack_ops(sp, mats))
     return mp
+
+
+# kernel 14's EoRA operands (A and B of q, o, gate/up and down)
+_LORA_KEYS = ("la_q", "lb_q", "la_o", "lb_o", "la_g", "lb_g", "la_d", "lb_d")
 
 
 def _gidx_perm(g_idx_l, gs: int) -> Optional[np.ndarray]:
@@ -347,7 +376,10 @@ def actorder_transform(cfg, sp, bits: int):
     identity for a projection without g_idx; ``aps`` is empty where
     qkv, o and gate/up have none). Down's order is baked into the pack: the
     gate/up output rows (codes, scales, zeros and bias) are permuted to
-    match, so no activation of down is permuted at run time. Where the
+    match, so no activation of down is permuted at run time. EoRA adapters
+    follow: each ``lora_a``'s columns take its projection's column order
+    (the kernel forms ``x @ A^T`` from the permuted activation) and
+    gate/up's ``lora_b`` rows take down's order, both halves. Where the
     JAX package routes activations through Beneš lane masks
     (``ops/lane_perm.py``), a gather through the indices gives the same
     values. The ORIGINAL ``sp`` keeps serving prefill (its artifacts keep
@@ -375,14 +407,16 @@ def actorder_transform(cfg, sp, bits: int):
                   if v is not None and k != "g_idx"}
         dev = m["qweight"].device
         if col is not None:
+            cp = torch.as_tensor(col, device=dev).long()
             codes = unpack_int_rows(m["qweight"], m.bits, m.in_features)
-            arrays["qweight"] = pack_int_rows(
-                codes[:, torch.as_tensor(col, device=dev).long()], m.bits)
+            arrays["qweight"] = pack_int_rows(codes[:, cp], m.bits)
+            if "lora_a" in arrays:
+                arrays["lora_a"] = arrays["lora_a"][:, cp]
         if row is not None:
             I = m["scales"].shape[0] // 2
             rp = torch.as_tensor(row, device=dev).long()
             full = torch.cat([rp, rp + I])
-            for k in ("qweight", "scales", "zeros", "bias"):
+            for k in ("qweight", "scales", "zeros", "bias", "lora_b"):
                 if k in arrays:
                     arrays[k] = arrays[k][full]
         return QLinear(m.kind, arrays, m.bits, m.in_features)
@@ -418,13 +452,19 @@ def actorder_transform(cfg, sp, bits: int):
 def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
                          head_dim: int, T: int, Dqkv: int, I: int, bits: int,
                          gs: int, block_t: int = 128,
-                         qkv_cap_mb: int = 12) -> Dict[str, int]:
-    """The JAX wrapper's run-time plan (``megastep_lowbit.py:966-1087``) for
-    a model without optional operands: the qkv tile ``tq``, the MLP tile
-    ``ti`` (baked into the pack), the tiles per grid step ``ptq``/``ptg``
-    and the flash block ``Tb``: ``block_t`` at most T, halved until it
-    divides T, then halved again (or ptg, then ptq, cut) while the TPU's
-    VMEM estimate exceeds its budget. Tb and ti set rounding points."""
+                         qkv_cap_mb: int = 12, zp: bool = False,
+                         aperm: bool = False,
+                         lora: Optional[tuple] = None,
+                         tv: int = 0) -> Dict[str, int]:
+    """The JAX wrapper's run-time plan (``megastep_lowbit.py:966-1087``):
+    the qkv tile ``tq``, the MLP tile ``ti`` (baked into the pack), the
+    tiles per grid step ``ptq``/``ptg`` and the flash block ``Tb``:
+    ``block_t`` at most T, halved until it divides T, then halved again (or
+    ptg, then ptq, cut) while the TPU's VMEM estimate exceeds its budget.
+    The estimate counts the optional operands: zero points ``zp``,
+    act-order ``aperm`` (the JAX package's Beneš masks, 2 log2(n) - 1
+    stages), the EoRA ranks ``lora`` (rq, ro, rg, rd) and the fold's
+    vocabulary tile ``tv``. Tb and ti set rounding points."""
     metas, _, _, g_r = _plan_meta(bits)
     npl = len(metas)
     d = head_dim
@@ -465,11 +505,27 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
         est += 2 * po * ptg_ * ti
         est += 2 * 2 * ptg_ * gtp8 * H
         est += 2 * 4 * (2 * H + ptq_ * tq)
+        if zp:
+            est += 2 * 4 * (Gp * ptq_ * tq + Gq * H
+                            + Gp * ptg_ * 2 * ti + ptg_ * gtp8 * H)
+        if aperm:
+            est += 2 * 2 * (2 * _benes_stages(H) * H
+                            + _benes_stages(q_dim) * q_dim)
+        if lora:
+            rq_, ro_, rg_, rd_ = lora
+            est += 2 * 2 * (rq_ * H + ptq_ * tq * rq_ + ro_ * q_dim
+                            + H * ro_ + rg_ * H + ptg_ * 2 * ti * rg_
+                            + rd_ * ptg_ * ti + H * rd_)
+            est += 4 * B * (rq_ + rg_ + rd_)
+        if tv:
+            est += 2 * (tv * H + 4 * 8 * tv) + 4 * H + 2 * 4 * B * tv
         est += 2 * B * H + 2 * 2 * 2 * B * kv_dim + 4 * BGp_ * 128
         est += 2 * B * H
         est += (4 * B * H + B * H + 4 * Bp * 128
                 + 2 * (Hq + 2 * Hkv) * Bp * d + 4 * Hq * Bp * d
                 + 2 * 4 * Hq * Bp * 128 + Bp * max(q_dim, ti) + 4 * B * H)
+        if aperm or lora:
+            est += 4 * Bp * q_dim
         return est
 
     def _down(c, n):
@@ -491,14 +547,28 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
     return {"tq": tq, "ti": ti, "ptq": ptq, "ptg": ptg, "Tb": Tb}
 
 
+def _benes_stages(n: int) -> int:
+    """Stages of the JAX package's Beneš lane network on n lanes."""
+    return 2 * int(math.log2(n)) - 1
+
+
+def _lora_ranks(mp) -> Optional[tuple]:
+    """(rq, ro, rg, rd) of a pack's EoRA operands, or None."""
+    if "la_q" not in mp:
+        return None
+    return tuple(mp[f"la_{n}"].shape[1] for n in ("q", "o", "g", "d"))
+
+
 def _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
-             qkv_cap_mb):
+             qkv_cap_mb, lm=None):
     _, _, _, g_r = _plan_meta(bits)
     H = x.shape[1]
     return megastep_lowbit_plan(
         x.shape[0], H, q_dim, kv_dim, head_dim, k_cache.shape[2],
         mp["qkv_pk"].shape[1] * g_r, mp["gu_s"].shape[2] // 2, bits,
-        H // mp["qkv_s"].shape[1], block_t, qkv_cap_mb)
+        H // mp["qkv_s"].shape[1], block_t, qkv_cap_mb, zp="qkv_sz" in mp,
+        aperm="ap_q" in mp, lora=_lora_ranks(mp),
+        tv=lm["scale"].shape[-1] if lm is not None else 0)
 
 
 # --------------------------------------------------------------- the step
@@ -530,11 +600,22 @@ def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
 
     zp = "qkv_sz" in mp
 
+    def lora(l):
+        if "la_q" not in mp:
+            return {}
+        rg = mp["lb_g"].shape[2]
+        lbg = mp["lb_g"][l].reshape(NG, 2, ti, rg)
+        return {"la_q": mp["la_q"][l], "lb_q": mp["lb_q"][l],
+                "la_o": mp["la_o"][l], "lb_o": mp["lb_o"][l],
+                "la_g": mp["la_g"][l], "lb_gate": lbg[:, 0].reshape(I, rg),
+                "lb_up": lbg[:, 1].reshape(I, rg), "la_d": mp["la_d"][l],
+                "lb_d": mp["lb_d"][l]}
+
     def ops(l):
         gpk = mp["gu_pk"][l]
         gs_, us_ = gate_up("gu_s", l)
         gz, uz = gate_up("gu_sz", l) if zp else (None, None)
-        return {
+        return {**lora(l),
             "qkv": (_plane_codes(mp["qkv_pk"][l], tq, bits), mp["qkv_s"][l],
                     mp["qkv_sz"][l] if zp else None),
             "o": (_plane_codes(mp["o_pk"][l], H, bits), mp["o_s"][l],
@@ -563,7 +644,7 @@ def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     ``lm`` is given), with the kernel's arithmetic. Shapes and results as
     :func:`megastep_lowbit_decode`."""
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
-                    qkv_cap_mb)
+                    qkv_cap_mb, lm)
     gs = x.shape[1] // mp["qkv_s"].shape[1]
     xs, kn, vn = grouped_step_plain(
         x, _layer_ops_lb(mp, bits, plan["tq"], plan["ti"], gs),
@@ -631,7 +712,7 @@ def mega_lm_operands(cfg, sp, max_tile_bytes: int = 4 * 1024 * 1024
 
 
 # operands of kernel 14's later sub-slices and what each serves
-_LATER_OPERANDS = {"la_q": "EoRA adapters", "qk_nm": "qk-norm",
+_LATER_OPERANDS = {"qk_nm": "qk-norm",
                    "pa_norm": "sandwich norms",
                    "o_bias": "o/gate-up/down biases"}
 
@@ -689,7 +770,9 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     unembed in and the logits come fourth; ``fold_rows``, a dict, then
     receives the fold's int8 rows ``x8`` [B, H] and scales ``sx`` [B] (the
     kernel's scratch), so that a check can hold its vocab phase bit for
-    bit."""
+    bit. The EoRA factors (kernel 14's ``la_*``/``lb_*``) come for all four
+    projections or none; the kernel gets float32 scratch ``xa_*`` [B, r]
+    for their A products."""
     from .w8a8_args import ACT_CODES, launch
 
     B, H = x.shape
@@ -743,6 +826,24 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         raise ValueError(f"{what}: zero points and act-order orders come "
                          "for all four projections")
     dev = x.device
+    ranks = {}
+    if any(k in mp for k in _LORA_KEYS):
+        ranks = dict(zip(("r_q", "r_o", "r_g", "r_d"), _lora_ranks(mp)))
+        shapes = {"la_q": (L, ranks["r_q"], H), "lb_q": (L, Dqkv, ranks["r_q"]),
+                  "la_o": (L, ranks["r_o"], q_dim), "lb_o": (L, H, ranks["r_o"]),
+                  "la_g": (L, ranks["r_g"], H), "lb_g": (L, 2 * I, ranks["r_g"]),
+                  "la_d": (L, ranks["r_d"], I), "lb_d": (L, H, ranks["r_d"])}
+        for name, shape in shapes.items():
+            t = mp.get(name)
+            if (kmajor or t is None or t.dtype != torch.bfloat16
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(f"{what}: the EoRA operands come for all "
+                                 f"four projections; {name} must be "
+                                 f"contiguous bf16 {shape} (kernel 14)")
+            extra[name] = t
+        for n in ("q", "o", "g", "d"):
+            extra[f"xa_{n}"] = torch.empty((B, ranks[f"r_{n}"]),
+                                           dtype=torch.float32, device=dev)
     V = 0
     if lm is not None:
         V = lm["w8"].shape[0]
@@ -791,7 +892,7 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         cache_sb=Hkv * T * d, cache_sg=T * d, cache_st=d,
         cache_sl=B * Hkv * T * d, gs=gs, bits=bits, tq=tq,
         gtp=mp["dn_s"].shape[1] // ng, cos_ld=rd // 2, kmajor=int(kmajor),
-        V=V)
+        V=V, **ranks)
     if lm is None:
         return y.to(x.dtype), kn, vn
     if fold_rows is not None:
@@ -814,8 +915,8 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     """Kernel 14, one decode step over all layers ("w4p" at ``bits=4``,
     "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
     ``mp`` from :func:`megapack_lowbit`, with the zero-point corrections
-    ``*_sz`` and the act-order orders ``ap_*`` (:func:`actorder_transform`)
-    where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
+    ``*_sz``, the act-order orders ``ap_*`` (:func:`actorder_transform`)
+    and the EoRA factors ``la_*``/``lb_*`` where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
     history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B] int
     tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at each
     slot's position. Returns (y [B, H], the hidden state before the final
@@ -842,12 +943,15 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                                      act=act, block_t=block_t, bits=bits,
                                      lm=lm, qkv_cap_mb=qkv_cap_mb)
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
-                    qkv_cap_mb)
+                    qkv_cap_mb, lm)
     # packs with zero points or act-order run the kernel's other
     # instantiation (csrc/megastep_lowbit_opt.cu), steps with the fold
-    # theirs (csrc/megastep_lowbit_lm.cu, megastep_lowbit_lm_opt.cu)
-    lib = "megastep_lowbit" + ("_lm" if lm is not None else "") + (
-        "_opt" if "qkv_sz" in mp or "ap_q" in mp else "")
+    # theirs (csrc/megastep_lowbit_lm.cu, megastep_lowbit_lm_opt.cu), packs
+    # with EoRA adapters the ones with the rank-r epilogue
+    # (csrc/megastep_lowbit_lora*.cu)
+    lib = ("megastep_lowbit" + ("_lora" if "la_q" in mp else "")
+           + ("_lm" if lm is not None else "")
+           + ("_opt" if "qkv_sz" in mp or "ap_q" in mp else ""))
     out = launch_grouped(
         lib, f"ganq_{lib}", "megastep_lowbit_decode",
         x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},

@@ -170,7 +170,10 @@ def apply(p: QLinear, x: torch.Tensor, backend: str = "reference") -> torch.Tens
     ``uniform_matmul``, ``w8_matmul``); ``"cuda_a8"`` the int8-activation
     kernels for ``uniform`` and ``w8`` (``uniform_a8_matmul``,
     ``w8a8_matmul``), the counterpart of the JAX package's ``pallas_a8``.
-    From 1024 token rows both dequantize once to bf16 and run a GEMM."""
+    From 1024 token rows both dequantize once to bf16 and run a GEMM. An
+    EoRA adapter adds its rank-r term ``(x @ A^T) @ B^T`` on every backend,
+    after the product and before the bias (``adapter/eora.apply_lora``: a
+    plain matmul pair, as the JAX package leaves it to XLA)."""
     rows = x.numel() // x.shape[-1]
     if p.kind == "dense":
         y = x @ p["weight"].T.to(x.dtype)
@@ -199,6 +202,9 @@ def apply(p: QLinear, x: torch.Tensor, backend: str = "reference") -> torch.Tens
                    p["g_idx"] if "g_idx" in p else None, p.bits)
     else:
         raise ValueError(f"unknown qlinear kind: {p.kind}")
+    if "lora_a" in p:
+        from ..adapter.eora import apply_lora
+        y = y + apply_lora(x, p["lora_a"], p["lora_b"])
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -206,8 +212,12 @@ def apply(p: QLinear, x: torch.Tensor, backend: str = "reference") -> torch.Tens
 
 # -------------------------------------------------------------------- recodes
 def _carry_bias(p: QLinear, arrays: Dict[str, torch.Tensor]):
-    if "bias" in p:
-        arrays["bias"] = p["bias"]
+    """A recode's arrays plus the bias and the EoRA adapter of ``p`` (the
+    JAX package's ``for extra in ("bias", "lora_a", "lora_b")``; its
+    ``recode_w8`` carries the bias only, ``ROADMAP.md`` queue C)."""
+    for extra in ("bias", "lora_a", "lora_b"):
+        if extra in p:
+            arrays[extra] = p[extra]
     return arrays
 
 
@@ -299,13 +309,20 @@ def concat_rows(linears) -> QLinear:
     """Fuse linears that share an input (q/k/v, gate/up) by concatenating
     their output rows: every row-wise array (weight, codebooks, packed
     codes, scales, zeros, bias) is independent per output row. ``g_idx``
-    is shared and must agree. Linears of mixed kind or bits, or whose arrays
-    differ (``zeros`` present in some only), raise ValueError: there the JAX
-    package's ``concat_rows`` drops the later linears' ``zeros`` or raises,
-    and the port serves them unfused (``ROADMAP.md`` queue C)."""
+    is shared and must agree. EoRA adapters fuse block-diagonally, as in
+    the JAX package: A' stacks the A rows [sum r, in] and B' =
+    blockdiag(B_i) [sum out, sum r], so ``(x @ A'^T) @ B'^T`` is each
+    linear's own term; a mix of adapted and plain linears raises
+    ValueError. Linears of mixed kind or bits, or whose other arrays
+    differ (``zeros`` present in some only), raise ValueError: there the
+    JAX package's ``concat_rows`` drops the later linears' ``zeros`` or
+    raises, and the port serves them unfused (``ROADMAP.md`` queue C)."""
     first = linears[0]
     if len({(p.kind, p.bits) for p in linears}) != 1:
         raise ValueError("cannot fuse linears of mixed kind/bits")
+    has_lora = ["lora_a" in p for p in linears]
+    if any(has_lora) and not all(has_lora):
+        raise ValueError("cannot fuse a mix of adapted and plain linears")
     keys = sorted(k for k, v in first._buffers.items() if v is not None)
     if any(sorted(k for k, v in p._buffers.items() if v is not None) != keys
            for p in linears[1:]):
@@ -316,6 +333,8 @@ def concat_rows(linears) -> QLinear:
             if any(not torch.equal(first[k], p[k]) for p in linears[1:]):
                 raise ValueError("cannot fuse linears with divergent g_idx")
             arrays[k] = first[k]
+        elif k == "lora_b":
+            arrays[k] = torch.block_diag(*(p[k] for p in linears))
         else:
             arrays[k] = torch.cat([p[k] for p in linears], dim=0)
     return QLinear(first.kind, arrays, first.bits, first.in_features)

@@ -5,8 +5,9 @@ point (``ganq_fused_mlp``, ``ganq_fused_qkv_rope``, ``ganq_attn_half``,
 ``ganq_megastep_w8``, ``ganq_megastep4``, ``ganq_megastep_lowbit``) takes a
 pointer to one; the group-scaled kernels 13 and 14 read the fields after
 ``x_bf16`` and after ``part`` too (kernel 14 alone the zero-point
-corrections, the act-order column orders and the lm fold's operands and
-vocabulary size ``V`` at the end). Field order and types must
+corrections, the act-order column orders, the lm fold's operands and
+vocabulary size ``V``, and the EoRA epilogue's factors, scratch and ranks
+at the end). Field order and types must
 match the header's. Pointers are tensors' ``data_ptr()`` (0 for an unused
 field); the kernels read and write them on the caller's stream, so every
 tensor named here must stay alive until the launch has been enqueued, which
@@ -36,6 +37,9 @@ _POINTERS = ("x", "attn_norm", "mlp_norm", "qkv_w8", "qkv_scale", "qkv_bias",
              "dn_gs", "partf", "qkv_sz", "o_sz", "gu_sz", "dn_sz", "ap_q",
              "ap_g", "ap_o", "lm_w8", "lm_scale", "lm_norm", "logits")
 _TAIL_INTS = ("V",)
+_LORA_POINTERS = ("la_q", "lb_q", "la_o", "lb_o", "la_g", "lb_g", "la_d",
+                  "lb_d", "xa_q", "xa_o", "xa_g", "xa_d")
+_LORA_INTS = ("r_q", "r_o", "r_g", "r_d")
 
 ACT_CODES = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 
@@ -45,7 +49,9 @@ class W8A8Args(ctypes.Structure):
                 + [(n, ctypes.c_float) for n in _FLOATS]
                 + [(n, ctypes.c_longlong) for n in _STRIDES]
                 + [(n, ctypes.c_void_p) for n in _POINTERS]
-                + [(n, ctypes.c_int) for n in _TAIL_INTS])
+                + [(n, ctypes.c_int) for n in _TAIL_INTS]
+                + [(n, ctypes.c_void_p) for n in _LORA_POINTERS]
+                + [(n, ctypes.c_int) for n in _LORA_INTS])
 
 
 def launch(library: str, symbol: str, what: str,

@@ -16,8 +16,13 @@ plain loop:
 Per-module artifacts (GANQ codebooks and codes; GPTQ codes, scales, zeros
 and g_idx) are collected for the packer; dense weights are replaced by their
 fake-quant values, so later subsets and layers see quantized outputs, as in
-the reference (gptq_processor.py:193). The other methods (AutoRound, QQQ),
-EoRA adapters, rotation, the lm_head pass and pre-embedded (multimodal)
+the reference (gptq_processor.py:193). With an adapter rank
+(``QuantizeConfig.adapter={"rank": r}``, per module through ``dynamic``)
+each module also gets its EoRA adapter (``adapter/eora.compute_eora`` of
+the quantization error under the module's activation covariance), and its
+fake-quant weight takes the correction ``B @ A``, so later layers see the
+corrected outputs (reference eora_processor.py:119-159). The other methods
+(AutoRound, QQQ), rotation, the lm_head pass and pre-embedded (multimodal)
 calibration rows raise ``NotImplementedError`` naming the queue item that
 brings them.
 """
@@ -32,6 +37,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..adapter.eora import compute_eora
+from ..core.backend import full_f32_matmul
 from ..core.config import QUANT_METHOD, QuantizeConfig
 from ..models import hf_import
 from ..models.registry import ArchSpec
@@ -46,7 +53,8 @@ from .hessian import HessianAccumulator
 
 log = get_logger(__name__)
 
-_ARRAY_FIELDS = ("lut", "idx", "qidx", "scale", "zero", "g_idx")
+_ARRAY_FIELDS = ("lut", "idx", "qidx", "scale", "zero", "g_idx", "lora_a",
+                 "lora_b")
 _PORTED_METHODS = (QUANT_METHOD.GANQ, QUANT_METHOD.GPTQ)
 
 
@@ -76,6 +84,9 @@ class QuantizedModule:
     scale: Optional[torch.Tensor] = None     # [out, n_groups]
     zero: Optional[torch.Tensor] = None      # [out, n_groups]
     g_idx: Optional[torch.Tensor] = None     # [in] int32
+    # EoRA adapter (optional)
+    lora_a: Optional[torch.Tensor] = None    # [rank, in] float32
+    lora_b: Optional[torch.Tensor] = None    # [out, rank] float32
 
 
 @dataclass
@@ -95,16 +106,21 @@ def _full_name(spec: ArchSpec, layer_idx: int, module_name: str) -> str:
     return f"{spec.layers_prefix}.{layer_idx}.{module_name}"
 
 
-def _check_supported(qcfg: QuantizeConfig, eff: QuantizeConfig,
-                     full: str) -> None:
-    if eff.quant_method not in _PORTED_METHODS:
-        raise _not_ported(f"{full}: quant_method={eff.quant_method}")
-    rank = int(qcfg.adapter.get("rank", 0)) if qcfg.adapter else 0
-    dyn = qcfg.dynamic_get(full, "adapter", default=None, sub_key="rank")
+def _adapter_rank(qcfg: QuantizeConfig, full_name: str) -> int:
+    """A module's EoRA rank: ``qcfg.adapter["rank"]``, overridden per module
+    by ``dynamic`` (reference config.py:341-357); 0 for none."""
+    if not qcfg.adapter:
+        return 0
+    rank = int(qcfg.adapter.get("rank", 0))
+    dyn = qcfg.dynamic_get(full_name, "adapter", default=None, sub_key="rank")
     if isinstance(dyn, (int, float)):
         rank = int(dyn)
-    if rank:
-        raise _not_ported(f"{full}: EoRA adapters")
+    return rank
+
+
+def _check_supported(eff: QuantizeConfig, full: str) -> None:
+    if eff.quant_method not in _PORTED_METHODS:
+        raise _not_ported(f"{full}: quant_method={eff.quant_method}")
 
 
 def _save_layer_state(resume_dir: str, li: int,
@@ -171,8 +187,8 @@ def quantize_model(cfg: ModelConfig, model: Model, spec: ArchSpec,
     Each module's ``ModuleQuantLog.extra`` holds its seconds per solver
     phase (GANQ: ``prepare``, ``init``, ``s_step``, ``t_step``, ``final``
     and ``fallback``; GPTQ: ``prepare``, ``columns``, ``trailing``,
-    ``final``); the first module of each subset also holds ``hessian``, the
-    subset's Hessian capture."""
+    ``final``; with an adapter rank also ``eora``); the first module of
+    each subset also holds ``hessian``, the subset's Hessian capture."""
     if qcfg.rotation:
         raise _not_ported("rotation")
     if cfg.num_experts:
@@ -270,7 +286,7 @@ def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
             if eff is None:
                 log.info(f"layer {li}: skipping {mod} (dynamic exclude)")
                 continue
-            _check_supported(qcfg, eff, full)
+            _check_supported(eff, full)
             todo.append((mod, slot, eff))
         if not todo:
             continue
@@ -299,8 +315,19 @@ def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
             phases: Dict[str, float] = {}
             r, art = _quantize_one(lin["weight"], H, eff, nsamples,
                                    codebook_init_fn, phases)
-            _set_weight(lin, r.Q)
             full = _full_name(spec, li, mod)
+            Wq = r.Q
+            rank = _adapter_rank(qcfg, full)
+            if rank:
+                t1 = time.perf_counter()
+                cov = accs[slot].acc / max(accs[slot].nsamples, 1)
+                A, B = compute_eora(lin["weight"].to(torch.float32)
+                                    - Wq.to(torch.float32), cov, rank)
+                art.lora_a, art.lora_b = A, B
+                with full_f32_matmul():
+                    Wq = Wq.to(torch.float32) + B @ A
+                phases["eora"] = time.perf_counter() - t1
+            _set_weight(lin, Wq)
             layer_arts[full] = art
             layer_weights[slot] = lin["weight"]
             extra: Dict[str, Any] = dict(phases)
@@ -319,14 +346,20 @@ def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
 
 def _packed(art: QuantizedModule, bias) -> qlinear.QLinear:
     if art.lut is not None:
-        return qlinear.lut_linear(art.lut, art.idx, art.bits, bias)
-    return qlinear.uniform_linear(art.qidx, art.scale, art.zero, art.g_idx,
-                                  art.bits, bias)
+        ql = qlinear.lut_linear(art.lut, art.idx, art.bits, bias)
+    else:
+        ql = qlinear.uniform_linear(art.qidx, art.scale, art.zero, art.g_idx,
+                                    art.bits, bias)
+    if art.lora_a is not None:
+        ql.register_buffer("lora_a", art.lora_a)
+        ql.register_buffer("lora_b", art.lora_b)
+    return ql
 
 
 def packed_params(spec: ArchSpec, out: QuantizeOutput) -> Model:
     """The quantized model with every artifact realized as a packed linear
-    (GANQ: ``lut``; GPTQ: ``uniform``), sharing every other tensor with
+    (GANQ: ``lut``; GPTQ: ``uniform``; EoRA adapters attached), sharing
+    every other tensor with
     ``out.model``: the in-memory equivalent of the save -> load round
     trip."""
     model = out.model

@@ -14,8 +14,9 @@ order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
 (``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
 (``ops/megastep_lowbit.py``); kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"``,
 and its variants with optional operands other than zero points,
-act-order and the trailing-unembed lm fold (EoRA, biases), come with later
-slices (:func:`missing_kernel`, ``ROADMAP.md`` queue B). The decode steps of a request with a variant run
+act-order, EoRA adapters and the trailing-unembed lm fold (biases), come
+with later slices (:func:`missing_kernel`, ``ROADMAP.md`` queue B). The
+decode steps of a request with a variant run
 the megastep once per step; the others, and every prefill, run the layers
 one by one (``models/transformer.layer_forward``), where the fused MLP
 (kernel 9) and the opt-in kernels 10 and 11 live. The environment switches
@@ -64,16 +65,17 @@ def _layer(lp: Layer, attn: Dict[str, QLinear], mlp: Dict[str, QLinear],
 
 def fuse_layer(lp: Layer) -> Layer:
     """q/k/v -> one ``qkv`` linear, gate/up -> ``gateup``; a ``w8`` o
-    without bias also gives its transposed weight ``o_t_w8 [Dq', H]`` and
-    scale row ``o_t_scale [1, H]`` (kernels 11 and 12). Raises ValueError
-    where the rows cannot fuse (:func:`~ganq_tpu_torch.ops.qlinear.concat_rows`)."""
+    without EoRA adapter or bias also gives its transposed weight ``o_t_w8
+    [Dq', H]`` and scale row ``o_t_scale [1, H]`` (kernels 11 and 12).
+    Raises ValueError where the rows cannot fuse
+    (:func:`~ganq_tpu_torch.ops.qlinear.concat_rows`)."""
     a, m = lp.attn, lp.mlp
     attn = dict(a.items())
     extra = {}
     if all(k in a for k in ("q", "k", "v")):
         attn = {"qkv": concat_rows([a["q"], a["k"], a["v"]]), "o": a["o"]}
         o = a["o"]
-        if o.kind == "w8" and "bias" not in o:
+        if o.kind == "w8" and "lora_a" not in o and "bias" not in o:
             extra = {"o_t_w8": o["w8"].T.contiguous(),
                      "o_t_scale": o["scale"].reshape(1, -1)}
     mlp = dict(m.items())
@@ -252,11 +254,9 @@ def _fold_logit_epilogue(cfg: ModelConfig, logits: torch.Tensor
 
 def _later_operands(sp: Model) -> Optional[str]:
     """The first operand of the stacked layers that kernel 14's later
-    sub-slices bring (EoRA, o/gate-up/down biases), or None."""
+    sub-slices bring (o/gate-up/down biases), or None."""
     lp = sp.layers[0]
     mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
-    if any("lora_a" in m for m in mats):
-        return "EoRA adapters"
     if any("bias" in m for m in mats[1:]):
         return "o/gate-up/down biases"
     return None

@@ -872,3 +872,124 @@ def test_moe_expert_rejects_what_it_cannot_run(gen):
         moe_expert_decode(x, mp, ids, torch.zeros((33, 4), device="cuda"))
     with pytest.raises(ValueError, match="wts"):
         moe_expert_decode(x[:2], mp, ids, torch.zeros((3, 4), device="cuda"))
+
+
+# --------------------------------------------- kernel 14's EoRA epilogue
+from chip_smoke import _lora_operands
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 9, 64])
+@pytest.mark.parametrize("zp,ao,V", [(False, False, 0), (True, True, 0),
+                                     (False, False, 384),
+                                     (True, True, 384)])
+def test_megastep_lowbit_lora_matches_plain(gen, L, H, q_dim, kv_dim, I,
+                                            bits, B, zp, ao, V):
+    """Kernel 14 with the EoRA epilogue (``megastep_lowbit_lora*.cu``),
+    with and without zero points and act-order and the lm fold (``V``),
+    against its plain version. Layer 0's k and v see only the q epilogue
+    on exact int8 products: within one bf16 ulp plus 1e-3 of the largest.
+    Everything else within one bf16 ulp plus 1e-2 of the largest, the
+    zero-point cases' bound: the rank-r dots sum in another order than
+    torch's, so a later int8 activation at a rounding tie may flip by one
+    code (``test_megastep_lowbit_zero_points_actorder_match_plain``). The
+    adapters move y and layer 0's k by more than twice that."""
+    from ganq_tpu_torch.ops.megastep_lowbit import _LORA_KEYS, lm_fold_plain
+
+    mp = _zp_ao_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I,
+                                            bits, False),
+                         L, H, q_dim, bits, zp, ao)
+    mp = _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, 16)
+    lm = _lm_operands(gen, V, H) if V else None
+    T, pos0 = 64, 50
+    pos = [(pos0 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=bits)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = megastep_lowbit_decode.launches
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos, sin,
+                                 lm=lm, **kw)
+    assert megastep_lowbit_decode.launches == before + 1
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, cos, sin,
+                                       **kw)
+    bare = megastep_lowbit_decode(
+        x.float(), {k: v for k, v in mp.items() if k not in _LORA_KEYS}, kc,
+        vc, pos_t, cos, sin, **kw)
+    torch.cuda.synchronize()
+    what = f"megastep_lowbit lora zp={zp} ao={ao} bits={bits} H={H} B={B}"
+    _close(got[1][0], pk[0], 1e-3, what + " layer 0 k_new")
+    _close(got[2][0], pv[0], 1e-3, what + " layer 0 v_new")
+    _close(got[1], pk, 1e-2, what + " k_new")
+    _close(got[2], pv, 1e-2, what + " v_new")
+    _close(got[0], py, 1e-2, what + " y")
+    for g, p, n in ((bare[0], py, "y"), (bare[1][0], pk[0], "layer 0 k")):
+        moved = float((g.float() - p.float()).abs().max())
+        assert moved > 2e-2 * float(p.float().abs().max()), f"{what} {n}"
+    if V:
+        _close(got[3], lm_fold_plain(got[0], lm, 1e-5), 5e-3,
+               what + " logits")
+
+
+def test_megastep_lowbit_lora_refuses_a_partial_launch(gen):
+    """A LORA launch without every EoRA operand, and a launch of the
+    kernels without the epilogue with one, are cudaErrorInvalidValue."""
+    from ganq_tpu_torch.ops import megastep_lowbit as mlb
+    from ganq_tpu_torch.ops import w8a8_args
+
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    mp = _lora_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, 4,
+                                           False),
+                        L, H, q_dim, kv_dim, I, 8)
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, 1, 64, [5])
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=4)
+    captured = {}
+
+    def capture(library, symbol, what, tensors, device, **scalars):
+        captured.update(tensors=tensors, device=device, scalars=scalars)
+
+    real = w8a8_args.launch
+    w8a8_args.launch = capture
+    try:
+        mlb.megastep_lowbit_decode(x, mp, kc, vc, 5, cos, sin, **kw)
+    finally:
+        w8a8_args.launch = real
+    t, dev, sc = captured["tensors"], captured["device"], captured["scalars"]
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        real("megastep_lowbit_lora", "ganq_megastep_lowbit_lora", "k14",
+             dict(t, lb_d=None), dev, **sc)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        real("megastep_lowbit", "ganq_megastep_lowbit", "k14", t, dev, **sc)
+    real("megastep_lowbit_lora", "ganq_megastep_lowbit_lora", "k14", t, dev,
+         **sc)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1, 9])
+def test_megastep_lowbit_lora_rank_not_a_multiple_of_8(gen, B):
+    """A rank that is no multiple of 8 (12): the B products read their rows
+    element by element; against the plain version as
+    ``test_megastep_lowbit_lora_matches_plain``."""
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    mp = _lora_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, 4,
+                                           False), L, H, q_dim, kv_dim, I, 12)
+    T, pos0 = 64, 50
+    pos = [(pos0 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=4)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos, sin, **kw)
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, cos, sin,
+                                       **kw)
+    torch.cuda.synchronize()
+    what = f"megastep_lowbit lora r=12 B={B}"
+    _close(got[1][0], pk[0], 1e-3, what + " layer 0 k_new")
+    _close(got[1], pk, 1e-2, what + " k_new")
+    _close(got[2], pv, 1e-2, what + " v_new")
+    _close(got[0], py, 1e-2, what + " y")

@@ -32,8 +32,11 @@ kmeans_exact.kmeans_rows_exact(np.arange(12.0).reshape(2, 6), np.ones(6), 2)
 maps = open("/proc/self/maps").read()
 if "libkmeans1d-" not in maps or "ganq_tpu/native" in maps:
     bad.append("kmeans library")
+for n in ("ganq_tpu_torch.adapter.eora", "ganq_tpu_torch.quant.eora_flow"):
+    if n not in names:
+        bad.append("missing " + n)
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 33 else 0)
+sys.exit(1 if bad or len(names) < 36 else 0)
 """
 
 
@@ -170,6 +173,30 @@ def test_fused_kernel_wrappers_never_fall_back_for_cuda_tensors():
         if route:
             assert route in src
         assert ".launches += 1" in src
+
+
+def test_adapter_entry_points_run_on_the_card_by_default():
+    """The EoRA slice: ``GanqModel.from_torch_model`` takes the card unless
+    ``device="cpu"`` is asked for; ``eora_generate`` and the adapter's
+    math run where the model lives, with no device choice of their own."""
+    import inspect
+
+    import transformers as hf
+
+    from ganq_tpu_torch.adapter import eora
+    from ganq_tpu_torch.quant import eora_flow
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    model = hf.LlamaForCausalLM(hf.LlamaConfig(
+        vocab_size=64, hidden_size=32, intermediate_size=64,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GanqModel.from_torch_model(model)
+    g = GanqModel.from_torch_model(model, device="cpu")
+    assert g.device.type == "cpu" and not g.quantized
+    for src in (inspect.getsource(eora), inspect.getsource(eora_flow)):
+        assert '"cpu"' not in src and "resolve_device" not in src
 
 
 def test_whole_step_wrappers_never_fall_back_for_cuda_tensors():

@@ -275,7 +275,7 @@ def test_wrappers_refuse_later_features(packed):
     """Each operand or argument of a later sub-slice of kernel 14 raises
     NotImplementedError naming its feature, on the CPU as on the card (zero
     points and act-order are served: ``test_zero_point_actorder_*``; the
-    lm fold: ``test_lm_fold_*``)."""
+    lm fold: ``test_lm_fold_*``; EoRA adapters: ``test_lora_*``)."""
     jcfg, _, _, _, tmp, _ = packed["w8p"]
     B, T, d = 1, 64, 128
     x = torch.zeros((B, jcfg.hidden_size), dtype=torch.bfloat16)
@@ -290,8 +290,8 @@ def test_wrappers_refuse_later_features(packed):
         with pytest.raises(NotImplementedError, match=what):
             tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
                                        **{**kw, **extra})
-    for key, what in (("la_q", "EoRA"), ("o_bias", "biases"),
-                      ("qk_nm", "qk-norm"), ("pa_norm", "sandwich")):
+    for key, what in (("o_bias", "biases"), ("qk_nm", "qk-norm"),
+                      ("pa_norm", "sandwich")):
         with pytest.raises(NotImplementedError, match=what):
             tlb.megastep_lowbit_decode(x, {**tmp, key: None}, kc, kc, 3,
                                        None, None, **kw)
@@ -663,3 +663,101 @@ def test_lm_fold_operands_none_where_jax(lm_fold):
         to = tlb.mega_lm_operands(tcfg, tsp, max_tile_bytes=64 * H)
         assert jo is None and to is None, name
     tsp.lm_head = cases["w8"][1]
+
+
+# ------------------------------------------------------ the EoRA epilogue
+def inject_lora(params, rank, seed=9):
+    """Give every linear of ganq_tpu's per-layer params a random EoRA
+    adapter (``tests/test_megastep_lowbit.py::_inject_lora``'s role): A
+    [rank, in] with rows of norm ~1, B [out, rank] at 2e-2, float32."""
+    from ganq_tpu.ops import qlinear as jql
+
+    rng = np.random.default_rng(seed)
+    for lp in params["layers"]:
+        for group in ("attn", "mlp"):
+            for name, m in list(lp[group].items()):
+                out_f = m["scales"].shape[0]
+                arrays = dict(m.arrays)
+                arrays["lora_a"] = jnp.asarray(
+                    (rng.normal(size=(rank, m.in_features))
+                     / np.sqrt(m.in_features)).astype(np.float32))
+                arrays["lora_b"] = jnp.asarray(
+                    (rng.normal(size=(out_f, rank)) * 2e-2).astype(
+                        np.float32))
+                lp[group][name] = jql.QLinear(m.kind, arrays, m.bits,
+                                              m.in_features)
+    return params
+
+
+# (bits, zero points, act-order, decode batch, rank) at hidden 256: the
+# cases of ganq_tpu's test_megastep_lowbit_eora_epilogue (bits 4 at B 8,
+# bits 4 with act-order), and 8 bits with zero points
+_LORA = {"lora4": (4, False, False, 8, 8), "lora_ao4": (4, False, True, 8, 8),
+         "lora_zp8": (8, True, False, 8, 16)}
+
+
+@pytest.fixture(scope="module")
+def lora_packs():
+    """Per case of ``_LORA``: (jax cfg, jax pack, port pack)."""
+    from ganq_tpu_torch.models import hf_import as thf
+
+    from test_torch_serve import _flatten_jax
+    from test_torch_stacked import _port_cfg
+
+    out = {}
+    for case, (bits, asym, actorder, _, rank) in _LORA.items():
+        jcfg, params = np_uniform_llama(256, 2, 1, 512, bits)
+        inject_zp_ao(params, bits, asym, actorder)
+        inject_lora(params, rank)
+        tcfg, tmodel = thf.params_from_numpy(
+            thf.config_to_hf(_port_cfg(256, 2, 1, 512, 64)),
+            _flatten_jax(params), device="cpu")
+        out[case] = (jcfg, *zp_ao_packs(jcfg, params, tcfg, tmodel,
+                                        bits)[1:])
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_LORA))
+def test_lora_plain_matches_jax_interpret(lora_packs, case):
+    """Kernel 14's EoRA operands and epilogue: the port's pack carries
+    ganq_tpu's ``la_*``/``lb_*`` byte for byte (bf16; ``lb_g`` tile-major;
+    under act-order every ``lora_a`` in its projection's column order and
+    gate/up's ``lora_b`` rows in down's), and its plain version matches
+    ganq_tpu's kernel in interpret mode (whose rank-r dots run in float32
+    on the CPU) within ``assert_kernel_close``'s bound, each slot at its
+    own history length."""
+    bits, asym, actorder, B, rank = _LORA[case]
+    jcfg, jmp, tmp = lora_packs[case]
+    assert sorted(tmp) == sorted(jmp)
+    # q/k/v and gate/up fuse block-diagonally: 3 and 2 ranks stacked
+    assert tmp["la_q"].shape[1] == 3 * rank and tmp["la_g"].shape[1] == 2 * rank
+    for k, v in jmp.items():
+        if k in ("ap_q", "ap_g", "ap_o"):
+            continue
+        assert tuple(tmp[k].shape) == v.shape, k
+        assert tmp[k].dtype == _t(v[:1]).dtype, k
+        np.testing.assert_array_equal(tmp[k].float().numpy(), _np(v),
+                                      err_msg=k)
+    rng = np.random.default_rng(50 + B)
+    T, d = 64, 128
+    pos = [30, 3, 20, 63, 41, 7, 33, 12][:B]
+    x, jk, jv, cos, sin = _step_inputs(rng, jcfg, B, T, pos)
+    kw = dict(q_dim=jcfg.q_dim, kv_dim=jcfg.num_key_value_heads * d,
+              head_dim=d, rotary_dim=d, eps=1e-5, scale=float(1 / np.sqrt(d)),
+              bits=bits)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.block_until_ready(jlb.megastep_lowbit_decode(
+            x, jmp, jk, jv, jnp.asarray(pos, jnp.int32), jnp.asarray(cos),
+            jnp.asarray(sin), **kw))
+    got = tlb.megastep_lowbit_decode(_t(x), tmp, _t(jk), _t(jv),
+                                     torch.tensor(pos), torch.from_numpy(cos),
+                                     torch.from_numpy(sin), **kw)
+    without = tlb.megastep_lowbit_decode(
+        _t(x), {k: v for k, v in tmp.items() if k not in tlb._LORA_KEYS},
+        _t(jk), _t(jv), torch.tensor(pos), torch.from_numpy(cos),
+        torch.from_numpy(sin), **kw)
+    for name, g, r, w in zip(("y", "k", "v"), got, ref, without):
+        assert tuple(g.shape) == r.shape and g.dtype == torch.bfloat16
+        assert_kernel_close(g.float().numpy(), _np(r), flips=5e-3,
+                            what=f"{case} {name} B={B}")
+        assert not torch.equal(g, w), f"{case} {name}: no rank-r term"

@@ -233,7 +233,7 @@ def test_gptq_resume_restores_every_layer_in_both_packages(dense, tmp_path):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(quant_method="auto_round"), "queue A item 5"),
-    (dict(quant_method="ganq", adapter={"rank": 4}), "EoRA"),
+    (dict(quant_method="qqq"), "qqq"),
     (dict(quant_method="ganq", rotation="hadamard"), "rotation"),
     (dict(quant_method="ganq", lm_head=True), "lm_head"),
 ])

@@ -279,7 +279,9 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
     weights in the port. The kinds ``uniform_zp``, ``uniform_ao``,
     ``uniform_zp_ao`` and ``uniform_ao_unbalanced`` (both layers) are
     ``uniform`` with random zero points and/or act-order artifacts
-    (``test_torch_megastep_lowbit.inject_zp_ao``)."""
+    (``test_torch_megastep_lowbit.inject_zp_ao``); a kind ending in
+    ``_lora`` (``uniform_lora``, ``uniform_zp_ao_lora``) also gives every
+    linear a rank-4 EoRA adapter (``inject_lora``)."""
     import jax
 
     from ganq_tpu.models import synthetic as jsyn
@@ -290,12 +292,15 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
     variant = kinds[0].split("_")[1:] if kinds[0].startswith("uniform_") \
         else None
     if variant:
-        from test_torch_megastep_lowbit import inject_zp_ao, np_uniform_llama
+        from test_torch_megastep_lowbit import (inject_lora, inject_zp_ao,
+                                                np_uniform_llama)
         _, params = np_uniform_llama(hidden, heads, max(heads // 2, 1),
                                      2 * hidden, bits, VOCAB, seed=1,
                                      norms=False)
         inject_zp_ao(params, bits, "zp" in variant, "ao" in variant,
                      unbalanced="unbalanced" in variant)
+        if "lora" in variant:
+            inject_lora(params, 4)
     else:
         params = jsyn.make_model(jcfg, kind=kinds[0], seed=1,
                                  dtype=jnp.float32, bits=bits)
@@ -409,6 +414,9 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
         ("uniform_zp", 8, None, 256, 2, "cuda_a8", 16, 2, 4, None),
         ("uniform_ao", 4, None, 256, 2, "cuda_a8", 1, 12, 4, None),
         ("uniform_zp_ao", 4, None, 256, 2, "cuda_a8", 64, 2, 4, None),
+        ("uniform_lora", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
+        ("uniform_lora", 8, "w8", 256, 2, "cuda_a8", 16, 2, 4, None),
+        ("uniform_zp_ao_lora", 4, None, 256, 2, "cuda_a8", 1, 12, 4, None),
     ])
 def test_stacked_only_kernels_are_named_where_jax_runs_them(
         monkeypatch, kind, bits, lm, hidden, heads, backend, batch, prompt,
@@ -419,9 +427,9 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
     "pallas_a8" on a TPU, here forced with ``GANQ_MEGASTEP=1``) picks
     kernel 14's "w3", "w2" or "wl8" for a request that decodes. The port's
     gate, on the card, gives the same variant. Kernels 12 ("w8"), 13 ("w4")
-    and 14's "w4p" and "w8p", with zero points, act-order and the
-    trailing-unembed fold of a ``w8`` lm_head (``mega_lm_operands``), serve
-    every other request."""
+    and 14's "w4p" and "w8p", with zero points, act-order, EoRA adapters
+    and the trailing-unembed fold of a ``w8`` lm_head
+    (``mega_lm_operands``), serve every other request."""
     from ganq_tpu.serve import stacked as jst
 
     jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads, bits,
@@ -490,6 +498,34 @@ def test_zero_point_actorder_whole_step_greedy_matches_jax(monkeypatch):
                       device="cpu", max_seq=32)
     assert {"qkv_sz", "ap_q"} <= set(jeng._sp["megapack_lb"])
     assert eng.stacked and {"qkv_sz", "ap_q"} <= set(eng.model.megapack_lb)
+    assert jst.mega_enabled(jcfg, jeng._sp, "reference", 2) == "w4p"
+    assert tst.mega_enabled(eng.cfg, eng.model, "reference", 2, "cpu") == "w4p"
+    ids = _ids(9, (2, 6))
+    np.testing.assert_array_equal(
+        eng.generate(ids, max_new_tokens=3),
+        np.asarray(jeng.generate(ids, max_new_tokens=3)))
+
+
+def test_eora_whole_step_greedy_matches_jax(monkeypatch):
+    """A 2-layer head_dim-128 W4 llama with zero points, act-order and an
+    EoRA adapter on every linear, on the stacked layout with the megastep
+    forced on: both engines pack kernel 14's "w4p" with the adapters'
+    operands (``la_*``/``lb_*``) and decode a batch of 2 through its EoRA
+    epilogue (ganq_tpu's Pallas kernel in interpret mode, the port's plain
+    version); greedy tokens are equal."""
+    from ganq_tpu.serve import stacked as jst
+
+    from ganq_tpu_torch.serve import stacked as tst
+
+    jcfg, jparams, tmodel = _affine_model(("uniform_zp_ao_lora",) * 2, 256,
+                                          2)
+    monkeypatch.setenv("GANQ_MEGASTEP", "1")
+    jeng = JEngine(jcfg, jparams, backend="reference", max_seq=32)
+    eng = teng.Engine(_port_cfg(256, 2), tmodel, backend="reference",
+                      device="cpu", max_seq=32)
+    assert {"la_q", "lb_d", "ap_q"} <= set(jeng._sp["megapack_lb"])
+    assert eng.stacked and {"la_q", "lb_d", "ap_q"} <= set(
+        eng.model.megapack_lb)
     assert jst.mega_enabled(jcfg, jeng._sp, "reference", 2) == "w4p"
     assert tst.mega_enabled(eng.cfg, eng.model, "reference", 2, "cpu") == "w4p"
     ids = _ids(9, (2, 6))

@@ -84,15 +84,29 @@ Phases, each of which raises (exit code != 0) on failure:
     the logits' error to the dense model with and without adapters),
     ``optimize()`` and "w8p" with the epilogue; the batching engine with the
     epilogue and the lm fold.
+15. Qwen3 at Qwen3-8B widths (``phase_qwen3_path``): a dense model, GANQ
+    W4 quantize (kernel 3), save ``lut``, load, ``optimize()``, requests at
+    batch 1, 8 and 64 through kernel 14 "w8p" with the qk-norm rows
+    ``qk_nm``, then the batching engine with them and the lm fold;
+16. InternLM at InternLM-7B widths (``phase_internlm_path``): a dense
+    model with q/k/v/o biases, GPTQ sym W4 g128, save (v1), load, requests
+    at batch 1 and 16 through "w4p" with ``o_bias``/``gu_bias``/``dn_bias``;
+17. Qwen2.5 at Qwen2.5-7B widths (``phase_qwen2_path``): a ``lut`` model
+    with q/k/v biases, ``optimize()``, a batch-1 request through "w8p".
 Phase 3 holds the fold itself against its plain version
 (``check_lm_fold``: the vocab phase bit for bit), and kernel 14's EoRA
 epilogue (``check_lora``: "w8p"/"w4p" at 3B widths, zero points with
 act-order and the fold at 8B widths) against its, beside the same launch
 without adapters; those cases also go on a line of their own
-(``{"k14_lora": ...}``) before the kernels line.
-Each run of phases 7-13 sets the launch counters to 0 and must match its
+(``{"k14_lora": ...}``) before the kernels line; and kernel 14's qk-norm
+and bias instantiations (``check_arch``: "w8p"/"w4p" with ``qk_nm`` at
+Qwen3-8B widths and with biases at InternLM-7B widths, and one launch of
+each combination with zero points, act-order, the fold and the EoRA
+epilogue), beside the same launch without those operands
+(``{"k14_arch": ...}``).
+Each run of phases 7-17 sets the launch counters to 0 and must match its
 expected launches exactly (``expected_launches``, the port's routing, which
-is the JAX package's); phases 7-11 and 13 hold a teacher-forced decode
+is the JAX package's); phases 7-11 and 13-17 hold a teacher-forced decode
 step against the reference backend.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -115,9 +129,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
-QUANTIZE_LAYERS = 8                # depth of the quantize path (see PERF.md)
+QUANTIZE_LAYERS = 4                # depth of the quantize path (see PERF.md)
 PALLAS_PATH_LAYERS = 2             # depth of its solver_backend="pallas" run
-GPTQ_LAYERS = 8                    # depth of the GPTQ path (see PERF.md)
+GPTQ_LAYERS = 4                    # depth of the GPTQ path (see PERF.md)
 GPTQ_SIDE_LAYERS = 2               # depth of its desc_act=False runs
 L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
 LLAMA_1B_LINEARS = {"q/o": (2048, 2048), "k/v": (512, 2048),
@@ -189,6 +203,12 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ phases
+def phase_done(name: str, t_start: float) -> None:
+    """One line per phase with the wall clock since the start (the smoke's
+    time budget, PERF.md)."""
+    log(f"phase done: {name} at {time.time() - t_start:.1f} s")
+
+
 def phase_environment() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is false")
@@ -1256,6 +1276,173 @@ def check_lora(gen) -> dict:
     return rows
 
 
+ARCH_CHECK_LAYERS = 4              # depth of kernel 14's qk-norm/bias cases
+
+
+def _arch_operands(gen, mp, L, H, q_dim, kv_dim, I, qkn, bias):
+    """Kernel 14's architecture operands (megapack_lowbit's layouts,
+    float32) added to a random pack: with ``qkn`` qwen3's ``qk_nm`` (norm
+    weights in [0.75, 1.25) on the q and k lanes, the apply mask 1 there
+    and 0 on the v lanes); with ``bias`` a qkv bias and o/gate-up/down
+    biases of std 0.1."""
+    Dqkv = q_dim + 2 * kv_dim
+
+    def rnd(*shape, s=0.1):
+        return torch.randn((L, *shape), generator=gen, device="cuda") * s
+
+    if qkn:
+        w = torch.rand((L, Dqkv), generator=gen, device="cuda") * 0.5 + 0.75
+        m = torch.zeros((L, Dqkv), device="cuda")
+        m[:, :q_dim + kv_dim] = 1.0
+        w[:, q_dim + kv_dim:] = 1.0
+        mp["qk_nm"] = torch.stack([w, m], dim=1).contiguous()
+    if bias:
+        mp.update(qkv_bias=rnd(1, Dqkv), o_bias=rnd(1, H),
+                  gu_bias=rnd(1, 2 * I), dn_bias=rnd(1, H))
+    return mp
+
+
+def check_arch(gen) -> dict:
+    """Kernel 14 with qwen3's qk-norm and InternLM's o/gate-up/down biases
+    (the ARCH instantiations, ``megastep_lowbit_arch*.cu``) against its
+    plain version within ``_spread_close`` (the spread with the qk-norm
+    rows also nudged by 2^-22): "w8p" and "w4p" with ``qk_nm`` at
+    Qwen3-8B's widths and with biases at InternLM-7B's, ARCH_CHECK_LAYERS
+    layers each, at batch 1, 8 and 64; then one launch (batch 1) of each
+    other ARCH instantiation: qk-norm with the lm fold (vocabulary 151936),
+    with zero points and the fold, with the EoRA epilogue (rank
+    EORA_RANK), with the epilogue and the fold, biases with zero points and
+    act-order, with those and the epilogue, and qk-norm, biases, zero
+    points, act-order, the epilogue and the fold together. Slot b at
+    position FUSED_POS + b. Each case is timed with CUDA events beside the
+    same launch without the ARCH operands (the kernels without them); its
+    bound counts the qk-norm rows and biases with the step's bytes.
+    Returns {case: row}."""
+    from ganq_tpu_torch.models import synthetic
+    from ganq_tpu_torch.ops.megastep_lowbit import (_ARCH_KEYS, _LORA_KEYS,
+                                                    kernel_library,
+                                                    megastep_lowbit_decode,
+                                                    megastep_lowbit_plain)
+
+    L = ARCH_CHECK_LAYERS
+    cq = synthetic.qwen3_8b_config(L)
+    ci = synthetic.internlm_7b_config(L)
+    widths = {m: (c.hidden_size, c.intermediate_size, c.q_dim, c.kv_dim,
+                  c.head_dim) for m, c in (("qwen3", cq), ("internlm", ci))}
+    T = 256
+    ang = torch.rand(64, generator=gen, device="cuda") * 6.2831853
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    rows = {}
+    # (case, bits, batches, widths, qk-norm, biases, zero points, act-order,
+    # EoRA, fold)
+    cases = [("w8p_qkn", 8, (1, 8, 64), "qwen3", 1, 0, 0, 0, 0, 0),
+             ("w4p_qkn", 4, (1, 8, 64), "qwen3", 1, 0, 0, 0, 0, 0),
+             ("w4p_bias", 4, (1, 8, 64), "internlm", 0, 1, 0, 0, 0, 0),
+             ("w8p_bias", 8, (1, 8, 64), "internlm", 0, 1, 0, 0, 0, 0),
+             ("w8p_qkn_lm", 8, (1,), "qwen3", 1, 0, 0, 0, 0, 1),
+             ("w8p_qkn_zp_lm", 8, (1,), "qwen3", 1, 0, 1, 0, 0, 1),
+             ("w4p_qkn_lora", 4, (1,), "qwen3", 1, 0, 0, 0, 1, 0),
+             ("w8p_qkn_lora_lm", 8, (1,), "qwen3", 1, 0, 0, 0, 1, 1),
+             ("w4p_bias_zp_ao", 4, (1,), "internlm", 0, 1, 1, 1, 0, 0),
+             ("w4p_bias_zp_ao_lora", 4, (1,), "internlm", 0, 1, 1, 1, 1, 0),
+             ("w4p_qkn_bias_zp_ao_lora_lm", 4, (1,), "qwen3", 1, 1, 1, 1, 1,
+              1)]
+    libs = set()
+    for variant, bits, batches, model, qkn, bias, zp, ao, lora, fold in cases:
+        H, I, q_dim, kv_dim, d = widths[model]
+        Dqkv, Hkv = q_dim + 2 * kv_dim, kv_dim // d
+        mp = _zp_ao_operands(
+            gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False),
+            L, H, q_dim, bits, zp, ao)
+        if lora:
+            _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, EORA_RANK)
+        _arch_operands(gen, mp, L, H, q_dim, kv_dim, I, qkn, bias)
+        bare = {k: v for k, v in mp.items() if k not in _ARCH_KEYS}
+        lm, lm_bytes = None, 0
+        if fold:
+            V = cq.vocab_size
+            tv = next(c for c in (4096, 2048, 1024, 512, 256, 128)
+                      if V % c == 0 and c * H <= 4 * 2**20)
+            lm = {"w8": torch.randint(-127, 128, (V, H), generator=gen,
+                                      device="cuda",
+                                      dtype=torch.int32).to(torch.int8),
+                  "scale": (torch.rand((V // tv, tv), generator=gen,
+                                       device="cuda") * 3e-4 + 1e-4),
+                  "norm": torch.rand(H, generator=gen, device="cuda") + 0.5}
+        libs.add(kernel_library(mp, fold))
+        kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+                  scale=1.0 / math.sqrt(d), bits=bits, lm=lm,
+                  eps=cq.norm_eps)
+        code_bytes = L * (Dqkv + q_dim + 3 * I) * H * bits // 8
+        side_bytes = sum(v.numel() * v.element_size() for k, v in mp.items()
+                         if k.endswith(("_s", "_sz")) or k[:3] == "ap_"
+                         or k in _ARCH_KEYS or k in _LORA_KEYS)
+        arch_bytes = sum(mp[k].numel() * 4 for k in _ARCH_KEYS if k in mp)
+        for B in batches:
+            pos = [FUSED_POS + b for b in range(B)]
+            kc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            vc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            x = torch.randn((B, H), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            got = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin, **kw)
+            ref = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, **kw)
+            nudge = {k: mp[k] * (1 + 2**-22) for k in ("attn_norm", "mlp_norm",
+                                                      "qk_nm") if k in mp}
+            if lora:    # as check_lora: the A factors' float-order error
+                nudge.update({k: mp[k].float() * (1 + 2**-13)
+                              for k in ("la_q", "la_o", "la_g", "la_d")})
+            nudged = megastep_lowbit_plain(x, dict(mp, **nudge), kc, vc, pos,
+                                           cos, sin, **kw)
+            torch.cuda.synchronize()
+            names = ("y", "k_new", "v_new", "logits")
+            errs = [_spread_close(g, p, n_, f"{variant} {n} B={B}")
+                    for n, g, p, n_ in zip(names, got, ref, nudged)]
+            del ref, nudged
+            k_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, mp, kc, vc, pos_t, cos, sin, **kw), (), 10)
+            n_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, bare, kc, vc, pos_t, cos, sin, **kw), (), 10)
+            p_ms = (event_ms(lambda: megastep_lowbit_plain(
+                x, mp, kc, vc, pos, cos, sin, **kw), (), 1)
+                if B == 1 and len(batches) > 1 else None)
+            if fold:
+                V = lm["w8"].shape[0]
+                lm_bytes = V * H + V * 4 + H * 4 + B * V * 4 + B * H
+            nbytes = (code_bytes + side_bytes + 2 * L * sum(pos) * kv_dim * 2
+                      + L * (2 * H + Dqkv) * 4 + 2 * B * H * 2
+                      + 2 * L * B * kv_dim * 2 + lm_bytes)
+            ops = 2.0 * B * (L * (Dqkv + q_dim + 3 * I) * H
+                             + (lm["w8"].shape[0] * H if fold else 0))
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
+            rows[(variant, B)] = dict(
+                ms=k_ms, ms_without=n_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, arch_kb=arch_bytes / 1e3,
+                max_abs_err=max(e[0] for e in errs),
+                rel_l2=max(e[1] for e in errs))
+            log(f"megastep_lowbit_decode ({variant}, {model} widths) L={L} "
+                f"H={H} pos={FUSED_POS}+b B={B}: rel_l2 "
+                f"{[f'{e[1]:.2e}' for e in errs]} (tol 2 x the plain "
+                f"version's spread {[f'{e[2]:.2e}' for e in errs]} + 2^-8) "
+                f"kernel_ms={k_ms:.4f} without the qk-norm/bias operands "
+                f"{n_ms:.4f} ({k_ms - n_ms:+.4f}) plain_ms="
+                f"{p_ms if p_ms is None else round(p_ms, 3)} "
+                f"bound_ms={b_ms:.4f} ({b_by}; qk-norm rows and biases "
+                f"{arch_bytes / 1e3:.1f} KB)")
+            del kc, vc, got
+        del mp, bare, lm
+        torch.cuda.empty_cache()
+    want = {f"megastep_lowbit_arch{s}" for s in (
+        "", "_opt", "_lm", "_lm_opt", "_lora", "_lora_opt", "_lora_lm",
+        "_lora_lm_opt")}
+    if libs != want:
+        raise AssertionError(f"ARCH instantiations run {sorted(libs)}, "
+                             f"not {sorted(want)}")
+    return rows
+
+
 def _moe_pack(gen, E, H, I, bits, gs=128):
     """Random kernel 15 operands in moe_megapack's layouts (any byte is a
     valid code byte)."""
@@ -1378,6 +1565,15 @@ def phase_kernels() -> list:
                 k14["max_abs_err"] = max(k14["max_abs_err"],
                                          row["max_abs_err"])
             k14["lora"] = {f"{v}_b{B}": row for (v, B), row in lora.items()}
+            # and its qk-norm and bias instantiations, on a line of their own
+            arch = check_arch(gen)
+            for (v, B), row in arch.items():
+                k14["by_case"][f"{v}_b{B}"] = {
+                    k: row[k] for k in ("ms", "ms_without", "bound_ms",
+                                        "plain_ms", "rel_l2")}
+                k14["max_abs_err"] = max(k14["max_abs_err"],
+                                         row["max_abs_err"])
+            k14["arch"] = {f"{v}_b{B}": row for (v, B), row in arch.items()}
             return entries
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
@@ -1568,6 +1764,8 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     ``GANQ_MOE_MEGA=0``), else each expert's gate, up and down."""
     import os
 
+    from ganq_tpu_torch.models.transformer import attn_linears
+
     a8 = backend == "cuda_a8"
     fused_layer = os.environ.get("GANQ_FUSED_LAYER", "0") == "1"
     fused_qkv = os.environ.get("GANQ_FUSED_QKV", "0") != "0"
@@ -1595,7 +1793,7 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     for lp in model.layers:
         rows = B * S
         if rows < 1024:
-            for p in lp.attn.values():
+            for p in attn_linears(lp).values():
                 add(kernel_of(p))
         mlp_of(lp, rows)
     steps = new - 1
@@ -1620,13 +1818,14 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
         for lp in model.layers:
             if (a8 and fused_layer and B <= 8 and _w8_mlp(lp)
                     and lp.o_t_w8 is not None and q.cfg.head_dim == 128
-                    and "lora_a" not in lp.attn["qkv"]):
+                    and "lora_a" not in lp.attn["qkv"]
+                    and not q.cfg.qk_norm):
                 add("attn_half_decode_w8a8")
                 add("fused_mlp_w8a8")
                 continue
-            for name, p in lp.attn.items():
+            for name, p in attn_linears(lp).items():
                 if (name == "qkv" and a8 and fused_qkv and p.kind == "w8"
-                        and "lora_a" not in p):
+                        and "lora_a" not in p and not q.cfg.qk_norm):
                     add("fused_qkv_rope_w8a8")
                 else:
                     add(kernel_of(p))
@@ -2224,8 +2423,8 @@ def phase_3b_path():
     return results
 
 
-EIGHT_B_LAYERS = 8                 # depth of the 8B path (see PERF.md)
-MIXTRAL_LAYERS = 4                 # depth of the Mixtral path (see PERF.md)
+EIGHT_B_LAYERS = 4                 # depth of the 8B path (see PERF.md)
+MIXTRAL_LAYERS = 2                 # depth of the Mixtral path (see PERF.md)
 
 
 def phase_8b_path():
@@ -2338,7 +2537,7 @@ def phase_mixtral_path():
     return results
 
 
-BATCHING_LAYERS = 8                # depth of the batching path (PERF.md)
+BATCHING_LAYERS = 4                # depth of the batching path (PERF.md)
 
 
 class ByteTokenizer:
@@ -2355,27 +2554,27 @@ class ByteTokenizer:
         return bytes(i % 256 for i in ids).decode("utf-8", errors="replace")
 
 
-def _batching_traffic(eng, rng, vocab):
-    """BATCHING_REQUESTS seeded requests through ``eng`` (prompts of 16-256
-    tokens, 16-48 new tokens, the first 8 submitted at once and the rest
+def _batching_traffic(eng, rng, vocab, n=12, first=8):
+    """``n`` seeded requests through ``eng`` (prompts of 16-256 tokens,
+    16-48 new tokens, the first ``first`` submitted at once and the rest
     after the fourth step, so that freed slots take them), the launch
     counters set to 0 just before and read just after. Returns (results,
     decode steps, launches, seconds, tokens)."""
     counters = _kernel_counters()
     reqs = [(rng.integers(0, vocab, size=int(rng.integers(16, 257))),
-             int(rng.integers(16, 49))) for _ in range(12)]
+             int(rng.integers(16, 49))) for _ in range(n)]
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    ids = {eng.submit(p, max_new_tokens=n): i for i, (p, n) in
-           enumerate(reqs[:8])}
+    ids = {eng.submit(p, max_new_tokens=m): i for i, (p, m) in
+           enumerate(reqs[:first])}
     results = {i: [] for i in range(len(reqs))}
     steps = k = 0
     while True:
         if k == 4:
-            ids.update({eng.submit(p, max_new_tokens=n): 8 + i
-                        for i, (p, n) in enumerate(reqs[8:])})
+            ids.update({eng.submit(p, max_new_tokens=m): first + i
+                        for i, (p, m) in enumerate(reqs[first:])})
         busy = bool(eng.queue) or any(r is not None for r in eng.slot_req)
         if not busy and k > 4:
             break
@@ -2687,7 +2886,7 @@ def phase_batching_perlayer(ckpt_dir: str):
 
 BATCHING_AGREE = 0.5
 
-EORA_LAYERS = 4                    # depth of the EoRA path (see PERF.md)
+EORA_LAYERS = 2                    # depth of the EoRA path (see PERF.md)
 
 
 def _quantile_lut_model(dense, cfg, lm_bits: int = 8):
@@ -2902,11 +3101,265 @@ def phase_eora_path():
     return out
 
 
+ARCH_LAYERS = 4                    # depth of the InternLM/Qwen2.5 paths
+QWEN3_LAYERS = 2                   # depth of the Qwen3 path (see PERF.md)
+
+
+def _w8_of_dense(p):
+    """A dense linear as a per-row int8 ``w8`` one (max-abs scales, as
+    ``optimize("w8")`` makes a quantized lm_head), so that kernel 14 folds
+    it into its steps."""
+    from ganq_tpu_torch.ops.qlinear import QLinear
+
+    w = p["weight"].float()
+    scale = torch.clamp(w.abs().amax(dim=1, keepdim=True), min=1e-12) / 127.0
+    w8 = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return QLinear("w8", {"w8": w8, "scale": scale}, bits=8,
+                   in_features=w.shape[1])
+
+
+def _arch_pack_check(q, label, keys, variant):
+    """The engine of ``q`` serves kernel 14's ``variant`` with the pack
+    operands ``keys`` (qk_nm, o/gate-up/down biases)."""
+    eng = q._get_engine()
+    mp = getattr(eng.model, "megapack_lb", None)
+    if q.backend != "cuda_a8" or mp is None or not set(keys) <= set(mp):
+        raise AssertionError(f"{label}: not on kernel 14 with {keys}")
+    for k in keys:
+        log(f"{label}: pack operand {k} {tuple(mp[k].shape)} "
+            f"max|.|={float(mp[k].abs().max()):.4g}")
+
+
+def phase_qwen3_path():
+    """Qwen3 end to end at Qwen3-8B's published widths, QWEN3_LAYERS of its
+    36 layers: a dense random
+    directory -> ``GanqModel.load(dir, qcfg)`` -> GANQ W4 quantize (the
+    README recipe on 8 rows of 2048 tokens, kernel 3 once per module and
+    iteration) -> save (``lut``) -> load -> ``optimize()`` (uniform 8-bit)
+    -> requests at batch 1, 8 and 64 through kernel 14 "w8p" with the
+    qk-norm rows ``qk_nm``, one launch a step, decode ms against
+    ``layout="perlayer"``; then a ``BatchingEngine`` (4 slots, the lm_head
+    int8 per row so that it folds) on 6 seeded requests, one kernel 14
+    launch a decode step, and a teacher-forced folded step against the
+    reference backend."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.models.transformer import attn_linears
+    from ganq_tpu_torch.ops.megastep_lowbit import mega_lm_operands
+    from ganq_tpu_torch.serve import batching, stacked
+
+    cfg = synthetic.qwen3_8b_config(QWEN3_LAYERS)
+    qcfg = QuantizeConfig(bits=4, quant_method="ganq", act_sort="asc",
+                          l_damp_style="ganq", dead="mean", ganq_iterations=5,
+                          codebook_init="kmeans_exact")
+    rng = np.random.default_rng(23)
+    rows = rng.integers(0, cfg.vocab_size, size=(8, 2048))
+    counters = _kernel_counters()
+    out = {"runs": []}
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as qdir:
+        t0 = time.time()
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=24,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        del dense
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        t1 = time.time()
+        g = GanqModel.load(dense_dir, qcfg)
+        qlog = g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        fallbacks = sum(bool(e.extra["fallback"]) for e in qlog)
+        expected = len(qlog) * qcfg.ganq_iterations + fallbacks
+        bad = [f"{e.layer}.{e.module}" for e in qlog
+               if not math.isfinite(e.loss)]
+        if (len(qlog) != 7 * QWEN3_LAYERS or bad
+                or launches.get("s_step_blocked") != expected):
+            raise AssertionError(f"Qwen3 quantize: {len(qlog)} modules, "
+                                 f"non-finite {bad}, launches {launches} "
+                                 f"(S-steps expected {expected})")
+        log(f"Qwen3 path: dense {QWEN3_LAYERS}-layer Qwen3-8B-width "
+            f"directory in {t1 - t0:.1f} s; GANQ W4 quantize {t2 - t1:.1f} s "
+            f"({(t2 - t1) / QWEN3_LAYERS:.1f} s a layer), launches "
+            f"{launches}")
+        out["runs"].append(launches)
+        out["quantize_s_per_layer"] = (t2 - t1) / QWEN3_LAYERS
+        g.save(qdir)
+        del g
+        torch.cuda.empty_cache()
+        q = GanqModel.load(qdir, dtype=torch.bfloat16)
+        lp0 = q.model.layers[0]
+        if (not q.cfg.qk_norm or lp0.q_norm is None
+                or lp0.attn["q"].kind != "lut"):
+            raise AssertionError("Qwen3 checkpoint lost its q/k norms")
+        q.optimize()
+    _arch_pack_check(q, "Qwen3 optimize()", ("qk_nm",), "w8p")
+    q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+               max_new_tokens=3, max_seq=32)                      # warm-up
+    out["runs"] += list(_run_requests(q, "Qwen3 optimize()", (
+        ("w8p_qkn_b1", 1, 128, 16, {}), ("w8p_qkn_b8", 8, 64, 8, {}),
+        ("w8p_qkn_b64", 64, 32, 4, {})), rng, want_variant="w8p").values())
+    out["decode_qwen3_w8p"] = _decode_ms(
+        q, "Qwen3-8B widths (kernel 14 w8p with qk_nm)",
+        ((1, 128, 16), (8, 64, 8), (64, 32, 8)), rng)
+
+    # continuous batching with the fold
+    q.model.lm_head = _w8_of_dense(q.model.lm_head)
+    eng = batching.BatchingEngine(q.cfg, q.model, backend=q.backend,
+                                  slots=4, max_seq=512)
+    if (eng._mega_variant != "w8p" or "qk_nm" not in eng._mp
+            or mega_lm_operands(q.cfg, eng._sp) is None):
+        raise AssertionError("the Qwen3 batching engine is not on kernel "
+                             "14's w8p qk-norm path with the fold")
+    kernel_of = kernel_of_linear(q.backend)
+    eng.submit(rng.integers(0, cfg.vocab_size, size=20), max_new_tokens=4)
+    eng.run_all()                                             # warm-up
+    _, steps, launches, dt, n_tok = _batching_traffic(
+        eng, rng, cfg.vocab_size, n=6, first=4)
+    want = {}
+    for lp in eng._sp.layers:
+        for p in list(attn_linears(lp).values()) + list(lp.mlp.values()):
+            want[kernel_of(p)] = want.get(kernel_of(p), 0) + 6
+    want.update(megastep_lowbit_decode=steps, w8_matmul=6)
+    log(f"Qwen3 batching (w8p, qk_nm and the fold, 4 slots): 6 requests, "
+        f"{n_tok} tokens in {steps} decode steps, {dt * 1e3:.1f} ms: "
+        f"{n_tok / dt:.1f} tokens/s (host clock, prefills included); "
+        f"launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError("Qwen3 batching launches differ from the path's")
+    out["runs"].append(launches)
+    sp, mp = eng._sp, eng._mp
+    with torch.inference_mode():
+        ids = torch.randint(0, cfg.vocab_size, (2, 131),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+        ck, cv = stacked.init_cache(q.cfg, len(sp.layers), 2, 256, "cuda")
+        tok = stacked.prefill(q.cfg, sp, ck, cv, ids, "reference").argmax(-1)
+        pos = torch.tensor([131, 131], dtype=torch.int32, device="cuda")
+        mk, mv = stacked._mega_cache(ck, cv)
+        a = batching._mega_decode_slots(q.cfg, sp, mp, mk, mv, tok, pos,
+                                        "w8p", q.backend).float()
+        b = stacked.decode_step(q.cfg, sp, ck, cv, tok, pos[0],
+                                "reference").float()
+    rel = float((a - b).norm() / b.norm())
+    log(f"Qwen3 batching teacher-forced folded step: rel_l2(fold, "
+        f"reference)={rel:.3e} top1 agree "
+        f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.2f} "
+        f"(tol 1e-1)")
+    if not torch.isfinite(a).all() or rel > 1e-1:
+        raise AssertionError("Qwen3 batching: folded logits off the "
+                             "reference")
+    out["batching"] = dict(tokens=n_tok, steps=steps, seconds=dt,
+                           tokens_per_s=n_tok / dt, rel_l2_reference=rel)
+    del q, eng, sp, mp, ck, cv, mk, mv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_internlm_path():
+    """InternLM at InternLM-7B's published widths, ARCH_LAYERS of its 32
+    layers, q/k/v/o biases from a seed: a dense random directory ->
+    ``GanqModel.load(dir, QuantizeConfig(sym=True, desc_act=False))`` ->
+    GPTQ W4 g128 (8 rows of 2048) -> save (GPTQ v1, biases beside the
+    codes) -> load -> requests at batch 1 and 16 through kernel 14 "w4p"
+    with ``o_bias``/``gu_bias``/``dn_bias``, one launch a step, decode ms
+    against ``layout="perlayer"``."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense
+    from ganq_tpu_torch.models import hf_import, synthetic
+
+    cfg = synthetic.internlm_7b_config(ARCH_LAYERS)
+    rng = np.random.default_rng(29)
+    rows = rng.integers(0, cfg.vocab_size, size=(8, 2048))
+    out = {"runs": []}
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as qdir:
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=30,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        del dense
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        g = GanqModel.load(dense_dir, QuantizeConfig(sym=True,
+                                                     desc_act=False))
+        g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        g.save(qdir)
+        del g
+        torch.cuda.empty_cache()
+        log(f"InternLM path: GPTQ W4 g128 sym {t1 - t0:.1f} s "
+            f"({(t1 - t0) / ARCH_LAYERS:.1f} s a layer)")
+        q = GanqModel.load(qdir, dtype=torch.bfloat16)
+    if "bias" not in q.model.layers[0].attn["o"]:
+        raise AssertionError("InternLM checkpoint lost its o bias")
+    _arch_pack_check(q, "InternLM GPTQ W4",
+                     ("o_bias", "gu_bias", "dn_bias"), "w4p")
+    q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+               max_new_tokens=3, max_seq=32)                      # warm-up
+    out["runs"] += list(_run_requests(q, "InternLM GPTQ W4", (
+        ("w4p_bias_b1", 1, 128, 16, {}), ("w4p_bias_b16", 16, 32, 8, {})),
+        rng, want_variant="w4p").values())
+    out["decode_internlm_w4p"] = _decode_ms(
+        q, "InternLM-7B widths (kernel 14 w4p with biases)",
+        ((1, 128, 16), (16, 32, 8)), rng)
+    del q
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_qwen2_path():
+    """Qwen2.5 at Qwen2.5-7B's published widths, ARCH_LAYERS of its 28
+    layers, q/k/v biases from a seed: a random 4-bit ``lut`` model saved,
+    loaded, ``optimize()``d and asked a batch-1 request through kernel 14
+    "w8p" (the biases in its qkv bias operand), one launch a step."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+
+    cfg = synthetic.qwen2_5_7b_config(ARCH_LAYERS)
+    rng = np.random.default_rng(31)
+    out = {"runs": []}
+    with tempfile.TemporaryDirectory() as d:
+        with torch.inference_mode():
+            model = synthetic.make_model(cfg, kind="lut", bits=4, seed=32,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_quantized(d, hf_import.config_to_hf(cfg),
+                       QuantizeConfig(bits=4, quant_method="ganq"), model)
+        del model
+        torch.cuda.empty_cache()
+        q = GanqModel.load(d, dtype=torch.bfloat16)
+        q.optimize()
+    eng = q._get_engine()
+    mp = getattr(eng.model, "megapack_lb", None)
+    if mp is None or float(mp["qkv_bias"].abs().max()) == 0.0:
+        raise AssertionError("Qwen2.5: kernel 14's pack has no qkv bias")
+    log(f"Qwen2.5 optimize(): qkv_bias {tuple(mp['qkv_bias'].shape)} "
+        f"max|.|={float(mp['qkv_bias'].abs().max()):.4g}")
+    q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+               max_new_tokens=3, max_seq=32)                      # warm-up
+    out["runs"] += list(_run_requests(q, "Qwen2.5 optimize()", (
+        ("w8p_qkv_bias_b1", 1, 128, 16, {}),), rng,
+        want_variant="w8p").values())
+    out["decode_qwen2_5_w8p"] = _decode_ms(
+        q, "Qwen2.5-7B widths (kernel 14 w8p, qkv biases)", ((1, 128, 16),),
+        rng)
+    del q, eng, mp
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
     phase_build()
     kernels = phase_kernels()
+    phase_done("kernels (phase 3)", t_start)
     ckpt = tempfile.TemporaryDirectory()
     try:
         q, launches, _ = phase_main_path(ckpt.name)
@@ -2929,22 +3382,39 @@ def main() -> int:
         runs.append(phase_batching_perlayer(ckpt.name))
     finally:
         ckpt.cleanup()
+    phase_done("1B paths (phases 4-8, 12)", t_start)
     # the stacked paths at Llama-3.2-3B (kernels 6 and 8-14)
     three_b = phase_3b_path()
+    phase_done("3B path (phase 9)", t_start)
     runs += three_b["runs"]
     # kernel 14 with zero points and act-order at Llama-3.1-8B widths, then
     # Mixtral through kernel 15 (with kernels 6 and 2 around it)
     eight_b = phase_8b_path()
+    phase_done("8B path (phase 10)", t_start)
     runs += eight_b["runs"]
     mixtral = phase_mixtral_path()
+    phase_done("Mixtral path (phase 11)", t_start)
     runs += mixtral["runs"]
     # continuous batching through kernel 14 with the lm fold, and the server
     batching_run = phase_batching_path()
+    phase_done("batching path (phase 13)", t_start)
     runs += batching_run["runs"]
     # EoRA: quantize with adapters, post-quant adapters, kernel 14's
     # epilogue in the static engine and the batching engine
     eora = phase_eora_path()
+    phase_done("EoRA path (phase 14)", t_start)
     runs += eora["runs"]
+    # Qwen3 (kernel 14 with qk_nm), InternLM (its biases), Qwen2.5 (qkv
+    # biases)
+    qwen3 = phase_qwen3_path()
+    phase_done("Qwen3 path (phase 15)", t_start)
+    runs += qwen3["runs"]
+    internlm = phase_internlm_path()
+    phase_done("InternLM path (phase 16)", t_start)
+    runs += internlm["runs"]
+    qwen2 = phase_qwen2_path()
+    phase_done("Qwen2.5 path (phase 17)", t_start)
+    runs += qwen2["runs"]
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
                  "attn_half_decode_w8a8", "megastep_decode_w8a8",
@@ -2994,8 +3464,11 @@ def main() -> int:
                               "bound_ms_b8", "by_case") if x in k},
          "shape": k["shape"]} for k in kernels]}
     log("decode ms per step (host clock): " + json.dumps(
-        {k: v for d in (three_b, eight_b, mixtral, batching_run, eora)
+        {k: v for d in (three_b, eight_b, mixtral, batching_run, eora,
+                        qwen3, internlm, qwen2)
          for k, v in d.items() if k.startswith("decode_")}))
+    log("Qwen3 path: " + json.dumps({k: qwen3[k] for k in (
+        "quantize_s_per_layer", "batching")}))
     log("batching: " + json.dumps({k: batching_run[k] for k in (
         "traffic", "teacher_forced")}))
     log("EoRA path: " + json.dumps({k: eora[k] for k in (
@@ -3003,6 +3476,7 @@ def main() -> int:
     log(f"card: {smi}; wall {time.time() - t_start:.1f} s")
     k14 = next(k for k in kernels if k["name"] == "megastep_lowbit_decode")
     log(json.dumps({"k14_lora": k14["lora"]}))
+    log(json.dumps({"k14_arch": k14["arch"]}))
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

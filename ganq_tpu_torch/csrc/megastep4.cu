@@ -26,7 +26,8 @@
 // cudaError_t.
 extern "C" int ganq_megastep4(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->bits != 4 || !p->kmajor || p->B > 8 || lora_any(p))
+  if (p->bits != 4 || !p->kmajor || p->B > 8 || lora_any(p) ||
+      arch_any(p))
     return (int)cudaErrorInvalidValue;
   return (int)launch_grouped_b<4, true, false>(*p, s);
 }

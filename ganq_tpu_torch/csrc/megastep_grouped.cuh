@@ -62,6 +62,19 @@
 // float32 multiply-adds per output by the lane that owns it, reading lb_*
 // in bf16.
 //
+// Kernel 14 with qwen3's qk-norm or o/gate-up/down biases (the ARCH
+// instantiations, megastep_lowbit_arch*.cu) adds the TPU kernel's
+// with_qkn and with_bias operands, each null where the pack has none: the
+// biases by the lane that owns the output, where the TPU kernel adds them
+// (o's and down's after their EoRA terms and before the residual, gate's
+// and up's after theirs and before the activation); with qk_nm phase 2
+// writes its float32 rows, bias and EoRA term added, to qkv_f instead of
+// roping and storing them, and phase 3's block for (token row b, kv head g)
+// first normalizes the heads it reads, its query heads, key head and value
+// head (qk_norm_rope_heads: each head's mean square over its 128 lanes,
+// the per-lane weight where qk_nm's mask is set), ropes and stores them in
+// bf16: every head has one owner and the norm adds no grid barrier.
+//
 // and after the last layer y = x. Kernel 14 with the trailing-unembed fold
 // (the LM instantiations) then runs, after a barrier each, the final norm
 // and int8 rows (row_norm_quant with the final norm's weight: the rounding
@@ -489,7 +502,7 @@ __device__ __forceinline__ float lora_out(int r, XaOf xa_of, LbOf lb_of) {
 // in float32 (kernel 14, lane rolls) or rounded to bf16 (kernel 13, sign
 // permutation), out in bf16 to qkv_out and the layer's kn/vn. LORA adds
 // xa_q . lb_q[row]^T after the bias.
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA>
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH>
 __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -553,6 +566,12 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
     const float yp = __shfl_sync(0xffffffffu, yv,
                                  lane < FT ? lane + FT : lane - FT);
     if (!mine) continue;
+    if constexpr (ARCH) {
+      if (a.qk_nm) {       // normed, roped and stored in phase 3
+        a.qkv_f[(size_t)(b0 + b) * Dqkv + row] = yv;
+        continue;
+      }
+    }
     float out = yv;
     if (pair_rope && row < n_rope) {
       const float c = a.cos_half[(size_t)(b0 + b) * a.cos_ld + ci];
@@ -569,13 +588,81 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   }
 }
 
+// Kernel 14's qk-norm (ARCH with qk_nm) for token row b and kv head g: the
+// heads that phase 3's unit (b, g) reads, its qpk query heads, key head and
+// value head, from the float32 pre-rope rows qkv_f. A warp per head: each
+// lane holds 4 of its 128 lanes, their squares summed and then summed over
+// the warp (the mean square), y * (rsqrt(msq + eps) * (w + rms_offset))
+// where qk_nm's mask row is set (w its weight row), rope with the partner
+// lane in float32 as gphase_qkv's, bf16 into qkv_out and the layer's kn /
+// vn. sh: kWarps * 128 floats. Ends with a block barrier.
+__device__ void qk_norm_rope_heads(const W8A8Args& a, int l, int b, int g,
+                                   float* sh) {
+  constexpr int d = 128;
+  const int Hkv = a.kv_dim / d, Hq = a.q_dim / d, qpk = Hq / Hkv;
+  const int Dqkv = a.q_dim + 2 * a.kv_dim, rh = a.rd >> 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* w = a.qk_nm + (size_t)l * 2 * Dqkv;
+  const float* m = w + Dqkv;
+  const float* yrow = a.qkv_f + (size_t)b * Dqkv;
+  bf16* kn = a.kn + ((size_t)l * a.B + b) * a.kv_dim;
+  bf16* vn = a.vn + ((size_t)l * a.B + b) * a.kv_dim;
+  float* hs = sh + warp * d;
+  for (int j = warp; j < qpk + 2; j += kWarps) {
+    const int head = j < qpk ? g * qpk + j : (j == qpk ? Hq + g : Hq + Hkv + g);
+    const int base = head * d;
+    float y[4], ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      y[c] = yrow[base + lane + 32 * c];
+      ss = fmaf(y[c], y[c], ss);
+    }
+    const float r = rsqrtf(__fmul_rn(warp_sum(ss), 1.f / d) + a.eps);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = base + lane + 32 * c;
+      if (m[i] != 0.f)
+        y[c] = __fmul_rn(y[c], __fmul_rn(r, w[i] + a.rms_offset));
+      hs[lane + 32 * c] = y[c];
+    }
+    __syncwarp();
+    const bool roped = a.rd && base < a.q_dim + a.kv_dim;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = lane + 32 * c;
+      float out = y[c];
+      if (roped && k < a.rd) {
+        int ci, p;
+        bool first;
+        if (a.interleaved) {
+          ci = k >> 1, p = k ^ 1, first = !(k & 1);
+        } else {
+          first = k < rh, ci = first ? k : k - rh, p = first ? k + rh : k - rh;
+        }
+        const float cv = a.cos_half[(size_t)b * a.cos_ld + ci];
+        const float sv = a.sin_half[(size_t)b * a.cos_ld + ci];
+        out = __fadd_rn(__fmul_rn(y[c], cv),
+                        __fmul_rn(first ? -hs[p] : hs[p], sv));
+      }
+      const bf16 o = __float2bfloat16(out);
+      a.qkv_out[(size_t)b * Dqkv + base + k] = o;
+      if (base >= a.q_dim + a.kv_dim)
+        vn[base - a.q_dim - a.kv_dim + k] = o;
+      else if (base >= a.q_dim)
+        kn[base - a.q_dim + k] = o;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
 // --------------------------------------------------------------- gate/up
 // A warp per (gate, up) packed row pair of gu_pk [2 I / F, H] (gate tiles,
 // then up tiles; tile-major scales gu_gs [G, 2 I]): act(g * sx) * (u * sx)
 // into act_a [B, I] and max|a| per (token row, tile) into amax. LORA adds
 // xa_g . lb_g[row]^T to gate and up before the activation (lb_g's rows
 // tile-major like the scales' columns).
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA>
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH>
 __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -612,21 +699,31 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
         [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; });
     const int b = lane % TB, f = (lane / TB) % F;
     float v;
-    if constexpr (LORA) {
+    if constexpr (LORA || ARCH) {
       // gate (lanes < FT) and up (FT .. 2 FT) each add their rank-r term
-      // to y * sx, then the up value goes to its gate lane
-      const float lora = lora_out<2 * FT>(
-          a.r_g,
-          [&](int w) {
-            return w % TB < nb ? a.xa_g + (size_t)(b0 + w % TB) * a.r_g
-                               : nullptr;
-          },
-          [&](int w) {
-            return a.lb_g + ((size_t)l * 2 * I + col(w)) * a.r_g;
-          });
+      // (LORA) and bias (ARCH) to y * sx, then the up value goes to its
+      // gate lane
+      float lora = 0.f;
+      if constexpr (LORA)
+        lora = lora_out<2 * FT>(
+            a.r_g,
+            [&](int w) {
+              return w % TB < nb ? a.xa_g + (size_t)(b0 + w % TB) * a.r_g
+                                 : nullptr;
+            },
+            [&](int w) {
+              return a.lb_g + ((size_t)l * 2 * I + col(w)) * a.r_g;
+            });
       const bool ok = lane < 2 * FT && b < nb;
       float yy = 0.f;
-      if (ok) yy = __fadd_rn(__fmul_rn(y, a.sx[b0 + b]), lora);
+      if (ok) {
+        yy = __fmul_rn(y, a.sx[b0 + b]);
+        if constexpr (LORA) yy = __fadd_rn(yy, lora);
+        if constexpr (ARCH) {
+          if (a.gu_bias)
+            yy = __fadd_rn(yy, a.gu_bias[(size_t)l * 2 * I + col(lane)]);
+        }
+      }
       const float yu = __shfl_sync(0xffffffffu, yy,
                                    lane < FT ? lane + FT : lane);
       if (lane >= FT || b >= nb) continue;
@@ -649,7 +746,7 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // rows); x[b][n] += (sum_g s_g z_g) * sa[b] for the rows n it owns (a8
 // staged from the quantized attention output). LORA adds xa_o . lb_o[n]^T
 // to the product before the residual.
-template <int TB, int BITS, bool OPT, bool LORA>
+template <int TB, int BITS, bool OPT, bool LORA, bool ARCH>
 __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
                               float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -697,6 +794,10 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
     if (lane >= 2 * TB || b >= nb) continue;
     float upd = __fmul_rn(y, sa_s[b]);
     if constexpr (LORA) upd = __fadd_rn(upd, lora);
+    if constexpr (ARCH) {
+      if (a.o_bias)
+        upd = __fadd_rn(upd, a.o_bias[(size_t)l * H + row_of(lane)]);
+    }
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
     *xr = __fadd_rn(*xr, upd);
   }
@@ -707,7 +808,7 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
 // to the residual rows it owns (a8 staged per tile from the quantized
 // activation; dn_gs [NG * gtp, H], each tile's groups padded to gtp rows).
 // LORA adds xa_d . lb_d[n]^T to ma before the residual.
-template <int TB, int BITS, bool OPT, bool LORA>
+template <int TB, int BITS, bool OPT, bool LORA, bool ARCH>
 __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
                                  float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -762,6 +863,10 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
     const int b = lane % TB;
     if (lane >= 2 * TB || b >= nb) continue;
     if constexpr (LORA) ma = __fadd_rn(ma, lora);
+    if constexpr (ARCH) {
+      if (a.dn_bias)
+        ma = __fadd_rn(ma, a.dn_bias[(size_t)l * H + row_of(lane)]);
+    }
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
     *xr = __fadd_rn(*xr, ma);
   }
@@ -923,11 +1028,14 @@ __device__ void gphase_vocab(const W8A8Args& a, int8_t* xs) {
 // LM: the instantiation with kernel 14's trailing-unembed fold (its own
 // source, megastep_lowbit_lm.cu), so that the kernels without it keep the
 // code and register allocation they have; LORA: the one with the EoRA
-// epilogue (megastep_lowbit_lora*.cu), for the same reason
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA>
+// epilogue (megastep_lowbit_lora*.cu), and ARCH the one with the qk-norm
+// and biases (megastep_lowbit_arch*.cu), for the same reason
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA,
+          bool ARCH>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_megastep_kernel(W8A8Args a) {
   static_assert(!(LORA && KMAJ), "the EoRA epilogue is kernel 14's");
+  static_assert(!(ARCH && KMAJ), "qk-norm and biases are kernel 14's");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);
@@ -963,11 +1071,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     grid.sync();
     // 2: qkv + rope; zero the MLP tile maxima
     for (size_t e = tid; e < (size_t)a.B * ng; e += nthreads) a.amax[e] = 0;
-    gphase_qkv<TB, BITS, KMAJ, OPT, LORA>(a, l, xs_s, pf);
+    gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH>(a, l, xs_s, pf);
     grid.sync();
-    // 3: attention
+    // 3: attention (with qk-norm, its heads normed and roped first)
     for (int u = blockIdx.x; u < a.B * Hkv; u += gridDim.x) {
       const int b = u / Hkv, g = u - b * Hkv;
+      if constexpr (ARCH) {
+        if (a.qk_nm)
+          qk_norm_rope_heads(a, l, b, g, reinterpret_cast<float*>(work));
+      }
       const size_t off = (size_t)l * a.cache_sl + (size_t)b * a.cache_sb +
                          (size_t)g * a.cache_sg;
       attn_unit(a, b, g, a.qkv_out, a.k_cache + off, a.v_cache + off, a.attn,
@@ -999,7 +1111,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
       }
     } else {
-      gphase_o_rows<TB, BITS, OPT, LORA>(a, l, xs_s, sa_s, pf);
+      gphase_o_rows<TB, BITS, OPT, LORA, ARCH>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
     // 6: MLP norm and int8 rows
@@ -1013,7 +1125,7 @@ __global__ void __launch_bounds__(kThreads, 2)
               a.r_g, a.xa_g, reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 7: gate/up
-    gphase_gateup<TB, BITS, KMAJ, OPT, LORA>(a, l, xs_s, pf);
+    gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH>(a, l, xs_s, pf);
     grid.sync();
     // 8: the activation's int8 rows per tile
     for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
@@ -1034,7 +1146,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                           return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
                         });
     } else {
-      gphase_down_rows<TB, BITS, OPT, LORA>(a, l, xs_s, sa_s, pf);
+      gphase_down_rows<TB, BITS, OPT, LORA, ARCH>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
   }
@@ -1055,9 +1167,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA>
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA,
+          bool ARCH>
 cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
-  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA>;
+  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA, ARCH>;
   size_t kmax = (size_t)a.H;
   if (!KMAJ) kmax = (size_t)std::max(a.H, std::max(a.q_dim, a.ti));
   size_t work = sizeof(float) * kAttnSmemFloats;
@@ -1088,13 +1201,17 @@ cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
 
 // OPT: the kernel that reads kernel 14's zero points and act-order orders;
 // LM: the one with its trailing-unembed fold; LORA: the one with its EoRA
-// epilogue
-template <int BITS, bool KMAJ, bool OPT, bool LM = false, bool LORA = false>
+// epilogue; ARCH: the one with its qk-norm and biases
+template <int BITS, bool KMAJ, bool OPT, bool LM = false, bool LORA = false,
+          bool ARCH = false>
 cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
-  if (a.B <= 1) return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA>(a, s);
-  if (a.B <= 2) return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA>(a, s);
-  if (a.B <= 4) return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA>(a, s);
-  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA>(a, s);
+  if (a.B <= 1)
+    return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
+  if (a.B <= 2)
+    return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
+  if (a.B <= 4)
+    return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
+  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
 }
 
 // whether any EoRA operand is set, and whether all of them are (a
@@ -1110,6 +1227,21 @@ __host__ __forceinline__ bool lora_all(const W8A8Args* p) {
          p->r_q > 0 && p->r_o > 0 && p->r_g > 0 && p->r_d > 0 &&
          !p->kmajor && p->B <= 64 && p->H % 8 == 0 && p->q_dim % 8 == 0 &&
          p->ti % 8 == 0;
+}
+
+// whether any of kernel 14's qk-norm and bias operands is set, and whether
+// they make an ARCH launch: the qk-norm rows with their scratch, or the
+// three biases, or both, on row-major packs at batch <= 64
+__host__ __forceinline__ bool arch_any(const W8A8Args* p) {
+  return p->qk_nm || p->o_bias || p->gu_bias || p->dn_bias || p->qkv_f;
+}
+
+__host__ __forceinline__ bool arch_ok(const W8A8Args* p) {
+  const bool biases = p->o_bias && p->gu_bias && p->dn_bias;
+  const bool none = !p->o_bias && !p->gu_bias && !p->dn_bias;
+  return !p->kmajor && p->B <= 64 && (biases || none) &&
+         (p->qk_nm != nullptr) == (p->qkv_f != nullptr) &&
+         (p->qk_nm || biases);
 }
 
 // a kernel-14 call with the fold: row-major packs, batch <= 64, every lm

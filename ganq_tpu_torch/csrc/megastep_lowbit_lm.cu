@@ -21,7 +21,8 @@
 // Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep_lowbit_lm(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!lm_operands_ok(p) || p->qkv_sz || p->ap_q || lora_any(p))
+  if (!lm_operands_ok(p) || p->qkv_sz || p->ap_q || lora_any(p) ||
+      arch_any(p))
     return (int)cudaErrorInvalidValue;
   if (p->bits == 4) return (int)launch_grouped_b<4, false, false, true>(*p, s);
   if (p->bits == 8) return (int)launch_grouped_b<8, false, false, true>(*p, s);

@@ -21,7 +21,8 @@
 // ones. Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep_lowbit_lora_lm_opt(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!lora_all(p) || !lm_operands_ok(p) || !(p->qkv_sz || p->ap_q))
+  if (!lora_all(p) || !lm_operands_ok(p) || !(p->qkv_sz || p->ap_q) ||
+      arch_any(p))
     return (int)cudaErrorInvalidValue;
   if (p->bits == 4)
     return (int)launch_grouped_b<4, false, true, true, true>(*p, s);

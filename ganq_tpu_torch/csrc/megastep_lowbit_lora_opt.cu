@@ -23,7 +23,8 @@
 // ones. Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep_lowbit_lora_opt(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!lora_all(p) || !(p->qkv_sz || p->ap_q) || p->lm_w8)
+  if (!lora_all(p) || !(p->qkv_sz || p->ap_q) || p->lm_w8 ||
+      arch_any(p))
     return (int)cudaErrorInvalidValue;
   if (p->bits == 4)
     return (int)launch_grouped_b<4, false, true, false, true>(*p, s);

@@ -20,7 +20,7 @@
 extern "C" int ganq_megastep_lowbit_opt(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->kmajor || p->B > 64 || !(p->qkv_sz || p->ap_q) || p->lm_w8 ||
-      lora_any(p))
+      lora_any(p) || arch_any(p))
     return (int)cudaErrorInvalidValue;
   if (p->bits == 4) return (int)launch_grouped_b<4, false, true>(*p, s);
   if (p->bits == 8) return (int)launch_grouped_b<8, false, true>(*p, s);

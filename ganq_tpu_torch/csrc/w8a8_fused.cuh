@@ -119,6 +119,16 @@ struct W8A8Args {
   float* xa_g;
   float* xa_d;
   int r_q, r_o, r_g, r_d;
+  // kernel 14's architecture operands (the ARCH instantiations; each null
+  // where the pack has none), float32: qwen3's qk-norm rows [L, 2, Dqkv]
+  // (the lane-expanded norm weight over the apply mask), the o, gate/up
+  // and down biases [L, H], [L, 2 I] (tile-major like gu_gs) and [L, H],
+  // and with qk_nm the scratch [B, Dqkv] of the pre-rope qkv rows
+  const float* qk_nm;
+  const float* o_bias;
+  const float* gu_bias;
+  const float* dn_bias;
+  float* qkv_f;
 };
 
 namespace {

@@ -1,7 +1,9 @@
 """HF config and tensors -> the port's :class:`Model`.
 
-The port of ``ganq_tpu/models/hf_import.py`` for the llama family and
-mixtral (MoE layers: a dense router and per-expert gate/up/down): the HF
+The port of ``ganq_tpu/models/hf_import.py`` for the llama family (with
+Qwen3's q/k norms and the biases of Qwen2 and InternLM, taken where the
+checkpoint has them) and mixtral (MoE layers: a dense router and per-expert
+gate/up/down): the HF
 config dict becomes a :class:`ModelConfig`, and HF tensor names map onto the
 model's parameter paths through the registry's ``name_map``.
 :func:`params_from_dir` reads a dense checkpoint directory;
@@ -25,7 +27,7 @@ from ..core.backend import resolve_device
 from ..formats.safetensors_io import load_file
 from ..ops import qlinear
 from .registry import get_spec
-from .transformer import Layer, Model, ModelConfig
+from .transformer import QK_NORMS, Layer, Model, ModelConfig
 
 _ATTN = ("q", "k", "v", "o")
 _MLP = ("gate", "up", "down")
@@ -54,6 +56,8 @@ def config_to_hf(cfg: ModelConfig) -> Dict[str, Any]:
             "rope_scaling": cfg.rope_scaling, "hidden_act": cfg.act,
             "attention_bias": cfg.attn_bias, "mlp_bias": cfg.mlp_bias,
             "tie_word_embeddings": cfg.tie_word_embeddings,
+            **({"bias": cfg.attn_bias} if cfg.model_type == "internlm"
+               else {}),
             **({"num_local_experts": cfg.num_experts,
                 "num_experts_per_tok": cfg.num_experts_per_tok}
                if cfg.num_experts else {})}
@@ -147,11 +151,16 @@ def params_from_state_dict(state: Dict[str, torch.Tensor],
                 "experts": [slots(i, f"moe.experts.{e}", _MLP)
                             for e in range(cfg.num_experts)]}
 
+    def qk_norms(i: int) -> Dict[str, Optional[torch.Tensor]]:
+        if not cfg.qk_norm:
+            return {}
+        return {n: get(f"layers.{{i}}.attn.{n}.weight", i) for n in QK_NORMS}
+
     layers = [Layer(get("layers.{i}.input_norm.weight", i),
                     get("layers.{i}.post_norm.weight", i),
                     attn=slots(i, "attn", _ATTN),
                     mlp={} if cfg.num_experts else slots(i, "mlp", _MLP),
-                    moe=moe(i))
+                    moe=moe(i), **qk_norms(i))
               for i in range(cfg.num_hidden_layers)]
     embed = get("embed_tokens.weight")
     lm = get("lm_head.weight")
@@ -202,12 +211,14 @@ def params_from_numpy(cfg_dict: Dict[str, Any], arrays: Dict[str, Any],
                    "experts": [{n: linear(f"{p}.moe.experts.{e}.{n}")
                                 for n in _MLP}
                                for e in range(cfg.num_experts)]}
+        norms = {n: tensor(arrays[f"{p}.attn.{n}.weight"]) for n in QK_NORMS
+                 if f"{p}.attn.{n}.weight" in arrays}
         layers.append(Layer(
             tensor(arrays[f"{p}.input_norm.weight"]),
             tensor(arrays[f"{p}.post_norm.weight"]),
             attn={n: linear(f"{p}.attn.{n}") for n in _ATTN},
             mlp={} if moe else {n: linear(f"{p}.mlp.{n}") for n in _MLP},
-            moe=moe))
+            moe=moe, **norms))
     model = Model(tensor(arrays["embed_tokens.weight"]),
                   tensor(arrays["final_norm.weight"]), layers,
                   linear("lm_head"))

@@ -1,6 +1,7 @@
-"""Architecture registry: the llama and mixtral ``ArchSpec``s.
+"""Architecture registry: the llama-family and mixtral ``ArchSpec``s.
 
-The port of the llama and mixtral entries of ``ganq_tpu/models/registry.py``:
+The port of the llama, mistral, qwen2, yi, mobilellm, qwen3, internlm and
+mixtral entries of ``ganq_tpu/models/registry.py``:
 how a HF config becomes a :class:`ModelConfig`, how HF tensor names map
 onto the model's parameter paths, and which linears are quantized (their
 checkpoint module names, the slots they fill and the order of the
@@ -132,6 +133,62 @@ register(ArchSpec(
     model_type="llama",
     make_config=_llama_config,
     name_map=LLAMA_NAME_MAP,
+    layer_modules=LLAMA_LAYER_MODULES,
+    module_slots=LLAMA_SLOTS,
+))
+
+
+# llama-family derivatives that share the llama spec verbatim, as in the JAX
+# package (qwen2's q/k/v biases are picked up by presence; mistral's
+# sliding_window is not read there either: ROADMAP.md queue C)
+for _mt in ("mistral", "qwen2", "yi", "mobilellm"):
+    register(ArchSpec(
+        model_type=_mt,
+        make_config=_llama_config,
+        name_map=LLAMA_NAME_MAP,
+        layer_modules=LLAMA_LAYER_MODULES,
+        module_slots=LLAMA_SLOTS,
+    ))
+
+
+# ---------------------------------------------------------------------- qwen3
+def _qwen3_config(hf: Dict[str, Any]) -> ModelConfig:
+    return dataclasses.replace(_llama_config(hf), model_type="qwen3",
+                               qk_norm=True)
+
+
+QWEN3_NAME_MAP = {
+    **LLAMA_NAME_MAP,
+    "layers.{i}.attn.q_norm.weight": "model.layers.{i}.self_attn.q_norm.weight",
+    "layers.{i}.attn.k_norm.weight": "model.layers.{i}.self_attn.k_norm.weight",
+}
+
+register(ArchSpec(
+    model_type="qwen3",
+    make_config=_qwen3_config,
+    name_map=QWEN3_NAME_MAP,
+    layer_modules=LLAMA_LAYER_MODULES,
+    module_slots=LLAMA_SLOTS,
+))
+
+
+# ------------------------------------------------------------------- internlm
+def _internlm_config(hf: Dict[str, Any]) -> ModelConfig:
+    """InternLM v1: llama with q/k/v/o biases (``config.bias``, default
+    true); the tensor names are llama's."""
+    return dataclasses.replace(_llama_config(hf), model_type="internlm",
+                               attn_bias=hf.get("bias", True))
+
+
+INTERNLM_NAME_MAP = {
+    **LLAMA_NAME_MAP,
+    "layers.{i}.attn.o.bias": "model.layers.{i}.self_attn.o_proj.bias",
+}
+
+register(ArchSpec(
+    model_type="internlm",
+    make_config=_internlm_config,
+    name_map=INTERNLM_NAME_MAP,
     layer_modules=LLAMA_LAYER_MODULES,
     module_slots=LLAMA_SLOTS,
 ))

@@ -1,6 +1,7 @@
 """Synthetic models: random weights at real architecture widths.
 
-The port of ``llama_config`` and ``make_model`` (with Mixtral's experts) of
+The port of ``llama_config`` and ``make_model`` (with Mixtral's experts,
+Qwen3's q/k norms and the biases of Qwen2 and InternLM) of
 ``ganq_tpu/models/synthetic.py``, with its kinds ``dense``, ``lut``,
 ``lut_affine``, ``lut_affine_sym``, ``uniform`` and ``w8``. Random weights have the compute
 and memory behaviour of trained ones, so quantization runs, serving runs and
@@ -92,6 +93,45 @@ def mixtral_8x7b_config(layers: int = 32) -> ModelConfig:
         num_experts_per_tok=2)
 
 
+def qwen3_8b_config(layers: int = 36) -> ModelConfig:
+    """Qwen3-8B at its published widths (huggingface.co/Qwen/Qwen3-8B
+    config.json: vocab 151936, hidden 4096, intermediate 12288, 36 layers,
+    32 heads, 8 KV heads, head_dim 128, per-head q/k RMSNorm, rope theta
+    1e6, rms eps 1e-6, untied embeddings); ``layers`` may cut the depth."""
+    return dataclasses.replace(
+        llama_config(hidden=4096, inter=12288, layers=layers, heads=32,
+                     kv_heads=8, vocab=151936, max_pos=40960,
+                     rope_theta=1e6),
+        model_type="qwen3", norm_eps=1e-6, qk_norm=True,
+        tie_word_embeddings=False)
+
+
+def internlm_7b_config(layers: int = 32) -> ModelConfig:
+    """InternLM-7B (v1) at its published widths (huggingface.co/internlm/
+    internlm-7b config.json: vocab 103168, hidden 4096, intermediate 11008,
+    32 layers, 32 heads (MHA), head_dim 128, q/k/v/o biases (``bias:
+    true``), rope theta 10000, rms eps 1e-6, untied); ``layers`` may cut
+    the depth."""
+    return dataclasses.replace(
+        llama_config(hidden=4096, inter=11008, layers=layers, heads=32,
+                     kv_heads=32, vocab=103168, max_pos=2048),
+        model_type="internlm", norm_eps=1e-6, attn_bias=True,
+        tie_word_embeddings=False)
+
+
+def qwen2_5_7b_config(layers: int = 28) -> ModelConfig:
+    """Qwen2.5-7B at its published widths (huggingface.co/Qwen/Qwen2.5-7B
+    config.json: vocab 152064, hidden 3584, intermediate 18944, 28 layers,
+    28 heads, 4 KV heads, head_dim 128, q/k/v biases, rope theta 1e6, rms
+    eps 1e-6, untied); ``layers`` may cut the depth."""
+    return dataclasses.replace(
+        llama_config(hidden=3584, inter=18944, layers=layers, heads=28,
+                     kv_heads=4, vocab=152064, max_pos=131072,
+                     rope_theta=1e6),
+        model_type="qwen2", norm_eps=1e-6, attn_bias=True,
+        tie_word_embeddings=False)
+
+
 def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
                      device) -> qlinear.QLinear:
     """A random ``lut`` linear: sorted bf16 codebooks with std 0.006 (the
@@ -166,7 +206,10 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     weights and an embedding of std 0.02 (tied, as ``llama_config`` sets;
     an untied config gets a dense lm_head of std 0.02). A MoE config
     (``num_experts``) gets per layer a dense router of std 0.02 and
-    ``num_experts`` experts of ``kind`` in place of the MLP.
+    ``num_experts`` experts of ``kind`` in place of the MLP. A config with
+    ``attn_bias`` gets q/k/v biases of std 0.1 (and an o bias for
+    ``internlm``), one with ``qk_norm`` per-head q/k norm weights in
+    [0.75, 1.25), all from the seed.
     ``lm_head_kind`` gives the model a quantized lm_head of that kind at
     ``lm_head_bits`` (``ganq_tpu/models/synthetic.py:181-228``: the
     reference's 8-bit lm_head rule), untied whatever the config says."""
@@ -194,17 +237,30 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     def mlp():
         return {"gate": lin(it, h), "up": lin(it, h), "down": lin(h, it)}
 
+    def with_bias(m, n):
+        m.register_buffer("bias", (torch.randn(n, generator=gen, device=device)
+                                   * 0.1).to(dtype))
+        return m
+
     def layer():
         attn = {"q": lin(q, h), "k": lin(kv, h), "v": lin(kv, h),
                 "o": lin(h, q)}
+        if cfg.attn_bias:           # q/k/v biases (qwen2), o too (internlm)
+            for n, width in (("q", q), ("k", kv), ("v", kv)) + (
+                    (("o", h),) if cfg.model_type == "internlm" else ()):
+                with_bias(attn[n], width)
         norms = (torch.ones(h, dtype=dtype, device=device),
                  torch.ones(h, dtype=dtype, device=device))
+        extra = {}
+        if cfg.qk_norm:
+            extra = {n: (torch.rand(cfg.head_dim, generator=gen, device=device)
+                         * 0.5 + 0.75).to(dtype) for n in ("q_norm", "k_norm")}
         if not cfg.num_experts:
-            return Layer(*norms, attn=attn, mlp=mlp())
+            return Layer(*norms, attn=attn, mlp=mlp(), **extra)
         router = _rand_dense_linear(gen, cfg.num_experts, h, device, dtype)
         return Layer(*norms, attn=attn, mlp={}, moe={
             "router": router,
-            "experts": [mlp() for _ in range(cfg.num_experts)]})
+            "experts": [mlp() for _ in range(cfg.num_experts)]}, **extra)
 
     layers = [layer() for _ in range(cfg.num_hidden_layers)]
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device)
@@ -219,4 +275,5 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
 
 
 __all__ = ["llama_config", "llama_3_2_1b_config", "llama_3_2_3b_config",
-           "llama_3_1_8b_config", "mixtral_8x7b_config", "make_model"]
+           "llama_3_1_8b_config", "mixtral_8x7b_config", "qwen3_8b_config",
+           "internlm_7b_config", "qwen2_5_7b_config", "make_model"]

@@ -2,8 +2,9 @@
 functions for the math.
 
 The port of the llama subset of ``ganq_tpu/models/transformer.py``: RMSNorm,
-rope with linear or llama3 frequency scaling, grouped-query attention, the
-gated SiLU MLP and tied embeddings; and Mixtral's sparse MoE in place of the
+rope with linear or llama3 frequency scaling, grouped-query attention with
+optional q/k/v/o biases (Qwen2, InternLM) and Qwen3's per-head q/k RMSNorm,
+the gated SiLU MLP and tied embeddings; and Mixtral's sparse MoE in place of the
 MLP (top-k softmax routing, the masked per-expert loop, and on "cuda_a8"
 the fused expert kernel, kernel 15, for decode-shaped steps). The weights live in ``nn.Module``s whose
 buffer paths are the JAX package's parameter paths
@@ -42,7 +43,7 @@ from ..ops.fused_mlp import fused_mlp_w8a8
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    model_type: str                   # "llama"
+    model_type: str                   # "llama", "qwen3", "internlm", ...
     vocab_size: int
     hidden_size: int
     intermediate_size: int
@@ -61,6 +62,15 @@ class ModelConfig:
     attn_scale: Optional[float] = None  # default 1/sqrt(head_dim)
     num_experts: int = 0              # 0: a dense MLP (mixtral: 8)
     num_experts_per_tok: int = 2
+    # per-head RMSNorm of q and k over head_dim before rope (qwen3): True or
+    # "head"; the JAX package's "flat" (olmo2) and "cohere" raise
+    qk_norm: Any = False
+
+    def __post_init__(self):
+        if self.qk_norm not in (False, True, "head"):
+            raise NotImplementedError(
+                f"qk_norm={self.qk_norm!r} comes with the rest of the model "
+                "zoo (ROADMAP.md queue A item 6)")
 
     @property
     def q_dim(self) -> int:
@@ -96,24 +106,40 @@ class Pack(nn.Module):
         return {k: v for k, v in self._buffers.items() if v is not None}
 
 
+QK_NORMS = ("q_norm", "k_norm")
+
+
 class Layer(nn.Module):
     """One decoder layer's weights: two norms, attention q/k/v/o and the
     gated MLP gate/up/down, each a :class:`~ganq_tpu_torch.ops.qlinear.QLinear`
     (fused ``qkv`` and ``gateup`` in the stacked layout, which may also give
     the transposed ``w8`` o weight ``o_t_w8 [Dq, H]`` and its scale
-    ``o_t_scale [1, H]``). A MoE layer has no MLP and holds ``moe``: the
-    dense ``router`` [E, H], the ``experts`` (each a dict of gate/up/down
-    linears) and, after ``optimize()`` on the card, kernel 15's packed
-    experts ``mega`` (a :class:`Pack`)."""
+    ``o_t_scale [1, H]``). A qk-norm layer (qwen3) also holds the per-head
+    norm weights ``q_norm`` and ``k_norm`` [head_dim] (given as tensors, or
+    as the :class:`Weights` entries of an ``attn`` dict taken from another
+    layer), kept in ``attn`` so that their paths are the JAX package's
+    (``layers.0.attn.q_norm.weight``); :func:`attn_linears` gives the
+    linears alone. A MoE layer has no MLP
+    and holds ``moe``: the dense ``router`` [E, H], the ``experts`` (each a
+    dict of gate/up/down linears) and, after ``optimize()`` on the card,
+    kernel 15's packed experts ``mega`` (a :class:`Pack`)."""
 
     def __init__(self, input_norm: torch.Tensor, post_norm: torch.Tensor,
                  attn: Dict[str, nn.Module], mlp: Dict[str, nn.Module],
                  o_t_w8: Optional[torch.Tensor] = None,
                  o_t_scale: Optional[torch.Tensor] = None,
-                 moe: Optional[Dict[str, Any]] = None):
+                 moe: Optional[Dict[str, Any]] = None,
+                 q_norm: Optional[torch.Tensor] = None,
+                 k_norm: Optional[torch.Tensor] = None):
         super().__init__()
         self.input_norm = Weights(input_norm)
         self.post_norm = Weights(post_norm)
+        attn = dict(attn)
+        for name, w in (("q_norm", q_norm), ("k_norm", k_norm)):
+            if w is not None:
+                attn[name] = Weights(w)
+        if ("q_norm" in attn) != ("k_norm" in attn):
+            raise ValueError("q_norm and k_norm come together")
         self.attn = nn.ModuleDict(attn)
         self.mlp = nn.ModuleDict(mlp)
         self.register_buffer("o_t_w8", o_t_w8)
@@ -124,6 +150,19 @@ class Layer(nn.Module):
             self.moe = nn.ModuleDict(
                 {**{k: v for k, v in moe.items() if k != "experts"},
                  "experts": experts})
+
+    @property
+    def q_norm(self) -> Optional[torch.Tensor]:
+        return self.attn["q_norm"].weight if "q_norm" in self.attn else None
+
+    @property
+    def k_norm(self) -> Optional[torch.Tensor]:
+        return self.attn["k_norm"].weight if "k_norm" in self.attn else None
+
+
+def attn_linears(lp: Layer) -> Dict[str, nn.Module]:
+    """The attention linears of a layer (``attn`` without its qk norms)."""
+    return {k: v for k, v in lp.attn.items() if k not in QK_NORMS}
 
 
 class Model(nn.Module):
@@ -140,7 +179,9 @@ class Model(nn.Module):
 
 # ---------------------------------------------------------------------- norms
 def apply_norm(weight: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in float32, result in x's type."""
+    """RMSNorm over the last axis in float32, result in x's type (the JAX
+    package's ``_rms_vec`` too: the per-head qk norms are this over
+    head_dim)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
@@ -336,7 +377,7 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
 
     # the attention half in one kernel (11) and the fused MLP (9): opt-in
     if (plain_decode and b <= 8 and a8 and hd == 128 and _w8_gateup(lp)
-            and lp.o_t_w8 is not None
+            and lp.o_t_w8 is not None and not cfg.qk_norm
             and os.environ.get("GANQ_FUSED_LAYER", "0") == "1"
             and attn_half_fusable(cfg, lp)):
         ap = attn["qkv"]
@@ -358,7 +399,7 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     # norm + qkv + rope in one kernel (10): opt-in
     use_fused_qkv = False
     if (plain_decode and a8 and "qkv" in attn and attn["qkv"].kind == "w8"
-            and "lora_a" not in attn["qkv"]
+            and "lora_a" not in attn["qkv"] and not cfg.qk_norm
             and os.environ.get("GANQ_FUSED_QKV", "0") != "0"):
         kvd = (attn["qkv"]["w8"].shape[0] - cfg.q_dim) // 2
         use_fused_qkv = qkv_fusable_tile(cfg.q_dim, kvd, hd) is not None
@@ -393,6 +434,11 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
         q = q.reshape(b, s, -1, hd)
         k = k.reshape(b, s, -1, hd)
         v = v.reshape(b, s, -1, hd)
+        if cfg.qk_norm:
+            # per-head RMSNorm over head_dim before rope (qwen3;
+            # ganq_tpu/models/transformer.py:646-652)
+            q = apply_norm(lp.q_norm, q, cfg.norm_eps)
+            k = apply_norm(lp.k_norm, k, cfg.norm_eps)
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -546,6 +592,7 @@ def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,
     return unembed(cfg, model, x, backend)
 
 
-__all__ = ["ModelConfig", "Weights", "Pack", "Layer", "Model", "layer_forward",
+__all__ = ["ModelConfig", "Weights", "Pack", "Layer", "Model", "attn_linears",
+           "layer_forward",
            "forward", "embed", "unembed", "apply_norm", "rope_tables",
            "apply_rope", "attention", "causal_mask"]

@@ -129,16 +129,16 @@ def attn_half_plain(x: torch.Tensor, norm_w: Optional[torch.Tensor],
 def attn_half_fusable(cfg, lp) -> bool:
     """The JAX package's gate of kernel 11 (``fused_layer.py:365``) for the
     port's llama layers: a fused ``w8`` qkv without an EoRA adapter and the
-    transposed o weight, no bias on o, head_dim 128 and a 128-multiple hidden width, and a qkv row
-    tile (the architecture conditions of the JAX gate hold for every llama
-    layer the port builds)."""
+    transposed o weight, no bias on o, head_dim 128, a 128-multiple hidden
+    width, no qk-norm, and a qkv row tile (the JAX gate's other
+    architecture conditions hold for every layer the port builds)."""
     attn = lp.attn
     qkv = attn["qkv"] if "qkv" in attn else None
     if qkv is None or getattr(lp, "o_t_w8", None) is None or qkv.kind != "w8":
         return False
     if "lora_a" in qkv or "bias" in attn["o"]:
         return False
-    if cfg.head_dim != 128 or cfg.hidden_size % 128:
+    if cfg.head_dim != 128 or cfg.hidden_size % 128 or cfg.qk_norm:
         return False
     kvd = (qkv["w8"].shape[0] - cfg.q_dim) // 2
     return qkv_fusable_tile(cfg.q_dim, kvd, cfg.head_dim) is not None

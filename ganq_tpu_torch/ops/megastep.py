@@ -94,10 +94,11 @@ def megapack(cfg, sp) -> Dict[str, torch.Tensor]:
 def megastep_fusable(cfg, sp) -> bool:
     """The JAX gate of kernel 12 (``megastep.py:442``) on the port's stacked
     model: fused ``w8`` qkv, gateup and down with the transposed o, no EoRA
-    adapter on them, no bias on gateup or down, head_dim 128, a 128-multiple hidden width, gateup
-    unpadded, and a qkv row tile. The JAX gate's architecture conditions
-    (rope, pre-norm rmsnorm, gated MLP, no window, no MoE, ...) hold for
-    every llama model the port builds."""
+    adapter on them, no bias on gateup or down, head_dim 128, a
+    128-multiple hidden width, no qk-norm, gateup unpadded, and a qkv row
+    tile. The JAX gate's other architecture conditions (rope, pre-norm
+    rmsnorm, gated MLP, no window, no MoE, ...) hold for every model the
+    port builds."""
     if sp is None or not len(sp.layers):
         return False
     lp = sp.layers[0]
@@ -113,7 +114,7 @@ def megastep_fusable(cfg, sp) -> bool:
         return False
     if "bias" in dn or "bias" in gu:
         return False
-    if cfg.head_dim != 128 or cfg.hidden_size % 128:
+    if cfg.head_dim != 128 or cfg.hidden_size % 128 or cfg.qk_norm:
         return False
     if gu["w8"].shape[1] != cfg.hidden_size:
         return False

@@ -83,8 +83,9 @@ def _pair_cols(codes_t: torch.Tensor) -> torch.Tensor:
 
 def _uniform_mats(sp, bits: int, zeros: bool = False):
     """The four fused linears of every layer, checked to be the uniform
-    ``bits``-bit artifacts the whole-step kernels take: symmetric, or, where
-    ``zeros`` (kernel 14), with zero points and EoRA adapters."""
+    ``bits``-bit artifacts the whole-step kernels take: symmetric without
+    o/gate-up/down biases, or, where ``zeros`` (kernel 14), with zero
+    points, EoRA adapters and those biases."""
     later = ("g_idx",) if zeros else ("zeros", "g_idx", "lora_a")
     out = []
     for lp in sp.layers:
@@ -98,9 +99,9 @@ def _uniform_mats(sp, bits: int, zeros: bool = False):
                     raise NotImplementedError(
                         f"megapack: {feature!r} artifacts (asym zero points, "
                         "act-order, EoRA) are a later slice of the port")
-        if any("bias" in m for m in mats[1:]):
-            raise NotImplementedError("megapack: o/gate-up/down biases are a "
-                                      "later slice of the port")
+        if not zeros and any("bias" in m for m in mats[1:]):
+            raise ValueError("megapack4: kernel 13 takes no o/gate-up/down "
+                             "biases")
         out.append(mats)
     return out
 
@@ -191,9 +192,9 @@ def megastep4_fusable(cfg, sp) -> bool:
     """The JAX gate (``megastep4.py:642``) on the port's stacked model:
     qkv, o, gateup and down all ``uniform`` 4-bit, sequential symmetric
     groups of one 128-multiple size, no bias on o, gateup or down,
-    head_dim 128, a hidden width that is a multiple of 256, and a qkv tile.
-    The JAX gate's architecture conditions hold for every llama model the
-    port builds."""
+    head_dim 128, a hidden width that is a multiple of 256, no qk-norm,
+    and a qkv tile. The JAX gate's other architecture conditions hold for
+    every model the port builds."""
     if sp is None or not len(sp.layers):
         return False
     lp = sp.layers[0]
@@ -220,7 +221,7 @@ def megastep4_fusable(cfg, sp) -> bool:
         gss.add(gs)
     if len(gss) != 1:
         return False
-    if cfg.head_dim != 128 or cfg.hidden_size % 256:
+    if cfg.head_dim != 128 or cfg.hidden_size % 256 or cfg.qk_norm:
         return False
     Dqkv = qkv["scales"].shape[0]
     kvd = (Dqkv - cfg.q_dim) // 2
@@ -307,6 +308,22 @@ def rope_rows_per_slot(y: torch.Tensor, cos_b: torch.Tensor,
     return torch.cat([roped.reshape(B, n_roped), y[:, n_roped:]], dim=1)
 
 
+def qk_norm_rows(y: torch.Tensor, qk_nm: torch.Tensor, head_dim: int,
+                 eps: float, rms_offset: float) -> torch.Tensor:
+    """Kernel 14's per-head RMS of the float32 qkv rows y [B, Dqkv]
+    (``megastep_lowbit.py:592-601``): each head's mean square over
+    head_dim, then ``y * (rsqrt(msq + eps) * (w + rms_offset))`` on the
+    lanes whose mask (``qk_nm[1]``) is set, y elsewhere; ``qk_nm`` [2, Dqkv]
+    is the lane-expanded weight row over the mask row."""
+    B, D = y.shape
+    yh = y.reshape(B, D // head_dim, head_dim)
+    msq = (yh * yh).sum(dim=-1, keepdim=True) * (1.0 / head_dim)
+    w = qk_nm[0].reshape(D // head_dim, head_dim)
+    m = qk_nm[1].reshape(D // head_dim, head_dim)
+    f = torch.where(m != 0.0, torch.rsqrt(msq + eps) * (w + rms_offset), 1.0)
+    return (yh * f).reshape(B, D)
+
+
 def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        L: int, k_cache: torch.Tensor, v_cache: torch.Tensor,
                        pos, cos_half: Optional[torch.Tensor],
@@ -331,7 +348,11 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     attention output; gate/up's at the MLP norm, added before the
     activation; down's ``x @ A^T`` summed over the MLP tiles in tile order
     from each tile's float activation, and both o's and down's added to
-    the product before the residual. ``pos`` [B] holds each slot's
+    the product before the residual. Kernel 14's architecture operands
+    come last at the same points (``megastep_lowbit.py:592-601, 759-760,
+    833-836, 878-879``): ``qk_nm`` (:func:`qk_norm_rows`) after q's EoRA
+    term and before rope; ``o_bias``, ``gate_bias``/``up_bias`` and
+    ``dn_bias`` each after its product's EoRA term. ``pos`` [B] holds each slot's
     history length; cos/sin_half are [rotary_dim / 2] or [B, rotary_dim /
     2]. Returns (y, the float32 residual after the last layer; k_new,
     v_new [L, B, kv_dim] bf16)."""
@@ -365,6 +386,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
         if lora:
             y = y + rank_r(rank_r(perm(xf, op.get("ap_q")), op["la_q"]),
                            op["lb_q"])
+        if "qk_nm" in op:
+            y = qk_norm_rows(y, op["qk_nm"], d, eps, rms_offset)
         if rotary_dim:
             y = rope_rows_per_slot(y, cos_b, sin_b, q_dim + kv_dim, d,
                                    rotary_dim, interleaved, partner_bf16)
@@ -383,6 +406,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
         if lora:
             af = perm(a.reshape(B, q_dim).to(torch.float32), op.get("ap_o"))
             upd = upd + rank_r(rank_r(af, op["la_o"]), op["lb_o"])
+        if "o_bias" in op:
+            upd = upd + op["o_bias"]
         xs = xs + upd
         xf = perm(rms_rows(xs, op["mlp_norm"], eps, rms_offset),
                   op.get("ap_g"))
@@ -406,6 +431,9 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
             if lora:
                 gu = [g + rank_r(xa_g, op[k][cols])
                       for g, k in zip(gu, ("lb_gate", "lb_up"))]
+            if "gate_bias" in op:
+                gu = [g + op[k][cols] for g, k in zip(gu, ("gate_bias",
+                                                           "up_bias"))]
             at = activation(gu[0], act) * gu[1]
             a8m, sam = quantize_rows(at)
             if lora:
@@ -415,6 +443,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                                    tile(dn_sz, grp)) * sam
         if lora:
             ma = ma + rank_r(xa_d, op["lb_d"])
+        if "dn_bias" in op:
+            ma = ma + op["dn_bias"]
         xs = xs + ma
     return xs, torch.stack(kns), torch.stack(vns)
 

@@ -5,7 +5,8 @@ The port of ``ganq_tpu/ops/megastep_lowbit.py``. ``ganq_tpu`` serves
 homogeneous uniform W4/W3/W2/W8 models ("w4p", "w3", "w2", "w8p") and true
 8-entry 3-bit codebooks ("wl8", the Walsh plane expansion) at decode batch
 <= 64 through ``megastep_lowbit_decode``. The port has the "w4p" and "w8p"
-variants, with zero points, act-order and EoRA adapters:
+variants, with zero points, act-order, EoRA adapters, qwen3's per-head
+qk-norm and o/gate-up/down biases:
 :func:`megapack_lowbit` packs the JAX package's planes (keys, shapes and
 bytes), zero-point corrections and adapter factors,
 :func:`actorder_transform` bakes act-order artifacts into a pack-only copy
@@ -14,14 +15,15 @@ and gives the column orders of the activations, and
 (``ganq_megastep_lowbit``, one cooperative launch; packs with zero points or
 act-order ``csrc/megastep_lowbit_opt.cu``, with the lm fold
 ``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``, with EoRA
-adapters ``csrc/megastep_lowbit_lora*.cu``) for CUDA tensors and runs
+adapters ``csrc/megastep_lowbit_lora*.cu``, with the qk-norm rows or biases
+``csrc/megastep_lowbit_arch*.cu``: :func:`kernel_library`) for CUDA tensors and runs
 :func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
 counts kernel calls. With ``lm`` (:func:`mega_lm_operands`) the step also
 folds the final norm and a ``w8`` lm_head in (the trailing-unembed fold,
 :func:`lm_fold_plain`) and returns the logits. It raises
 NotImplementedError naming the feature for every operand of a later
-sub-slice: w3/w2, the Walsh LUTs, biases, qk-norm, sandwich norms,
-windows and softcap.
+sub-slice: w3/w2, the Walsh LUTs, sandwich norms, windows, softcap and
+dual rope.
 
 The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
 product sums, over its groups in order, the group's bf16 scale times the
@@ -140,11 +142,24 @@ def _mlp_plan(I: int, bits: int, H: int, cap: int = 48 * 1024 * 1024) -> tuple:
     return best[1], best[2]
 
 
-def _arch_fusable_common(cfg) -> bool:
+def _arch_fusable_common(cfg, sp) -> bool:
     """The architecture surface of the plane kernels
-    (``megastep_lowbit.py:1905``) for the port's llama models: head_dim 128
-    (the remaining conditions hold for every llama model the port builds)."""
-    return cfg.head_dim == 128
+    (``megastep_lowbit.py:1905``) for the port's llama-family models:
+    head_dim 128, and a qk-norm only per head (True or "head") with q and k
+    norm weights of width head_dim (the remaining conditions hold for every
+    model the port builds)."""
+    if cfg.head_dim != 128:
+        return False
+    if cfg.qk_norm:
+        if cfg.qk_norm not in (True, "head"):
+            return False
+        lp = sp.layers[0]
+        if lp.q_norm is None or lp.k_norm is None:
+            return False
+        if (lp.q_norm.shape[-1] != cfg.head_dim
+                or lp.k_norm.shape[-1] != cfg.head_dim):
+            return False
+    return True
 
 
 def _fused(sp):
@@ -175,7 +190,7 @@ def megastep_walsh_fusable(cfg, sp) -> bool:
     for m in mats:
         if m["idx_packed"].shape[-1] * pack_factor(3) != m.in_features:
             return False
-    if not _arch_fusable_common(cfg):
+    if not _arch_fusable_common(cfg, sp):
         return False
     H = cfg.hidden_size
     if H % 8 or (H // 8) % 128:
@@ -230,7 +245,7 @@ def megastep_lowbit_fusable(cfg, sp, bits: int) -> bool:
         return False
     if cfg.hidden_size % (g_r * 128):
         return False
-    if not _arch_fusable_common(cfg):
+    if not _arch_fusable_common(cfg, sp):
         return False
     Dqkv = qkv["scales"].shape[0]
     kvd = (Dqkv - cfg.q_dim) // 2
@@ -284,7 +299,8 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     package's ``megapack_lowbit``: plane bytes ``qkv_pk``, ``o_pk``,
     ``gu_pk`` (gate tiles, then up tiles), ``dn_pk``, bf16 scales with the
     groups leading (``gu_s`` and ``dn_s`` tile-major), the qkv bias and the
-    norms; where any projection has zero points, the float32 corrections
+    norms; qwen3's ``qk_nm`` and the o/gate-up/down biases
+    (:func:`_arch_pack_ops`); where any projection has zero points, the float32 corrections
     ``qkv_sz``, ``o_sz``, ``gu_sz`` and ``dn_sz`` in the scales' layouts;
     where all four carry EoRA adapters, their factors rounded to bf16
     (``megastep_lowbit.py:1746-1763``): ``la_q`` [L, rq, H], ``lb_q`` [L,
@@ -345,8 +361,57 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
                 out[f"lb_{name}"].append(lb.to(torch.bfloat16))
     mp = {k: torch.stack(v) for k, v in out.items()}
     mp.update(common_pack_ops(sp, mats))
+    mp.update(_arch_pack_ops(cfg, sp, mats, I, ti))
     return mp
 
+
+def _arch_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
+    """The architecture operands of ``ganq_tpu``'s ``_common_pack_ops``
+    (``megastep_lowbit.py:1698-1745``): for a per-head qk-norm model
+    ``qk_nm`` [L, 2, Dqkv] float32, the lane-expanded weight row (q heads
+    ``q_norm``, k heads ``k_norm``, v lanes 1) over the apply-mask row (1 on
+    q and k lanes, 0 on v); where o, gate/up or down has a bias, ``o_bias``
+    [L, 1, H], ``gu_bias`` [L, 1, 2I] tile-major like ``gu_s`` (gate tile,
+    then up tile) and ``dn_bias`` [L, 1, H] float32, zeros for a projection
+    without one."""
+    out = {}
+    L = len(mats)
+    Dqkv = mats[0][0]["scales"].shape[0]
+    H = mats[0][1]["scales"].shape[0]
+    dev = mats[0][0]["scales"].device
+    d = cfg.head_dim
+    lp0 = sp.layers[0]
+    if lp0.q_norm is not None and cfg.qk_norm in (True, "head"):
+        kvd = (Dqkv - cfg.q_dim) // 2
+        rows = []
+        for lp in sp.layers:
+            w = torch.cat([lp.q_norm.to(torch.float32).repeat(cfg.q_dim // d),
+                           lp.k_norm.to(torch.float32).repeat(kvd // d),
+                           torch.ones(kvd, device=dev)])
+            m = torch.cat([torch.ones(cfg.q_dim + kvd, device=dev),
+                           torch.zeros(kvd, device=dev)])
+            rows.append(torch.stack([w, m]))
+        out["qk_nm"] = torch.stack(rows)
+    if any("bias" in m for mm in mats for m in mm[1:]):
+        def bias(m, width):
+            return (m["bias"].to(torch.float32) if "bias" in m
+                    else torch.zeros(width, device=dev))
+
+        def gu_tiles(b):
+            return torch.cat([b[a * I + t * ti:a * I + (t + 1) * ti]
+                              for t in range(I // ti) for a in (0, 1)])
+
+        out["o_bias"] = torch.stack([bias(m[1], H) for m in mats]).reshape(
+            L, 1, H)
+        out["gu_bias"] = torch.stack([gu_tiles(bias(m[2], 2 * I))
+                                      for m in mats]).reshape(L, 1, 2 * I)
+        out["dn_bias"] = torch.stack([bias(m[3], H) for m in mats]).reshape(
+            L, 1, H)
+    return out
+
+
+# kernel 14's qk-norm and bias operands (the ARCH instantiations)
+_ARCH_KEYS = ("qk_nm", "o_bias", "gu_bias", "dn_bias")
 
 # kernel 14's EoRA operands (A and B of q, o, gate/up and down)
 _LORA_KEYS = ("la_q", "lb_q", "la_o", "lb_o", "la_g", "lb_g", "la_d", "lb_d")
@@ -455,7 +520,8 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
                          qkv_cap_mb: int = 12, zp: bool = False,
                          aperm: bool = False,
                          lora: Optional[tuple] = None,
-                         tv: int = 0) -> Dict[str, int]:
+                         tv: int = 0, qkn: bool = False,
+                         biases: bool = False) -> Dict[str, int]:
     """The JAX wrapper's run-time plan (``megastep_lowbit.py:966-1087``):
     the qkv tile ``tq``, the MLP tile ``ti`` (baked into the pack), the
     tiles per grid step ``ptq``/``ptg`` and the flash block ``Tb``:
@@ -463,8 +529,9 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
     ptg, then ptq, cut) while the TPU's VMEM estimate exceeds its budget.
     The estimate counts the optional operands: zero points ``zp``,
     act-order ``aperm`` (the JAX package's Beneš masks, 2 log2(n) - 1
-    stages), the EoRA ranks ``lora`` (rq, ro, rg, rd) and the fold's
-    vocabulary tile ``tv``. Tb and ti set rounding points."""
+    stages), the EoRA ranks ``lora`` (rq, ro, rg, rd), the fold's
+    vocabulary tile ``tv``, the qk-norm rows ``qkn`` and the o/gate-up/down
+    ``biases``. Tb and ti set rounding points."""
     metas, _, _, g_r = _plan_meta(bits)
     npl = len(metas)
     d = head_dim
@@ -517,6 +584,10 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
                             + H * ro_ + rg_ * H + ptg_ * 2 * ti * rg_
                             + rd_ * ptg_ * ti + H * rd_)
             est += 4 * B * (rq_ + rg_ + rd_)
+        if qkn:
+            est += 2 * 4 * 2 * ptq_ * tq
+        if biases:
+            est += 2 * 4 * (2 * H + ptg_ * 2 * ti)
         if tv:
             est += 2 * (tv * H + 4 * 8 * tv) + 4 * H + 2 * 4 * B * tv
         est += 2 * B * H + 2 * 2 * 2 * B * kv_dim + 4 * BGp_ * 128
@@ -568,7 +639,8 @@ def _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
         mp["qkv_pk"].shape[1] * g_r, mp["gu_s"].shape[2] // 2, bits,
         H // mp["qkv_s"].shape[1], block_t, qkv_cap_mb, zp="qkv_sz" in mp,
         aperm="ap_q" in mp, lora=_lora_ranks(mp),
-        tv=lm["scale"].shape[-1] if lm is not None else 0)
+        tv=lm["scale"].shape[-1] if lm is not None else 0,
+        qkn="qk_nm" in mp, biases="o_bias" in mp)
 
 
 # --------------------------------------------------------------- the step
@@ -600,6 +672,16 @@ def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
 
     zp = "qkv_sz" in mp
 
+    def arch(l):
+        out = {}
+        if "qk_nm" in mp:
+            out["qk_nm"] = mp["qk_nm"][l]
+        if "o_bias" in mp:
+            gb, ub = gate_up("gu_bias", l)
+            out.update(o_bias=mp["o_bias"][l, 0], gate_bias=gb[0],
+                       up_bias=ub[0], dn_bias=mp["dn_bias"][l, 0])
+        return out
+
     def lora(l):
         if "la_q" not in mp:
             return {}
@@ -625,7 +707,7 @@ def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
             "down": (_plane_codes(mp["dn_pk"][l], H, bits), down("dn_s", l),
                      down("dn_sz", l) if zp else None),
             "bias": mp["qkv_bias"][l, 0], "attn_norm": mp["attn_norm"][l, 0],
-            "mlp_norm": mp["mlp_norm"][l, 0],
+            "mlp_norm": mp["mlp_norm"][l, 0], **arch(l),
             **{k: mp[k][l].long() for k in ("ap_q", "ap_g", "ap_o")
                if k in mp}}
     return ops
@@ -712,9 +794,7 @@ def mega_lm_operands(cfg, sp, max_tile_bytes: int = 4 * 1024 * 1024
 
 
 # operands of kernel 14's later sub-slices and what each serves
-_LATER_OPERANDS = {"qk_nm": "qk-norm",
-                   "pa_norm": "sandwich norms",
-                   "o_bias": "o/gate-up/down biases"}
+_LATER_OPERANDS = {"pa_norm": "sandwich norms"}
 
 
 def _later_feature(mp, bits: int, softcap=0.0, windows=None,
@@ -844,6 +924,25 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         for n in ("q", "o", "g", "d"):
             extra[f"xa_{n}"] = torch.empty((B, ranks[f"r_{n}"]),
                                            dtype=torch.float32, device=dev)
+    arch = {k: mp[k] for k in _ARCH_KEYS if k in mp}
+    if arch:
+        if ("o_bias" in arch) != ("dn_bias" in arch) or (
+                "o_bias" in arch) != ("gu_bias" in arch):
+            raise ValueError(f"{what}: o_bias, gu_bias and dn_bias come "
+                             "together")
+        for name, shape in (("qk_nm", (L, 2, Dqkv)), ("o_bias", (L, 1, H)),
+                            ("gu_bias", (L, 1, 2 * I)),
+                            ("dn_bias", (L, 1, H))):
+            t = arch.get(name)
+            if t is not None and (kmajor or t.dtype != torch.float32
+                                  or tuple(t.shape) != shape
+                                  or not t.is_contiguous()):
+                raise ValueError(f"{what}: {name} must be contiguous float32 "
+                                 f"{shape} (kernel 14)")
+        extra.update(arch)
+        if "qk_nm" in arch:     # the pre-rope qkv rows the norm pass reads
+            extra["qkv_f"] = torch.empty((B, Dqkv), dtype=torch.float32,
+                                         device=dev)
     V = 0
     if lm is not None:
         V = lm["w8"].shape[0]
@@ -900,6 +999,20 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     return y.to(x.dtype), kn, vn, extra["logits"]
 
 
+def kernel_library(mp: Dict[str, torch.Tensor], fold: bool) -> str:
+    """The kernel-14 source a pack's call runs: packs with qwen3's qk-norm
+    or o/gate-up/down biases the ARCH instantiations
+    (``csrc/megastep_lowbit_arch*.cu``), with EoRA adapters the ones with
+    the rank-r epilogue (``_lora``), steps with the fold theirs (``_lm``),
+    packs with zero points or act-order the ones that read them (``_opt``);
+    each optional operand is compiled into its own instantiations, so that
+    the kernels without it keep their code."""
+    return ("megastep_lowbit"
+            + ("_arch" if any(k in mp for k in _ARCH_KEYS) else "")
+            + ("_lora" if "la_q" in mp else "") + ("_lm" if fold else "")
+            + ("_opt" if "qkv_sz" in mp or "ap_q" in mp else ""))
+
+
 def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
                            pos, cos_half: Optional[torch.Tensor],
@@ -915,8 +1028,9 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     """Kernel 14, one decode step over all layers ("w4p" at ``bits=4``,
     "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
     ``mp`` from :func:`megapack_lowbit`, with the zero-point corrections
-    ``*_sz``, the act-order orders ``ap_*`` (:func:`actorder_transform`)
-    and the EoRA factors ``la_*``/``lb_*`` where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
+    ``*_sz``, the act-order orders ``ap_*`` (:func:`actorder_transform`),
+    the EoRA factors ``la_*``/``lb_*``, qwen3's ``qk_nm`` and the
+    o/gate-up/down biases where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
     history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B] int
     tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at each
     slot's position. Returns (y [B, H], the hidden state before the final
@@ -944,14 +1058,7 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                                      lm=lm, qkv_cap_mb=qkv_cap_mb)
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
                     qkv_cap_mb, lm)
-    # packs with zero points or act-order run the kernel's other
-    # instantiation (csrc/megastep_lowbit_opt.cu), steps with the fold
-    # theirs (csrc/megastep_lowbit_lm.cu, megastep_lowbit_lm_opt.cu), packs
-    # with EoRA adapters the ones with the rank-r epilogue
-    # (csrc/megastep_lowbit_lora*.cu)
-    lib = ("megastep_lowbit" + ("_lora" if "la_q" in mp else "")
-           + ("_lm" if lm is not None else "")
-           + ("_opt" if "qkv_sz" in mp or "ap_q" in mp else ""))
+    lib = kernel_library(mp, lm is not None)
     out = launch_grouped(
         lib, f"ganq_{lib}", "megastep_lowbit_decode",
         x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},

@@ -16,8 +16,10 @@ Two modes, picked at construction in ``ganq_tpu``'s order:
   over every slot, at per-slot positions, with a ``w8`` lm_head folded into
   that launch (``ops/megastep_lowbit.mega_lm_operands``). The per-layer
   model is dropped; prompts prefill through the stacked layers. A variant
-  whose kernel the port has not yet (kernel 14's w3/w2/wl8, biases)
-  raises NotImplementedError here. EoRA adapters ride the step (kernel
+  whose kernel the port has not yet (kernel 14's w3/w2/wl8) raises
+  NotImplementedError here. Qwen3's qk-norm and InternLM's biases ride
+  the step in the pack (kernel 14's ``qk_nm``, ``o_bias``, ``gu_bias``,
+  ``dn_bias``). EoRA adapters ride the step (kernel
   14's epilogue) or, per layer, ``ops/qlinear.apply``'s rank-r term.
 - **per layer**: ``models/transformer.layer_forward`` at a vector of cache
   positions (the masked attention, the linears' kernels).

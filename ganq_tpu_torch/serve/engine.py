@@ -44,7 +44,7 @@ def stacked_only_kernel(cfg: ModelConfig, sp: Optional[Model], backend: str,
     runs for this request the port has not ported, or None: where the
     request decodes and ``serve/stacked.mega_enabled`` picks a variant that
     ``serve/stacked.missing_kernel`` names (kernel 14's "w3", "w2" and
-    "wl8", and its later sub-slices' operands). ``sp`` is the engine's
+    "wl8"). ``sp`` is the engine's
     stacked model."""
     from . import stacked
 

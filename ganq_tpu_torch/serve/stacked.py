@@ -12,10 +12,10 @@ Routing follows the JAX package's. :func:`mega_enabled` picks the whole-step
 variant of a request from the gates of the whole-step kernels, in the JAX
 order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
 (``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
-(``ops/megastep_lowbit.py``); kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"``,
-and its variants with optional operands other than zero points,
-act-order, EoRA adapters and the trailing-unembed lm fold (biases), come
-with later slices (:func:`missing_kernel`, ``ROADMAP.md`` queue B). The
+(``ops/megastep_lowbit.py``, with zero points, act-order, EoRA adapters,
+the trailing-unembed lm fold, qwen3's qk-norm and o/gate-up/down biases);
+kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"`` come with later slices
+(:func:`missing_kernel`, ``ROADMAP.md`` queue B). The
 decode steps of a request with a variant run
 the megastep once per step; the others, and every prefill, run the layers
 one by one (``models/transformer.layer_forward``), where the fused MLP
@@ -35,9 +35,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..models.transformer import (Layer, Model, ModelConfig,
-                                  _fused_act_kind, _rope_half_tables, embed,
-                                  rope_tables, unembed)
+from ..models.transformer import (QK_NORMS, Layer, Model, ModelConfig,
+                                  _fused_act_kind, _rope_half_tables,
+                                  attn_linears, embed, rope_tables, unembed)
 from ..ops.qlinear import (QLinear, certify_uniform, concat_rows, recode_w8,
                            w8_to_uniform8)
 from .engine import decode_step as _decode_layers
@@ -73,7 +73,9 @@ def fuse_layer(lp: Layer) -> Layer:
     attn = dict(a.items())
     extra = {}
     if all(k in a for k in ("q", "k", "v")):
-        attn = {"qkv": concat_rows([a["q"], a["k"], a["v"]]), "o": a["o"]}
+        # qwen3's q/k norms ride along (their entries of ``attn``)
+        attn = {"qkv": concat_rows([a["q"], a["k"], a["v"]]), "o": a["o"],
+                **{k: a[k] for k in QK_NORMS if k in a}}
         o = a["o"]
         if o.kind == "w8" and "lora_a" not in o and "bias" not in o:
             extra = {"o_t_w8": o["w8"].T.contiguous(),
@@ -85,7 +87,8 @@ def fuse_layer(lp: Layer) -> Layer:
 
 
 def _map_linears(lp: Layer, fn) -> Layer:
-    return _layer(lp, {k: fn(v) for k, v in lp.attn.items()},
+    return _layer(lp, {k: v if k in QK_NORMS else fn(v)
+                       for k, v in lp.attn.items()},
                   {k: fn(v) for k, v in lp.mlp.items()},
                   o_t_w8=lp.o_t_w8, o_t_scale=lp.o_t_scale)
 
@@ -110,9 +113,9 @@ def _structure(lp: Layer):
     """What stacking needs equal across layers: per linear its kind, bits,
     width and arrays with their shapes (``jax.tree_util.tree_structure``
     and ``jnp.stack`` of the JAX package)."""
-    out = []
-    for group in ("attn", "mlp"):
-        for name, p in getattr(lp, group).items():
+    out = [("qk_norm", lp.q_norm is not None)]
+    for group, linears in (("attn", attn_linears(lp)), ("mlp", lp.mlp)):
+        for name, p in linears.items():
             bufs = tuple(sorted((k, tuple(v.shape))
                                 for k, v in p._buffers.items() if v is not None))
             out.append((group, name, p.kind, p.bits, p.in_features, bufs))
@@ -252,27 +255,13 @@ def _fold_logit_epilogue(cfg: ModelConfig, logits: torch.Tensor
     return logits
 
 
-def _later_operands(sp: Model) -> Optional[str]:
-    """The first operand of the stacked layers that kernel 14's later
-    sub-slices bring (o/gate-up/down biases), or None."""
-    lp = sp.layers[0]
-    mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
-    if any("bias" in m for m in mats[1:]):
-        return "o/gate-up/down biases"
-    return None
-
-
 def missing_kernel(cfg: ModelConfig, sp: Optional[Model],
                    variant: Optional[str]) -> Optional[str]:
-    """What of the whole-step kernel that serves ``variant`` on ``sp`` the
-    port has not ported, or None: kernel 14's "w3", "w2" and "wl8" variants,
-    and "w4p"/"w8p" with an operand of a later sub-slice."""
-    if variant is None or variant in ("w8", "w4"):
+    """What of the whole-step kernel that serves ``variant`` the port has
+    not ported, or None: kernel 14's "w3", "w2" and "wl8" variants."""
+    if variant is None or variant in _PACK_ATTR:
         return None
-    if variant not in _PACK_ATTR:
-        return _KERNEL_OF[variant]
-    feature = _later_operands(sp)
-    return f"{_KERNEL_OF[variant]} with {feature}" if feature else None
+    return _KERNEL_OF[variant]
 
 
 def _pack(cfg: ModelConfig, sp: Model, variant: str):

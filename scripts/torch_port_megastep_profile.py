@@ -3,7 +3,7 @@
 of the fused expert kernel (kernel 15) goes.
 
     python3 scripts/torch_port_megastep_profile.py [--layers 28] [--pos 160]
-        [--kernels 12,13,14,15]
+        [--kernels 12,13,14,15,14q]
 
 On one NVIDIA GPU: builds instrumented copies of
 ``ganq_tpu_torch/csrc/megastep_w8.cu`` (kernel 12) and of the group-scaled
@@ -22,7 +22,12 @@ launches a call) runs alone at Mixtral-8x7B's widths (8 experts, hidden
 4096, intermediate 14336, top-2 routing of random logits), 8- and 4-bit
 experts at batch 1 and 8: its time per call (a CUDA graph of 20 calls,
 timed with CUDA events) and each launch's device time
-(``torch.profiler``).
+(``torch.profiler``). ``14q`` runs kernel 14's qk-norm variant (the ARCH
+entry of ``megastep_lowbit_arch.cu``, random ``qk_nm`` rows) at Qwen3-8B's
+widths ("w8p" and "w4p", batch 1, 8 and 64) beside the same pack without
+them: the difference in its "qkv+rope" phase is the float32 scratch rows,
+in its "attention" phase the norm, rope and store pass at the head of
+each (token row, kv head) block.
 """
 
 from __future__ import annotations
@@ -65,18 +70,21 @@ extern "C" int sync_bench(int n, int blocks, void* stream) {
 
 def _instrument(src: str, phases, slots: int) -> str:
     """Stamp the global timer after each grid barrier of the layer loop
-    (indented 4 spaces) and before the loop."""
+    (the first ``len(phases)`` barriers indented 4 spaces; kernel 14's lm
+    fold's two after the loop stay as they are) and before the loop."""
     count = [0]
 
     def stamp(m):
         count[0] += 1
+        if count[0] > len(phases):
+            return m.group(0)
         return (m.group(0) + "\n    if (blockIdx.x == 0 && threadIdx.x == 0) "
                 f"g_prof[l * {slots} + {count[0]}] = gtime();")
 
     src = re.sub(r"(?m)^    grid\.sync\(\);", stamp, src)
-    if count[0] != len(phases):
-        raise RuntimeError(f"found {count[0]} grid barriers per layer, the "
-                           f"profile names {len(phases)} phases")
+    if count[0] < len(phases):
+        raise RuntimeError(f"found {count[0]} grid barriers, the profile "
+                           f"names {len(phases)} phases a layer")
     return src.replace(
         "  for (int l = 0; l < a.L; ++l) {\n",
         "  if (blockIdx.x == 0 && threadIdx.x == 0) g_prof[0] = gtime();\n"
@@ -106,7 +114,8 @@ def build(kind: str, max_layers: int) -> ctypes.CDLL:
         src = _instrument((csrc / "megastep_grouped.cuh").read_text().replace(
             '#include "w8a8_fused.cuh"', head).replace("#pragma once", ""),
             phases, slots)
-        for entry in ("megastep4.cu", "megastep_lowbit.cu"):
+        for entry in ("megastep4.cu", "megastep_lowbit.cu",
+                      "megastep_lowbit_arch.cu"):
             src += (csrc / entry).read_text().replace(
                 '#include "megastep_grouped.cuh"', "")
     out = cuda_lib.BUILD_DIR / "profile"
@@ -187,7 +196,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=28)
     ap.add_argument("--pos", type=int, default=160)
-    ap.add_argument("--kernels", default="12,13,14,15")
+    ap.add_argument("--kernels", default="12,13,14,15,14q")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -198,14 +207,16 @@ def main() -> int:
 
     import chip_smoke
 
-    kernels = {int(k) for k in args.kernels.split(",")}
+    kernels = {int(k) if k.isdigit() else k
+               for k in args.kernels.split(",")}
     libs = {}
     if 12 in kernels:
         libs["w8"] = build("w8", args.layers)
-    if kernels & {13, 14}:
+    if kernels & {13, 14, "14q"}:
         libs["grouped"] = build("grouped", args.layers)
     symbols = {"ganq_megastep_w8": "w8", "ganq_megastep4": "grouped",
-               "ganq_megastep_lowbit": "grouped"}
+               "ganq_megastep_lowbit": "grouped",
+               "ganq_megastep_lowbit_arch": "grouped"}
     gen = torch.Generator(device="cuda").manual_seed(0)
     L, H, I, q_dim, kv_dim, d = args.layers, 3072, 8192, 3072, 1024, 128
     Dqkv, Hkv = q_dim + 2 * kv_dim, kv_dim // d
@@ -272,6 +283,25 @@ def main() -> int:
         mp = chip_smoke._grouped_pack(gen, L, H, q_dim, kv_dim, I, 4, True)
         step("grouped", "kernel 13 (w4)", megastep4_decode, mp, (1, 8), 256)
         del mp
+    if "14q" in kernels:
+        # Qwen3-8B's widths, with and without the qk-norm rows
+        H, I, q_dim, kv_dim = 4096, 12288, 4096, 1024
+        Hkv = kv_dim // d
+        kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+                  scale=1.0 / math.sqrt(d), eps=1e-6)
+        for bits in (8, 4):
+            mp = chip_smoke._grouped_pack(gen, L, H, q_dim, kv_dim, I, bits,
+                                          False)
+            qmp = chip_smoke._arch_operands(gen, dict(mp), L, H, q_dim,
+                                            kv_dim, I, True, False)
+            name = "w4p" if bits == 4 else "w8p"
+            for label, pack in ((f"kernel 14 ({name}, Qwen3-8B widths)", mp),
+                                (f"kernel 14 ({name} with qk_nm, Qwen3-8B "
+                                 "widths)", qmp)):
+                step("grouped", label, megastep_lowbit_decode, pack,
+                     (1, 8, 64), 256, bits=bits)
+            del mp, qmp
+            torch.cuda.empty_cache()
     cuda_lib.function = real
     if 15 in kernels:
         moe_profile(gen)

@@ -993,3 +993,132 @@ def test_megastep_lowbit_lora_rank_not_a_multiple_of_8(gen, B):
     _close(got[1], pk, 1e-2, what + " k_new")
     _close(got[2], pv, 1e-2, what + " v_new")
     _close(got[0], py, 1e-2, what + " y")
+
+
+# ------------------------------- kernel 14's qk-norm and bias operands
+from chip_smoke import _arch_operands
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 9, 64])
+@pytest.mark.parametrize("qkn,bias,zpao,r,V", [
+    (True, False, False, 0, 0), (False, True, False, 0, 0),
+    (True, True, True, 0, 0), (True, False, False, 16, 384),
+    (False, True, True, 16, 384)])
+def test_megastep_lowbit_arch_matches_plain(gen, L, H, q_dim, kv_dim, I,
+                                            bits, B, qkn, bias, zpao, r, V):
+    """Kernel 14 with qwen3's qk-norm rows and the o/gate-up/down biases
+    (``megastep_lowbit_arch*.cu``), alone and with zero points, act-order,
+    the EoRA epilogue (rank ``r``) and the lm fold (``V``), against its
+    plain version: within one bf16 ulp plus 1e-2 of the largest, the bound
+    of the cases with zero points (an int8 activation at a rounding tie may
+    flip by one code: the norm's rsqrt and sums are rounded in another
+    order than torch's). The biases move y, and the qk-norm layer 0's k,
+    by more than twice that (the qk-norm alone moves y less: the random
+    layers' o scales are a tenth of the others')."""
+    from ganq_tpu_torch.ops.megastep_lowbit import _ARCH_KEYS, lm_fold_plain
+
+    mp = _zp_ao_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I,
+                                            bits, False),
+                         L, H, q_dim, bits, zpao, zpao)
+    if r:
+        mp = _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, r)
+    mp = _arch_operands(gen, mp, L, H, q_dim, kv_dim, I, qkn, bias)
+    lm = _lm_operands(gen, V, H) if V else None
+    T, pos0 = 64, 50
+    pos = [(pos0 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=bits)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = megastep_lowbit_decode.launches
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos, sin,
+                                 lm=lm, **kw)
+    assert megastep_lowbit_decode.launches == before + 1
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, cos, sin,
+                                       **kw)
+    bare = megastep_lowbit_decode(
+        x.float(), {k: v for k, v in mp.items() if k not in _ARCH_KEYS}, kc,
+        vc, pos_t, cos, sin, **kw)
+    torch.cuda.synchronize()
+    what = (f"megastep_lowbit arch qkn={qkn} bias={bias} zp/ao={zpao} r={r} "
+            f"bits={bits} H={H} B={B}")
+    _close(got[1], pk, 1e-2, what + " k_new")
+    _close(got[2], pv, 1e-2, what + " v_new")
+    _close(got[0], py, 1e-2, what + " y")
+    for g, p, n in (((bare[0], py, "y"),) if bias else ()) + (
+            ((bare[1][0], pk[0], "layer 0 k"),) if qkn else ()):
+        moved = float((g.float() - p.float()).abs().max())
+        assert moved > 2e-2 * float(p.float().abs().max()), f"{what} {n}"
+    if V:
+        _close(got[3], lm_fold_plain(got[0], lm, 1e-5), 5e-3,
+               what + " logits")
+
+
+@pytest.mark.parametrize("rd,inter", [(128, True), (64, False), (64, True),
+                                      (0, False)])
+def test_megastep_lowbit_qk_norm_rope_layouts(gen, rd, inter):
+    """The qk-norm pass ropes each head itself: interleaved pairs, a
+    partial rotary width and no rope, against the plain version (bounds
+    as ``test_megastep_lowbit_arch_matches_plain``)."""
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    mp = _arch_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, 8,
+                                           False),
+                        L, H, q_dim, kv_dim, I, True, False)
+    pos = [50, 9]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, 2, 64, pos)
+    cos, sin = _rope(gen, 128)
+    half = rd // 2
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=rd,
+              interleaved=inter, scale=1.0 / math.sqrt(128), bits=8)
+    c, s = (cos[:half], sin[:half]) if rd else (None, None)
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc,
+                                 torch.tensor(pos, dtype=torch.int32,
+                                              device="cuda"), c, s, **kw)
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, c, s,
+                                       **kw)
+    torch.cuda.synchronize()
+    what = f"qk-norm rope rd={rd} interleaved={inter}"
+    _close(got[1], pk, 1e-2, what + " k_new")
+    _close(got[2], pv, 1e-2, what + " v_new")
+    _close(got[0], py, 1e-2, what + " y")
+
+
+def test_megastep_lowbit_arch_refuses_a_partial_launch(gen):
+    """An ARCH launch with one bias of three, or with the qk-norm rows but
+    no scratch, and a launch of the kernels without the ARCH operands with
+    one of them, are cudaErrorInvalidValue."""
+    from ganq_tpu_torch.ops import megastep_lowbit as mlb
+    from ganq_tpu_torch.ops import w8a8_args
+
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    mp = _arch_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, 4,
+                                           False),
+                        L, H, q_dim, kv_dim, I, True, True)
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, 1, 64, [5])
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128), bits=4)
+    captured = {}
+
+    def capture(library, symbol, what, tensors, device, **scalars):
+        captured.update(tensors=tensors, device=device, scalars=scalars)
+
+    real = w8a8_args.launch
+    w8a8_args.launch = capture
+    try:
+        mlb.megastep_lowbit_decode(x, mp, kc, vc, 5, cos, sin, **kw)
+    finally:
+        w8a8_args.launch = real
+    t, dev, sc = captured["tensors"], captured["device"], captured["scalars"]
+    for broken in (dict(t, gu_bias=None), dict(t, qkv_f=None)):
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            real("megastep_lowbit_arch", "ganq_megastep_lowbit_arch", "k14",
+                 broken, dev, **sc)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        real("megastep_lowbit", "ganq_megastep_lowbit", "k14", t, dev, **sc)
+    real("megastep_lowbit_arch", "ganq_megastep_lowbit_arch", "k14", t, dev,
+         **sc)
+    torch.cuda.synchronize()

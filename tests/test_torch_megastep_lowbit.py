@@ -275,7 +275,9 @@ def test_wrappers_refuse_later_features(packed):
     """Each operand or argument of a later sub-slice of kernel 14 raises
     NotImplementedError naming its feature, on the CPU as on the card (zero
     points and act-order are served: ``test_zero_point_actorder_*``; the
-    lm fold: ``test_lm_fold_*``; EoRA adapters: ``test_lora_*``)."""
+    lm fold: ``test_lm_fold_*``; EoRA adapters: ``test_lora_*``; qwen3's
+    qk-norm and the o/gate-up/down biases are served here and held against
+    ganq_tpu in ``test_torch_arch.py``)."""
     jcfg, _, _, _, tmp, _ = packed["w8p"]
     B, T, d = 1, 64, 128
     x = torch.zeros((B, jcfg.hidden_size), dtype=torch.bfloat16)
@@ -290,11 +292,25 @@ def test_wrappers_refuse_later_features(packed):
         with pytest.raises(NotImplementedError, match=what):
             tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
                                        **{**kw, **extra})
+    L, H = tmp["o_s"].shape[0], jcfg.hidden_size
+    Dqkv = tmp["qkv_bias"].shape[2]
+    I2 = tmp["gu_s"].shape[2]
+    served = {"qk_nm": torch.ones((L, 2, Dqkv)),
+              "o_bias": torch.zeros((L, 1, H)),
+              "gu_bias": torch.zeros((L, 1, I2)),
+              "dn_bias": torch.zeros((L, 1, H))}
     for key, what in (("o_bias", "biases"), ("qk_nm", "qk-norm"),
                       ("pa_norm", "sandwich")):
-        with pytest.raises(NotImplementedError, match=what):
-            tlb.megastep_lowbit_decode(x, {**tmp, key: None}, kc, kc, 3,
-                                       None, None, **kw)
+        if key == "pa_norm":
+            with pytest.raises(NotImplementedError, match=what):
+                tlb.megastep_lowbit_decode(x, {**tmp, key: None}, kc, kc, 3,
+                                           None, None, **kw)
+            continue
+        ops = ({"qk_nm": served["qk_nm"]} if key == "qk_nm" else
+               {k: v for k, v in served.items() if k != "qk_nm"})
+        y, kn, _ = tlb.megastep_lowbit_decode(x, {**tmp, **ops}, kc, kc, 3,
+                                              None, None, **kw)
+        assert y.shape == x.shape and kn.shape == (2, B, kw["kv_dim"]), what
     with pytest.raises(ValueError, match="B <= 8"):
         tm4.megastep4_decode(torch.zeros((9, 256)), {}, kc, kc, 3, None,
                              None, q_dim=256, kv_dim=128, head_dim=d)

@@ -281,7 +281,8 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
     ``uniform`` with random zero points and/or act-order artifacts
     (``test_torch_megastep_lowbit.inject_zp_ao``); a kind ending in
     ``_lora`` (``uniform_lora``, ``uniform_zp_ao_lora``) also gives every
-    linear a rank-4 EoRA adapter (``inject_lora``)."""
+    linear a rank-4 EoRA adapter (``inject_lora``), ``uniform_bias`` every
+    linear a bias of std 5e-2."""
     import jax
 
     from ganq_tpu.models import synthetic as jsyn
@@ -301,6 +302,13 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
                      unbalanced="unbalanced" in variant)
         if "lora" in variant:
             inject_lora(params, 4)
+        if "bias" in variant:       # q/k/v/o/gate/up/down biases
+            rng = np.random.default_rng(12)
+            for lp in params["layers"]:
+                for group in ("attn", "mlp"):
+                    for m in lp[group].values():
+                        m["bias"] = jnp.asarray((rng.normal(size=(
+                            m["scales"].shape[0],)) * 5e-2).astype(np.float32))
     else:
         params = jsyn.make_model(jcfg, kind=kinds[0], seed=1,
                                  dtype=jnp.float32, bits=bits)
@@ -417,6 +425,8 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
         ("uniform_lora", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
         ("uniform_lora", 8, "w8", 256, 2, "cuda_a8", 16, 2, 4, None),
         ("uniform_zp_ao_lora", 4, None, 256, 2, "cuda_a8", 1, 12, 4, None),
+        ("uniform_bias", 4, None, 256, 2, "cuda_a8", 8, 12, 4, None),
+        ("uniform_bias", 8, "w8", 256, 2, "cuda_a8", 16, 2, 4, None),
     ])
 def test_stacked_only_kernels_are_named_where_jax_runs_them(
         monkeypatch, kind, bits, lm, hidden, heads, backend, batch, prompt,
@@ -429,7 +439,8 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
     gate, on the card, gives the same variant. Kernels 12 ("w8"), 13 ("w4")
     and 14's "w4p" and "w8p", with zero points, act-order, EoRA adapters
     and the trailing-unembed fold of a ``w8`` lm_head
-    (``mega_lm_operands``), serve every other request."""
+    (``mega_lm_operands``), and o/gate-up/down biases (``uniform_bias``),
+    serve every other request."""
     from ganq_tpu.serve import stacked as jst
 
     jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads, bits,

@@ -129,9 +129,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
-QUANTIZE_LAYERS = 4                # depth of the quantize path (see PERF.md)
+QUANTIZE_LAYERS = 2                # depth of the quantize path (see PERF.md)
 PALLAS_PATH_LAYERS = 2             # depth of its solver_backend="pallas" run
-GPTQ_LAYERS = 4                    # depth of the GPTQ path (see PERF.md)
+GPTQ_LAYERS = 2                    # depth of the GPTQ path (see PERF.md)
 GPTQ_SIDE_LAYERS = 2               # depth of its desc_act=False runs
 L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
 LLAMA_1B_LINEARS = {"q/o": (2048, 2048), "k/v": (512, 2048),
@@ -761,16 +761,27 @@ def check_fused_w8a8(gen) -> list:
     return entries
 
 
-def _spread_close(got, plain, nudged, what):
+def _spread_close(got, plain, nudged, what, more=()):
     """Relative L2 of kernel - plain within twice the plain version's own
     spread (its output with norm weights 2^-22 larger, two float32 ulps)
     plus one bf16 ulp (2^-8): over many layers an int8 activation flipped
     by last-bit differences moves the next layer's activations and flips
     more codes, in the plain version as in the kernel (PERF.md, PR 4).
-    Returns (max error, relative L2, spread)."""
+    ``more``: further nudged outputs (callables, run only where the first
+    nudge leaves the kernel outside the bound), the spread their maximum:
+    one nudge can miss every near-tie code that the kernel's rounding
+    flips. Returns (max error, relative L2, spread)."""
     p = plain.float()
     rel = float((got.float() - p).norm() / p.norm().clamp_min(1e-30))
-    spread = float((nudged.float() - p).norm() / p.norm().clamp_min(1e-30))
+
+    def spread_of(n):
+        return float((n.float() - p).norm() / p.norm().clamp_min(1e-30))
+
+    spread = spread_of(nudged)
+    for other in more:
+        if rel <= 2 * spread + 2**-8:
+            break
+        spread = max(spread, spread_of(other()))
     if not bool(torch.isfinite(got.float()).all()) or rel > 2 * spread + 2**-8:
         raise AssertionError(f"{what}: rel_l2 {rel:.3e} against the plain "
                              f"version's spread {spread:.3e}")
@@ -1443,6 +1454,224 @@ def check_arch(gen) -> dict:
     return rows
 
 
+GEMMA3_CHECK_LAYERS = 6            # one period of Gemma 3's 5:1 pattern
+GEMMA2_CHECK_LAYERS = 4            # two of Gemma 2's sliding/full pairs
+
+
+def _gemma_operands(gen, mp, cfg, L):
+    """Gemma's operands of kernel 14 on a random pack at ``cfg``'s widths:
+    norm weights stored as ``w - 1`` in [-0.3, 0.3) (the attention, MLP and
+    sandwich norms, gemma3's q/k norms as ``qk_nm``), the per-layer
+    ``windows`` (T on a full layer, filled in by the caller), ``rope_sel``
+    (1 on the sliding layers of a dual-rope model) and the softcap.
+    Returns the call's keyword operands."""
+    H, q_dim, kv_dim = cfg.hidden_size, cfg.q_dim, cfg.kv_dim
+    Dqkv = q_dim + 2 * kv_dim
+
+    def norm(*shape):
+        return (torch.rand((L, *shape), generator=gen, device="cuda") * 0.6
+                - 0.3)
+
+    mp.update(attn_norm=norm(1, H), mlp_norm=norm(1, H), pa_norm=norm(1, H),
+              pm_norm=norm(1, H))
+    if cfg.qk_norm:
+        w = norm(Dqkv)
+        m = torch.zeros((L, Dqkv), device="cuda")
+        m[:, :q_dim + kv_dim] = 1.0
+        w[:, q_dim + kv_dim:] = 1.0
+        mp["qk_nm"] = torch.stack([w, m], dim=1).contiguous()
+    kw = {}
+    if cfg.rope_local_theta is not None:
+        kw["rope_sel"] = torch.tensor(
+            [int(cfg.layer_window(i) is not None) for i in range(L)],
+            dtype=torch.int32, device="cuda")
+    if cfg.attn_softcap is not None:
+        kw["softcap"] = float(cfg.attn_softcap)
+    return kw
+
+
+def check_gemma(gen) -> dict:
+    """Kernel 14 with gemma's operands (the GEMMA instantiation,
+    ``megastep_lowbit_gemma.cu``) against its plain version within
+    ``_spread_close`` (the norm weights, q/k and sandwich norms too, nudged
+    by 2^-22; where that one nudge leaves the kernel outside the bound, the
+    largest spread of three more: all down, the attention and MLP norms up,
+    the sandwich and q/k norms up; the sandwich norms bring the o and down
+    outputs to full scale, so an int8 code flipped at layer 0 moves every
+    later layer): "w8p" and "w4p" at Gemma-3-27B's widths (GEMMA3_CHECK_LAYERS
+    layers: five sliding at window 1024 and one full, dual rope, q/k norms,
+    sandwich norms) and at Gemma-2-27B's (GEMMA2_CHECK_LAYERS: alternate
+    windows of 4096, softcap 50, sandwich norms), gelu-tanh and rms_offset
+    1, at batch 1, 8 and 64, slot b at a position past the published window
+    (1100 + b and 4150 + b); then one launch (batch 1) of each other
+    combination the GEMMA source serves: zero points and act-order, the lm
+    fold, the EoRA epilogue (a runtime flag there) and all three. Each case
+    is timed with CUDA events beside the same launch without gemma's
+    operands (the kernels without them: the windows, softcap, dual rope and
+    sandwich norms dropped); its bound counts the K/V rows the windows
+    leave, the sandwich norms and the step's bytes. Returns {case: row}."""
+    from ganq_tpu_torch.models import synthetic
+    from ganq_tpu_torch.ops.megastep_lowbit import (_ARCH_KEYS, _LORA_KEYS,
+                                                    _SAND_KEYS,
+                                                    kernel_library,
+                                                    megastep_lowbit_decode,
+                                                    megastep_lowbit_plain)
+
+    cfgs = {"g3": (synthetic.gemma3_27b_config(GEMMA3_CHECK_LAYERS), 1100,
+                   1280),
+            "g2": (synthetic.gemma2_27b_config(GEMMA2_CHECK_LAYERS), 4150,
+                   4352)}
+    rows = {}
+    # (case, bits, batches, widths, zero points, act-order, EoRA, fold)
+    cases = [("w8p_g3", 8, (1, 8, 64), "g3", 0, 0, 0, 0),
+             ("w4p_g3", 4, (1, 8, 64), "g3", 0, 0, 0, 0),
+             ("w4p_g2", 4, (1, 8, 64), "g2", 0, 0, 0, 0),
+             ("w8p_g2", 8, (1, 8, 64), "g2", 0, 0, 0, 0),
+             ("w4p_g2_zp_ao", 4, (1,), "g2", 1, 1, 0, 0),
+             ("w8p_g3_lm", 8, (1,), "g3", 0, 0, 0, 1),
+             ("w4p_g3_lora", 4, (1,), "g3", 0, 0, 1, 0),
+             ("w4p_g2_zp_ao_lora_lm", 4, (1,), "g2", 1, 1, 1, 1)]
+    libs = set()
+    for variant, bits, batches, model, zp, ao, lora, fold in cases:
+        cfg, pos0, T = cfgs[model]
+        L = cfg.num_hidden_layers
+        H, I, q_dim, kv_dim, d = (cfg.hidden_size, cfg.intermediate_size,
+                                  cfg.q_dim, cfg.kv_dim, cfg.head_dim)
+        Dqkv, Hkv = q_dim + 2 * kv_dim, kv_dim // d
+        mp = _zp_ao_operands(
+            gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False),
+            L, H, q_dim, bits, zp, ao)
+        if lora:
+            _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, EORA_RANK)
+        gkw = _gemma_operands(gen, mp, cfg, L)
+        wins = [cfg.layer_window(i) or T for i in range(L)]
+        gkw["windows"] = torch.tensor(wins, dtype=torch.int32, device="cuda")
+        bare = {k: v for k, v in mp.items() if k not in _SAND_KEYS}
+        lm, lm_bytes = None, 0
+        if fold:
+            V = cfg.vocab_size - cfg.vocab_size % 4096
+            tv = next(c for c in (4096, 2048, 1024, 512, 256, 128)
+                      if V % c == 0 and c * H <= 4 * 2**20)
+            lm = {"w8": torch.randint(-127, 128, (V, H), generator=gen,
+                                      device="cuda",
+                                      dtype=torch.int32).to(torch.int8),
+                  "scale": (torch.rand((V // tv, tv), generator=gen,
+                                       device="cuda") * 3e-4 + 1e-4),
+                  "norm": torch.rand(H, generator=gen, device="cuda") * 0.6
+                  - 0.3}
+        libs.add(kernel_library(mp, fold, True))
+        kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+                  scale=cfg.attn_scale, bits=bits, lm=lm, eps=cfg.norm_eps,
+                  rms_offset=1.0, act="gelu_tanh")
+        code_bytes = L * (Dqkv + q_dim + 3 * I) * H * bits // 8
+        side_bytes = sum(v.numel() * v.element_size() for k, v in mp.items()
+                         if k.endswith(("_s", "_sz")) or k[:3] == "ap_"
+                         or k in _ARCH_KEYS or k in _LORA_KEYS
+                         or k in _SAND_KEYS)
+        n_tab = 2 if "rope_sel" in gkw else 1
+        for B in batches:
+            pos = [pos0 + b for b in range(B)]
+            # the K/V rows the step reads: the window's on a sliding layer
+            kv_rows = sum(min(p, w - 1) for p in pos for w in wins)
+            kc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            vc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            x = torch.randn((B, H), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ang = (torch.rand((n_tab, B, d // 2), generator=gen,
+                              device="cuda") * 6.2831853)
+            cos, sin = torch.cos(ang), torch.sin(ang)
+            if n_tab == 1:
+                cos, sin = cos[0], sin[0]
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            got = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin,
+                                         **kw, **gkw)
+            ref = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, **kw,
+                                        **gkw)
+            # the weights (w - 1 stored) two float32 ulps larger: w + 1
+            # moves by 2^-22 of itself (qk_nm's weight row only)
+            nudge = {k: (mp[k] + 1) * (1 + 2**-22) - 1 for k in (
+                "attn_norm", "mlp_norm", "pa_norm", "pm_norm")}
+            if "qk_nm" in mp:
+                qk = mp["qk_nm"].clone()
+                qk[:, 0] = (qk[:, 0] + 1) * (1 + 2**-22) - 1
+                nudge["qk_nm"] = qk
+            if lora:    # as check_lora: the A factors' float-order error
+                nudge.update({k: mp[k].float() * (1 + 2**-13)
+                              for k in ("la_q", "la_o", "la_g", "la_d")})
+            nudged = megastep_lowbit_plain(x, dict(mp, **nudge), kc, vc, pos,
+                                           cos, sin, **kw, **gkw)
+
+            def renudged(keys, sign, i):
+                """Output i of the plain version with only ``keys`` of
+                ``nudge`` moved, by 2^-22 up (sign 1) or down (-1)."""
+                def run():
+                    ops = dict(mp)
+                    for k in keys:
+                        ops[k] = (mp[k] + 1) * (1 + sign * 2**-22) - 1
+                        if k == "qk_nm":
+                            ops[k] = mp[k].clone()
+                            ops[k][:, 0] = (mp[k][:, 0] + 1) * (
+                                1 + sign * 2**-22) - 1
+                    return megastep_lowbit_plain(x, ops, kc, vc, pos, cos,
+                                                 sin, **kw, **gkw)[i]
+                return run
+
+            torch.cuda.synchronize()
+            names = ("y", "k_new", "v_new", "logits")
+            errs = [_spread_close(g, p, n_, f"{variant} {n} B={B}", more=(
+                renudged(list(nudge), -1, i),
+                renudged(["attn_norm", "mlp_norm"], 1, i),
+                renudged(["pa_norm", "pm_norm"] + (
+                    ["qk_nm"] if "qk_nm" in mp else []), 1, i)))
+                for i, (n, g, p, n_) in enumerate(zip(names, got, ref,
+                                                      nudged))]
+            # the first layer whose new keys differ from the plain version's
+            # (an int8 code flipped there moves every later layer)
+            first = next((li for li in range(L)
+                          if not torch.equal(got[1][li], ref[1][li])), None)
+            del ref, nudged
+            k_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, mp, kc, vc, pos_t, cos, sin, **kw, **gkw), (), 10)
+            c1, s1 = (cos[0], sin[0]) if n_tab == 2 else (cos, sin)
+            n_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, bare, kc, vc, pos_t, c1, s1, **kw), (), 10)
+            p_ms = (event_ms(lambda: megastep_lowbit_plain(
+                x, mp, kc, vc, pos, cos, sin, **kw, **gkw), (), 1)
+                if B == 1 and len(batches) > 1 else None)
+            if fold:
+                V = lm["w8"].shape[0]
+                lm_bytes = V * H + V * 4 + H * 4 + B * V * 4 + B * H
+            nbytes = (code_bytes + side_bytes + 2 * kv_rows * kv_dim * 2
+                      + L * (2 * H + Dqkv) * 4 + 2 * B * H * 2
+                      + 2 * L * B * kv_dim * 2 + lm_bytes)
+            ops = 2.0 * B * (L * (Dqkv + q_dim + 3 * I) * H
+                             + (lm["w8"].shape[0] * H if fold else 0))
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
+            rows[(variant, B)] = dict(
+                ms=k_ms, ms_without=n_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, kv_rows=kv_rows,
+                max_abs_err=max(e[0] for e in errs),
+                rel_l2=max(e[1] for e in errs))
+            log(f"megastep_lowbit_decode ({variant}, "
+                f"{'Gemma-3' if model == 'g3' else 'Gemma-2'}-27B widths) "
+                f"L={L} H={H} pos={pos0}+b T={T} B={B}: rel_l2 "
+                f"{[f'{e[1]:.2e}' for e in errs]} (tol 2 x the plain "
+                f"version's spread {[f'{e[2]:.2e}' for e in errs]} + 2^-8) "
+                f"kernel_ms={k_ms:.4f} without gemma's operands "
+                f"{n_ms:.4f} ({k_ms - n_ms:+.4f}) plain_ms="
+                f"{p_ms if p_ms is None else round(p_ms, 3)} "
+                f"bound_ms={b_ms:.4f} ({b_by}; K/V rows read {kv_rows}; "
+                f"first layer with other keys: {first})")
+            del kc, vc, got
+        del mp, bare, lm
+        torch.cuda.empty_cache()
+    if libs != {"megastep_lowbit_gemma"}:
+        raise AssertionError(f"gemma calls run {sorted(libs)}")
+    return rows
+
+
 def _moe_pack(gen, E, H, I, bits, gs=128):
     """Random kernel 15 operands in moe_megapack's layouts (any byte is a
     valid code byte)."""
@@ -1574,6 +1803,15 @@ def phase_kernels() -> list:
                 k14["max_abs_err"] = max(k14["max_abs_err"],
                                          row["max_abs_err"])
             k14["arch"] = {f"{v}_b{B}": row for (v, B), row in arch.items()}
+            # and gemma's instantiation, on a line of its own as well
+            gemma = check_gemma(gen)
+            for (v, B), row in gemma.items():
+                k14["by_case"][f"{v}_b{B}"] = {
+                    k: row[k] for k in ("ms", "ms_without", "bound_ms",
+                                        "plain_ms", "rel_l2")}
+                k14["max_abs_err"] = max(k14["max_abs_err"],
+                                         row["max_abs_err"])
+            k14["gemma"] = {f"{v}_b{B}": row for (v, B), row in gemma.items()}
             return entries
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
@@ -1784,7 +2022,7 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
                 for e in lp.moe["experts"]:
                     for p in e.values():
                         add(kernel_of(p))
-        elif a8 and _w8_mlp(lp) and rows <= 64:
+        elif a8 and _w8_mlp(lp) and rows <= 64 and not q.cfg.sandwich_norm:
             add("fused_mlp_w8a8")
         elif rows < 1024:
             for p in mlp.values():
@@ -1814,8 +2052,9 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
              "w4p": "megastep_lowbit_decode",
              "w8p": "megastep_lowbit_decode"}[variant], steps)
         return out
+    cfg = q.cfg
     for _ in range(steps):
-        for lp in model.layers:
+        for i, lp in enumerate(model.layers):
             if (a8 and fused_layer and B <= 8 and _w8_mlp(lp)
                     and lp.o_t_w8 is not None and q.cfg.head_dim == 128
                     and "lora_a" not in lp.attn["qkv"]
@@ -1829,7 +2068,9 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
                     add("fused_qkv_rope_w8a8")
                 else:
                     add(kernel_of(p))
-            add("flash_decode")
+            if (cfg.attn_softcap is None and cfg.layer_window(i) is None
+                    and cfg.head_dim <= 128):
+                add("flash_decode")     # else the masked attention
             mlp_of(lp, B)
     return out
 
@@ -2605,7 +2846,7 @@ def _fold_and_residual(cfg, sp, mp, mk, mv, tok, pos, backend):
     d = cfg.head_dim
     cos, sin = rope_tables(cfg, pos[:, None])
     y, _, _, lg = megastep_lowbit_decode(
-        embed(sp, tok[:, None])[:, 0, :], mp, mk, mv, pos,
+        embed(cfg, sp, tok[:, None])[:, 0, :], mp, mk, mv, pos,
         cos[:, 0, :d // 2], sin[:, 0, :d // 2], q_dim=cfg.q_dim,
         kv_dim=stacked._lb_kv_dim(cfg, mp, 8), head_dim=d, rotary_dim=d,
         eps=cfg.norm_eps, scale=1.0 / math.sqrt(d),
@@ -3101,7 +3342,7 @@ def phase_eora_path():
     return out
 
 
-ARCH_LAYERS = 4                    # depth of the InternLM/Qwen2.5 paths
+ARCH_LAYERS = 2                    # depth of the InternLM/Qwen2.5 paths
 QWEN3_LAYERS = 2                   # depth of the Qwen3 path (see PERF.md)
 
 
@@ -3354,6 +3595,244 @@ def phase_qwen2_path():
     return out
 
 
+GEMMA3_LAYERS = 6                  # depth of the Gemma-3 path (see PERF.md)
+GEMMA2_LAYERS = 2                  # depth of the Gemma-2 path (see PERF.md)
+GEMMA3_LONG_PROMPT = 1100          # past Gemma 3's window of 1024
+
+
+def _gemma_batching(q, label, rng, slots=4, n=6, long_prompt=0,
+                    max_seq=1280):
+    """``n`` seeded requests through a whole-step ``BatchingEngine`` of
+    ``q`` (``slots`` slots): the first of ``long_prompt`` tokens (when
+    given, so that its slot decodes past the window), the others of 16-256,
+    8-24 new tokens each, the launch counters set to 0 just before and read
+    just after; the launches must be the path's (per prefill under 1024
+    rows one kernel per linear of the stacked layers, one kernel 14 launch
+    a decode step). Returns (engine, launches, steps, seconds, tokens)."""
+    from ganq_tpu_torch.models.transformer import attn_linears
+    from ganq_tpu_torch.serve import batching
+
+    eng = batching.BatchingEngine(q.cfg, q.model, backend=q.backend,
+                                  slots=slots, max_seq=max_seq,
+                                  prompt_buckets=(64, 256, 1152))
+    if eng._mega_variant not in ("w4p", "w8p") or "pa_norm" not in eng._mp:
+        raise AssertionError(f"{label}: the batching engine is not on "
+                             "kernel 14 with gemma's operands")
+    V = q.cfg.vocab_size
+    eng.submit(rng.integers(0, V, size=20), max_new_tokens=3)
+    eng.run_all()                                             # warm-up
+    lens = [int(rng.integers(16, 257)) for _ in range(n)]
+    if long_prompt:
+        lens[0] = long_prompt
+    reqs = [(rng.integers(0, V, size=m), int(rng.integers(8, 25)))
+            for m in lens]
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ids = {eng.submit(p, max_new_tokens=m): i for i, (p, m) in
+           enumerate(reqs)}
+    results = {i: [] for i in range(n)}
+    steps = 0
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        steps += 1
+        for rid, toks in eng.step().items():
+            results[ids[rid]].extend(toks)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    kernel_of = kernel_of_linear(q.backend)
+    short = sum(1 for m in lens if m <= 256)      # buckets under 1024 rows
+    want = {}
+    for lp in eng._sp.layers:
+        for p in list(attn_linears(lp).values()) + list(lp.mlp.values()):
+            want[kernel_of(p)] = want.get(kernel_of(p), 0) + short
+    want["megastep_lowbit_decode"] = steps     # one launch a busy step
+    n_tok = sum(len(r) for r in results.values())
+    for i, (_, m) in enumerate(reqs):
+        r = results[i]
+        if len(r) != m or min(r) < 0 or max(r) >= V:
+            raise AssertionError(f"{label} request {i}: {len(r)} tokens of "
+                                 f"{m}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} ({steps} steps)")
+    log(f"{label} ({eng._mega_variant}, {slots} slots): {n} requests "
+        f"(prompts {lens}), {n_tok} tokens in {steps} steps, "
+        f"{dt * 1e3:.1f} ms: {n_tok / dt:.1f} tokens/s (host clock, prefills "
+        f"included); launches {launches}")
+    return eng, launches, steps, dt, n_tok
+
+
+def _gemma_teacher_forced(q, eng, label, prompt):
+    """One decode step of the batching engine's whole-step kernel after a
+    ``prompt``-token prefill (2 slots, position ``prompt``: past the
+    window) against the stacked layers on the reference backend from the
+    same cache; relative L2 of the logits within 1e-1 (int8 activations,
+    ``phase_reference_check``'s bound on "cuda_a8")."""
+    from ganq_tpu_torch.serve import batching, stacked
+
+    sp, mp, cfg = eng._sp, eng._mp, q.cfg
+    with torch.inference_mode():
+        ids = torch.randint(0, cfg.vocab_size, (2, prompt),
+                            generator=torch.Generator().manual_seed(3)).cuda()
+        ck, cv = stacked.init_cache(cfg, len(sp.layers), 2, prompt + 64,
+                                    "cuda")
+        tok = stacked.prefill(cfg, sp, ck, cv, ids, "reference").argmax(-1)
+        pos = torch.tensor([prompt, prompt], dtype=torch.int32,
+                           device="cuda")
+        mk, mv = stacked._mega_cache(ck, cv)
+        a = batching._mega_decode_slots(cfg, sp, mp, mk, mv, tok, pos,
+                                        eng._mega_variant, q.backend).float()
+        b = stacked.decode_step(cfg, sp, ck, cv, tok, pos[0],
+                                "reference").float()
+    rel = float((a - b).norm() / b.norm())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"{label}: teacher-forced whole step at position {prompt}: "
+        f"rel_l2(kernel 14, reference)={rel:.3e} top1 agree {agree:.2f} "
+        f"(tol 1e-1)")
+    if not torch.isfinite(a).all() or rel > 1e-1:
+        raise AssertionError(f"{label}: whole-step logits off the reference")
+    return rel
+
+
+def phase_gemma3_path():
+    """Gemma 3 at Gemma-3-27B's published widths, GEMMA3_LAYERS of its 62
+    layers (one period of the 5:1 sliding:full pattern): a random 4-bit
+    ``lut`` model with q/k and sandwich norms from a seed -> save -> load
+    -> ``optimize()`` (uniform 8-bit) -> requests at batch 1, 8 and 64
+    through kernel 14 "w8p" with ``qk_nm``, dual rope, windows and sandwich
+    norms, one launch a step, each held against the reference backend;
+    then a ``BatchingEngine`` (4 slots) on 6 seeded requests, one of
+    GEMMA3_LONG_PROMPT tokens so that its slot decodes past the window, and
+    a teacher-forced whole step there against the reference backend."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+
+    cfg = synthetic.gemma3_27b_config(GEMMA3_LAYERS)
+    rng = np.random.default_rng(41)
+    out = {"runs": []}
+    with tempfile.TemporaryDirectory() as d:
+        with torch.inference_mode():
+            model = synthetic.make_model(cfg, kind="lut", bits=4, seed=42,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_quantized(d, hf_import.config_to_hf(cfg),
+                       QuantizeConfig(bits=4, quant_method="ganq"), model)
+        del model
+        torch.cuda.empty_cache()
+        q = GanqModel.load(d, dtype=torch.bfloat16)
+        lp0 = q.model.layers[0]
+        if (q.cfg != cfg or lp0.post_attn_norm is None or lp0.q_norm is None
+                or lp0.attn["q"].kind != "lut"):
+            raise AssertionError("the Gemma 3 checkpoint lost its config "
+                                 "or norms")
+        q.optimize()
+    _arch_pack_check(q, "Gemma 3 optimize()", ("qk_nm", "pa_norm",
+                                               "pm_norm"), "w8p")
+    q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+               max_new_tokens=3, max_seq=32)                      # warm-up
+    out["runs"] += list(_run_requests(q, "Gemma 3 optimize()", (
+        ("w8p_g3_b1", 1, 128, 16, {}), ("w8p_g3_b8", 8, 64, 8, {}),
+        ("w8p_g3_b64", 64, 32, 4, {})), rng, want_variant="w8p").values())
+    out["decode_gemma3_w8p"] = _decode_ms(
+        q, "Gemma-3-27B widths (kernel 14 w8p with gemma's operands)",
+        ((1, 128, 16), (8, 64, 8)), rng)
+    eng, launches, steps, dt, n_tok = _gemma_batching(
+        q, "Gemma 3 batching", rng, long_prompt=GEMMA3_LONG_PROMPT)
+    out["runs"].append(launches)
+    rel = _gemma_teacher_forced(q, eng, "Gemma 3 batching",
+                                GEMMA3_LONG_PROMPT)
+    out["batching"] = dict(tokens=n_tok, steps=steps, seconds=dt,
+                           tokens_per_s=n_tok / dt, rel_l2_reference=rel)
+    del q, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gemma2_path():
+    """Gemma 2 at Gemma-2-27B's published widths, GEMMA2_LAYERS of its 46
+    layers (a sliding and a full layer): a dense random directory (sandwich
+    norms from a seed) -> ``GanqModel.load(dir, QuantizeConfig(sym=True,
+    desc_act=False))`` -> GPTQ W4 g128 (8 rows of 2048) -> save (GPTQ v1)
+    -> load -> requests at batch 1 and 16 through kernel 14 "w4p" with the
+    softcap, windows and sandwich norms, one launch a step, each held
+    against the reference backend; the final logit softcap checked on the
+    unembed."""
+    import dataclasses
+
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.models.transformer import unembed
+
+    cfg = synthetic.gemma2_27b_config(GEMMA2_LAYERS)
+    rng = np.random.default_rng(43)
+    rows = rng.integers(0, cfg.vocab_size, size=(8, 2048))
+    out = {"runs": []}
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as qdir:
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=44,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        del dense
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        g = GanqModel.load(dense_dir, QuantizeConfig(sym=True,
+                                                     desc_act=False))
+        g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        g.save(qdir)
+        del g
+        torch.cuda.empty_cache()
+        log(f"Gemma 2 path: GPTQ W4 g128 sym {t1 - t0:.1f} s "
+            f"({(t1 - t0) / GEMMA2_LAYERS:.1f} s a layer)")
+        q = GanqModel.load(qdir, dtype=torch.bfloat16)
+    if q.cfg != cfg or q.model.layers[1].post_mlp_norm is None:
+        raise AssertionError("the Gemma 2 checkpoint lost its config or "
+                             "sandwich norms")
+    _arch_pack_check(q, "Gemma 2 GPTQ W4", ("pa_norm", "pm_norm"), "w4p")
+    q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+               max_new_tokens=3, max_seq=32)                      # warm-up
+    out["runs"] += list(_run_requests(q, "Gemma 2 GPTQ W4", (
+        ("w4p_g2_b1", 1, 128, 16, {}), ("w4p_g2_b16", 16, 32, 8, {})),
+        rng, want_variant="w4p").values())
+    out["decode_gemma2_w4p"] = _decode_ms(
+        q, "Gemma-2-27B widths (kernel 14 w4p with gemma's operands)",
+        ((1, 128, 16), (16, 32, 8)), rng)
+    # the unembed of the served model with its final norm weight 100 (w - 1
+    # stored), so that raw logits pass the cap
+    from ganq_tpu_torch.models.transformer import Model
+
+    sp = q._get_engine().model
+    with torch.inference_mode():
+        h = torch.randn((2, 1, cfg.hidden_size), generator=torch.Generator(
+            ).manual_seed(5)).cuda().to(torch.bfloat16)
+        big = Model(sp.embed_tokens.weight,
+                    torch.full_like(sp.final_norm.weight, 99.0), [],
+                    sp.lm_head)
+        capped = unembed(cfg, big, h).float()
+        raw = unembed(dataclasses.replace(cfg, logit_softcap=None), big,
+                      h).float()
+    cap = cfg.logit_softcap
+    want = cap * torch.tanh(raw / cap)
+    err = float((capped - want).abs().max())
+    log(f"Gemma 2 final logit softcap {cap}: max|raw|="
+        f"{float(raw.abs().max()):.2f} max|capped|="
+        f"{float(capped.abs().max()):.2f}, max|capped - cap tanh(raw / "
+        f"cap)|={err:.3e} (tol 0.25, two bf16 ulps at 30)")
+    if (float(raw.abs().max()) <= cap or float(capped.abs().max()) > cap
+            or err > 0.25):
+        raise AssertionError("Gemma 2: the final logit softcap is not "
+                             "applied")
+    del q, sp, big
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
@@ -3415,6 +3894,14 @@ def main() -> int:
     qwen2 = phase_qwen2_path()
     phase_done("Qwen2.5 path (phase 17)", t_start)
     runs += qwen2["runs"]
+    # Gemma 3 (kernel 14 with qk_nm, dual rope, windows, sandwich norms)
+    # and Gemma 2 (softcap, windows, sandwich norms; GPTQ W4)
+    gemma3 = phase_gemma3_path()
+    phase_done("Gemma 3 path (phase 18)", t_start)
+    runs += gemma3["runs"]
+    gemma2 = phase_gemma2_path()
+    phase_done("Gemma 2 path (phase 19)", t_start)
+    runs += gemma2["runs"]
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
                  "attn_half_decode_w8a8", "megastep_decode_w8a8",
@@ -3465,8 +3952,9 @@ def main() -> int:
          "shape": k["shape"]} for k in kernels]}
     log("decode ms per step (host clock): " + json.dumps(
         {k: v for d in (three_b, eight_b, mixtral, batching_run, eora,
-                        qwen3, internlm, qwen2)
+                        qwen3, internlm, qwen2, gemma3, gemma2)
          for k, v in d.items() if k.startswith("decode_")}))
+    log("Gemma 3 path: " + json.dumps({"batching": gemma3["batching"]}))
     log("Qwen3 path: " + json.dumps({k: qwen3[k] for k in (
         "quantize_s_per_layer", "batching")}))
     log("batching: " + json.dumps({k: batching_run[k] for k in (
@@ -3477,6 +3965,7 @@ def main() -> int:
     k14 = next(k for k in kernels if k["name"] == "megastep_lowbit_decode")
     log(json.dumps({"k14_lora": k14["lora"]}))
     log(json.dumps({"k14_arch": k14["arch"]}))
+    log(json.dumps({"k14_gemma": k14["gemma"]}))
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,17 @@
 // 14 (megastep_lowbit.cu, ganq_megastep_lowbit, variants "w4p" and "w8p";
 // with zero points or act-order megastep_lowbit_opt.cu; with the
 // trailing-unembed fold megastep_lowbit_lm.cu and megastep_lowbit_lm_opt.cu;
-// with the EoRA epilogue megastep_lowbit_lora*.cu).
+// with the EoRA epilogue megastep_lowbit_lora*.cu; with the qk-norm and
+// biases megastep_lowbit_arch*.cu; with gemma's operands
+// megastep_lowbit_gemma.cu).
 //
 // Replaces ganq_tpu/ops/megastep4.py megastep4_decode (Pallas
 // _megastep4_kernel) and ganq_tpu/ops/megastep_lowbit.py
 // megastep_lowbit_decode (_megastep_lb_kernel, bits 4 and 8; of its
 // optional operands the zero points *_sz, the act-order orders ap_*, the
-// trailing-unembed fold lm and the EoRA adapters la_* / lb_*). The TPU kernels are one pallas_call walking
+// trailing-unembed fold lm, the EoRA adapters la_* / lb_*, the qk-norm and
+// bias operands and gemma's sandwich norms, windows, softcap and dual
+// rope). The TPU kernels are one pallas_call walking
 // (layers, phases) in order and dequantize by algebra on masked int8 MXU
 // dots, because a TPU has no gather. Here a byte's codes are decoded by shift and mask: a
 // pair-nibble byte holds the codes of two output rows (or, in kernel 13's
@@ -74,6 +78,18 @@
 // head (qk_norm_rope_heads: each head's mean square over its 128 lanes,
 // the per-lane weight where qk_nm's mask is set), ropes and stores them in
 // bf16: every head has one owner and the norm adds no grid barrier.
+//
+// Kernel 14 with gemma's operands (the GEMMA instantiation,
+// megastep_lowbit_gemma.cu, which also takes every operand above, each run
+// where it is set) adds the TPU kernel's with_sand, with_win, softcap and
+// rope_sel: o's and down's products (bias and EoRA term added) go to the
+// scratch sand instead of the residual, and a row pass (sandwich_row, a
+// block per token row) norms them into it: the post-attention norm with
+// the MLP norm of phase 6 (one more grid barrier only with the EoRA
+// epilogue, whose A product reads every row), the post-MLP norm at the next
+// layer's entry or, after the last layer, with y; phase 3 walks a sliding
+// layer's keys from pos - window + 1 (none before it read) and caps the
+// scaled scores; rope_table picks layer l's table of two.
 //
 // and after the last layer y = x. Kernel 14 with the trailing-unembed fold
 // (the LM instantiations) then runs, after a barrier each, the final norm
@@ -315,6 +331,56 @@ __device__ __forceinline__ float bf(const bf16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
+// Whether the EoRA epilogue (LORA) and the trailing-unembed fold (LM) run:
+// compiled in or out by their flags, except in the GEMMA instantiation,
+// which carries both and runs each where its operands are set
+template <bool LORA, bool GEMMA>
+__device__ __forceinline__ bool lora_on(const W8A8Args& a) {
+  if constexpr (!LORA) return false;
+  else if constexpr (GEMMA) return a.la_q != nullptr;
+  else return true;
+}
+
+template <bool LM, bool GEMMA>
+__device__ __forceinline__ bool lm_on(const W8A8Args& a) {
+  if constexpr (!LM) return false;
+  else if constexpr (GEMMA) return a.lm_w8 != nullptr;
+  else return true;
+}
+
+// Layer l's rope table t (cos or sin): with gemma3's dual rope (GEMMA,
+// rope_sel set) the second of the two [B, cos_ld] tables where
+// rope_sel[l] is 1
+template <bool GEMMA>
+__device__ __forceinline__ const float* rope_table(const W8A8Args& a,
+                                                   const float* t, int l) {
+  if constexpr (GEMMA) {
+    if (a.rope_sel && a.rope_sel[l]) return t + (size_t)a.B * a.cos_ld;
+  }
+  return t;
+}
+
+// Gemma's sandwich norm of token row b (a block): the float32 sublayer
+// output u = sand[b] (o's or down's, bias and EoRA term added) normed,
+// u * rsqrt(mean(u^2) + eps) * (w + rms_offset), and added to the residual
+// row; y (null: none) receives the new row too. Ends with a block barrier.
+__device__ void sandwich_row(const W8A8Args& a, int b, const float* w,
+                             float* y, float* red) {
+  const int H = a.H;
+  const float* u = a.sand + (size_t)b * H;
+  float* xr = a.xs + (size_t)b * H;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < H; k += kThreads) ss += u[k] * u[k];
+  const float r = rsqrtf(block_sum(ss, red) / (float)H + a.eps);
+  for (int k = threadIdx.x; k < H; k += kThreads) {
+    const float x = __fadd_rn(
+        xr[k], __fmul_rn(__fmul_rn(u[k], r), w[k] + a.rms_offset));
+    xr[k] = x;
+    if (y) y[(size_t)b * H + k] = x;
+  }
+  __syncthreads();
+}
+
 // ------------------------------------------------ kernel 14: EoRA epilogue
 constexpr int kLoraR = 4;          // ranks of one lora_xa unit
 static_assert(kLoraR * kWarps == 32, "a lane per (rank, row) slot");
@@ -501,8 +567,10 @@ __device__ __forceinline__ float lora_out(int r, XaOf xa_of, LbOf lb_of) {
 // row block); y = (sum_g s_g z_g) * sx + bias, rope with the partner read
 // in float32 (kernel 14, lane rolls) or rounded to bf16 (kernel 13, sign
 // permutation), out in bf16 to qkv_out and the layer's kn/vn. LORA adds
-// xa_q . lb_q[row]^T after the bias.
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH>
+// xa_q . lb_q[row]^T after the bias; GEMMA reads layer l's rope table
+// (``rope_table``).
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH,
+          bool GEMMA = false>
 __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -545,7 +613,8 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
         szs,
         [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; });
     float lora = 0.f;
-    if constexpr (LORA)
+    const bool with_lora = lora_on<LORA, GEMMA>(a);
+    if (with_lora)
       lora = lora_out<2 * FT>(
           a.r_q,
           [&](int v) {
@@ -561,7 +630,7 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
     float yv = 0.f;
     if (mine) {
       yv = __fadd_rn(__fmul_rn(y, a.sx[b0 + b]), bias[row]);
-      if constexpr (LORA) yv = __fadd_rn(yv, lora);
+      if (with_lora) yv = __fadd_rn(yv, lora);
     }
     const float yp = __shfl_sync(0xffffffffu, yv,
                                  lane < FT ? lane + FT : lane - FT);
@@ -574,8 +643,10 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
     }
     float out = yv;
     if (pair_rope && row < n_rope) {
-      const float c = a.cos_half[(size_t)(b0 + b) * a.cos_ld + ci];
-      const float sn = a.sin_half[(size_t)(b0 + b) * a.cos_ld + ci];
+      const float c =
+          rope_table<GEMMA>(a, a.cos_half, l)[(size_t)(b0 + b) * a.cos_ld + ci];
+      const float sn =
+          rope_table<GEMMA>(a, a.sin_half, l)[(size_t)(b0 + b) * a.cos_ld + ci];
       const float pv = KMAJ ? bf16r(yp) : yp;
       out = __fadd_rn(__fmul_rn(yv, c), __fmul_rn(lane < FT ? -pv : pv, sn));
     }
@@ -595,7 +666,9 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // the warp (the mean square), y * (rsqrt(msq + eps) * (w + rms_offset))
 // where qk_nm's mask row is set (w its weight row), rope with the partner
 // lane in float32 as gphase_qkv's, bf16 into qkv_out and the layer's kn /
-// vn. sh: kWarps * 128 floats. Ends with a block barrier.
+// vn (GEMMA: layer l's rope table, ``rope_table``). sh: kWarps * 128
+// floats. Ends with a block barrier.
+template <bool GEMMA = false>
 __device__ void qk_norm_rope_heads(const W8A8Args& a, int l, int b, int g,
                                    float* sh) {
   constexpr int d = 128;
@@ -639,8 +712,10 @@ __device__ void qk_norm_rope_heads(const W8A8Args& a, int l, int b, int g,
         } else {
           first = k < rh, ci = first ? k : k - rh, p = first ? k + rh : k - rh;
         }
-        const float cv = a.cos_half[(size_t)b * a.cos_ld + ci];
-        const float sv = a.sin_half[(size_t)b * a.cos_ld + ci];
+        const float cv =
+            rope_table<GEMMA>(a, a.cos_half, l)[(size_t)b * a.cos_ld + ci];
+        const float sv =
+            rope_table<GEMMA>(a, a.sin_half, l)[(size_t)b * a.cos_ld + ci];
         out = __fadd_rn(__fmul_rn(y[c], cv),
                         __fmul_rn(first ? -hs[p] : hs[p], sv));
       }
@@ -662,7 +737,8 @@ __device__ void qk_norm_rope_heads(const W8A8Args& a, int l, int b, int g,
 // into act_a [B, I] and max|a| per (token row, tile) into amax. LORA adds
 // xa_g . lb_g[row]^T to gate and up before the activation (lb_g's rows
 // tile-major like the scales' columns).
-template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH>
+template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH,
+          bool GEMMA = false>
 __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
   constexpr int FT = F * TB;
@@ -704,7 +780,8 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
       // (LORA) and bias (ARCH) to y * sx, then the up value goes to its
       // gate lane
       float lora = 0.f;
-      if constexpr (LORA)
+      const bool with_lora = lora_on<LORA, GEMMA>(a);
+      if (with_lora)
         lora = lora_out<2 * FT>(
             a.r_g,
             [&](int w) {
@@ -718,7 +795,7 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
       float yy = 0.f;
       if (ok) {
         yy = __fmul_rn(y, a.sx[b0 + b]);
-        if constexpr (LORA) yy = __fadd_rn(yy, lora);
+        if (with_lora) yy = __fadd_rn(yy, lora);
         if constexpr (ARCH) {
           if (a.gu_bias)
             yy = __fadd_rn(yy, a.gu_bias[(size_t)l * 2 * I + col(lane)]);
@@ -745,8 +822,10 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // o_pk [H / F, q_dim]: a warp per two output rows (NR = 2 / F packed
 // rows); x[b][n] += (sum_g s_g z_g) * sa[b] for the rows n it owns (a8
 // staged from the quantized attention output). LORA adds xa_o . lb_o[n]^T
-// to the product before the residual.
-template <int TB, int BITS, bool OPT, bool LORA, bool ARCH>
+// to the product before the residual. GEMMA with sandwich norms writes the
+// product (bias and EoRA term added) to sand instead, for the norm pass.
+template <int TB, int BITS, bool OPT, bool LORA, bool ARCH,
+          bool GEMMA = false>
 __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
                               float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -782,7 +861,8 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
         [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); },
         szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; });
     float lora = 0.f;
-    if constexpr (LORA)
+    const bool with_lora = lora_on<LORA, GEMMA>(a);
+    if (with_lora)
       lora = lora_out<2 * TB>(
           a.r_o,
           [&](int v) {
@@ -793,10 +873,16 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
     const int b = lane % TB;
     if (lane >= 2 * TB || b >= nb) continue;
     float upd = __fmul_rn(y, sa_s[b]);
-    if constexpr (LORA) upd = __fadd_rn(upd, lora);
+    if (with_lora) upd = __fadd_rn(upd, lora);
     if constexpr (ARCH) {
       if (a.o_bias)
         upd = __fadd_rn(upd, a.o_bias[(size_t)l * H + row_of(lane)]);
+    }
+    if constexpr (GEMMA) {
+      if (a.pa_norm) {
+        a.sand[(size_t)(b0 + b) * H + row_of(lane)] = upd;
+        continue;
+      }
     }
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
     *xr = __fadd_rn(*xr, upd);
@@ -807,8 +893,10 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
 // order, ma += (sum over the tile's groups of s_g z_g) * sa_t, then adds ma
 // to the residual rows it owns (a8 staged per tile from the quantized
 // activation; dn_gs [NG * gtp, H], each tile's groups padded to gtp rows).
-// LORA adds xa_d . lb_d[n]^T to ma before the residual.
-template <int TB, int BITS, bool OPT, bool LORA, bool ARCH>
+// LORA adds xa_d . lb_d[n]^T to ma before the residual; GEMMA with
+// sandwich norms writes ma to sand instead, for the norm pass.
+template <int TB, int BITS, bool OPT, bool LORA, bool ARCH,
+          bool GEMMA = false>
 __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
                                  float* sa_s, float* pf) {
   constexpr int F = BITS == 4 ? 2 : 1;
@@ -852,7 +940,8 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
     }
     if (u >= units) continue;
     float lora = 0.f;
-    if constexpr (LORA)
+    const bool with_lora = lora_on<LORA, GEMMA>(a);
+    if (with_lora)
       lora = lora_out<2 * TB>(
           a.r_d,
           [&](int v) {
@@ -862,10 +951,16 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
           [&](int v) { return a.lb_d + ((size_t)l * H + row_of(v)) * a.r_d; });
     const int b = lane % TB;
     if (lane >= 2 * TB || b >= nb) continue;
-    if constexpr (LORA) ma = __fadd_rn(ma, lora);
+    if (with_lora) ma = __fadd_rn(ma, lora);
     if constexpr (ARCH) {
       if (a.dn_bias)
         ma = __fadd_rn(ma, a.dn_bias[(size_t)l * H + row_of(lane)]);
+    }
+    if constexpr (GEMMA) {
+      if (a.pm_norm) {
+        a.sand[(size_t)(b0 + b) * H + row_of(lane)] = ma;
+        continue;
+      }
     }
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
     *xr = __fadd_rn(*xr, ma);
@@ -1029,13 +1124,18 @@ __device__ void gphase_vocab(const W8A8Args& a, int8_t* xs) {
 // source, megastep_lowbit_lm.cu), so that the kernels without it keep the
 // code and register allocation they have; LORA: the one with the EoRA
 // epilogue (megastep_lowbit_lora*.cu), and ARCH the one with the qk-norm
-// and biases (megastep_lowbit_arch*.cu), for the same reason
+// and biases (megastep_lowbit_arch*.cu), for the same reason; GEMMA the
+// one with gemma's sandwich norms, windows, softcap and dual rope
+// (megastep_lowbit_gemma.cu), which also carries every other optional
+// operand, each run where it is set (lora_on, lm_on)
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA,
-          bool ARCH>
+          bool ARCH, bool GEMMA = false>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_megastep_kernel(W8A8Args a) {
   static_assert(!(LORA && KMAJ), "the EoRA epilogue is kernel 14's");
   static_assert(!(ARCH && KMAJ), "qk-norm and biases are kernel 14's");
+  static_assert(!(GEMMA && KMAJ), "gemma's operands are kernel 14's");
+  const bool with_lora = lora_on<LORA, GEMMA>(a);
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);
@@ -1051,12 +1151,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t BH = (size_t)a.B * H;
 
   for (int l = 0; l < a.L; ++l) {
-    // 0: layer entry
+    // 0: layer entry (GEMMA: the previous layer's post-MLP sandwich norm
+    // into the residual, a block per row, before this phase's barrier)
     for (size_t e = tid; e < BH; e += nthreads) {
       if (l == 0)
         a.xs[e] = static_cast<const float*>(a.x)[e];
       else if (KMAJ)
         kmajor_mlp_residual(a, e);
+    }
+    if constexpr (GEMMA) {
+      if (l > 0 && a.pm_norm)
+        for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+          sandwich_row(a, b, a.pm_norm + (size_t)(l - 1) * H, nullptr, red);
     }
     grid.sync();
     // 1: attention norm and int8 rows
@@ -1064,32 +1170,40 @@ __global__ void __launch_bounds__(kThreads, 2)
       row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
                             a.attn_norm + (size_t)l * H, a.eps, a.rms_offset,
                             a.x8 + (size_t)b * H, a.sx + b, red);
-    if constexpr (LORA)
+    if (with_lora)
       lora_xa(a, a.xs, H, H, a.ap_q ? a.ap_q + (size_t)l * H : nullptr,
               a.attn_norm + (size_t)l * H, a.la_q + (size_t)l * a.r_q * H,
               a.r_q, a.xa_q, reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 2: qkv + rope; zero the MLP tile maxima
     for (size_t e = tid; e < (size_t)a.B * ng; e += nthreads) a.amax[e] = 0;
-    gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH>(a, l, xs_s, pf);
+    gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
     grid.sync();
-    // 3: attention (with qk-norm, its heads normed and roped first)
+    // 3: attention (with qk-norm, its heads normed and roped first; GEMMA:
+    // the layer's window and the softcap)
     for (int u = blockIdx.x; u < a.B * Hkv; u += gridDim.x) {
       const int b = u / Hkv, g = u - b * Hkv;
       if constexpr (ARCH) {
         if (a.qk_nm)
-          qk_norm_rope_heads(a, l, b, g, reinterpret_cast<float*>(work));
+          qk_norm_rope_heads<GEMMA>(a, l, b, g,
+                                    reinterpret_cast<float*>(work));
       }
       const size_t off = (size_t)l * a.cache_sl + (size_t)b * a.cache_sb +
                          (size_t)g * a.cache_sg;
-      attn_unit(a, b, g, a.qkv_out, a.k_cache + off, a.v_cache + off, a.attn,
-                a.attn_amax, reinterpret_cast<float*>(work), a.pos[b]);
+      const int pos = a.pos[b];
+      int t_lo = 0;
+      if constexpr (GEMMA) {
+        if (a.windows) t_lo = max(0, pos - a.windows[l] + 1);
+      }
+      attn_unit<GEMMA>(a, b, g, a.qkv_out, a.k_cache + off, a.v_cache + off,
+                       a.attn, a.attn_amax, reinterpret_cast<float*>(work),
+                       pos, t_lo, a.softcap);
     }
     grid.sync();
     // 4: the attention output's int8 rows
     for (size_t e = tid; e < (size_t)a.B * a.q_dim; e += nthreads)
       a.a8[e] = (int8_t)quant8(a.attn[e], attn_scale(a, (int)(e / a.q_dim)));
-    if constexpr (LORA)
+    if (with_lora)
       lora_xa(a, a.attn, a.q_dim, a.q_dim,
               a.ap_o ? a.ap_o + (size_t)l * a.q_dim : nullptr, nullptr,
               a.la_o + (size_t)l * a.r_o * a.q_dim, a.r_o, a.xa_o,
@@ -1111,28 +1225,42 @@ __global__ void __launch_bounds__(kThreads, 2)
         a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
       }
     } else {
-      gphase_o_rows<TB, BITS, OPT, LORA, ARCH>(a, l, xs_s, sa_s, pf);
+      gphase_o_rows<TB, BITS, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, pf);
     }
     grid.sync();
-    // 6: MLP norm and int8 rows
-    for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+    // 6: (GEMMA) the post-attention sandwich norm into the residual, then
+    // the MLP norm and int8 rows: the block of row b does both, except with
+    // the EoRA epilogue, whose A product reads every row (a barrier between)
+    bool sand_a = false;
+    if constexpr (GEMMA) {
+      sand_a = a.pa_norm != nullptr;
+      if (sand_a && with_lora) {
+        for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+          sandwich_row(a, b, a.pa_norm + (size_t)l * H, nullptr, red);
+        grid.sync();
+        sand_a = false;
+      }
+    }
+    for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+      if (sand_a) sandwich_row(a, b, a.pa_norm + (size_t)l * H, nullptr, red);
       row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
                             a.mlp_norm + (size_t)l * H, a.eps, a.rms_offset,
                             a.x8 + (size_t)b * H, a.sx + b, red);
-    if constexpr (LORA)
+    }
+    if (with_lora)
       lora_xa(a, a.xs, H, H, a.ap_g ? a.ap_g + (size_t)l * H : nullptr,
               a.mlp_norm + (size_t)l * H, a.la_g + (size_t)l * a.r_g * H,
               a.r_g, a.xa_g, reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 7: gate/up
-    gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH>(a, l, xs_s, pf);
+    gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
     grid.sync();
     // 8: the activation's int8 rows per tile
     for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
       const int b = (int)(e / I), m = (int)(e % I);
       a.a8[e] = (int8_t)quant8(a.act_a[e], tile_scale(a.amax, b, ng, m / a.ti));
     }
-    if constexpr (LORA)
+    if (with_lora)
       lora_xa(a, a.act_a, I, a.ti, nullptr, nullptr,
               a.la_d + (size_t)l * a.r_d * I, a.r_d, a.xa_d,
               reinterpret_cast<float*>(xs_s));
@@ -1146,15 +1274,24 @@ __global__ void __launch_bounds__(kThreads, 2)
                           return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
                         });
     } else {
-      gphase_down_rows<TB, BITS, OPT, LORA, ARCH>(a, l, xs_s, sa_s, pf);
+      gphase_down_rows<TB, BITS, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, sa_s,
+                                                         pf);
     }
     grid.sync();
   }
-  for (size_t e = tid; e < BH; e += nthreads) {
-    if (KMAJ) kmajor_mlp_residual(a, e);
-    static_cast<float*>(a.y)[e] = a.xs[e];
+  bool sand_m = false;
+  if constexpr (GEMMA) sand_m = a.pm_norm != nullptr;
+  if (sand_m) {     // the last layer's post-MLP sandwich norm, y = x
+    for (int b = blockIdx.x; b < a.B; b += gridDim.x)
+      sandwich_row(a, b, a.pm_norm + (size_t)(a.L - 1) * H,
+                   static_cast<float*>(a.y), red);
+  } else {
+    for (size_t e = tid; e < BH; e += nthreads) {
+      if (KMAJ) kmajor_mlp_residual(a, e);
+      static_cast<float*>(a.y)[e] = a.xs[e];
+    }
   }
-  if constexpr (LM) {
+  if (lm_on<LM, GEMMA>(a)) {
     // kernel 14's trailing-unembed fold: the final norm and int8 rows of
     // the residual, then the vocab phase, after a barrier each
     grid.sync();
@@ -1167,10 +1304,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// whether any of kernel 14's gemma operands is set (only the GEMMA
+// instantiation takes them)
+__host__ __forceinline__ bool gemma_any(const W8A8Args* p) {
+  return p->pa_norm || p->pm_norm || p->windows || p->rope_sel || p->sand ||
+         p->softcap != 0.f;
+}
+
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA,
-          bool ARCH>
+          bool ARCH, bool GEMMA = false>
 cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
-  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA, ARCH>;
+  if (!GEMMA && gemma_any(&a)) return cudaErrorInvalidValue;
+  auto kernel =
+      grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>;
   size_t kmax = (size_t)a.H;
   if (!KMAJ) kmax = (size_t)std::max(a.H, std::max(a.q_dim, a.ti));
   size_t work = sizeof(float) * kAttnSmemFloats;
@@ -1201,17 +1347,19 @@ cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
 
 // OPT: the kernel that reads kernel 14's zero points and act-order orders;
 // LM: the one with its trailing-unembed fold; LORA: the one with its EoRA
-// epilogue; ARCH: the one with its qk-norm and biases
+// epilogue; ARCH: the one with its qk-norm and biases; GEMMA: the one with
+// gemma's operands (and all the others, each where it is set)
 template <int BITS, bool KMAJ, bool OPT, bool LM = false, bool LORA = false,
-          bool ARCH = false>
+          bool ARCH = false, bool GEMMA = false>
 cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
   if (a.B <= 1)
-    return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
+    return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
   if (a.B <= 2)
-    return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
+    return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
   if (a.B <= 4)
-    return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
-  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH>(a, s);
+    return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a,
+                                                                          s);
 }
 
 // whether any EoRA operand is set, and whether all of them are (a
@@ -1242,6 +1390,20 @@ __host__ __forceinline__ bool arch_ok(const W8A8Args* p) {
   return !p->kmajor && p->B <= 64 && (biases || none) &&
          (p->qk_nm != nullptr) == (p->qkv_f != nullptr) &&
          (p->qk_nm || biases);
+}
+
+// whether they make a GEMMA launch: row-major packs at batch <= 64, both
+// sandwich norms with their scratch or none, and the ARCH operands
+// (nullable there) each whole
+__host__ __forceinline__ bool gemma_ok(const W8A8Args* p) {
+  const bool sand = p->pa_norm && p->pm_norm && p->sand;
+  const bool no_sand = !p->pa_norm && !p->pm_norm && !p->sand;
+  const bool biases = p->o_bias && p->gu_bias && p->dn_bias;
+  const bool no_biases = !p->o_bias && !p->gu_bias && !p->dn_bias;
+  return !p->kmajor && p->B <= 64 && (sand || no_sand) &&
+         (biases || no_biases) &&
+         (p->qk_nm != nullptr) == (p->qkv_f != nullptr) &&
+         (p->rope_sel == nullptr || p->rd > 0);
 }
 
 // a kernel-14 call with the fold: row-major packs, batch <= 64, every lm

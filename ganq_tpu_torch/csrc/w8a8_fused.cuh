@@ -129,6 +129,18 @@ struct W8A8Args {
   const float* gu_bias;
   const float* dn_bias;
   float* qkv_f;
+  // kernel 14's gemma operands (the GEMMA instantiation; each null, and
+  // softcap 0, where the call has none): the sandwich norms' float32
+  // weights [L, H] with the float32 scratch [B, H] of the o and down
+  // outputs they norm, each layer's sliding window [L] (T on a full layer),
+  // the per-layer rope-table selector [L] (1: the second of two tables
+  // [2, B, cos_ld]), and the attention softcap
+  const float* pa_norm;
+  const float* pm_norm;
+  const int* windows;
+  const int* rope_sel;
+  float* sand;
+  float softcap;
 };
 
 namespace {
@@ -592,6 +604,12 @@ __device__ __forceinline__ void bf16x4(uint2 raw, float* f) {
   f[3] = __high2float(hi);
 }
 
+// gemma2's attention softcap on a scaled score: cap * tanh(s * (1 / cap))
+// (the TPU kernel's _cap), inv = 1 / cap in float32
+__device__ __forceinline__ float soft_cap(float s, float cap, float inv) {
+  return __fmul_rn(cap, tanhf(__fmul_rn(s, inv)));
+}
+
 // Flash GQA attention of one (batch row b, kv head g) unit: qpk query heads
 // of the bf16 qkv row against the cache keys below pos, the row's history
 // length (key t of the unit at kc + t * st), and the current token,
@@ -599,12 +617,20 @@ __device__ __forceinline__ void bf16x4(uint2 raw, float* f) {
 // head for the max and the sum, a thread per 4 dims and eighth of the keys
 // for p . v (the eighths summed in order). Writes a = acc / l into attn
 // [B, q_dim] and max|a| into attn_amax [b * Hkv + g]. smem:
-// kAttnSmemFloats floats.
+// kAttnSmemFloats floats. GEMMA (kernel 14's gemma instantiation): the key
+// walk starts at t_lo (a sliding window's first key, pos - window + 1;
+// no key before it is read) in the blocks of a walk from key 0, and with
+// cap != 0 each scaled score, the current token's too, is softcapped
+// before the running max.
+template <bool GEMMA = false>
 __device__ void attn_unit(const W8A8Args& a, int b, int g,
                           const bf16* __restrict__ qkv,
                           const bf16* __restrict__ kc,
                           const bf16* __restrict__ vc, float* attn,
-                          float* attn_amax, float* smem, int pos) {
+                          float* attn_amax, float* smem, int pos,
+                          int t_lo = 0, float cap = 0.f) {
+  const int t_start = GEMMA ? t_lo : 0;
+  const float inv_cap = GEMMA && cap != 0.f ? 1.f / cap : 0.f;
   const int d = 128, Hkv = a.kv_dim / d, qpk = a.q_dim / d / Hkv;
   const int Dqkv = a.q_dim + 2 * a.kv_dim, Tb = a.Tb;
   const long long st = a.cache_st;
@@ -632,8 +658,11 @@ __device__ void attn_unit(const W8A8Args& a, int b, int g,
     for (int i = 0; i < 4; ++i) acc[h][i] = 0.f;
   __syncthreads();
 
-  for (int t0 = 0; t0 < pos; t0 += Tb) {
-    const int nk = min(Tb, pos - t0);
+  // GEMMA: the first block runs from t_lo to the next multiple of Tb, so
+  // that every later block, and each block's running max, is the one of a
+  // walk from key 0 (the TPU kernel's blocks, its masked keys not read)
+  for (int t0 = t_start; t0 < pos; t0 += GEMMA ? Tb - t0 % Tb : Tb) {
+    const int nk = GEMMA ? min(Tb - t0 % Tb, pos - t0) : min(Tb, pos - t0);
     // scores: a thread per key
     for (int t = tid; t < nk; t += kThreads) {
       const bf16* kr = kc + (size_t)(t0 + t) * st;
@@ -656,7 +685,12 @@ __device__ void attn_unit(const W8A8Args& a, int b, int g,
       }
 #pragma unroll
       for (int h = 0; h < kMaxQpk; ++h)
-        if (h < qpk) sc[h * Tb + t] = s[h] * a.scale;
+        if (h < qpk) {
+          float v = s[h] * a.scale;
+          if constexpr (GEMMA)
+            if (cap != 0.f) v = soft_cap(v, cap, inv_cap);
+          sc[h * Tb + t] = v;
+        }
     }
     __syncthreads();
     // per head: block max, p = exp(s - m), their sum; a warp per head
@@ -734,6 +768,8 @@ __device__ void attn_unit(const W8A8Args& a, int b, int g,
     for (int e = lane; e < d; e += 32)
       p = fmaf(q[e], __bfloat162float(kcur[e]), p);
     p = warp_sum(p) * a.scale;
+    if constexpr (GEMMA)
+      if (cap != 0.f) p = soft_cap(p, cap, inv_cap);
     if (lane == 0) {
       const float m_new = fmaxf(ms[h], p);
       const float alpha = expf(ms[h] - m_new);

@@ -2,8 +2,8 @@
 
 The port of the ``lut`` and GPTQ parts of ``ganq_tpu/formats/checkpoint.py``
 (llama-family and mixtral models; a MoE layer's experts are stored under the
-HF expert names, its router dense; biases and qwen3's q/k norms unquantized
-under their HF names):
+HF expert names, its router dense; biases, qwen3's and gemma3's q/k norms
+and gemma's sandwich norms unquantized under their HF names):
 a directory of (possibly sharded) safetensors files plus
 ``quantize_config.json``, ``config.json`` (with ``quantization_config``
 mirrored in) and ``quant_log.csv``. A ``lut`` linear is stored as
@@ -38,7 +38,7 @@ from ..core.backend import resolve_device
 from ..core.config import FORMAT, META_QUANTIZER_GANQ_TPU, QuantizeConfig
 from ..models import hf_import
 from ..models.registry import ArchSpec, get_spec
-from ..models.transformer import QK_NORMS, Model, ModelConfig
+from ..models.transformer import QK_NORMS, Model, ModelConfig, sandwich_norms
 from ..ops import qlinear
 from ..ops.packing import pack_factor, pack_int_rows, unpack_int_rows
 from ..utils.logger import get_logger
@@ -133,6 +133,9 @@ def _hf_state(spec: ArchSpec, model: Model, artifacts: Dict[str, Any],
             if getattr(lp, ours) is not None:
                 key = spec.name_map[f"layers.{{i}}.attn.{ours}.weight"]
                 state[key.format(i=i)] = getattr(lp, ours)
+        for ours, w in sandwich_norms(lp).items():    # gemma2/3
+            key = spec.name_map[f"layers.{{i}}.{ours}.weight"]
+            state[key.format(i=i)] = w
         if lp.moe is not None:            # the router stays dense
             key = spec.name_map["layers.{i}.moe.router.weight"].format(i=i)
             state[key] = lp.moe["router"]["weight"]

@@ -2,7 +2,7 @@
 
 The port of ``ganq_tpu/models/hf_import.py`` for the llama family (with
 Qwen3's q/k norms and the biases of Qwen2 and InternLM, taken where the
-checkpoint has them) and mixtral (MoE layers: a dense router and per-expert
+checkpoint has them), gemma (Gemma 2 and 3's sandwich norms) and mixtral (MoE layers: a dense router and per-expert
 gate/up/down): the HF
 config dict becomes a :class:`ModelConfig`, and HF tensor names map onto the
 model's parameter paths through the registry's ``name_map``.
@@ -27,7 +27,7 @@ from ..core.backend import resolve_device
 from ..formats.safetensors_io import load_file
 from ..ops import qlinear
 from .registry import get_spec
-from .transformer import QK_NORMS, Layer, Model, ModelConfig
+from .transformer import QK_NORMS, SANDWICH_NORMS, Layer, Model, ModelConfig
 
 _ATTN = ("q", "k", "v", "o")
 _MLP = ("gate", "up", "down")
@@ -60,7 +60,27 @@ def config_to_hf(cfg: ModelConfig) -> Dict[str, Any]:
                else {}),
             **({"num_local_experts": cfg.num_experts,
                 "num_experts_per_tok": cfg.num_experts_per_tok}
-               if cfg.num_experts else {})}
+               if cfg.num_experts else {}),
+            **(_gemma_hf(cfg) if cfg.model_type.startswith("gemma") else {})}
+
+
+def _gemma_hf(cfg: ModelConfig) -> Dict[str, Any]:
+    """The gemma keys of a config.json (the registry reads them back to the
+    same :class:`ModelConfig`)."""
+    out: Dict[str, Any] = {"hidden_activation": cfg.act}
+    if cfg.model_type == "gemma":
+        return out
+    qpas = cfg.attn_scale ** -2
+    if round(qpas) ** -0.5 == cfg.attn_scale:
+        qpas = round(qpas)
+    out.update(query_pre_attn_scalar=qpas,
+               attn_logit_softcapping=cfg.attn_softcap,
+               final_logit_softcapping=cfg.logit_softcap,
+               sliding_window=cfg.sliding_window,
+               layer_types=list(cfg.layer_types or ()) or None)
+    if cfg.rope_local_theta is not None:
+        out["rope_local_base_freq"] = cfg.rope_local_theta
+    return out
 
 
 def iter_safetensors(model_dir: str) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -151,16 +171,21 @@ def params_from_state_dict(state: Dict[str, torch.Tensor],
                 "experts": [slots(i, f"moe.experts.{e}", _MLP)
                             for e in range(cfg.num_experts)]}
 
-    def qk_norms(i: int) -> Dict[str, Optional[torch.Tensor]]:
-        if not cfg.qk_norm:
-            return {}
-        return {n: get(f"layers.{{i}}.attn.{n}.weight", i) for n in QK_NORMS}
+    def norms(i: int) -> Dict[str, Optional[torch.Tensor]]:
+        out = {}
+        if cfg.qk_norm:
+            out = {n: get(f"layers.{{i}}.attn.{n}.weight", i)
+                   for n in QK_NORMS}
+        if cfg.sandwich_norm:
+            out.update({n: get(f"layers.{{i}}.{n}.weight", i)
+                        for n in SANDWICH_NORMS})
+        return out
 
     layers = [Layer(get("layers.{i}.input_norm.weight", i),
                     get("layers.{i}.post_norm.weight", i),
                     attn=slots(i, "attn", _ATTN),
                     mlp={} if cfg.num_experts else slots(i, "mlp", _MLP),
-                    moe=moe(i), **qk_norms(i))
+                    moe=moe(i), **norms(i))
               for i in range(cfg.num_hidden_layers)]
     embed = get("embed_tokens.weight")
     lm = get("lm_head.weight")
@@ -213,6 +238,8 @@ def params_from_numpy(cfg_dict: Dict[str, Any], arrays: Dict[str, Any],
                                for e in range(cfg.num_experts)]}
         norms = {n: tensor(arrays[f"{p}.attn.{n}.weight"]) for n in QK_NORMS
                  if f"{p}.attn.{n}.weight" in arrays}
+        norms.update({n: tensor(arrays[f"{p}.{n}.weight"])
+                      for n in SANDWICH_NORMS if f"{p}.{n}.weight" in arrays})
         layers.append(Layer(
             tensor(arrays[f"{p}.input_norm.weight"]),
             tensor(arrays[f"{p}.post_norm.weight"]),

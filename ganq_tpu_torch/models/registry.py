@@ -1,7 +1,8 @@
 """Architecture registry: the llama-family and mixtral ``ArchSpec``s.
 
-The port of the llama, mistral, qwen2, yi, mobilellm, qwen3, internlm and
-mixtral entries of ``ganq_tpu/models/registry.py``:
+The port of the llama, mistral, qwen2, yi, mobilellm, qwen3, internlm,
+gemma, gemma2, gemma3_text/gemma3 and mixtral entries of
+``ganq_tpu/models/registry.py``:
 how a HF config becomes a :class:`ModelConfig`, how HF tensor names map
 onto the model's parameter paths, and which linears are quantized (their
 checkpoint module names, the slots they fill and the order of the
@@ -192,6 +193,107 @@ register(ArchSpec(
     layer_modules=LLAMA_LAYER_MODULES,
     module_slots=LLAMA_SLOTS,
 ))
+
+
+# ---------------------------------------------------------------------- gemma
+def _gemma_act(hf: Dict[str, Any]) -> str:
+    return (hf.get("hidden_activation")
+            or hf.get("hidden_act", "gelu_pytorch_tanh"))
+
+
+def _gemma_config(hf: Dict[str, Any]) -> ModelConfig:
+    """Gemma: llama with norm weights stored as ``w - 1`` (``rms_offset``
+    1), the embedding scaled by sqrt(hidden), gelu-tanh, tied embeddings
+    and head_dim 256 unless given (``registry.py:277-294``)."""
+    return dataclasses.replace(
+        _llama_config(hf), model_type="gemma",
+        head_dim=hf.get("head_dim", 256), rms_offset=1.0,
+        embed_scale=hf["hidden_size"] ** 0.5, act=_gemma_act(hf),
+        tie_word_embeddings=True)
+
+
+register(ArchSpec(
+    model_type="gemma",
+    make_config=_gemma_config,
+    name_map=LLAMA_NAME_MAP,
+    layer_modules=LLAMA_LAYER_MODULES,
+    module_slots=LLAMA_SLOTS,
+))
+
+
+def _layer_types(hf: Dict[str, Any], pattern: int):
+    """HF ``layer_types``, or every ``pattern``-th layer full and the others
+    sliding."""
+    return tuple(hf.get("layer_types") or (
+        "sliding_attention" if (i + 1) % pattern else "full_attention"
+        for i in range(hf["num_hidden_layers"])))
+
+
+def _gemma2_config(hf: Dict[str, Any]) -> ModelConfig:
+    """Gemma 2 (``registry.py:1014-1041``): gemma's norms and embedding,
+    sandwich norms, the attention softcap and the final logit softcap,
+    ``query_pre_attn_scalar ** -0.5`` as the attention scale, and a sliding
+    window on alternate layers."""
+    return dataclasses.replace(
+        _gemma_config(hf), model_type="gemma2", sandwich_norm=True,
+        attn_scale=hf.get("query_pre_attn_scalar", 256) ** -0.5,
+        attn_softcap=hf.get("attn_logit_softcapping", 50.0),
+        logit_softcap=hf.get("final_logit_softcapping", 30.0),
+        sliding_window=hf.get("sliding_window", 4096),
+        layer_types=_layer_types(hf, 2))
+
+
+GEMMA2_NAME_MAP = {
+    **LLAMA_NAME_MAP,
+    "layers.{i}.post_attn_norm.weight":
+        "model.layers.{i}.post_attention_layernorm.weight",
+    "layers.{i}.post_norm.weight":
+        "model.layers.{i}.pre_feedforward_layernorm.weight",
+    "layers.{i}.post_mlp_norm.weight":
+        "model.layers.{i}.post_feedforward_layernorm.weight",
+}
+
+register(ArchSpec(
+    model_type="gemma2",
+    make_config=_gemma2_config,
+    name_map=GEMMA2_NAME_MAP,
+    layer_modules=LLAMA_LAYER_MODULES,
+    module_slots=LLAMA_SLOTS,
+))
+
+
+def _gemma3_config(hf: Dict[str, Any]) -> ModelConfig:
+    """Gemma 3, text (``registry.py:1977-2008``): gemma 2's sandwich norms
+    without its softcaps unless given, per-head ``(1 + w)`` q/k norms, a
+    window on five layers of each six (``sliding_window_pattern``), and
+    dual rope: full layers at ``rope_theta`` with ``rope_scaling``, sliding
+    layers at ``rope_local_base_freq`` unscaled."""
+    return dataclasses.replace(
+        _gemma_config(hf), model_type="gemma3_text", sandwich_norm=True,
+        qk_norm=True,
+        attn_scale=hf.get("query_pre_attn_scalar", 256) ** -0.5,
+        attn_softcap=hf.get("attn_logit_softcapping"),
+        logit_softcap=hf.get("final_logit_softcapping"),
+        sliding_window=hf.get("sliding_window", 4096),
+        layer_types=_layer_types(hf, hf.get("sliding_window_pattern", 6)),
+        rope_theta=hf.get("rope_theta", 1_000_000.0),
+        rope_local_theta=hf.get("rope_local_base_freq", 10_000.0))
+
+
+GEMMA3_NAME_MAP = {
+    **GEMMA2_NAME_MAP,
+    "layers.{i}.attn.q_norm.weight": "model.layers.{i}.self_attn.q_norm.weight",
+    "layers.{i}.attn.k_norm.weight": "model.layers.{i}.self_attn.k_norm.weight",
+}
+
+for _mt in ("gemma3_text", "gemma3"):
+    register(ArchSpec(
+        model_type=_mt,
+        make_config=_gemma3_config,
+        name_map=GEMMA3_NAME_MAP,
+        layer_modules=LLAMA_LAYER_MODULES,
+        module_slots=LLAMA_SLOTS,
+    ))
 
 
 # -------------------------------------------------------------------- mixtral

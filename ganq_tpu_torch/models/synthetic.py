@@ -1,7 +1,8 @@
 """Synthetic models: random weights at real architecture widths.
 
 The port of ``llama_config`` and ``make_model`` (with Mixtral's experts,
-Qwen3's q/k norms and the biases of Qwen2 and InternLM) of
+Qwen3's q/k norms, the biases of Qwen2 and InternLM and Gemma's sandwich
+norms) of
 ``ganq_tpu/models/synthetic.py``, with its kinds ``dense``, ``lut``,
 ``lut_affine``, ``lut_affine_sym``, ``uniform`` and ``w8``. Random weights have the compute
 and memory behaviour of trained ones, so quantization runs, serving runs and
@@ -132,6 +133,68 @@ def qwen2_5_7b_config(layers: int = 28) -> ModelConfig:
         tie_word_embeddings=False)
 
 
+def _both_kinds(cfg: ModelConfig) -> ModelConfig:
+    """The config, checked to keep a sliding and a full layer: a cut in
+    depth must keep both kinds of attention layer."""
+    kinds = {cfg.layer_window(i) is None
+             for i in range(cfg.num_hidden_layers)}
+    if kinds != {True, False}:
+        raise ValueError(f"{cfg.model_type}: a cut in depth must keep a "
+                         "sliding and a full layer")
+    return cfg
+
+
+def gemma2_27b_config(layers: int = 46) -> ModelConfig:
+    """Gemma-2-27B at its published widths (huggingface.co/google/
+    gemma-2-27b config.json: vocab 256000, hidden 4608, intermediate 36864,
+    46 layers, 32 heads, 16 KV heads, head_dim 128, query_pre_attn_scalar
+    144, sliding window 4096 on alternate layers (the first slides),
+    attention softcap 50, final logit softcap 30, rope theta 10000, rms eps
+    1e-6, gelu_pytorch_tanh, tied embeddings); ``layers`` may cut the depth
+    to 2 or more (the alternation keeps both kinds)."""
+    from .registry import get_spec
+
+    return _both_kinds(get_spec("gemma2").make_config({
+        "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 4608,
+        "intermediate_size": 36864, "num_hidden_layers": layers,
+        "num_attention_heads": 32, "num_key_value_heads": 16,
+        "head_dim": 128, "max_position_embeddings": 8192,
+        "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "query_pre_attn_scalar": 144, "sliding_window": 4096,
+        "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+        "tie_word_embeddings": True}))
+
+
+def gemma3_27b_config(layers: int = 62, layer_types=None) -> ModelConfig:
+    """Gemma-3-27B's text model at its published widths
+    (huggingface.co/google/gemma-3-27b-it config.json, ``text_config``:
+    vocab 262208, hidden 5376, intermediate 21504, 62 layers, 32 heads, 16
+    KV heads, head_dim 128, query_pre_attn_scalar 168, sliding window 1024
+    on five layers of six (``sliding_window_pattern`` 6), rope theta 1e6
+    with linear scaling factor 8 on the full layers, rope_local_base_freq
+    10000 on the sliding ones, per-head q/k norms, rms eps 1e-6,
+    gelu_pytorch_tanh, tied embeddings, no softcaps); ``layers`` may cut
+    the depth to 6 (one period of the pattern) or more, or with explicit
+    HF ``layer_types`` that hold a sliding and a full layer."""
+    from .registry import get_spec
+
+    return _both_kinds(get_spec("gemma3_text").make_config({
+        "model_type": "gemma3_text", "vocab_size": 262208,
+        "hidden_size": 5376, "intermediate_size": 21504,
+        "num_hidden_layers": layers, "num_attention_heads": 32,
+        "num_key_value_heads": 16, "head_dim": 128,
+        "max_position_embeddings": 131072, "rms_norm_eps": 1e-6,
+        "rope_theta": 1e6,
+        "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+        "rope_local_base_freq": 10000.0,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "query_pre_attn_scalar": 168, "sliding_window": 1024,
+        "sliding_window_pattern": 6, "layer_types": layer_types,
+        "attn_logit_softcapping": None, "final_logit_softcapping": None,
+        "tie_word_embeddings": True}))
+
+
 def _rand_lut_linear(gen: torch.Generator, out_f: int, in_f: int, bits: int,
                      device) -> qlinear.QLinear:
     """A random ``lut`` linear: sorted bf16 codebooks with std 0.006 (the
@@ -209,7 +272,11 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     ``num_experts`` experts of ``kind`` in place of the MLP. A config with
     ``attn_bias`` gets q/k/v biases of std 0.1 (and an o bias for
     ``internlm``), one with ``qk_norm`` per-head q/k norm weights in
-    [0.75, 1.25), all from the seed.
+    [0.75, 1.25), all from the seed. Where the config stores norm weights as
+    ``w - 1`` (gemma's ``rms_offset``), the norms hold ``1 - rms_offset``
+    (unit norms) and the q/k norms lie in [-0.25, 0.25); sandwich-norm
+    layers get ``post_attn_norm`` and ``post_mlp_norm`` in [-0.3, 0.3)
+    from the seed, as ``ganq_tpu``'s gemma tests set them.
     ``lm_head_kind`` gives the model a quantized lm_head of that kind at
     ``lm_head_bits`` (``ganq_tpu/models/synthetic.py:181-228``: the
     reference's 8-bit lm_head rule), untied whatever the config says."""
@@ -242,6 +309,10 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
                                    * 0.1).to(dtype))
         return m
 
+    def unit_norm():
+        return torch.full((h,), 1.0 - cfg.rms_offset, dtype=dtype,
+                          device=device)
+
     def layer():
         attn = {"q": lin(q, h), "k": lin(kv, h), "v": lin(kv, h),
                 "o": lin(h, q)}
@@ -249,12 +320,16 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
             for n, width in (("q", q), ("k", kv), ("v", kv)) + (
                     (("o", h),) if cfg.model_type == "internlm" else ()):
                 with_bias(attn[n], width)
-        norms = (torch.ones(h, dtype=dtype, device=device),
-                 torch.ones(h, dtype=dtype, device=device))
+        norms = (unit_norm(), unit_norm())
         extra = {}
         if cfg.qk_norm:
             extra = {n: (torch.rand(cfg.head_dim, generator=gen, device=device)
-                         * 0.5 + 0.75).to(dtype) for n in ("q_norm", "k_norm")}
+                         * 0.5 + 0.75 - cfg.rms_offset).to(dtype)
+                     for n in ("q_norm", "k_norm")}
+        if cfg.sandwich_norm:
+            extra.update({n: (torch.rand(h, generator=gen, device=device)
+                              * 0.6 - 0.3).to(dtype)
+                          for n in ("post_attn_norm", "post_mlp_norm")})
         if not cfg.num_experts:
             return Layer(*norms, attn=attn, mlp=mlp(), **extra)
         router = _rand_dense_linear(gen, cfg.num_experts, h, device, dtype)
@@ -270,10 +345,10 @@ def make_model(cfg: ModelConfig, kind: str = "lut", bits: int = 4,
     else:
         lm_head = (None if cfg.tie_word_embeddings else
                    _rand_dense_linear(gen, cfg.vocab_size, h, device, dtype))
-    return Model(embed, torch.ones(h, dtype=dtype, device=device), layers,
-                 lm_head)
+    return Model(embed, unit_norm(), layers, lm_head)
 
 
 __all__ = ["llama_config", "llama_3_2_1b_config", "llama_3_2_3b_config",
            "llama_3_1_8b_config", "mixtral_8x7b_config", "qwen3_8b_config",
-           "internlm_7b_config", "qwen2_5_7b_config", "make_model"]
+           "internlm_7b_config", "qwen2_5_7b_config", "gemma2_27b_config",
+           "gemma3_27b_config", "make_model"]

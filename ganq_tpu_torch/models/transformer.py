@@ -1,10 +1,13 @@
 """Decoder-only llama-family transformer: modules for the weights, plain
 functions for the math.
 
-The port of the llama subset of ``ganq_tpu/models/transformer.py``: RMSNorm,
-rope with linear or llama3 frequency scaling, grouped-query attention with
-optional q/k/v/o biases (Qwen2, InternLM) and Qwen3's per-head q/k RMSNorm,
-the gated SiLU MLP and tied embeddings; and Mixtral's sparse MoE in place of the
+The port of the llama subset of ``ganq_tpu/models/transformer.py``: RMSNorm
+(with Gemma's ``(1 + w)`` offset), rope with linear or llama3 frequency
+scaling (and Gemma 3's second, local table), grouped-query attention with
+optional q/k/v/o biases (Qwen2, InternLM), Qwen3's per-head q/k RMSNorm,
+Gemma's attention softcap, per-layer sliding windows and sandwich norms, the
+gated SiLU or GELU MLP, the scaled embedding, the final logit softcap and
+tied embeddings; and Mixtral's sparse MoE in place of the
 MLP (top-k softmax routing, the masked per-expert loop, and on "cuda_a8"
 the fused expert kernel, kernel 15, for decode-shaped steps). The weights live in ``nn.Module``s whose
 buffer paths are the JAX package's parameter paths
@@ -65,12 +68,40 @@ class ModelConfig:
     # per-head RMSNorm of q and k over head_dim before rope (qwen3): True or
     # "head"; the JAX package's "flat" (olmo2) and "cohere" raise
     qk_norm: Any = False
+    rms_offset: float = 0.0           # gemma: norm weights stored as (w - 1)
+    embed_scale: Optional[float] = None  # gemma: sqrt(hidden) multiplier
+    # gemma3: sliding layers take an unscaled rope at this theta
+    # (rope_local_base_freq); full layers rope_theta with rope_scaling
+    rope_local_theta: Optional[float] = None
+    # gemma2/3: x += post_attn_norm(attn(input_norm(x)));
+    # x += post_mlp_norm(mlp(post_norm(x)))
+    sandwich_norm: bool = False
+    # gemma2: cap * tanh(x / cap) on the scaled attention scores (before the
+    # mask) and on the final logits
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
+    # sliding-window attention: the window and the per-layer pattern (HF
+    # layer_types: "sliding_attention" / "full_attention"; None: every layer
+    # slides)
+    sliding_window: Optional[int] = None
+    layer_types: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         if self.qk_norm not in (False, True, "head"):
             raise NotImplementedError(
                 f"qk_norm={self.qk_norm!r} comes with the rest of the model "
                 "zoo (ROADMAP.md queue A item 6)")
+        if isinstance(self.layer_types, list):
+            object.__setattr__(self, "layer_types", tuple(self.layer_types))
+
+    def layer_window(self, i: int) -> Optional[int]:
+        """Layer i's sliding window, or None for full attention."""
+        if self.sliding_window is None:
+            return None
+        if self.layer_types is None:
+            return self.sliding_window
+        return (self.sliding_window
+                if self.layer_types[i] == "sliding_attention" else None)
 
     @property
     def q_dim(self) -> int:
@@ -119,7 +150,9 @@ class Layer(nn.Module):
     as the :class:`Weights` entries of an ``attn`` dict taken from another
     layer), kept in ``attn`` so that their paths are the JAX package's
     (``layers.0.attn.q_norm.weight``); :func:`attn_linears` gives the
-    linears alone. A MoE layer has no MLP
+    linears alone. A sandwich-norm layer (gemma2/3) also holds
+    ``post_attn_norm`` and ``post_mlp_norm`` [H], the norms of the attention
+    and MLP outputs before their residual adds. A MoE layer has no MLP
     and holds ``moe``: the dense ``router`` [E, H], the ``experts`` (each a
     dict of gate/up/down linears) and, after ``optimize()`` on the card,
     kernel 15's packed experts ``mega`` (a :class:`Pack`)."""
@@ -130,10 +163,18 @@ class Layer(nn.Module):
                  o_t_scale: Optional[torch.Tensor] = None,
                  moe: Optional[Dict[str, Any]] = None,
                  q_norm: Optional[torch.Tensor] = None,
-                 k_norm: Optional[torch.Tensor] = None):
+                 k_norm: Optional[torch.Tensor] = None,
+                 post_attn_norm: Optional[torch.Tensor] = None,
+                 post_mlp_norm: Optional[torch.Tensor] = None):
         super().__init__()
         self.input_norm = Weights(input_norm)
         self.post_norm = Weights(post_norm)
+        if (post_attn_norm is None) != (post_mlp_norm is None):
+            raise ValueError("post_attn_norm and post_mlp_norm come together")
+        self.post_attn_norm = (None if post_attn_norm is None
+                               else Weights(post_attn_norm))
+        self.post_mlp_norm = (None if post_mlp_norm is None
+                              else Weights(post_mlp_norm))
         attn = dict(attn)
         for name, w in (("q_norm", q_norm), ("k_norm", k_norm)):
             if w is not None:
@@ -160,6 +201,16 @@ class Layer(nn.Module):
         return self.attn["k_norm"].weight if "k_norm" in self.attn else None
 
 
+SANDWICH_NORMS = ("post_attn_norm", "post_mlp_norm")
+
+
+def sandwich_norms(lp: Layer) -> Dict[str, torch.Tensor]:
+    """A layer's sandwich-norm weights by name (empty for other layers), for
+    building a layer from another one."""
+    return {n: getattr(lp, n).weight for n in SANDWICH_NORMS
+            if getattr(lp, n) is not None}
+
+
 def attn_linears(lp: Layer) -> Dict[str, nn.Module]:
     """The attention linears of a layer (``attn`` without its qk norms)."""
     return {k: v for k, v in lp.attn.items() if k not in QK_NORMS}
@@ -178,13 +229,15 @@ class Model(nn.Module):
 
 
 # ---------------------------------------------------------------------- norms
-def apply_norm(weight: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm over the last axis in float32, result in x's type (the JAX
-    package's ``_rms_vec`` too: the per-head qk norms are this over
-    head_dim)."""
+def apply_norm(weight: torch.Tensor, x: torch.Tensor, eps: float,
+               offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm over the last axis in float32 with the weight ``w + offset``
+    (gemma's 1), result in x's type (the JAX package's ``_rms_vec`` too: the
+    per-head qk norms are this over head_dim)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * (weight.float() + offset)
+            ).to(x.dtype)
 
 
 # ----------------------------------------------------------------------- rope
@@ -223,6 +276,28 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor
     return torch.cos(emb), torch.sin(emb)
 
 
+def rope_tables_all(cfg: ModelConfig, positions: torch.Tensor):
+    """Every rope table the model needs: the (cos, sin) pair, or for a
+    dual-rope model (gemma3) ``{"global": ..., "local": ...}``, the local
+    table at ``rope_local_theta`` without ``rope_scaling``
+    (:func:`rope_for_layer` picks a layer's)."""
+    glob = rope_tables(cfg, positions)
+    if cfg.rope_local_theta is None:
+        return glob
+    lcfg = dataclasses.replace(cfg, rope_theta=cfg.rope_local_theta,
+                               rope_scaling=None)
+    return {"global": glob, "local": rope_tables(lcfg, positions)}
+
+
+def rope_for_layer(cfg: ModelConfig, rope, i: int):
+    """Layer i's (cos, sin): sliding layers of a dual-rope model take the
+    local table."""
+    if isinstance(rope, dict):
+        return (rope["local"] if cfg.layer_window(i) is not None
+                else rope["global"])
+    return rope
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: [b, s, heads, hd]; cos/sin: [b, s, hd] (HF rotate_half)."""
     half = x.shape[-1] // 2
@@ -232,13 +307,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 # ------------------------------------------------------------------ attention
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+              mask: Optional[torch.Tensor], scale: float,
+              softcap: Optional[float] = None) -> torch.Tensor:
     """q: [b, s, hq, d]; k, v: [b, t, hkv, d] -> [b, s, hq, d]. GQA through
-    grouped einsums (no repeated copy of the cache)."""
+    grouped einsums (no repeated copy of the cache). ``softcap`` applies
+    gemma2's ``cap * tanh(s / cap)`` to the scaled scores before the mask."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, d)
     logits = torch.einsum("bshgd,bthd->bhgst", qg, k).float() * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     if mask is not None:
         logits = torch.where(mask[:, :, None], logits,
                              torch.finfo(torch.float32).min)
@@ -254,9 +333,32 @@ def causal_mask(s: int, t: int, device, offset: int = 0) -> torch.Tensor:
     return (ki <= qi)[None, None]
 
 
+def _window_overlay(T: int, s: int, cache_pos, window, device
+                    ) -> torch.Tensor:
+    """The sliding-window part of the mask: key j is visible to the query at
+    absolute position p iff ``j > p - window`` (``ganq_tpu/models/
+    transformer.py:1140-1147``). [b, 1, s, T] for a [b] vector of cache
+    positions, else [1, 1, s, T]."""
+    keys = torch.arange(T, device=device)
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+        qpos = (torch.arange(s, device=device)[None, :]
+                + cache_pos.to(torch.int64)[:, None])
+        return (keys[None, None, :] > qpos[:, :, None] - window)[:, None]
+    qpos = torch.arange(s, device=device) + (0 if cache_pos is None
+                                             else cache_pos)
+    return (keys[None, :] > qpos[:, None] - window)[None, None]
+
+
+_GELU_TANH = ("gelu_tanh", "gelu_new", "gelu_pytorch_tanh")
+
+
 def _activation(x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "silu":
         return nn.functional.silu(x)
+    if act in _GELU_TANH:
+        return nn.functional.gelu(x, approximate="tanh")
+    if act == "gelu":
+        return nn.functional.gelu(x)
     raise NotImplementedError(f"activation {act!r} is not ported yet")
 
 
@@ -338,21 +440,25 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
                   rope: Tuple[torch.Tensor, torch.Tensor],
                   cache: Optional[Dict[str, torch.Tensor]] = None,
                   cache_pos=None, backend: str = "reference",
-                  want_taps: bool = False):
+                  want_taps: bool = False, window: Optional[int] = None):
     """One decoder layer; writes this layer's k/v into ``cache`` (in place).
 
     ``cache_pos`` is the python int 0 for prefill, a 0-d tensor for a
     decode step, or a [b] tensor for a decode step whose rows sit at their
     own positions (continuous batching: each row's k/v is written at its
     position, and ``mask`` [b, 1, 1, T] is the caller's per-row history).
-    Prefilling from position 0 attends over the fresh k/v only. A decode
-    step at a 0-d position on a CUDA backend (``"cuda"`` or ``"cuda_a8"``)
-    runs the flash decode kernel over the cache (which launches or raises),
-    or kernel 11 where it is opted in; on the reference backend, and at
-    vector positions on every backend (as ``ganq_tpu``'s ``_plain_decode``
-    gate does), it runs the masked plain attention. The fused kernels of the stacked layout run under the
-    JAX package's conditions (``ganq_tpu/models/transformer.py:989-1085,
-    1214-1239``).
+    Prefilling from position 0 attends over the fresh k/v only. ``window``
+    is this layer's sliding window (``cfg.layer_window(i)``; None: full
+    attention), ``rope`` this layer's table (:func:`rope_for_layer`). A
+    decode step at a 0-d position on a CUDA backend (``"cuda"`` or
+    ``"cuda_a8"``) with no softcap, no window and head_dim <= 128 (``ganq_tpu``'s
+    ``_plain_decode`` gate) runs the flash decode kernel over the cache
+    (which launches or raises), or kernel 11 where it is opted in; every
+    other decode step, on the reference backend and at vector positions on
+    every backend too, runs the masked plain attention with the window
+    overlay and the softcap. The fused kernels of the stacked layout run
+    under the JAX package's conditions (``ganq_tpu/models/transformer.py:
+    989-1085, 1214-1239``).
 
     Returns the layer's output; with ``want_taps`` it returns ``(output,
     taps)``, where ``taps`` maps each linear's slot (``attn.q`` ...
@@ -363,15 +469,20 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
     is_prefill = cache is None or (isinstance(cache_pos, int) and cache_pos == 0
                                    and s > 1)
+    softcap = cfg.attn_softcap
+    # the attention flash decode (kernel 2) and kernels 10-11 compute: no
+    # softcap, no window, head_dim <= 128
+    plain_attn = softcap is None and window is None and hd <= 128
     use_flash_decode = (backend in ("cuda", "cuda_a8") and cache is not None
                         and isinstance(cache_pos, torch.Tensor)
-                        and cache_pos.dim() == 0)
+                        and cache_pos.dim() == 0 and plain_attn)
     if use_flash_decode and s != 1:
         raise ValueError(f"a decode step on a cuda backend takes one token "
                          f"per sequence, got {s}")
     plain_decode = (cache is not None and s == 1 and b <= 64 and not want_taps
                     and isinstance(cache_pos, torch.Tensor)
-                    and cache_pos.dim() == 0 and hd <= 128)
+                    and cache_pos.dim() == 0 and plain_attn)
+    off = cfg.rms_offset
     attn = lp.attn
     a8 = backend == "cuda_a8"
 
@@ -388,13 +499,14 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
             ap["bias"] if "bias" in ap else None, lp.o_t_w8, lp.o_t_scale,
             cos_h, sin_h, cache["k"], cache["v"], cache_pos, q_dim=cfg.q_dim,
             kv_dim=kvd, head_dim=hd, rotary_dim=rd, eps=cfg.norm_eps,
-            scale=scale)
+            rms_offset=off, scale=scale)
         _cache_write(cache["k"], k_new[:, None], cache_pos)
         _cache_write(cache["v"], v_new[:, None], cache_pos)
         gu, dn = lp.mlp["gateup"], lp.mlp["down"]
         return fused_mlp_w8a8(y[:, None, :], gu["w8"], gu["scale"], dn["w8"],
                               dn["scale"], act=_fused_act_kind(cfg),
-                              norm_w=lp.post_norm.weight, eps=cfg.norm_eps)
+                              norm_w=lp.post_norm.weight, eps=cfg.norm_eps,
+                              rms_offset=off)
 
     # norm + qkv + rope in one kernel (10): opt-in
     use_fused_qkv = False
@@ -413,12 +525,12 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
             x[:, 0, :], lp.input_norm.weight, ap["w8"], ap["scale"],
             ap["bias"] if "bias" in ap else None, cos_h, sin_h,
             q_dim=cfg.q_dim, kv_dim=kvd, head_dim=hd, rotary_dim=rd,
-            eps=cfg.norm_eps, fold_norm=True)[:, None]
+            eps=cfg.norm_eps, rms_offset=off, fold_norm=True)[:, None]
         q = qkv[..., :cfg.q_dim].reshape(b, 1, -1, hd)
         k = qkv[..., cfg.q_dim:cfg.q_dim + kvd].reshape(b, 1, -1, hd)
         v = qkv[..., cfg.q_dim + kvd:].reshape(b, 1, -1, hd)
     else:
-        h = apply_norm(lp.input_norm.weight, x, cfg.norm_eps)
+        h = apply_norm(lp.input_norm.weight, x, cfg.norm_eps, off)
         if want_taps:
             taps["attn.q"] = taps["attn.k"] = taps["attn.v"] = h
         if "qkv" in attn:        # the stacked layout's fused rows
@@ -436,9 +548,10 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
         v = v.reshape(b, s, -1, hd)
         if cfg.qk_norm:
             # per-head RMSNorm over head_dim before rope (qwen3;
-            # ganq_tpu/models/transformer.py:646-652)
-            q = apply_norm(lp.q_norm, q, cfg.norm_eps)
-            k = apply_norm(lp.k_norm, k, cfg.norm_eps)
+            # ganq_tpu/models/transformer.py:646-652; gemma3 adds its (1+w)
+            # offset)
+            q = apply_norm(lp.q_norm, q, cfg.norm_eps, off)
+            k = apply_norm(lp.k_norm, k, cfg.norm_eps, off)
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -449,30 +562,47 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
     if use_flash_decode:
         attn_out = flash_decode_attention(q[:, 0], cache["k"], cache["v"],
                                           cache_pos, scale)[:, None]
-    elif is_prefill:
+    elif is_prefill and softcap is None and (window is None or s <= window):
+        # a window at least the prompt's length masks nothing causal does
         attn_out = causal_attention(q, k.to(q.dtype), v.to(q.dtype), scale)
+    elif is_prefill:
+        pre_mask = causal_mask(s, s, x.device)
+        if window is not None:
+            pre_mask = pre_mask & _window_overlay(s, s, cache_pos, window,
+                                                  x.device)
+        attn_out = attention(q, k.to(q.dtype), v.to(q.dtype), pre_mask,
+                             scale, softcap)
     else:
+        T = cache["k"].shape[1]
+        if window is not None:
+            mask = mask & _window_overlay(T, s, cache_pos, window, x.device)
         attn_out = attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                             mask, scale)
+                             mask, scale, softcap)
     attn_out = attn_out.reshape(b, s, -1)
     if want_taps:
         taps["attn.o"] = attn_out
     attn_out = qlinear.apply(attn["o"], attn_out, backend)
+    if cfg.sandwich_norm:     # gemma2/3: the output normed before the add
+        attn_out = apply_norm(lp.post_attn_norm.weight, attn_out,
+                              cfg.norm_eps, off)
     x = residual + attn_out
 
     if lp.moe is not None:
-        h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
+        h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps, off)
         out = x + _moe_forward(cfg, lp.moe, h, backend,
                                taps if want_taps else None)
         return (out, taps) if want_taps else out
     mlp = lp.mlp
-    if a8 and _w8_gateup(lp) and b * s <= 64 and not want_taps:
-        # the whole MLP in one kernel (9), norm and residual folded in
+    if (a8 and _w8_gateup(lp) and b * s <= 64 and not want_taps
+            and not cfg.sandwich_norm):
+        # the whole MLP in one kernel (9), norm and residual folded in (the
+        # kernel has no output norm)
         gu, dn = mlp["gateup"], mlp["down"]
         return fused_mlp_w8a8(x, gu["w8"], gu["scale"], dn["w8"], dn["scale"],
                               act=_fused_act_kind(cfg),
-                              norm_w=lp.post_norm.weight, eps=cfg.norm_eps)
-    h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps)
+                              norm_w=lp.post_norm.weight, eps=cfg.norm_eps,
+                              rms_offset=off)
+    h = apply_norm(lp.post_norm.weight, x, cfg.norm_eps, off)
     if "gateup" in mlp:
         gu = qlinear.apply(mlp["gateup"], h, backend)
         g, u = gu[..., :cfg.intermediate_size], gu[..., cfg.intermediate_size:]
@@ -480,7 +610,11 @@ def layer_forward(cfg: ModelConfig, lp: Layer, x: torch.Tensor,
         g = qlinear.apply(mlp["gate"], h, backend)
         u = qlinear.apply(mlp["up"], h, backend)
     a = _activation(g, cfg.act) * u
-    out = x + qlinear.apply(mlp["down"], a, backend)
+    mlp_out = qlinear.apply(mlp["down"], a, backend)
+    if cfg.sandwich_norm:
+        mlp_out = apply_norm(lp.post_mlp_norm.weight, mlp_out, cfg.norm_eps,
+                             off)
+    out = x + mlp_out
     if want_taps:
         taps["mlp.gate"] = taps["mlp.up"] = h
         taps["mlp.down"] = a
@@ -565,19 +699,30 @@ def _moe_combine(cfg: ModelConfig, moe, h: torch.Tensor, sel: torch.Tensor,
 
 
 # ------------------------------------------------------------------ embedding
-def embed(model: Model, input_ids: torch.Tensor) -> torch.Tensor:
-    return model.embed_tokens.weight[input_ids]
+def embed(cfg: ModelConfig, model: Model, input_ids: torch.Tensor
+          ) -> torch.Tensor:
+    """The token rows; gemma's ``embed_scale`` multiplies them in their own
+    type (``ganq_tpu/models/transformer.py:1279-1280``)."""
+    x = model.embed_tokens.weight[input_ids]
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
+    return x
 
 
 def unembed(cfg: ModelConfig, model: Model, x: torch.Tensor,
             backend: str = "reference") -> torch.Tensor:
-    x = apply_norm(model.final_norm.weight, x, cfg.norm_eps)
+    x = apply_norm(model.final_norm.weight, x, cfg.norm_eps, cfg.rms_offset)
     if model.lm_head is None:
-        return x @ model.embed_tokens.weight.T.to(x.dtype)
-    # logits keep full activation precision: a quantized lm_head takes the
-    # full-precision kernels on "cuda_a8" too, as in the JAX package
-    return qlinear.apply(model.lm_head, x,
-                         "cuda" if backend == "cuda_a8" else backend)
+        logits = x @ model.embed_tokens.weight.T.to(x.dtype)
+    else:
+        # logits keep full activation precision: a quantized lm_head takes
+        # the full-precision kernels on "cuda_a8" too, as in the JAX package
+        logits = qlinear.apply(model.lm_head, x,
+                               "cuda" if backend == "cuda_a8" else backend)
+    if cfg.logit_softcap is not None:     # gemma2 (transformer.py:1310-1313)
+        cap = cfg.logit_softcap
+        logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
+    return logits
 
 
 def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,
@@ -585,14 +730,16 @@ def forward(cfg: ModelConfig, model: Model, input_ids: torch.Tensor,
     """Full forward without a cache: input_ids [b, s] -> logits [b, s, vocab]."""
     b, s = input_ids.shape
     positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    x = embed(model, input_ids)
-    rope = rope_tables(cfg, positions)
-    for lp in model.layers:
-        x = layer_forward(cfg, lp, x, None, rope, backend=backend)
+    x = embed(cfg, model, input_ids)
+    rope = rope_tables_all(cfg, positions)
+    for i, lp in enumerate(model.layers):
+        x = layer_forward(cfg, lp, x, None, rope_for_layer(cfg, rope, i),
+                          backend=backend, window=cfg.layer_window(i))
     return unembed(cfg, model, x, backend)
 
 
 __all__ = ["ModelConfig", "Weights", "Pack", "Layer", "Model", "attn_linears",
-           "layer_forward",
+           "sandwich_norms", "layer_forward",
            "forward", "embed", "unembed", "apply_norm", "rope_tables",
-           "apply_rope", "attention", "causal_mask"]
+           "rope_tables_all", "rope_for_layer", "apply_rope", "attention",
+           "causal_mask"]

@@ -43,13 +43,19 @@ def flash_block(T: int, block_t: int = 256) -> int:
 
 def flash_rows(q: torch.Tensor, k_hist: torch.Tensor, v_hist: torch.Tensor,
                k_cur: torch.Tensor, v_cur: torch.Tensor, pos,
-               scale: float, Tb: int) -> torch.Tensor:
+               scale: float, Tb: int, window: Optional[int] = None,
+               softcap: float = 0.0) -> torch.Tensor:
     """Flash GQA attention of one query token per row with the TPU kernels'
     rounding points. q [B, Hq, d] bf16; k/v_hist [B, Hkv, T, d] (history
     below ``pos``, an int or one length per row; later keys are never read,
     and blocks past a row's history leave it as it is); k/v_cur [B, Hkv, d]
-    bf16, the current token, folded in last. Returns acc / l, float32
-    [B, Hq, d]."""
+    bf16, the current token, folded in last. A sliding ``window`` masks the
+    keys at or before ``pos - window`` (the current token counts, so key t
+    is seen iff ``t > pos - window``), block by block from key 0 as kernel
+    14 on the TPU does (``megastep_lowbit.py:1313-1322``); ``softcap``
+    applies ``cap * tanh(s / cap)`` to the scaled scores before the mask
+    (``megastep_lowbit.py:670-672``). Returns acc / l, float32 [B, Hq,
+    d]."""
     B, Hq, d = q.shape
     Hkv = k_hist.shape[1]
     qpk = Hq // Hkv
@@ -69,16 +75,24 @@ def flash_rows(q: torch.Tensor, k_hist: torch.Tensor, v_hist: torch.Tensor,
         acc = acc * alpha[..., None] + pv
         m = m_new
 
+    def cap(s):
+        if softcap:
+            return softcap * torch.tanh(s * (1.0 / softcap))
+        return s
+
     rows = [int(p) for p in torch.as_tensor(pos).reshape(-1)]
     lens = torch.tensor(rows, device=q.device).reshape(-1, 1, 1, 1)
     for t0 in range(0, max(rows), Tb):
         kb = k_hist[:, :, t0:t0 + Tb].to(torch.float32)
         vb = v_hist[:, :, t0:t0 + Tb].to(torch.float32)
-        s = torch.einsum("bgqd,bgtd->bgqt", qf, kb) * scale
-        valid = torch.arange(t0, t0 + kb.shape[2], device=q.device) < lens
+        s = cap(torch.einsum("bgqd,bgtd->bgqt", qf, kb) * scale)
+        t = torch.arange(t0, t0 + kb.shape[2], device=q.device)
+        valid = t < lens
+        if window is not None:
+            valid = valid & (t > lens - window)
         fold(torch.where(valid, s, _NEG_BIG), vb)
     kc = k_cur.to(torch.bfloat16).to(torch.float32)
-    s_c = (qf * kc[:, :, None, :]).sum(-1, keepdim=True) * scale
+    s_c = cap((qf * kc[:, :, None, :]).sum(-1, keepdim=True) * scale)
     fold(s_c, v_cur.to(torch.bfloat16).to(torch.float32)[:, :, None, :])
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Hq, d)
@@ -130,8 +144,9 @@ def attn_half_fusable(cfg, lp) -> bool:
     """The JAX package's gate of kernel 11 (``fused_layer.py:365``) for the
     port's llama layers: a fused ``w8`` qkv without an EoRA adapter and the
     transposed o weight, no bias on o, head_dim 128, a 128-multiple hidden
-    width, no qk-norm, and a qkv row tile (the JAX gate's other
-    architecture conditions hold for every layer the port builds)."""
+    width, no qk-norm, no sandwich norms, no attention softcap, and a qkv
+    row tile (the JAX gate's other architecture conditions hold for every
+    layer the port builds)."""
     attn = lp.attn
     qkv = attn["qkv"] if "qkv" in attn else None
     if qkv is None or getattr(lp, "o_t_w8", None) is None or qkv.kind != "w8":
@@ -139,6 +154,8 @@ def attn_half_fusable(cfg, lp) -> bool:
     if "lora_a" in qkv or "bias" in attn["o"]:
         return False
     if cfg.head_dim != 128 or cfg.hidden_size % 128 or cfg.qk_norm:
+        return False
+    if cfg.sandwich_norm or cfg.attn_softcap is not None:
         return False
     kvd = (qkv["w8"].shape[0] - cfg.q_dim) // 2
     return qkv_fusable_tile(cfg.q_dim, kvd, cfg.head_dim) is not None

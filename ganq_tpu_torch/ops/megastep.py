@@ -96,9 +96,10 @@ def megastep_fusable(cfg, sp) -> bool:
     model: fused ``w8`` qkv, gateup and down with the transposed o, no EoRA
     adapter on them, no bias on gateup or down, head_dim 128, a
     128-multiple hidden width, no qk-norm, gateup unpadded, and a qkv row
-    tile. The JAX gate's other architecture conditions (rope, pre-norm
-    rmsnorm, gated MLP, no window, no MoE, ...) hold for every model the
-    port builds."""
+    tile, and none of gemma's sandwich norms, attention softcap, sliding
+    windows or dual rope. The JAX gate's other architecture conditions
+    (rope, pre-norm rmsnorm, gated MLP, no MoE, ...) hold for every model
+    the port builds."""
     if sp is None or not len(sp.layers):
         return False
     lp = sp.layers[0]
@@ -115,6 +116,10 @@ def megastep_fusable(cfg, sp) -> bool:
     if "bias" in dn or "bias" in gu:
         return False
     if cfg.head_dim != 128 or cfg.hidden_size % 128 or cfg.qk_norm:
+        return False
+    if (cfg.sandwich_norm or cfg.attn_softcap is not None
+            or cfg.sliding_window is not None
+            or cfg.rope_local_theta is not None):
         return False
     if gu["w8"].shape[1] != cfg.hidden_size:
         return False

@@ -193,8 +193,9 @@ def megastep4_fusable(cfg, sp) -> bool:
     qkv, o, gateup and down all ``uniform`` 4-bit, sequential symmetric
     groups of one 128-multiple size, no bias on o, gateup or down,
     head_dim 128, a hidden width that is a multiple of 256, no qk-norm,
-    and a qkv tile. The JAX gate's other architecture conditions hold for
-    every model the port builds."""
+    none of gemma's sandwich norms, attention softcap, sliding windows or
+    dual rope, and a qkv tile. The JAX gate's other architecture conditions
+    hold for every model the port builds."""
     if sp is None or not len(sp.layers):
         return False
     lp = sp.layers[0]
@@ -222,6 +223,10 @@ def megastep4_fusable(cfg, sp) -> bool:
     if len(gss) != 1:
         return False
     if cfg.head_dim != 128 or cfg.hidden_size % 256 or cfg.qk_norm:
+        return False
+    if (cfg.sandwich_norm or cfg.attn_softcap is not None
+            or cfg.sliding_window is not None
+            or cfg.rope_local_theta is not None):
         return False
     Dqkv = qkv["scales"].shape[0]
     kvd = (Dqkv - cfg.q_dim) // 2
@@ -331,7 +336,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        kv_dim: int, head_dim: int, rotary_dim: int,
                        interleaved: bool, eps: float, rms_offset: float,
                        scale: float, act: str, Tb: int, ti: int, gs: int,
-                       partner_bf16: bool):
+                       partner_bf16: bool, windows=None, softcap: float = 0.0,
+                       rope_sel=None):
     """The arithmetic kernels 13 and 14 share, on decoded operands.
     ``layer_ops(l)`` gives layer l's centred codes, [G, R] scales and
     zero-point corrections (``qkv``, ``o``, ``gate``, ``up``, ``down``:
@@ -352,20 +358,34 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     come last at the same points (``megastep_lowbit.py:592-601, 759-760,
     833-836, 878-879``): ``qk_nm`` (:func:`qk_norm_rows`) after q's EoRA
     term and before rope; ``o_bias``, ``gate_bias``/``up_bias`` and
-    ``dn_bias`` each after its product's EoRA term. ``pos`` [B] holds each slot's
-    history length; cos/sin_half are [rotary_dim / 2] or [B, rotary_dim /
-    2]. Returns (y, the float32 residual after the last layer; k_new,
-    v_new [L, B, kv_dim] bf16)."""
+    ``dn_bias`` each after its product's EoRA term. Gemma's operands
+    (``megastep_lowbit.py:670-672, 764-769, 883, 1094-1153, 1313-1322``):
+    the sandwich norms ``pa_norm`` / ``pm_norm`` are RMS norms of the o and
+    down outputs, after their bias and before the residual add; ``windows``
+    [L] (a layer's window, T on full layers) masks each slot's keys at or
+    before ``pos - window``; ``softcap`` caps the scaled scores;
+    ``rope_sel`` [L] picks layer l's rope table from cos/sin_half [2, B,
+    rotary_dim / 2] (0 the global, 1 the local). ``pos`` [B] holds each
+    slot's history length; cos/sin_half are otherwise [rotary_dim / 2] or
+    [B, rotary_dim / 2]. Returns (y, the float32 residual after the last
+    layer; k_new, v_new [L, B, kv_dim] bf16)."""
     B, H = x.shape
     d = head_dim
     Hq, Hkv = q_dim // d, kv_dim // d
     T = k_cache.shape[2]
     pos_l = [int(p) for p in torch.as_tensor(pos).reshape(-1).expand(B)]
     if rotary_dim:
-        cos_b = cos_half.to(torch.float32).reshape(-1, rotary_dim // 2
-                                                   ).expand(B, -1)
-        sin_b = sin_half.to(torch.float32).reshape(-1, rotary_dim // 2
-                                                   ).expand(B, -1)
+        n_tab = 1 if rope_sel is None else 2
+
+        def tables(t):
+            return t.to(torch.float32).reshape(n_tab, -1, rotary_dim // 2
+                                               ).expand(n_tab, B, -1)
+
+        cos_tabs, sin_tabs = tables(cos_half), tables(sin_half)
+        sel = ([0] * L if rope_sel is None
+               else [int(r) for r in torch.as_tensor(rope_sel).reshape(-1)])
+    wins = (None if windows is None
+            else [int(w) for w in torch.as_tensor(windows).reshape(-1)])
     xs = x.to(torch.float32)
     kns, vns = [], []
     def perm(v, order):
@@ -389,8 +409,9 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
         if "qk_nm" in op:
             y = qk_norm_rows(y, op["qk_nm"], d, eps, rms_offset)
         if rotary_dim:
-            y = rope_rows_per_slot(y, cos_b, sin_b, q_dim + kv_dim, d,
-                                   rotary_dim, interleaved, partner_bf16)
+            y = rope_rows_per_slot(y, cos_tabs[sel[li]], sin_tabs[sel[li]],
+                                   q_dim + kv_dim, d, rotary_dim,
+                                   interleaved, partner_bf16)
         qkv = y.to(torch.bfloat16)
         kn, vn = qkv[:, q_dim:q_dim + kv_dim], qkv[:, q_dim + kv_dim:]
         kns.append(kn)
@@ -399,7 +420,7 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        k_cache[li].reshape(B, Hkv, T, d),
                        v_cache[li].reshape(B, Hkv, T, d),
                        kn.reshape(B, Hkv, d), vn.reshape(B, Hkv, d), pos_l,
-                       scale, Tb)
+                       scale, Tb, None if wins is None else wins[li], softcap)
         a8, sa = attn_out_int8(a.reshape(B, q_dim))
         c, s, z = op["o"]
         upd = group_linear(perm(a8, op.get("ap_o")), c, s, gs, z) * sa
@@ -408,6 +429,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
             upd = upd + rank_r(rank_r(af, op["la_o"]), op["lb_o"])
         if "o_bias" in op:
             upd = upd + op["o_bias"]
+        if "pa_norm" in op:
+            upd = rms_rows(upd, op["pa_norm"], eps, rms_offset)
         xs = xs + upd
         xf = perm(rms_rows(xs, op["mlp_norm"], eps, rms_offset),
                   op.get("ap_g"))
@@ -445,6 +468,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
             ma = ma + rank_r(xa_d, op["lb_d"])
         if "dn_bias" in op:
             ma = ma + op["dn_bias"]
+        if "pm_norm" in op:
+            ma = rms_rows(ma, op["pm_norm"], eps, rms_offset)
         xs = xs + ma
     return xs, torch.stack(kns), torch.stack(vns)
 

@@ -6,7 +6,8 @@ homogeneous uniform W4/W3/W2/W8 models ("w4p", "w3", "w2", "w8p") and true
 8-entry 3-bit codebooks ("wl8", the Walsh plane expansion) at decode batch
 <= 64 through ``megastep_lowbit_decode``. The port has the "w4p" and "w8p"
 variants, with zero points, act-order, EoRA adapters, qwen3's per-head
-qk-norm and o/gate-up/down biases:
+qk-norm, o/gate-up/down biases and gemma's sandwich norms, sliding windows,
+attention softcap and dual rope:
 :func:`megapack_lowbit` packs the JAX package's planes (keys, shapes and
 bytes), zero-point corrections and adapter factors,
 :func:`actorder_transform` bakes act-order artifacts into a pack-only copy
@@ -16,14 +17,14 @@ and gives the column orders of the activations, and
 act-order ``csrc/megastep_lowbit_opt.cu``, with the lm fold
 ``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``, with EoRA
 adapters ``csrc/megastep_lowbit_lora*.cu``, with the qk-norm rows or biases
-``csrc/megastep_lowbit_arch*.cu``: :func:`kernel_library`) for CUDA tensors and runs
-:func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
+``csrc/megastep_lowbit_arch*.cu``, with gemma's operands
+``csrc/megastep_lowbit_gemma.cu``: :func:`kernel_library`) for CUDA tensors
+and runs :func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
 counts kernel calls. With ``lm`` (:func:`mega_lm_operands`) the step also
 folds the final norm and a ``w8`` lm_head in (the trailing-unembed fold,
 :func:`lm_fold_plain`) and returns the logits. It raises
 NotImplementedError naming the feature for every operand of a later
-sub-slice: w3/w2, the Walsh LUTs, sandwich norms, windows, softcap and
-dual rope.
+sub-slice: w3/w2 and the Walsh LUTs.
 
 The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
 product sums, over its groups in order, the group's bf16 scale times the
@@ -144,11 +145,15 @@ def _mlp_plan(I: int, bits: int, H: int, cap: int = 48 * 1024 * 1024) -> tuple:
 
 def _arch_fusable_common(cfg, sp) -> bool:
     """The architecture surface of the plane kernels
-    (``megastep_lowbit.py:1905``) for the port's llama-family models:
-    head_dim 128, and a qk-norm only per head (True or "head") with q and k
-    norm weights of width head_dim (the remaining conditions hold for every
-    model the port builds)."""
+    (``megastep_lowbit.py:1905``) for the port's llama-family and gemma
+    models: head_dim 128, a qk-norm only per head (True or "head") with q
+    and k norm weights of width head_dim, and sandwich norms only where the
+    layers carry both weights (gemma's softcap, windows and dual rope ride
+    the kernel; the remaining conditions hold for every model the port
+    builds)."""
     if cfg.head_dim != 128:
+        return False
+    if cfg.sandwich_norm and sp.layers[0].post_attn_norm is None:
         return False
     if cfg.qk_norm:
         if cfg.qk_norm not in (True, "head"):
@@ -302,6 +307,7 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     norms; qwen3's ``qk_nm`` and the o/gate-up/down biases
     (:func:`_arch_pack_ops`); where any projection has zero points, the float32 corrections
     ``qkv_sz``, ``o_sz``, ``gu_sz`` and ``dn_sz`` in the scales' layouts;
+    gemma's sandwich norms ``pa_norm`` and ``pm_norm`` [L, 1, H] float32;
     where all four carry EoRA adapters, their factors rounded to bf16
     (``megastep_lowbit.py:1746-1763``): ``la_q`` [L, rq, H], ``lb_q`` [L,
     Dqkv, rq], ``la_o`` [L, ro, q_dim], ``lb_o`` [L, H, ro], ``la_g`` [L,
@@ -367,7 +373,9 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
 
 def _arch_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
     """The architecture operands of ``ganq_tpu``'s ``_common_pack_ops``
-    (``megastep_lowbit.py:1698-1745``): for a per-head qk-norm model
+    (``megastep_lowbit.py:1698-1745``): for a sandwich-norm model (gemma2/3)
+    ``pa_norm`` and ``pm_norm`` [L, 1, H] float32, the post-attention and
+    post-feedforward norm weights; for a per-head qk-norm model
     ``qk_nm`` [L, 2, Dqkv] float32, the lane-expanded weight row (q heads
     ``q_norm``, k heads ``k_norm``, v lanes 1) over the apply-mask row (1 on
     q and k lanes, 0 on v); where o, gate/up or down has a bias, ``o_bias``
@@ -392,6 +400,11 @@ def _arch_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
                            torch.zeros(kvd, device=dev)])
             rows.append(torch.stack([w, m]))
         out["qk_nm"] = torch.stack(rows)
+    if cfg.sandwich_norm and lp0.post_attn_norm is not None:
+        for key, name in (("pa_norm", "post_attn_norm"),
+                          ("pm_norm", "post_mlp_norm")):
+            out[key] = torch.stack([getattr(lp, name).weight.to(
+                torch.float32) for lp in sp.layers]).reshape(L, 1, H)
     if any("bias" in m for mm in mats for m in mm[1:]):
         def bias(m, width):
             return (m["bias"].to(torch.float32) if "bias" in m
@@ -412,6 +425,9 @@ def _arch_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
 
 # kernel 14's qk-norm and bias operands (the ARCH instantiations)
 _ARCH_KEYS = ("qk_nm", "o_bias", "gu_bias", "dn_bias")
+
+# gemma's sandwich norms (the GEMMA instantiation)
+_SAND_KEYS = ("pa_norm", "pm_norm")
 
 # kernel 14's EoRA operands (A and B of q, o, gate/up and down)
 _LORA_KEYS = ("la_q", "lb_q", "la_o", "lb_o", "la_g", "lb_g", "la_d", "lb_d")
@@ -449,7 +465,7 @@ def actorder_transform(cfg, sp, bits: int):
     (``ops/lane_perm.py``), a gather through the indices gives the same
     values. The ORIGINAL ``sp`` keeps serving prefill (its artifacts keep
     g_idx). Raises ValueError on unbalanced groups."""
-    from ..models.transformer import Layer, Model
+    from ..models.transformer import Layer, Model, sandwich_norms
     from .qlinear import QLinear
 
     names = (("attn", "qkv"), ("attn", "o"), ("mlp", "gateup"),
@@ -495,7 +511,7 @@ def actorder_transform(cfg, sp, bits: int):
         mlp["gateup"] = rewrite(mlp["gateup"], p["gateup"], p["down"])
         mlp["down"] = rewrite(mlp["down"], p["down"])
         layers.append(Layer(lp.input_norm.weight, lp.post_norm.weight, attn,
-                            mlp))
+                            mlp, **sandwich_norms(lp)))
     tsp = Model(sp.embed_tokens.weight, sp.final_norm.weight, layers,
                 sp.lm_head)
     aps = {}
@@ -521,7 +537,8 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
                          aperm: bool = False,
                          lora: Optional[tuple] = None,
                          tv: int = 0, qkn: bool = False,
-                         biases: bool = False) -> Dict[str, int]:
+                         biases: bool = False,
+                         sand: bool = False) -> Dict[str, int]:
     """The JAX wrapper's run-time plan (``megastep_lowbit.py:966-1087``):
     the qkv tile ``tq``, the MLP tile ``ti`` (baked into the pack), the
     tiles per grid step ``ptq``/``ptg`` and the flash block ``Tb``:
@@ -530,8 +547,9 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
     The estimate counts the optional operands: zero points ``zp``,
     act-order ``aperm`` (the JAX package's Beneš masks, 2 log2(n) - 1
     stages), the EoRA ranks ``lora`` (rq, ro, rg, rd), the fold's
-    vocabulary tile ``tv``, the qk-norm rows ``qkn`` and the o/gate-up/down
-    ``biases``. Tb and ti set rounding points."""
+    vocabulary tile ``tv``, the qk-norm rows ``qkn``, the o/gate-up/down
+    ``biases`` and gemma's sandwich norms ``sand``. Tb and ti set rounding
+    points."""
     metas, _, _, g_r = _plan_meta(bits)
     npl = len(metas)
     d = head_dim
@@ -586,6 +604,8 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
             est += 4 * B * (rq_ + rg_ + rd_)
         if qkn:
             est += 2 * 4 * 2 * ptq_ * tq
+        if sand:
+            est += 2 * 4 * 2 * H
         if biases:
             est += 2 * 4 * (2 * H + ptg_ * 2 * ti)
         if tv:
@@ -640,7 +660,7 @@ def _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
         H // mp["qkv_s"].shape[1], block_t, qkv_cap_mb, zp="qkv_sz" in mp,
         aperm="ap_q" in mp, lora=_lora_ranks(mp),
         tv=lm["scale"].shape[-1] if lm is not None else 0,
-        qkn="qk_nm" in mp, biases="o_bias" in mp)
+        qkn="qk_nm" in mp, biases="o_bias" in mp, sand="pa_norm" in mp)
 
 
 # --------------------------------------------------------------- the step
@@ -680,6 +700,7 @@ def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
             gb, ub = gate_up("gu_bias", l)
             out.update(o_bias=mp["o_bias"][l, 0], gate_bias=gb[0],
                        up_bias=ub[0], dn_bias=mp["dn_bias"][l, 0])
+        out.update({k: mp[k][l, 0] for k in _SAND_KEYS if k in mp})
         return out
 
     def lora(l):
@@ -721,9 +742,11 @@ def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                           interleaved: bool = False, eps: float = 1e-5,
                           rms_offset: float = 0.0, scale: float = 1.0,
                           act: str = "silu", block_t: int = 128,
-                          bits: int = 4, lm=None, qkv_cap_mb: int = 12):
+                          bits: int = 4, lm=None, qkv_cap_mb: int = 12,
+                          softcap: float = 0.0, windows=None, rope_sel=None):
     """Plain version of kernel 14 ("w4p", "w8p", with the lm fold where
-    ``lm`` is given), with the kernel's arithmetic. Shapes and results as
+    ``lm`` is given, gemma's softcap, windows and dual rope where they are),
+    with the kernel's arithmetic. Shapes and results as
     :func:`megastep_lowbit_decode`."""
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
                     qkv_cap_mb, lm)
@@ -733,7 +756,8 @@ def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
         mp["qkv_pk"].shape[0], k_cache, v_cache, pos, cos_half, sin_half,
         q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim, rotary_dim=rotary_dim,
         interleaved=interleaved, eps=eps, rms_offset=rms_offset, scale=scale,
-        act=act, Tb=plan["Tb"], ti=plan["ti"], gs=gs, partner_bf16=False)
+        act=act, Tb=plan["Tb"], ti=plan["ti"], gs=gs, partner_bf16=False,
+        windows=windows, softcap=softcap, rope_sel=rope_sel)
     if lm is None:
         return xs.to(x.dtype), kn, vn
     return xs.to(x.dtype), kn, vn, lm_fold_plain(xs, lm, eps, rms_offset)
@@ -793,27 +817,13 @@ def mega_lm_operands(cfg, sp, max_tile_bytes: int = 4 * 1024 * 1024
             "norm": sp.final_norm.weight.to(torch.float32).reshape(H)}
 
 
-# operands of kernel 14's later sub-slices and what each serves
-_LATER_OPERANDS = {"pa_norm": "sandwich norms"}
-
-
-def _later_feature(mp, bits: int, softcap=0.0, windows=None,
-                   rope_sel=None, walsh: int = 0) -> Optional[str]:
+def _later_feature(bits: int, walsh: int = 0) -> Optional[str]:
     """The first feature of a kernel 14 call that a later slice of the port
-    brings, or None."""
+    brings (w3/w2, then wl8: ``ROADMAP.md`` queue B), or None."""
     if walsh:
         return "the Walsh LUT planes (wl8)"
     if bits not in (4, 8):
         return f"{bits}-bit planes (w3/w2)"
-    for key, what in _LATER_OPERANDS.items():
-        if key in mp:
-            return what
-    if windows is not None:
-        return "sliding windows"
-    if softcap:
-        return "the attention softcap"
-    if rope_sel is not None:
-        return "dual rope tables"
     return None
 
 
@@ -842,7 +852,8 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
                    head_dim: int, rotary_dim: int, interleaved: bool,
                    eps: float, rms_offset: float, scale: float, act: str,
                    lm: Optional[Dict[str, torch.Tensor]] = None,
-                   fold_rows: Optional[dict] = None):
+                   fold_rows: Optional[dict] = None, softcap: float = 0.0,
+                   windows=None, rope_sel=None):
     """Check the operands of a whole-step kernel 13 or 14 call and launch it
     (``csrc/<library>.cu``). ``keys`` names the pack's code operands. The
     kernel reads x and writes y in float32; y is returned in x's type. With
@@ -852,7 +863,10 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     kernel's scratch), so that a check can hold its vocab phase bit for
     bit. The EoRA factors (kernel 14's ``la_*``/``lb_*``) come for all four
     projections or none; the kernel gets float32 scratch ``xa_*`` [B, r]
-    for their A products."""
+    for their A products. Gemma's operands (kernel 14): the sandwich norms
+    ``pa_norm``/``pm_norm`` of the pack (with float32 scratch ``sand`` [B,
+    H] for the o and down outputs they norm), ``windows`` and ``rope_sel``
+    [L] int32 (then cos/sin_half [2, B, rotary_dim / 2]) and ``softcap``."""
     from .w8a8_args import ACT_CODES, launch
 
     B, H = x.shape
@@ -961,8 +975,33 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
                      lm_norm=lm["norm"].reshape(H).contiguous(),
                      logits=torch.empty((B, V), dtype=torch.float32,
                                         device=dev))
+    sand = {k: mp[k] for k in _SAND_KEYS if k in mp}
+    if sand:
+        if len(sand) != 2 or any(
+                kmajor or t.dtype != torch.float32
+                or tuple(t.shape) != (L, 1, H) or not t.is_contiguous()
+                for t in sand.values()):
+            raise ValueError(f"{what}: pa_norm and pm_norm come together, "
+                             f"contiguous float32 {(L, 1, H)} (kernel 14)")
+        extra.update(sand, sand=torch.empty((B, H), dtype=torch.float32,
+                                            device=dev))
+    for name, t in (("windows", windows), ("rope_sel", rope_sel)):
+        if t is None:
+            continue
+        t = torch.as_tensor(t, device=dev).to(torch.int32).reshape(-1)
+        if kmajor or t.numel() != L:
+            raise ValueError(f"{what}: {name} must be [L] (kernel 14)")
+        extra[name] = t.contiguous()
+    if rope_sel is not None and rd:
+        half = rd // 2
+        cos_t, sin_t = (t.to(device=dev, dtype=torch.float32)
+                        .reshape(2, -1, half).expand(2, B, half).contiguous()
+                        for t in (cos_half, sin_half))
+    else:
+        cos_t, sin_t = rope_rows_for(cos_half, sin_half, B, rd, dev)
+    if softcap and kmajor:
+        raise ValueError(f"{what}: the softcap is kernel 14's")
     ng = I // ti
-    cos_t, sin_t = rope_rows_for(cos_half, sin_half, B, rd, dev)
     y = torch.empty((B, H), dtype=torch.float32, device=dev)
     kn = torch.empty((L, B, kv_dim), dtype=torch.bfloat16, device=dev)
     vn = torch.empty((L, B, kv_dim), dtype=torch.bfloat16, device=dev)
@@ -991,7 +1030,7 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         cache_sb=Hkv * T * d, cache_sg=T * d, cache_st=d,
         cache_sl=B * Hkv * T * d, gs=gs, bits=bits, tq=tq,
         gtp=mp["dn_s"].shape[1] // ng, cos_ld=rd // 2, kmajor=int(kmajor),
-        V=V, **ranks)
+        V=V, softcap=float(softcap or 0.0), **ranks)
     if lm is None:
         return y.to(x.dtype), kn, vn
     if fold_rows is not None:
@@ -999,14 +1038,28 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     return y.to(x.dtype), kn, vn, extra["logits"]
 
 
-def kernel_library(mp: Dict[str, torch.Tensor], fold: bool) -> str:
-    """The kernel-14 source a pack's call runs: packs with qwen3's qk-norm
+def gemma_call(mp: Dict[str, torch.Tensor], softcap=0.0, windows=None,
+               rope_sel=None) -> bool:
+    """Whether a kernel 14 call carries any of gemma's operands: sandwich
+    norms in the pack, a softcap, windows or a rope selector."""
+    return (any(k in mp for k in _SAND_KEYS) or bool(softcap)
+            or windows is not None or rope_sel is not None)
+
+
+def kernel_library(mp: Dict[str, torch.Tensor], fold: bool,
+                   gemma: bool = False) -> str:
+    """The kernel-14 source a pack's call runs: a call with gemma's
+    operands (:func:`gemma_call`) the GEMMA instantiation
+    (``csrc/megastep_lowbit_gemma.cu``, which takes every other optional
+    operand too, each nullable); otherwise packs with qwen3's qk-norm
     or o/gate-up/down biases the ARCH instantiations
     (``csrc/megastep_lowbit_arch*.cu``), with EoRA adapters the ones with
     the rank-r epilogue (``_lora``), steps with the fold theirs (``_lm``),
     packs with zero points or act-order the ones that read them (``_opt``);
     each optional operand is compiled into its own instantiations, so that
     the kernels without it keep their code."""
+    if gemma:
+        return "megastep_lowbit_gemma"
     return ("megastep_lowbit"
             + ("_arch" if any(k in mp for k in _ARCH_KEYS) else "")
             + ("_lora" if "la_q" in mp else "") + ("_lm" if fold else "")
@@ -1029,21 +1082,24 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
     ``mp`` from :func:`megapack_lowbit`, with the zero-point corrections
     ``*_sz``, the act-order orders ``ap_*`` (:func:`actorder_transform`),
-    the EoRA factors ``la_*``/``lb_*``, qwen3's ``qk_nm`` and the
-    o/gate-up/down biases where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
+    the EoRA factors ``la_*``/``lb_*``, qwen3's ``qk_nm``, the
+    o/gate-up/down biases and gemma's sandwich norms ``pa_norm``/``pm_norm``
+    where the model has them; k/v_cache [L, B * Hkv, T, d] bf16 (slot b's
     history below ``pos[b]``; ``pos`` a host int, a 0-d or a [B] int
     tensor); cos/sin_half [rotary_dim / 2] or [B, rotary_dim / 2] at each
-    slot's position. Returns (y [B, H], the hidden state before the final
+    slot's position, or with ``rope_sel`` [L] (gemma3's dual rope: 1 picks
+    the second table) both tables, [2, B, rotary_dim / 2]; ``windows`` [L]
+    each layer's sliding window (T for a full layer); ``softcap`` gemma2's
+    attention softcap. Returns (y [B, H], the hidden state before the final
     norm, in x's type; k_new and v_new [L, B, kv_dim] bf16), and with
     ``lm`` (:func:`mega_lm_operands`: the trailing-unembed fold) the
     float32 logits [B, V] fourth. ``fold_rows``: see :func:`launch_grouped`
-    (the card only). The other arguments are the JAX wrapper's; each of
-    them, and every other optional operand of ``mp``, raises
-    NotImplementedError naming its feature."""
+    (the card only). The other arguments are the JAX wrapper's; w3/w2 bits
+    and ``walsh`` raise NotImplementedError naming their feature."""
     B, H = x.shape
     if B > 64:
         raise ValueError("megastep_lowbit_decode: B <= 64")
-    later = _later_feature(mp, bits, softcap, windows, rope_sel, walsh)
+    later = _later_feature(bits, walsh)
     if later:
         raise NotImplementedError(
             f"megastep_lowbit_decode: {later} comes with a later slice of the "
@@ -1055,10 +1111,13 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                                      interleaved=interleaved, eps=eps,
                                      rms_offset=rms_offset, scale=scale,
                                      act=act, block_t=block_t, bits=bits,
-                                     lm=lm, qkv_cap_mb=qkv_cap_mb)
+                                     lm=lm, qkv_cap_mb=qkv_cap_mb,
+                                     softcap=softcap, windows=windows,
+                                     rope_sel=rope_sel)
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
                     qkv_cap_mb, lm)
-    lib = kernel_library(mp, lm is not None)
+    lib = kernel_library(mp, lm is not None,
+                         gemma_call(mp, softcap, windows, rope_sel))
     out = launch_grouped(
         lib, f"ganq_{lib}", "megastep_lowbit_decode",
         x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},
@@ -1067,7 +1126,8 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
         Tb=plan["Tb"], q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim,
         rotary_dim=rotary_dim, interleaved=interleaved, eps=eps,
         rms_offset=rms_offset, scale=scale, act=act, lm=lm,
-        fold_rows=fold_rows)
+        fold_rows=fold_rows, softcap=softcap, windows=windows,
+        rope_sel=rope_sel)
     megastep_lowbit_decode.launches += 1
     return out
 

@@ -7,8 +7,9 @@ pointer to one; the group-scaled kernels 13 and 14 read the fields after
 ``x_bf16`` and after ``part`` too (kernel 14 alone the zero-point
 corrections, the act-order column orders, the lm fold's operands and
 vocabulary size ``V``, the EoRA epilogue's factors, scratch and ranks,
-and the qk-norm rows, the o/gate-up/down biases and the qk-norm's float32
-qkv scratch at the end). Field order and types must
+the qk-norm rows, the o/gate-up/down biases and the qk-norm's float32
+qkv scratch, and at the end gemma's sandwich norms, windows, rope
+selector, sandwich scratch and softcap). Field order and types must
 match the header's. Pointers are tensors' ``data_ptr()`` (0 for an unused
 field); the kernels read and write them on the caller's stream, so every
 tensor named here must stay alive until the launch has been enqueued, which
@@ -42,6 +43,8 @@ _LORA_POINTERS = ("la_q", "lb_q", "la_o", "lb_o", "la_g", "lb_g", "la_d",
                   "lb_d", "xa_q", "xa_o", "xa_g", "xa_d")
 _LORA_INTS = ("r_q", "r_o", "r_g", "r_d")
 _ARCH_POINTERS = ("qk_nm", "o_bias", "gu_bias", "dn_bias", "qkv_f")
+_GEMMA_POINTERS = ("pa_norm", "pm_norm", "windows", "rope_sel", "sand")
+_GEMMA_FLOATS = ("softcap",)
 
 ACT_CODES = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 
@@ -54,7 +57,9 @@ class W8A8Args(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in _TAIL_INTS]
                 + [(n, ctypes.c_void_p) for n in _LORA_POINTERS]
                 + [(n, ctypes.c_int) for n in _LORA_INTS]
-                + [(n, ctypes.c_void_p) for n in _ARCH_POINTERS])
+                + [(n, ctypes.c_void_p) for n in _ARCH_POINTERS]
+                + [(n, ctypes.c_void_p) for n in _GEMMA_POINTERS]
+                + [(n, ctypes.c_float) for n in _GEMMA_FLOATS])
 
 
 def launch(library: str, symbol: str, what: str,

@@ -25,8 +25,8 @@ import torch
 from ..adapter.eora import compute_eora
 from ..models import hf_import
 from ..models.registry import ArchSpec
-from ..models.transformer import Model, ModelConfig, embed, layer_forward, \
-    rope_tables
+from ..models.transformer import (Model, ModelConfig, embed, layer_forward,
+                                  rope_for_layer, rope_tables_all)
 from ..ops import qlinear
 from ..utils.logger import get_logger
 from .hessian import HessianAccumulator
@@ -69,12 +69,12 @@ def generate_eora(cfg: ModelConfig, fp_model: Model, q_model: Model,
             x = torch.as_tensor(arr, device=device).to(
                 q_model.embed_tokens.weight.dtype)
         else:
-            x = embed(q_model, torch.as_tensor(arr, dtype=torch.int64,
+            x = embed(cfg, q_model, torch.as_tensor(arr, dtype=torch.int64,
                                                device=device))
         b, s = x.shape[:2]
         acts.append(x)
-        ropes.append(rope_tables(cfg, torch.arange(s, device=device)
-                                 .expand(b, s)))
+        ropes.append(rope_tables_all(cfg, torch.arange(s, device=device)
+                                     .expand(b, s)))
     nsamples = sum(int(a.shape[0]) for a in acts)
 
     done: List[str] = []
@@ -86,7 +86,10 @@ def generate_eora(cfg: ModelConfig, fp_model: Model, q_model: Model,
             t0 = time.perf_counter()
             accs: Dict[str, HessianAccumulator] = {}
             for x, rope in zip(acts, ropes):
-                _, taps = layer_forward(cfg, lp, x, None, rope, want_taps=True)
+                _, taps = layer_forward(cfg, lp, x, None,
+                                        rope_for_layer(cfg, rope, li),
+                                        want_taps=True,
+                                        window=cfg.layer_window(li))
                 for _, slot in slots:
                     if slot in taps:
                         if slot not in accs:
@@ -117,7 +120,9 @@ def generate_eora(cfg: ModelConfig, fp_model: Model, q_model: Model,
                               - la["svd"])
 
             t0 = time.perf_counter()
-            acts = [layer_forward(cfg, lp, x, None, rope)
+            acts = [layer_forward(cfg, lp, x, None,
+                                  rope_for_layer(cfg, rope, li),
+                                  window=cfg.layer_window(li))
                     for x, rope in zip(acts, ropes)]
             sync()
             t["rest"] += time.perf_counter() - t0

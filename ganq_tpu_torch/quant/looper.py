@@ -43,7 +43,8 @@ from ..core.config import QUANT_METHOD, QuantizeConfig
 from ..models import hf_import
 from ..models.registry import ArchSpec
 from ..models.transformer import (Layer, Model, ModelConfig, embed,
-                                  layer_forward, rope_tables)
+                                  layer_forward, rope_for_layer,
+                                  rope_tables_all, sandwich_norms)
 from ..ops import qlinear
 from ..utils.logger import get_logger
 from ..utils.observability import quant_log_table
@@ -217,8 +218,9 @@ def quantize_model(cfg: ModelConfig, model: Model, spec: ArchSpec,
                 "slice, ROADMAP.md queue A item 7)")
         ids = torch.as_tensor(arr, dtype=torch.int64, device=device)
         b, s = ids.shape
-        acts.append(embed(model, ids))
-        ropes.append(rope_tables(cfg, torch.arange(s, device=device).expand(b, s)))
+        acts.append(embed(cfg, model, ids))
+        ropes.append(rope_tables_all(cfg, torch.arange(s, device=device)
+                                     .expand(b, s)))
     nsamples = sum(int(a.shape[0]) for a in acts)
 
     artifacts: Dict[str, QuantizedModule] = {}
@@ -242,7 +244,9 @@ def quantize_model(cfg: ModelConfig, model: Model, spec: ArchSpec,
                 artifacts.update(layer_arts)
                 if resume_dir is not None:
                     _save_layer_state(resume_dir, li, layer_arts, layer_weights)
-            acts = [layer_forward(cfg, lp, x, None, rope)
+            acts = [layer_forward(cfg, lp, x, None,
+                                  rope_for_layer(cfg, rope, li),
+                                  window=cfg.layer_window(li))
                     for x, rope in zip(acts, ropes)]
             log.info(f"layer {li} done in {time.perf_counter() - t_layer:.1f}s")
 
@@ -295,7 +299,10 @@ def _quantize_layer(cfg: ModelConfig, spec: ArchSpec, qcfg: QuantizeConfig,
         t0 = time.perf_counter()
         accs: Dict[str, HessianAccumulator] = {}
         for x, rope in zip(acts, ropes):
-            _, taps = layer_forward(cfg, lp, x, None, rope, want_taps=True)
+            _, taps = layer_forward(cfg, lp, x, None,
+                                    rope_for_layer(cfg, rope, li),
+                                    want_taps=True,
+                                    window=cfg.layer_window(li))
             for _, slot, _ in todo:
                 if slot not in accs:
                     accs[slot] = HessianAccumulator(taps[slot].shape[-1], device)
@@ -375,7 +382,8 @@ def packed_params(spec: ArchSpec, out: QuantizeOutput) -> Model:
             groups[group][name] = _packed(
                 art, old["bias"] if "bias" in old else None)
         layers.append(Layer(lp.input_norm.weight, lp.post_norm.weight,
-                            groups["attn"], groups["mlp"]))
+                            groups["attn"], groups["mlp"],
+                            **sandwich_norms(lp)))
     lm_head = model.lm_head
     art = out.artifacts.get(spec.lm_head_name)
     if art is not None and lm_head is not None:

@@ -19,10 +19,13 @@ Two modes, picked at construction in ``ganq_tpu``'s order:
   whose kernel the port has not yet (kernel 14's w3/w2/wl8) raises
   NotImplementedError here. Qwen3's qk-norm and InternLM's biases ride
   the step in the pack (kernel 14's ``qk_nm``, ``o_bias``, ``gu_bias``,
-  ``dn_bias``). EoRA adapters ride the step (kernel
+  ``dn_bias``), gemma's sandwich norms too (``pa_norm``, ``pm_norm``), and
+  its windows, softcap and dual rope as arguments at each slot's
+  position. EoRA adapters ride the step (kernel
   14's epilogue) or, per layer, ``ops/qlinear.apply``'s rank-r term.
 - **per layer**: ``models/transformer.layer_forward`` at a vector of cache
-  positions (the masked attention, the linears' kernels).
+  positions (the masked attention, each slot's sliding window, the
+  linears' kernels).
 
 Sampling draws from one ``core/prng`` key chain (``PRNGKey(0)``, split once
 per sampled token, as ``ganq_tpu`` does), so sampled tokens equal
@@ -45,7 +48,8 @@ import torch
 from ..core import prng
 from ..core.backend import resolve_device, select_backend
 from ..models.transformer import (Model, ModelConfig, _fused_act_kind,
-                                  embed, layer_forward, rope_tables, unembed)
+                                  embed, layer_forward, rope_for_layer,
+                                  rope_tables_all, unembed)
 from ..utils.logger import get_logger
 from . import stacked
 from .engine import init_cache
@@ -64,14 +68,15 @@ def prefill_into_slot(cfg: ModelConfig, model: Model, cache: Cache,
     package writes a fresh slot). Returns the last position's logits [V]."""
     s = ids.shape[1]
     positions = torch.arange(s, device=ids.device)[None, :]
-    x = embed(model, ids)
-    rope = rope_tables(cfg, positions)
-    for lp, lc in zip(model.layers, cache):
+    x = embed(cfg, model, ids)
+    rope = rope_tables_all(cfg, positions)
+    for i, (lp, lc) in enumerate(zip(model.layers, cache)):
         slot_cache = {k: v[slot:slot + 1] for k, v in lc.items()}
         for v in slot_cache.values():
             v.zero_()
-        x = layer_forward(cfg, lp, x, None, rope, cache=slot_cache,
-                          cache_pos=0, backend=backend)
+        x = layer_forward(cfg, lp, x, None, rope_for_layer(cfg, rope, i),
+                          cache=slot_cache, cache_pos=0, backend=backend,
+                          window=cfg.layer_window(i))
     return unembed(cfg, model, x[:, -1:, :], backend)[0, 0, :]
 
 
@@ -80,16 +85,19 @@ def _decode_slots_impl(cfg: ModelConfig, model: Model, cache: Cache,
                        tokens: torch.Tensor, pos: torch.Tensor,
                        backend: str) -> torch.Tensor:
     """One decode step over all slots at per-slot positions ``pos`` [S]:
-    the full ``layer_forward`` with a vector cache position. Logits [S, V]."""
+    the full ``layer_forward`` with a vector cache position (each slot's
+    own sliding window, ``ganq_tpu/serve/batching.py:87-108``). Logits
+    [S, V]."""
     T = cache[0]["k"].shape[1]
     positions = pos[:, None]
-    x = embed(model, tokens[:, None])
+    x = embed(cfg, model, tokens[:, None])
     mask = (torch.arange(T, device=pos.device)[None, :]
             <= pos[:, None])[:, None, None, :]
-    rope = rope_tables(cfg, positions)
-    for lp, lc in zip(model.layers, cache):
-        x = layer_forward(cfg, lp, x, mask, rope, cache=lc, cache_pos=pos,
-                          backend=backend)
+    rope = rope_tables_all(cfg, positions)
+    for i, (lp, lc) in enumerate(zip(model.layers, cache)):
+        x = layer_forward(cfg, lp, x, mask, rope_for_layer(cfg, rope, i),
+                          cache=lc, cache_pos=pos, backend=backend,
+                          window=cfg.layer_window(i))
     return unembed(cfg, model, x, backend)[:, 0, :]
 
 
@@ -142,14 +150,17 @@ def _mega_decode_slots(cfg: ModelConfig, sp: Model, mp, mk: torch.Tensor,
             kw["lm"] = lm
     Hkv = kv_dim // d
     positions = pos[:, None]
-    x = embed(sp, tokens[:, None])[:, 0, :]
-    cos, sin = rope_tables(cfg, positions)            # [S, 1, d]
-    rd = cfg.head_dim                                 # each slot's row
-    cos_h, sin_h = cos[:, 0, :rd // 2], sin[:, 0, :rd // 2]
+    x = embed(cfg, sp, tokens[:, None])[:, 0, :]
+    # each slot's own rope rows; kernel 14 also takes gemma's windows,
+    # softcap and dual rope at the slots' positions
+    rd, cos_h, sin_h, extra = stacked._mega_rope_kw(cfg, positions, L, T)
+    if variant != "w4":
+        kw.update(extra)
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(d)
     out = step_fn(x, mp, mk, mv, pos, cos_h, sin_h, q_dim=cfg.q_dim,
                   kv_dim=kv_dim, head_dim=d, rotary_dim=rd, eps=cfg.norm_eps,
-                  scale=scale, act=_fused_act_kind(cfg), **kw)
+                  rms_offset=cfg.rms_offset, scale=scale,
+                  act=_fused_act_kind(cfg), **kw)
     y, kn, vn = out[:3]
     slots = torch.arange(S, device=mk.device)
     at = pos.to(torch.int64).clamp(max=T - 1)

@@ -32,7 +32,8 @@ import torch
 from ..core import prng
 from ..core.backend import resolve_device, select_backend
 from ..models.transformer import (Model, ModelConfig, causal_mask, embed,
-                                  layer_forward, rope_tables, unembed)
+                                  layer_forward, rope_for_layer,
+                                  rope_tables_all, unembed)
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -70,12 +71,13 @@ def prefill(cfg: ModelConfig, model: Model, cache: Cache,
     b, s = input_ids.shape
     max_seq = cache[0]["k"].shape[1]
     positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    x = embed(model, input_ids)
+    x = embed(cfg, model, input_ids)
     mask = causal_mask(s, max_seq, input_ids.device)
-    rope = rope_tables(cfg, positions)
-    for lp, lc in zip(model.layers, cache):
-        x = layer_forward(cfg, lp, x, mask, rope, cache=lc, cache_pos=0,
-                          backend=backend)
+    rope = rope_tables_all(cfg, positions)
+    for i, (lp, lc) in enumerate(zip(model.layers, cache)):
+        x = layer_forward(cfg, lp, x, mask, rope_for_layer(cfg, rope, i),
+                          cache=lc, cache_pos=0, backend=backend,
+                          window=cfg.layer_window(i))
     return unembed(cfg, model, x[:, -1:, :], backend)[:, 0, :]
 
 
@@ -87,12 +89,13 @@ def decode_step(cfg: ModelConfig, model: Model, cache: Cache,
     b = token.shape[0]
     max_seq = cache[0]["k"].shape[1]
     positions = pos.reshape(1, 1).expand(b, 1)
-    x = embed(model, token[:, None])
+    x = embed(cfg, model, token[:, None])
     mask = (torch.arange(max_seq, device=token.device) <= pos)[None, None, None, :]
-    rope = rope_tables(cfg, positions)
-    for lp, lc in zip(model.layers, cache):
-        x = layer_forward(cfg, lp, x, mask, rope, cache=lc, cache_pos=pos,
-                          backend=backend)
+    rope = rope_tables_all(cfg, positions)
+    for i, (lp, lc) in enumerate(zip(model.layers, cache)):
+        x = layer_forward(cfg, lp, x, mask, rope_for_layer(cfg, rope, i),
+                          cache=lc, cache_pos=pos, backend=backend,
+                          window=cfg.layer_window(i))
     return unembed(cfg, model, x, backend)[:, 0, :]
 
 

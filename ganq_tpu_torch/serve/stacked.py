@@ -13,7 +13,8 @@ variant of a request from the gates of the whole-step kernels, in the JAX
 order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
 (``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
 (``ops/megastep_lowbit.py``, with zero points, act-order, EoRA adapters,
-the trailing-unembed lm fold, qwen3's qk-norm and o/gate-up/down biases);
+the trailing-unembed lm fold, qwen3's qk-norm, o/gate-up/down biases and
+gemma's sandwich norms, windows, softcap and dual rope);
 kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"`` come with later slices
 (:func:`missing_kernel`, ``ROADMAP.md`` queue B). The
 decode steps of a request with a variant run
@@ -37,7 +38,8 @@ import torch
 
 from ..models.transformer import (QK_NORMS, Layer, Model, ModelConfig,
                                   _fused_act_kind, _rope_half_tables,
-                                  attn_linears, embed, rope_tables, unembed)
+                                  attn_linears, embed, rope_tables,
+                                  rope_tables_all, sandwich_norms, unembed)
 from ..ops.qlinear import (QLinear, certify_uniform, concat_rows, recode_w8,
                            w8_to_uniform8)
 from .engine import decode_step as _decode_layers
@@ -60,7 +62,7 @@ _PACK_ATTR = {"w8": "megapack_w8", "w4": "megapack4", "w4p": "megapack_lb",
 def _layer(lp: Layer, attn: Dict[str, QLinear], mlp: Dict[str, QLinear],
            **extra) -> Layer:
     return Layer(lp.input_norm.weight, lp.post_norm.weight, attn, mlp,
-                 **extra)
+                 **sandwich_norms(lp), **extra)
 
 
 def fuse_layer(lp: Layer) -> Layer:
@@ -113,7 +115,8 @@ def _structure(lp: Layer):
     """What stacking needs equal across layers: per linear its kind, bits,
     width and arrays with their shapes (``jax.tree_util.tree_structure``
     and ``jnp.stack`` of the JAX package)."""
-    out = [("qk_norm", lp.q_norm is not None)]
+    out = [("qk_norm", lp.q_norm is not None),
+           ("sandwich_norm", lp.post_attn_norm is not None)]
     for group, linears in (("attn", attn_linears(lp)), ("mlp", lp.mlp)):
         for name, p in linears.items():
             bufs = tuple(sorted((k, tuple(v.shape))
@@ -365,16 +368,51 @@ def decode_step(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
                           pos, backend)
 
 
+def _mega_rope_kw(cfg: ModelConfig, positions: torch.Tensor, L: int, T: int):
+    """(rotary_dim, cos_half, sin_half, extra) of a kernel 14 call
+    (``ganq_tpu/serve/stacked.py:385-419``) for rows at ``positions`` [B, 1]:
+    the half tables [B, head_dim / 2] of each row; for a dual-rope model
+    (gemma3) both, stacked [2, B, head_dim / 2] (global first), with the
+    per-layer selector ``rope_sel`` [L] int32 (1: the local table, on the
+    sliding layers); ``windows`` [L] int32 where the model slides (full
+    layers carry T, which masks nothing); the attention ``softcap``."""
+    rd = cfg.head_dim
+    dev = positions.device
+
+    def halves(rope):
+        cos, sin = rope
+        return cos[:, 0, :rd // 2], sin[:, 0, :rd // 2]
+
+    rope = rope_tables_all(cfg, positions)
+    kw = {}
+    if isinstance(rope, dict):
+        (cg, sg), (cl, sl) = halves(rope["global"]), halves(rope["local"])
+        cos_h, sin_h = torch.stack([cg, cl]), torch.stack([sg, sl])
+        kw["rope_sel"] = torch.tensor(
+            [int(cfg.layer_window(i) is not None) for i in range(L)],
+            dtype=torch.int32, device=dev)
+    else:
+        cos_h, sin_h = halves(rope)
+    if cfg.sliding_window is not None:
+        kw["windows"] = torch.tensor(
+            [cfg.layer_window(i) or T for i in range(L)], dtype=torch.int32,
+            device=dev)
+    if cfg.attn_softcap is not None:
+        kw["softcap"] = float(cfg.attn_softcap)
+    return rd, cos_h, sin_h, kw
+
+
 def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
                      cv: torch.Tensor, token: torch.Tensor, pos: torch.Tensor,
                      backend: str, variant: str = "w8") -> torch.Tensor:
     """One decode step through the whole-step kernel of ``variant`` (kernel
     12 for "w8", 13 for "w4", 14 for "w4p"/"w8p"). ck/cv in the megastep
     layout, updated in place with the step's k/v at ``pos`` after the
-    kernel. Kernel 14 folds the final norm and a ``w8`` lm_head into the
-    step where :func:`lm_fold_engages` (the int8 final activations of the
-    TPU kernel's fold); every other step ends with the full-precision
-    unembed."""
+    kernel. Kernel 14 takes gemma's windows, softcap and dual rope
+    (:func:`_mega_rope_kw`), and folds the final norm and a ``w8`` lm_head
+    into the step where :func:`lm_fold_engages` (the int8 final activations
+    of the TPU kernel's fold); every other step ends with the
+    full-precision unembed."""
     from ..ops.megastep import megastep_decode_w8a8
     from ..ops.megastep4 import megastep4_decode
     from ..ops.megastep_lowbit import megastep_lowbit_decode, mega_lm_operands
@@ -396,13 +434,19 @@ def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
         kv_dim = (mp["qkv_w8"].shape[1] - cfg.q_dim) // 2
         step_fn = megastep_decode_w8a8
     positions = pos.reshape(1, 1).expand(b, 1)
-    x = embed(sp, token[:, None])[:, 0, :]
-    rd, cos_h, sin_h = _rope_half_tables(cfg, rope_tables(cfg, positions))
+    x = embed(cfg, sp, token[:, None])[:, 0, :]
+    if variant in _LB_BITS:
+        rd, cos_h, sin_h, extra = _mega_rope_kw(cfg, positions, L,
+                                                ck.shape[2])
+        kw.update(extra)
+    else:
+        rd, cos_h, sin_h = _rope_half_tables(cfg, rope_tables(cfg, positions))
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(d)
     out = step_fn(
         x, mp, ck, cv, pos, cos_h, sin_h, q_dim=cfg.q_dim, kv_dim=kv_dim,
-        head_dim=d, rotary_dim=rd, eps=cfg.norm_eps, scale=scale,
-        act=_fused_act_kind(cfg), **kw)
+        head_dim=d, rotary_dim=rd, eps=cfg.norm_eps,
+        rms_offset=cfg.rms_offset, scale=scale, act=_fused_act_kind(cfg),
+        **kw)
     y, kn, vn = out[:3]
     at = pos.reshape(1).to(torch.int64)
     ck.index_copy_(2, at, kn.reshape(L, -1, 1, d).to(ck.dtype))

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Time kernel 14 ("w8p" and "w4p", without the lm fold) for the port found
-at a checkout root, to compare two builds of it on one card.
+"""Time kernel 14 ("w8p" and "w4p", without the lm fold, and "w8p" with
+qwen3's qk-norm rows) for the port found at a checkout root, to compare two
+builds of it on one card.
 
     python3 scripts/torch_port_k14_ab.py ROOT
 
 ROOT is a checkout of the repository (``.`` or, for the parent commit, a
 ``git archive`` of it unpacked under ``build/``); its kernels build into
-ROOT/build. Random packs at Llama-3.2-3B widths (28 layers,
-``chip_smoke._grouped_pack``), slots at positions 160 + b, batch 1 and 8;
+ROOT/build (the two kernel-14 sources it times). Random packs at
+Llama-3.2-3B widths (28 layers,
+``chip_smoke._grouped_pack``; the qk-norm case adds
+``chip_smoke._arch_operands``), slots at positions 160 + b, batch 1 and 8;
 each case is the best of three CUDA-event means over 20 launches. Prints
 one line ``TIMING {json}``. Run the two roots in turns in one call
 (parent, change, change, parent): host and card differ between calls.
@@ -30,7 +33,7 @@ from ganq_tpu_torch.ops.megastep_lowbit import megastep_lowbit_decode  # noqa: E
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    cuda_lib.build_all()
+    cuda_lib.build_all(("megastep_lowbit", "megastep_lowbit_arch"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     H, I, q_dim, kv_dim, d, L = cs._l3b_widths()
     Hkv = kv_dim // d
@@ -38,8 +41,11 @@ def main() -> int:
     cos, sin = torch.cos(ang), torch.sin(ang)
     out = {"root": ROOT}
     with torch.inference_mode():
-        for bits in (8, 4):
+        for bits, qkn in ((8, False), (4, False), (8, True)):
             mp = cs._grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False)
+            if qkn:
+                cs._arch_operands(gen, mp, L, H, q_dim, kv_dim, I, True,
+                                  False)
             kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
                       scale=1 / math.sqrt(d), bits=bits)
             for B in (1, 8):
@@ -50,7 +56,7 @@ def main() -> int:
                     torch.bfloat16)
                 pos = torch.tensor([160 + b for b in range(B)],
                                    dtype=torch.int32, device="cuda")
-                out[f"w{bits}p_b{B}"] = min(cs.event_ms(
+                out[f"w{bits}p{'_qkn' * qkn}_b{B}"] = min(cs.event_ms(
                     lambda: megastep_lowbit_decode(x, mp, kc, vc, pos, cos,
                                                    sin, **kw), (), 20)
                     for _ in range(3))

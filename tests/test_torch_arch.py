@@ -37,7 +37,7 @@ from test_torch_megastep import _t
 from test_torch_megastep_lowbit import (_step_inputs, inject_zp_ao,
                                         np_uniform_llama)
 from test_torch_serve import _flatten_jax
-from test_torch_stacked import _np, _port_cfg
+from test_torch_stacked import _np, _port_cfg, np_llama
 
 _FAMILIES = ("llama", "mistral", "qwen2", "yi", "mobilellm", "qwen3",
              "internlm")
@@ -373,7 +373,8 @@ def test_kernel10_refuses_qk_norm(monkeypatch):
 # ------------------------------------------------- the slice as a whole
 def test_qwen3_whole_step_greedy_matches_jax(monkeypatch):
     """A 2-layer head_dim-128 Qwen3 ``lut`` model (ganq_tpu's synthetic
-    ``make_model``, q/k norm weights from a seed) through ``optimize()`` in both
+    ``lut`` kind, ``test_torch_stacked.np_llama``; q/k norm weights from a
+    seed) through ``optimize()`` in both
     packages (uniform 8-bit); with the megastep forced on
     (``GANQ_MEGASTEP=1``) both engines decode a batch of 2 through kernel
     14's "w8p" with ``qk_nm`` (ganq_tpu's kernel in interpret mode, the
@@ -386,7 +387,7 @@ def test_qwen3_whole_step_greedy_matches_jax(monkeypatch):
         jsyn.llama_config(hidden=256, inter=512, layers=2, heads=2,
                           kv_heads=1, vocab=256, max_pos=128),
         model_type="qwen3", qk_norm=True)
-    params = jsyn.make_model(jcfg, kind="lut", seed=1, dtype=jnp.float32)
+    params = np_llama(jcfg, ("lut", "lut"), seed=1, dtype=jnp.float32)
     rng = np.random.default_rng(11)
     for lp in params["layers"]:
         for n in ("q_norm", "k_norm"):

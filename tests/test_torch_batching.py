@@ -30,6 +30,7 @@ from ganq_tpu_torch.serve.batching import BatchingEngine, ThreadedBatcher
 from ganq_tpu_torch.serve.engine import Engine
 
 from test_torch_serve import _flatten_jax
+from test_torch_stacked import np_llama
 
 VOCAB = 128
 
@@ -46,7 +47,7 @@ def pair():
     weights in both packages."""
     jcfg = jsyn.llama_config(hidden=64, inter=128, layers=2, heads=4,
                              kv_heads=2, vocab=VOCAB, max_pos=128)
-    params = _f32(jsyn.make_model(jcfg, kind="dense", seed=3))
+    params = _f32(np_llama(jcfg, ("dense", "dense"), seed=3))
     tcfg = tsyn.llama_config(hidden=64, inter=128, layers=2, heads=4,
                              kv_heads=2, vocab=VOCAB, max_pos=128)
     _, model = thf.params_from_numpy(thf.config_to_hf(tcfg),

@@ -1122,3 +1122,121 @@ def test_megastep_lowbit_arch_refuses_a_partial_launch(gen):
     real("megastep_lowbit_arch", "ganq_megastep_lowbit_arch", "k14", t, dev,
          **sc)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ kernel 14's gemma operands
+from chip_smoke import _gemma_operands
+
+
+def _gemma_cfg(family, L, H, q_dim, kv_dim, I, window):
+    """A Gemma 2 (softcap 5, alternate windows) or Gemma 3 (dual rope, q/k
+    norms) config at a grouped test shape, a sliding then a full layer."""
+    import dataclasses
+
+    from ganq_tpu_torch.models import synthetic
+
+    base = (synthetic.gemma2_27b_config(L) if family == "g2" else
+            synthetic.gemma3_27b_config(L, layer_types=[
+                "sliding_attention", "full_attention"] * (L // 2)))
+    return dataclasses.replace(
+        base, hidden_size=H, intermediate_size=I,
+        num_attention_heads=q_dim // 128, num_key_value_heads=kv_dim // 128,
+        sliding_window=window,
+        attn_softcap=5.0 if family == "g2" else None)
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _GROUPED_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 9, 64])
+@pytest.mark.parametrize("family,zpao,r,V", [
+    ("g2", False, 0, 0), ("g3", False, 0, 0), ("g3", True, 16, 384),
+    ("g2", True, 0, 384)])
+def test_megastep_lowbit_gemma_matches_plain(gen, L, H, q_dim, kv_dim, I,
+                                             bits, B, family, zpao, r, V):
+    """Kernel 14 with gemma's operands (``megastep_lowbit_gemma.cu``):
+    sandwich norms, a window of 24 on the first layer (the slots sit at
+    positions up to 63), Gemma 2's softcap or Gemma 3's dual rope and q/k
+    norms, gelu-tanh and rms_offset 1, alone and with zero points,
+    act-order, the EoRA epilogue (rank ``r``, a runtime flag there) and the
+    lm fold (``V``), against its plain version within one bf16 ulp plus
+    3.5e-2 of the largest (``ganq_tpu``'s range-relative bound of its gemma
+    tests: rms_offset 1 norms and gelu-tanh amplify a flipped int8 code).
+    Without the windows the step moves by more than that."""
+    from ganq_tpu_torch.ops.megastep_lowbit import lm_fold_plain
+
+    cfg = _gemma_cfg(family, L, H, q_dim, kv_dim, I, 24)
+    mp = _zp_ao_operands(gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I,
+                                            bits, False),
+                         L, H, q_dim, bits, zpao, zpao)
+    if r:
+        mp = _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, r)
+    gkw = _gemma_operands(gen, mp, cfg, L)
+    T = 64
+    gkw["windows"] = torch.tensor([cfg.layer_window(i) or T
+                                   for i in range(L)], dtype=torch.int32,
+                                  device="cuda")
+    lm = _lm_operands(gen, V, H) if V else None
+    pos = [(50 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    if "rope_sel" in gkw:
+        lc, ls = _rope(gen, 128)
+        cos = torch.stack([cos.expand(B, 64), lc.expand(B, 64)])
+        sin = torch.stack([sin.expand(B, 64), ls.expand(B, 64)])
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=cfg.attn_scale, bits=bits, rms_offset=1.0,
+              act="gelu_tanh", eps=1e-6)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = megastep_lowbit_decode.launches
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos, sin,
+                                 lm=lm, **kw, **gkw)
+    assert megastep_lowbit_decode.launches == before + 1
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, cos, sin,
+                                       **kw, **gkw)
+    full = megastep_lowbit_decode(
+        x.float(), mp, kc, vc, pos_t, cos, sin, **kw,
+        **{k: v for k, v in gkw.items() if k != "windows"})
+    torch.cuda.synchronize()
+    what = (f"megastep_lowbit gemma {family} zp/ao={zpao} r={r} V={V} "
+            f"bits={bits} H={H} B={B}")
+    _close(got[1], pk, 3.5e-2, what + " k_new")
+    _close(got[2], pv, 3.5e-2, what + " v_new")
+    _close(got[0], py, 3.5e-2, what + " y")
+    if max(pos) >= 24:
+        moved = float((full[0].float() - py.float()).abs().max())
+        assert moved > 3.5e-2 * float(py.float().abs().max()), what
+    if V:
+        _close(got[3], lm_fold_plain(got[0], lm, 1e-6, 1.0), 5e-3,
+               what + " logits")
+
+
+def test_megastep_lowbit_gemma_refuses_a_partial_launch(gen):
+    """The GEMMA source refuses one sandwich norm without the other, and
+    the other kernel-14 sources refuse every gemma operand (a call the
+    wrapper would never make)."""
+    from ganq_tpu_torch.ops import w8a8_args
+
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    cfg = _gemma_cfg("g2", L, H, q_dim, kv_dim, I, 24)
+    mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, 4, False)
+    gkw = _gemma_operands(gen, mp, cfg, L)
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, 1, 64, [40])
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              bits=4, **gkw)
+    with pytest.raises(ValueError, match="pa_norm and pm_norm"):
+        megastep_lowbit_decode(x.float(), {k: v for k, v in mp.items()
+                                           if k != "pm_norm"}, kc, vc, 40,
+                               cos, sin, **kw)
+    real = w8a8_args.launch
+    for lib in ("megastep_lowbit", "megastep_lowbit_arch"):
+        def other(library, symbol, what, tensors, dev, **scalars):
+            real(lib, f"ganq_{lib}", what, tensors, dev, **scalars)
+
+        w8a8_args.launch = other
+        try:
+            with pytest.raises(RuntimeError):
+                megastep_lowbit_decode(x.float(), mp, kc, vc, 40, cos, sin,
+                                       **kw)
+        finally:
+            w8a8_args.launch = real

@@ -25,9 +25,11 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ganq_tpu.models import synthetic as jsyn
 from ganq_tpu.ops import megastep as jms
+from ganq_tpu.serve import stacked as jst
 from ganq_tpu_torch.ops import megastep as tms
 
 from test_torch_fused_w8a8 import assert_kernel_close
+from test_torch_stacked import np_llama
 
 
 def _t(a):
@@ -43,7 +45,8 @@ def test_megastep_matches_jax(B):
     rng = np.random.default_rng(20 + B)
     cfg = jsyn.llama_config(hidden=256, inter=1536, layers=2, heads=2,
                             kv_heads=1, vocab=64, max_pos=128)
-    sp = jsyn.make_stacked_model(cfg, kind="w8", seed=3)
+    # ganq_tpu's synthetic w8 kind, drawn with numpy and stacked
+    sp = jst.stack_layers(np_llama(cfg, ("w8", "w8"), seed=3))
     L, H, d = 2, 256, 128
     for norm in ("input_norm", "post_norm"):
         sp["layers_stacked"][norm]["weight"] = jnp.asarray(

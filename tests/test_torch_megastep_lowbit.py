@@ -31,13 +31,15 @@ from jax.experimental.pallas import tpu as pltpu
 from ganq_tpu.ops import megastep4 as jm4
 from ganq_tpu.ops import megastep_lowbit as jlb
 from ganq_tpu.serve import stacked as jst
+from ganq_tpu_torch.models import hf_import as thf
 from ganq_tpu_torch.ops import megastep4 as tm4
 from ganq_tpu_torch.ops import megastep_lowbit as tlb
 from ganq_tpu_torch.serve import stacked as tst
 
 from test_torch_fused_w8a8 import assert_kernel_close
 from test_torch_megastep import _t
-from test_torch_stacked import _np, _pair
+from test_torch_serve import _flatten_jax
+from test_torch_stacked import _np, _pair, _port_cfg
 
 
 # the JAX tests' smallest shapes: kernel 14's (tests/test_megastep_lowbit.py:
@@ -56,9 +58,16 @@ def packed():
     out = {}
     for variant, bits in _VARIANT_BITS.items():
         hidden, heads, kvh, inter, _ = _MODEL_OF[variant]
-        jcfg, params, tcfg, tmodel = _pair(hidden, heads, kvh, inter,
-                                           "uniform", bits, seed=7, vocab=64,
-                                           norms=True)
+        if variant == "w4":
+            jcfg, params, tcfg, tmodel = _pair(hidden, heads, kvh, inter,
+                                               "uniform", bits, seed=7,
+                                               vocab=64, norms=True)
+        else:       # numpy-built: no JAX compile per weight shape
+            jcfg, params = np_uniform_llama(hidden, heads, kvh, inter, bits,
+                                            seed=7)
+            tcfg, tmodel = thf.params_from_numpy(
+                thf.config_to_hf(_port_cfg(hidden, heads, kvh, inter, 64)),
+                _flatten_jax(params), device="cpu")
         sp = jst.stack_layers(params, recode="affine")
         tsp = tst.stack_layers(tmodel, recode="affine")
         if variant == "w4":
@@ -108,9 +117,10 @@ def test_pack_refuses_later_features(packed):
         del lin._buffers["g_idx"]
 
 
-def _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, gs):
+def _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, gs, sand=False):
     """ganq_tpu's tiles per grid step and flash block, read from the block
-    shapes of the pallas_call its wrapper builds (abstract shapes only)."""
+    shapes of the pallas_call its wrapper builds (abstract shapes only;
+    with gemma's sandwich norms where ``sand``)."""
     d = 128
     metas, _, _, g_r = jlb._plan_meta(bits)
     npl = len(metas)
@@ -129,6 +139,9 @@ def _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, gs):
           "qkv_bias": S((L, 1, Dqkv), jnp.float32),
           "attn_norm": S((L, 1, H), jnp.float32),
           "mlp_norm": S((L, 1, H), jnp.float32)}
+    if sand:
+        mp.update(pa_norm=S((L, 1, H), jnp.float32),
+                  pm_norm=S((L, 1, H), jnp.float32))
     cache = S((L, B * kv_dim // d, T, d), bf)
     jpr = jax.make_jaxpr(lambda *a: jlb.megastep_lowbit_decode(
         *a, q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d, bits=bits))(
@@ -162,18 +175,21 @@ def _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, gs):
     (16, 3072, 3072, 1024, 160, 5120, 8192, 8),    # T not a power of two
     (9, 2048, 2048, 512, 64, 3072, 1024, 8),
     (8, 4096, 4096, 1024, 2048, 6144, 14336, 4),   # Llama-3-8B widths
+    (64, 5376, 4096, 2048, 1280, 8192, 21504, 8, True),  # Gemma-3-27B
 ])
 def test_plans_match_jax(case):
     """The run-time plan (qkv tile, MLP tile, tiles per grid step, flash
-    block) equals ganq_tpu's, at 3B widths up to B = 64; ``_mlp_plan`` and
-    ``_mlp_tile4`` equal ganq_tpu's over a grid of widths."""
-    B, H, q_dim, kv_dim, T, Dqkv, I, bits = case
+    block) equals ganq_tpu's, at 3B widths up to B = 64 and with gemma's
+    sandwich norms at Gemma-3-27B widths; ``_mlp_plan`` and ``_mlp_tile4``
+    equal ganq_tpu's over a grid of widths."""
+    B, H, q_dim, kv_dim, T, Dqkv, I, bits = case[:8]
+    sand = case[8:] == (True,)
     got = tlb.megastep_lowbit_plan(B, H, q_dim, kv_dim, 128, T, Dqkv, I,
-                                   bits, 128)
+                                   bits, 128, sand=sand)
     _, _, _, g_r = jlb._plan_meta(bits)
     assert got["tq"] == jlb._qkv_tile_lb(Dqkv, 128, g_r)
     assert got["ti"] == jlb._mlp_plan(I, bits, H)[0]
-    want = _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, 128)
+    want = _jax_plan(B, H, q_dim, kv_dim, T, Dqkv, I, bits, 128, sand)
     assert {k: got[k] for k in want} == want
     if B == 1:
         for inter in (256, 512, 1024, 1536, 2816, 5632, 8192, 11008, 14336):
@@ -272,12 +288,13 @@ def test_plain_matches_jax_interpret(packed, variant, B):
 
 
 def test_wrappers_refuse_later_features(packed):
-    """Each operand or argument of a later sub-slice of kernel 14 raises
-    NotImplementedError naming its feature, on the CPU as on the card (zero
-    points and act-order are served: ``test_zero_point_actorder_*``; the
-    lm fold: ``test_lm_fold_*``; EoRA adapters: ``test_lora_*``; qwen3's
-    qk-norm and the o/gate-up/down biases are served here and held against
-    ganq_tpu in ``test_torch_arch.py``)."""
+    """Each operand or argument of a later sub-slice of kernel 14 (w3/w2,
+    the Walsh planes) raises NotImplementedError naming its feature, on the
+    CPU as on the card (zero points and act-order are served:
+    ``test_zero_point_actorder_*``; the lm fold: ``test_lm_fold_*``; EoRA
+    adapters: ``test_lora_*``; qwen3's qk-norm, the o/gate-up/down biases
+    and gemma's softcap, windows and sandwich norms are served here and held
+    against ganq_tpu in ``test_torch_arch.py`` and ``test_torch_gemma.py``)."""
     jcfg, _, _, _, tmp, _ = packed["w8p"]
     B, T, d = 1, 64, 128
     x = torch.zeros((B, jcfg.hidden_size), dtype=torch.bfloat16)
@@ -286,28 +303,29 @@ def test_wrappers_refuse_later_features(packed):
     kw = dict(q_dim=jcfg.q_dim, kv_dim=jcfg.num_key_value_heads * d,
               head_dim=d, bits=8)
     for extra, what in (({"walsh": 7}, "Walsh"),
-                        ({"softcap": 30.0}, "softcap"),
-                        ({"windows": [T, T]}, "windows"),
                         ({"bits": 3}, "w3/w2")):
         with pytest.raises(NotImplementedError, match=what):
             tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
                                        **{**kw, **extra})
+    for extra in ({"softcap": 30.0}, {"windows": [T, T]}):
+        y, _, _ = tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
+                                             **{**kw, **extra})
+        assert y.shape == x.shape
     L, H = tmp["o_s"].shape[0], jcfg.hidden_size
     Dqkv = tmp["qkv_bias"].shape[2]
     I2 = tmp["gu_s"].shape[2]
     served = {"qk_nm": torch.ones((L, 2, Dqkv)),
               "o_bias": torch.zeros((L, 1, H)),
               "gu_bias": torch.zeros((L, 1, I2)),
-              "dn_bias": torch.zeros((L, 1, H))}
+              "dn_bias": torch.zeros((L, 1, H)),
+              "pa_norm": torch.zeros((L, 1, H)),
+              "pm_norm": torch.zeros((L, 1, H))}
     for key, what in (("o_bias", "biases"), ("qk_nm", "qk-norm"),
                       ("pa_norm", "sandwich")):
-        if key == "pa_norm":
-            with pytest.raises(NotImplementedError, match=what):
-                tlb.megastep_lowbit_decode(x, {**tmp, key: None}, kc, kc, 3,
-                                           None, None, **kw)
-            continue
-        ops = ({"qk_nm": served["qk_nm"]} if key == "qk_nm" else
-               {k: v for k, v in served.items() if k != "qk_nm"})
+        ops = ({k: served[k] for k in ("pa_norm", "pm_norm")}
+               if key == "pa_norm" else {"qk_nm": served["qk_nm"]}
+               if key == "qk_nm" else
+               {k: served[k] for k in ("o_bias", "gu_bias", "dn_bias")})
         y, kn, _ = tlb.megastep_lowbit_decode(x, {**tmp, **ops}, kc, kc, 3,
                                               None, None, **kw)
         assert y.shape == x.shape and kn.shape == (2, B, kw["kv_dim"]), what

@@ -273,19 +273,20 @@ def _port_cfg(hidden=128, heads=4):
 
 
 def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
-    """A 2-layer llama (float32 embedding and norms) built by ganq_tpu's
-    synthetic builder, layer i of kind ``kinds[i]`` (``bits`` for the
-    ``uniform`` kind; an untied lm_head of kind ``lm_head``), and the same
-    weights in the port. The kinds ``uniform_zp``, ``uniform_ao``,
+    """A 2-layer llama (float32 embedding and norms) of ganq_tpu's
+    synthetic kinds, layer i of kind ``kinds[i]`` (``bits`` for the
+    ``uniform`` kind; an untied lm_head of kind ``lm_head``; drawn with
+    numpy, ``test_torch_stacked.np_llama``), and the same weights in the
+    port. The kinds ``uniform_zp``, ``uniform_ao``,
     ``uniform_zp_ao`` and ``uniform_ao_unbalanced`` (both layers) are
     ``uniform`` with random zero points and/or act-order artifacts
     (``test_torch_megastep_lowbit.inject_zp_ao``); a kind ending in
     ``_lora`` (``uniform_lora``, ``uniform_zp_ao_lora``) also gives every
     linear a rank-4 EoRA adapter (``inject_lora``), ``uniform_bias`` every
     linear a bias of std 5e-2."""
-    import jax
-
     from ganq_tpu.models import synthetic as jsyn
+
+    from test_torch_stacked import _np_linear, np_llama
 
     jcfg = jsyn.llama_config(hidden=hidden, inter=2 * hidden, layers=2,
                              heads=heads, kv_heads=max(heads // 2, 1),
@@ -309,15 +310,11 @@ def _affine_model(kinds, hidden=128, heads=4, bits=4, lm_head=None):
                     for m in lp[group].values():
                         m["bias"] = jnp.asarray((rng.normal(size=(
                             m["scales"].shape[0],)) * 5e-2).astype(np.float32))
-    else:
-        params = jsyn.make_model(jcfg, kind=kinds[0], seed=1,
-                                 dtype=jnp.float32, bits=bits)
-    if kinds[1] != kinds[0]:
-        params["layers"][1] = jsyn.make_model(jcfg, kind=kinds[1], seed=2,
-                                              dtype=jnp.float32)["layers"][1]
+    else:           # numpy-built: no JAX compile per weight shape
+        params = np_llama(jcfg, kinds, bits, seed=1, dtype=jnp.float32)
     if lm_head:
-        params["lm_head"] = jsyn._rand_linear(jax.random.PRNGKey(4), VOCAB,
-                                              hidden, lm_head)
+        params["lm_head"] = _np_linear(np.random.default_rng(4), VOCAB,
+                                       hidden, lm_head, 8)
     _, tmodel = thf.params_from_numpy(thf.config_to_hf(_port_cfg(hidden, heads)),
                                       _flatten_jax(params), device="cpu")
     return jcfg, params, tmodel
@@ -360,13 +357,11 @@ def test_engine_certifies_a_quantized_lm_head_as_jax():
     """A ``lut_affine_sym`` lm_head is certified with the layers
     (``certify_stacked`` covers the lm_head): logits within 1e-4 of the
     scale of ganq_tpu's Engine."""
-    import jax
-
-    from ganq_tpu.models import synthetic as jsyn
+    from test_torch_stacked import _np_linear
 
     jcfg, jparams, _ = _affine_model(("lut_affine_sym",) * 2)
-    jparams["lm_head"] = jsyn._rand_linear(jax.random.PRNGKey(4), VOCAB, 128,
-                                           "lut_affine_sym")
+    jparams["lm_head"] = _np_linear(np.random.default_rng(4), VOCAB, 128,
+                                    "lut_affine_sym", 4)
     _, tmodel = thf.params_from_numpy(thf.config_to_hf(_port_cfg()),
                                       _flatten_jax(jparams), device="cpu")
     assert tmodel.lm_head.kind == "lut"

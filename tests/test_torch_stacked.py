@@ -32,26 +32,86 @@ from ganq_tpu_torch.serve import stacked as tst
 from test_torch_serve import _flatten_jax
 
 
+def _np_linear(rng, out_f, in_f, kind, bits, dtype=jnp.bfloat16):
+    """One random linear of ``kind`` as ganq_tpu's synthetic ``make_model``
+    makes it (its kinds, scales and layouts, ``ganq_tpu/models/
+    synthetic.py:107-144``), drawn with numpy and packed by the port's
+    packer (ganq_tpu's bytes): no JAX compile per weight shape."""
+    from ganq_tpu_torch.ops.packing import pack_factor, pack_int_rows
+
+    def packed(codes, b):
+        align = 128 * pack_factor(b)
+        K = codes.shape[1]
+        Kp = -(-K // align) * align if K > align else K
+        codes = np.pad(codes, ((0, 0), (0, Kp - K)))
+        return jnp.asarray(pack_int_rows(torch.from_numpy(codes), b).numpy())
+
+    if kind == "dense":
+        return jql.dense_linear(jnp.asarray(
+            rng.normal(size=(out_f, in_f)).astype(np.float32) * 0.02, dtype))
+    if kind == "w8":
+        return jql.QLinear("w8", {
+            "w8": jnp.asarray(rng.integers(-127, 128, size=(out_f, in_f),
+                                           dtype=np.int8)),
+            "scale": jnp.asarray(rng.uniform(1e-4, 4e-4, size=(
+                out_f, 1)).astype(np.float32))}, 8, in_f)
+    if kind == "uniform":
+        gs = 128 if in_f % 128 == 0 else in_f
+        return jql.QLinear("uniform", {
+            "qweight": packed(rng.integers(0, 2 ** bits, size=(out_f, in_f)),
+                              bits),
+            "scales": jnp.asarray((rng.uniform(0.001, 0.004, size=(
+                out_f, in_f // gs)) * min(1.0, 16.0 / (1 << bits))).astype(
+                    np.float32))}, bits, in_f)
+    n, b = (8, 3) if kind == "lut3" else (16, 4)
+    if kind == "lut_affine_sym":
+        lut = rng.uniform(0.001, 0.004, size=(out_f, 1)) * (np.arange(16)
+                                                            - 8.0)
+    else:           # "lut" (4-bit, ganq_tpu's), "lut3" (8 entries)
+        lut = np.sort(rng.normal(size=(out_f, n)) * 0.02, axis=1)
+    return jql.QLinear("lut", {
+        "lut": jnp.asarray(lut.astype(np.float32), jnp.bfloat16),
+        "idx_packed": packed(rng.integers(0, n, size=(out_f, in_f)), b)},
+        b, in_f)
+
+
+def np_llama(jcfg, kinds, bits=4, seed=1, dtype=jnp.bfloat16):
+    """ganq_tpu params of a 2-layer llama ``jcfg`` whose layer i has linears
+    of the synthetic kind ``kinds[i]`` (:func:`_np_linear`), embeddings of
+    std 0.02 and unit norms in ``dtype``, drawn with numpy."""
+    rng = np.random.default_rng(seed + 1000)
+    h, it = jcfg.hidden_size, jcfg.intermediate_size
+    q, kv = jcfg.q_dim, jcfg.kv_dim
+
+    def ones():
+        return {"weight": jnp.ones((h,), dtype)}
+
+    def layer(kind):
+        lin = {n: (o, i) for n, o, i in (
+            ("q", q, h), ("k", kv, h), ("v", kv, h), ("o", h, q),
+            ("gate", it, h), ("up", it, h), ("down", h, it))}
+        mk = {n: _np_linear(rng, o, i, kind, bits, dtype)
+              for n, (o, i) in lin.items()}
+        return {"input_norm": ones(), "post_norm": ones(),
+                "attn": {n: mk[n] for n in "qkvo"},
+                "mlp": {n: mk[n] for n in ("gate", "up", "down")}}
+
+    return {"embed_tokens": {"weight": jnp.asarray(
+        rng.normal(size=(jcfg.vocab_size, h)).astype(np.float32) * 0.02,
+        dtype)}, "final_norm": ones(), "layers": [layer(k) for k in kinds]}
+
+
 def _pair(hidden, heads, kv_heads, inter, kind, bits=4, seed=1, vocab=256,
           norms=False):
-    """(jax cfg, jax params, port cfg, port model): a ganq_tpu synthetic
-    llama and the same weights in the port (random norm weights with
-    ``norms``)."""
+    """(jax cfg, jax params, port cfg, port model): a 2-layer llama of
+    ganq_tpu's synthetic ``kind`` linears ("lut3": 8-entry codebooks, GANQ
+    bits=3), bf16 embeddings of std 0.02 and unit norms (random norm weights
+    with ``norms``), drawn with numpy (:func:`np_llama`), and the same
+    weights in the port."""
     jcfg = jsyn.llama_config(hidden=hidden, inter=inter, layers=2,
                              heads=heads, kv_heads=kv_heads, vocab=vocab,
                              max_pos=128)
-    params = jsyn.make_model(jcfg, kind="lut" if kind == "lut3" else kind,
-                             seed=seed, bits=bits)
-    if kind == "lut3":                  # 8-entry codebooks (GANQ bits=3)
-        rng = np.random.default_rng(seed)
-        for lp in params["layers"]:
-            for group in ("attn", "mlp"):
-                for name, p in lp[group].items():
-                    out_f, in_f = p["lut"].shape[0], p.in_features
-                    lp[group][name] = jql.lut_linear(
-                        jnp.asarray(rng.normal(size=(out_f, 8)).astype(
-                            np.float32) * 0.02),
-                        jnp.asarray(rng.integers(0, 8, size=(out_f, in_f))), 3)
+    params = np_llama(jcfg, (kind, kind), bits, seed)
     if norms:
         rng = np.random.default_rng(seed)
         for lp in params["layers"]:
@@ -256,23 +316,36 @@ def test_stacked_a8_greedy_matches_jax(monkeypatch, w8_stacked, batch):
     ids = np.random.default_rng(batch).integers(0, 256, size=(batch, 8))
     new, T = 5, 32
     with pltpu.force_tpu_interpret_mode():
-        ck, cv = jst.init_cache(jcfg, 2, batch, T)
-        want = np.asarray(jst.generate_tokens(
-            jcfg, sp, ck, cv, jnp.asarray(ids), jax.random.PRNGKey(0), new,
-            backend="pallas_a8"))
-        # teacher-forced: prefill, then one decode step of the first token
+        # ganq_tpu's greedy decode (``generate_tokens``' prefill and scan
+        # body, step by step): its prefill and first step are the
+        # teacher-forced logits
         ck, cv = jst.init_cache(jcfg, 2, batch, T)
         lg0, ck, cv = jax.block_until_ready(jst.prefill(
             jcfg, sp, ck, cv, jnp.asarray(ids), "pallas_a8"))
         tok = jnp.argmax(lg0, axis=-1).astype(jnp.int32)
         if want_variant:
             mk, mv = jst._mega_cache(jcfg, ck, cv)
-            step = jax.jit(lambda mk, mv, tok, pos: jst._decode_one_mega(
-                jcfg, sp, sp["megapack_w8"], mk, mv, tok, pos)[0])
-            lg1 = jax.block_until_ready(step(mk, mv, tok, jnp.int32(8)))
+            mega = jax.jit(lambda mk, mv, tok, pos: jst._decode_one_mega(
+                jcfg, sp, sp["megapack_w8"], mk, mv, tok, pos))
+
+            def step(c, tok, pos):
+                lg, mk, mv = mega(*c, tok, pos)
+                return lg, (mk, mv)
+            carry = (mk, mv)
         else:
-            lg1 = jax.block_until_ready(jst.decode_step(
-                jcfg, sp, ck, cv, tok, jnp.int32(8), "pallas_a8")[0])
+            def step(c, tok, pos):
+                lg, ck, cv = jst.decode_step(jcfg, sp, *c, tok, pos,
+                                             "pallas_a8")
+                return lg, (ck, cv)
+            carry = (ck, cv)
+        toks = [tok]
+        for i in range(new - 1):
+            lg, carry = step(carry, toks[-1], jnp.int32(8 + i))
+            lg = jax.block_until_ready(lg)
+            if i == 0:
+                lg1 = lg
+            toks.append(jnp.argmax(lg, axis=-1).astype(jnp.int32))
+        want = np.stack([np.asarray(t) for t in toks], axis=1)
     with torch.inference_mode():
         ck, cv = tst.init_cache(tcfg, 2, batch, T, "cpu")
         got = tst.generate_tokens(tcfg, tsp, ck, cv, torch.as_tensor(ids),

@@ -20,9 +20,9 @@ Phases, each of which raises (exit code != 0) on failure:
    yardstick is a bf16 matmul on the dequantized weight. Kernels 9-12 (the
    fused W8A8 MLP, norm + qkv + rope, attention half and whole decode step)
    run at the Llama-3.2-3B shapes, batch 1 and 8 (and 64 for 9 and 10);
-   the group-scaled whole decode steps, kernel 14 ("w4p" and "w8p") at
-   batch 1, 8 and 64 and kernel 13 at batch 1 and 8, over 28 Llama-3.2-3B
-   layers.
+   the group-scaled whole decode steps, kernel 14 ("w4p", "w8p", "w3",
+   "w2" and "wl8") at batch 1, 8 and 64 and kernel 13 at batch 1 and 8,
+   over 28 Llama-3.2-3B layers.
 4. serving path: a random-weight Llama-3.2-1B at its published widths, made
    a 4-bit GANQ ``lut`` model, saved with the port's checkpoint writer,
    loaded with ``GanqModel.load`` (default device: the card) and asked four
@@ -93,6 +93,17 @@ Phases, each of which raises (exit code != 0) on failure:
     at batch 1 and 16 through "w4p" with ``o_bias``/``gu_bias``/``dn_bias``;
 17. Qwen2.5 at Qwen2.5-7B widths (``phase_qwen2_path``): a ``lut`` model
     with q/k/v biases, ``optimize()``, a batch-1 request through "w8p".
+18. Gemma 3 at Gemma-3-27B widths (``phase_gemma3_path``) and 19. Gemma 2
+    at Gemma-2-27B widths (``phase_gemma2_path``) through kernel 14 with
+    gemma's operands.
+20. "w3"/"w2" at Llama-3.1-8B widths (``phase_w3w2_path``): a GPTQ v1 W2
+    checkpoint and a W3 model in memory (the GPTQ layout has no 3-bit
+    form), ``GANQ_MEGASTEP=1`` requests at batch 1, 8 and 64 against
+    ``layout="perlayer"``, an asym act-order W3 model, the batching engine.
+21. "wl8" at Llama-3.2-3B widths (``phase_walsh_path``): dense -> GANQ
+    ``bits=3`` -> ``lut`` checkpoint -> load -> "wl8"; a 28-layer random
+    ``lut`` 3-bit model timed against ``layout="perlayer"`` and against
+    ``optimize()`` ("w8p"); the batching engine.
 Phase 3 holds the fold itself against its plain version
 (``check_lm_fold``: the vocab phase bit for bit), and kernel 14's EoRA
 epilogue (``check_lora``: "w8p"/"w4p" at 3B widths, zero points with
@@ -103,10 +114,14 @@ and bias instantiations (``check_arch``: "w8p"/"w4p" with ``qk_nm`` at
 Qwen3-8B widths and with biases at InternLM-7B widths, and one launch of
 each combination with zero points, act-order, the fold and the EoRA
 epilogue), beside the same launch without those operands
-(``{"k14_arch": ...}``).
-Each run of phases 7-17 sets the launch counters to 0 and must match its
+(``{"k14_arch": ...}``); gemma's (``check_gemma``, ``{"k14_gemma":
+...}``); and its "w3", "w2" and "wl8" variants (``check_lowbit3``: each
+over 28 Llama-3.2-3B layers at batch 1, 8 and 64, then one launch with
+each optional operand, ``{"k14_lowbit3": ...}``; the kernels line lists
+the two new sources as entries of their own).
+Each run of phases 7-21 sets the launch counters to 0 and must match its
 expected launches exactly (``expected_launches``, the port's routing, which
-is the JAX package's); phases 7-11 and 13-17 hold a teacher-forced decode
+is the JAX package's); phases 7-11 and 13-21 hold a teacher-forced decode
 step against the reference backend.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -876,19 +891,28 @@ def check_megastep(gen) -> dict:
     return entry
 
 
-def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128):
+def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128,
+                  walsh=False):
     """Random operands of kernel 13 (``kmajor``: megapack4's layouts) or
-    kernel 14 (megapack_lowbit's) over L layers: any byte is a valid code
-    byte; bf16 group scales, the o and down ones a tenth of the others'
-    (residual-dominated layers, as in ``check_megastep``)."""
+    kernel 14 (megapack_lowbit's, at 8, 4, 3 or 2 bits) over L layers: any
+    byte is a valid code byte; bf16 group scales of a 2^(8 - bits) larger
+    unit (codes of the same range), the o and down ones a tenth of the
+    others' (residual-dominated layers, as in ``check_megastep``). With
+    ``walsh`` (bits 3): megapack_walsh's 3 bit planes and, in the scales'
+    slots, the float32 Walsh coefficient rows of random 8-entry codebooks
+    (entries of std 0.015, the o and down ones a tenth)."""
     from ganq_tpu_torch.ops.megastep4 import _mlp_tile4
-    from ganq_tpu_torch.ops.megastep_lowbit import _mlp_plan
+    from ganq_tpu_torch.ops.megastep_lowbit import (_mlp_plan, _plan_meta,
+                                                    walsh_coef)
 
     Dqkv = q_dim + 2 * kv_dim
-    F = 2 if bits == 4 else 1
+    metas, _, _, g_r = _plan_meta(bits)
+
+    def packed(R):                     # plane rows of R output rows
+        return R * len(metas) // g_r
     ti = _mlp_tile4(I) if kmajor else _mlp_plan(I, bits, H)[0]
     gtp = -(-(ti // gs) // 8) * 8
-    unit = 16.0 if bits == 4 else 1.0
+    unit = float(2 ** (8 - bits))
 
     def codes(*shape):
         return torch.randint(-128, 128, (L, *shape), generator=gen,
@@ -911,8 +935,15 @@ def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128):
         mp.update(qkv_p4=codes(Dqkv // 2, H), o_p4=codes(q_dim, H // 2),
                   gu_p4=codes(I, H), dn_p4=codes(I, H // 2))
     else:
-        mp.update(qkv_pk=codes(Dqkv // F, H), o_pk=codes(H // F, q_dim),
-                  gu_pk=codes(2 * I // F, H), dn_pk=codes(H // F, I))
+        mp.update(qkv_pk=codes(packed(Dqkv), H), o_pk=codes(packed(H), q_dim),
+                  gu_pk=codes(packed(2 * I), H), dn_pk=codes(packed(H), I))
+    if walsh:
+        def coef(R, s=0.015):
+            lut = torch.randn((L, R, 8), generator=gen, device="cuda") * s
+            return walsh_coef(lut).contiguous()
+
+        mp.update(qkv_s=coef(Dqkv), o_s=coef(H, 0.0015), gu_s=coef(2 * I),
+                  dn_s=coef(H, 0.0015))
     return mp
 
 
@@ -1672,6 +1703,235 @@ def check_gemma(gen) -> dict:
     return rows
 
 
+LOWBIT3_LAYERS = 28                # w3/w2/wl8 at Llama-3.2-3B: every layer
+LOWBIT3_OPT_LAYERS = 4             # depth of their optional-operand cases
+
+
+def _k14_call(lib, x, mp, kc, vc, pos_t, cos, sin, *, bits, walsh=0, **kw):
+    """One launch of kernel 14's source ``lib`` with the wrapper's plan and
+    checks, not counted: the runtime flags' cost on a pack without the
+    optional operands."""
+    from ganq_tpu_torch.ops import megastep_lowbit as mlb
+
+    plan = mlb._plan_of(x, mp, kc, kw["q_dim"], kw["kv_dim"], kw["head_dim"],
+                        bits, 128, 12, None, walsh)
+    return mlb.launch_grouped(
+        lib, f"ganq_{lib}", "megastep_lowbit_decode", x, mp,
+        {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"}, kc, vc,
+        pos_t, cos, sin, bits=bits, kmajor=False, tq=plan["tq"],
+        ti=plan["ti"], gs=mlb._group_size(mp, x.shape[1], walsh),
+        Tb=plan["Tb"], q_dim=kw["q_dim"], kv_dim=kw["kv_dim"],
+        head_dim=kw["head_dim"], rotary_dim=kw["rotary_dim"],
+        interleaved=False, eps=kw.get("eps", 1e-5),
+        rms_offset=kw.get("rms_offset", 0.0), scale=kw["scale"],
+        act=kw.get("act", "silu"), walsh=walsh,
+        softcap=kw.get("softcap", 0.0), windows=kw.get("windows"),
+        rope_sel=kw.get("rope_sel"))
+
+
+def check_lowbit3(gen) -> dict:
+    """Kernel 14's "w3", "w2" and "wl8" variants (``megastep_lowbit_w3w2.cu``,
+    ``_w3w2_ext.cu``, ``_walsh.cu``) against their plain version within
+    ``_spread_close``: each variant over the LOWBIT3_LAYERS layers of
+    Llama-3.2-3B at batch 1, 8 and 64; then one launch (batch 1) with each
+    optional operand over LOWBIT3_OPT_LAYERS layers of Qwen3-8B's widths:
+    zero points with act-order (w3, w2), the lm fold (vocabulary 151936),
+    the EoRA epilogue (rank EORA_RANK), qk-norm rows with o/gate-up/down
+    biases (a combination no published model has: Qwen3 carries no
+    biases), and every one of them together (w2); gemma's operands at
+    Gemma-2-27B's widths through "w2" (GEMMA2_CHECK_LAYERS, past the
+    window), and through "w3" and "wl8" at its head layout with hidden 4096
+    (a width of no published model: neither Gemma 27B width is a multiple
+    of 1024, which 3-bit planes need). Slot b at FUSED_POS + b. Each case
+    is timed with CUDA events beside the same launch without its optional
+    operands; the 3B "w3"/"w2" cases also beside their pack launched
+    through the runtime-flag source (``_ext``: the flags' own cost). The
+    bound counts the code bytes (bits / 8 a weight), the scales or
+    coefficient rows, the operands and the K/V history. Returns {case:
+    row}."""
+    import dataclasses
+
+    from ganq_tpu_torch.models import synthetic
+    from ganq_tpu_torch.ops.megastep_lowbit import (_ARCH_KEYS, _LORA_KEYS,
+                                                    _SAND_KEYS,
+                                                    kernel_library,
+                                                    megastep_lowbit_decode,
+                                                    megastep_lowbit_plain)
+
+    Lo = LOWBIT3_OPT_LAYERS
+    cq = synthetic.qwen3_8b_config(Lo)
+    g2 = synthetic.gemma2_27b_config(GEMMA2_CHECK_LAYERS)
+    g2h = dataclasses.replace(g2, hidden_size=4096)
+    H3, I3, q3, kv3, _, _ = _l3b_widths()
+    widths = {"3b": (None, LOWBIT3_LAYERS, H3, I3, q3, kv3),
+              "qwen3": (cq, Lo, cq.hidden_size, cq.intermediate_size,
+                        cq.q_dim, cq.kv_dim),
+              "g2": (g2, GEMMA2_CHECK_LAYERS, g2.hidden_size,
+                     g2.intermediate_size, g2.q_dim, g2.kv_dim),
+              "g2h": (g2h, GEMMA2_CHECK_LAYERS, 4096, g2.intermediate_size,
+                      g2.q_dim, g2.kv_dim)}
+    d = 128
+    rows = {}
+    # (case, bits, walsh, batches, widths, zero points, act-order, EoRA,
+    # fold, qk-norm, biases)
+    cases = [("w3", 3, 0, (1, 8, 64), "3b", 0, 0, 0, 0, 0, 0),
+             ("w2", 2, 0, (1, 8, 64), "3b", 0, 0, 0, 0, 0, 0),
+             ("wl8", 3, 7, (1, 8, 64), "3b", 0, 0, 0, 0, 0, 0),
+             ("w3_zp_ao", 3, 0, (1,), "qwen3", 1, 1, 0, 0, 0, 0),
+             ("w2_zp_ao", 2, 0, (1,), "qwen3", 1, 1, 0, 0, 0, 0),
+             ("w3_lm", 3, 0, (1,), "qwen3", 0, 0, 0, 1, 0, 0),
+             ("w3_lora", 3, 0, (1,), "qwen3", 0, 0, 1, 0, 0, 0),
+             ("w3_qkn_bias", 3, 0, (1,), "qwen3", 0, 0, 0, 0, 1, 1),
+             ("w2_zp_ao_lora_lm_qkn_bias", 2, 0, (1,), "qwen3", 1, 1, 1, 1,
+              1, 1),
+             ("wl8_lm", 3, 7, (1,), "qwen3", 0, 0, 0, 1, 0, 0),
+             ("wl8_lora", 3, 7, (1,), "qwen3", 0, 0, 1, 0, 0, 0),
+             ("wl8_qkn_bias", 3, 7, (1,), "qwen3", 0, 0, 0, 0, 1, 1),
+             ("w2_g2", 2, 0, (1, 8), "g2", 0, 0, 0, 0, 0, 0),
+             ("w3_g2h4096", 3, 0, (1,), "g2h", 0, 0, 0, 0, 0, 0),
+             ("wl8_g2h4096", 3, 7, (1,), "g2h", 0, 0, 0, 0, 0, 0)]
+    libs = set()
+    for (variant, bits, walsh, batches, model, zp, ao, lora, fold, qkn,
+         bias) in cases:
+        cfg, L, H, I, q_dim, kv_dim = widths[model]
+        Dqkv, Hkv = q_dim + 2 * kv_dim, kv_dim // d
+        gemma = model in ("g2", "g2h")
+        mp = _zp_ao_operands(
+            gen, _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False,
+                               walsh=bool(walsh)),
+            L, H, q_dim, bits, zp, ao)
+        if lora:
+            _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, EORA_RANK)
+        _arch_operands(gen, mp, L, H, q_dim, kv_dim, I, qkn, bias)
+        kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=d, rotary_dim=d,
+                  scale=1.0 / math.sqrt(d), bits=bits, walsh=walsh)
+        pos0, T, gkw = FUSED_POS, 256, {}
+        if gemma:
+            gkw = _gemma_operands(gen, mp, dataclasses.replace(
+                cfg, hidden_size=H), L)
+            pos0, T = 4150, 4352
+            wins = [cfg.layer_window(i) or T for i in range(L)]
+            gkw["windows"] = torch.tensor(wins, dtype=torch.int32,
+                                          device="cuda")
+            kw.update(scale=cfg.attn_scale, eps=cfg.norm_eps, rms_offset=1.0,
+                      act="gelu_tanh")
+        else:
+            wins = [T] * L
+        bare = {k: v for k, v in mp.items()
+                if k not in _ARCH_KEYS + _LORA_KEYS + _SAND_KEYS
+                and k[-3:] != "_sz" and k[:3] != "ap_"}
+        lm, lm_bytes = None, 0
+        if fold:
+            V = cq.vocab_size
+            tv = next(c for c in (4096, 2048, 1024, 512, 256, 128)
+                      if V % c == 0 and c * H <= 4 * 2**20)
+            lm = {"w8": torch.randint(-127, 128, (V, H), generator=gen,
+                                      device="cuda",
+                                      dtype=torch.int32).to(torch.int8),
+                  "scale": (torch.rand((V // tv, tv), generator=gen,
+                                       device="cuda") * 3e-4 + 1e-4),
+                  "norm": torch.rand(H, generator=gen, device="cuda") + 0.5}
+        lib = kernel_library(mp, fold, gemma, bits, walsh)
+        libs.add(lib)
+        code_bytes = L * (Dqkv + q_dim + 3 * I) * H * bits // 8
+        side_bytes = sum(v.numel() * v.element_size() for k, v in mp.items()
+                         if k.endswith(("_s", "_sz")) or k[:3] == "ap_"
+                         or k in _ARCH_KEYS + _LORA_KEYS + _SAND_KEYS)
+        n_tab = 2 if "rope_sel" in gkw else 1
+        for B in batches:
+            pos = [pos0 + b for b in range(B)]
+            kv_rows = sum(min(p, w - 1) for p in pos for w in wins)
+            kc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            vc = (torch.randn((L, B * Hkv, T, d), generator=gen,
+                              device="cuda") * 0.5).to(torch.bfloat16)
+            x = torch.randn((B, H), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ang = (torch.rand((n_tab, B, d // 2), generator=gen,
+                              device="cuda") * 6.2831853)
+            cos, sin = torch.cos(ang), torch.sin(ang)
+            if n_tab == 1:
+                cos, sin = cos[0], sin[0]
+            pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            got = megastep_lowbit_decode(x, mp, kc, vc, pos_t, cos, sin,
+                                         lm=lm, **kw, **gkw)
+            ref = megastep_lowbit_plain(x, mp, kc, vc, pos, cos, sin, lm=lm,
+                                        **kw, **gkw)
+            off = 1.0 if gemma else 0.0     # gemma stores w - 1
+
+            def nudged_mp(sign):
+                out = {k: (mp[k] + off) * (1 + sign * 2**-22) - off
+                       for k in ("attn_norm", "mlp_norm") + _SAND_KEYS
+                       if k in mp}
+                if "qk_nm" in mp:
+                    qk = mp["qk_nm"].clone()
+                    qk[:, 0] = (qk[:, 0] + off) * (1 + sign * 2**-22) - off
+                    out["qk_nm"] = qk
+                if lora:   # as check_lora: the A factors' float-order error
+                    out.update({k: mp[k].float() * (1 + sign * 2**-13)
+                                for k in ("la_q", "la_o", "la_g", "la_d")})
+                return dict(mp, **out)
+
+            nudged = megastep_lowbit_plain(x, nudged_mp(1), kc, vc, pos, cos,
+                                           sin, lm=lm, **kw, **gkw)
+
+            def down(i):
+                return lambda: megastep_lowbit_plain(
+                    x, nudged_mp(-1), kc, vc, pos, cos, sin, lm=lm, **kw,
+                    **gkw)[i]
+
+            torch.cuda.synchronize()
+            names = ("y", "k_new", "v_new", "logits")
+            errs = [_spread_close(g, p, n_, f"{variant} {n} B={B}",
+                                  more=(down(i),))
+                    for i, (n, g, p, n_) in enumerate(zip(names, got, ref,
+                                                          nudged))]
+            del ref, nudged
+            k_ms = event_ms(lambda: megastep_lowbit_decode(
+                x, mp, kc, vc, pos_t, cos, sin, lm=lm, **kw, **gkw), (), 10)
+            c1, s1 = (cos[0], sin[0]) if n_tab == 2 else (cos, sin)
+            n_ms = (event_ms(lambda: megastep_lowbit_decode(
+                x, bare, kc, vc, pos_t, c1, s1, **kw), (), 10)
+                if bare.keys() != mp.keys() or gemma or fold else None)
+            e_ms = (event_ms(lambda: _k14_call(
+                "megastep_lowbit_w3w2_ext", x, mp, kc, vc, pos_t, cos, sin,
+                **kw), (), 10) if model == "3b" and not walsh else None)
+            p_ms = (event_ms(lambda: megastep_lowbit_plain(
+                x, mp, kc, vc, pos, cos, sin, lm=lm, **kw, **gkw), (), 1)
+                if B == 1 and len(batches) > 2 else None)
+            if fold:
+                V = lm["w8"].shape[0]
+                lm_bytes = V * H + V * 4 + H * 4 + B * V * 4 + B * H
+            nbytes = (code_bytes + side_bytes + 2 * kv_rows * kv_dim * 2
+                      + L * (2 * H + Dqkv) * 4 + 2 * B * H * 2
+                      + 2 * L * B * kv_dim * 2 + lm_bytes)
+            ops = 2.0 * B * (L * (Dqkv + q_dim + 3 * I) * H
+                             + (lm["w8"].shape[0] * H if fold else 0))
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
+            rows[(variant, B)] = dict(
+                ms=k_ms, ms_without=n_ms, ms_ext=e_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, source=lib,
+                max_abs_err=max(e[0] for e in errs),
+                rel_l2=max(e[1] for e in errs))
+            log(f"megastep_lowbit_decode ({variant}, {model} widths, {lib}) "
+                f"L={L} H={H} pos={pos0}+b B={B}: rel_l2 "
+                f"{[f'{e[1]:.2e}' for e in errs]} (tol 2 x the plain "
+                f"version's spread {[f'{e[2]:.2e}' for e in errs]} + 2^-8) "
+                f"kernel_ms={k_ms:.4f} without the optional operands "
+                f"{n_ms} through the flags source {e_ms} plain_ms="
+                f"{p_ms if p_ms is None else round(p_ms, 3)} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+            del kc, vc, got
+        del mp, bare, lm
+        torch.cuda.empty_cache()
+    want = {"megastep_lowbit_w3w2", "megastep_lowbit_w3w2_ext",
+            "megastep_lowbit_walsh"}
+    if libs != want:
+        raise AssertionError(f"w3/w2/wl8 cases run {sorted(libs)}, not "
+                             f"{sorted(want)}")
+    return rows
+
+
 def _moe_pack(gen, E, H, I, bits, gs=128):
     """Random kernel 15 operands in moe_megapack's layouts (any byte is a
     valid code byte)."""
@@ -1812,6 +2072,26 @@ def phase_kernels() -> list:
                 k14["max_abs_err"] = max(k14["max_abs_err"],
                                          row["max_abs_err"])
             k14["gemma"] = {f"{v}_b{B}": row for (v, B), row in gemma.items()}
+            # and its "w3", "w2" and "wl8" variants: their own entries (each
+            # source's 3B case at batch 1) and a line of their own
+            low = check_lowbit3(gen)
+            k14["lowbit3"] = {f"{v}_b{B}": row for (v, B), row in low.items()}
+            for name, cases in (("megastep_lowbit_decode (w3/w2)",
+                                 ("w3", "w2")),
+                                ("megastep_lowbit_decode (wl8)", ("wl8",))):
+                rows = {f"{v}_b{B}": r for (v, B), r in low.items()
+                        if v.split("_")[0] in cases}
+                first = low[(cases[0], 1)]
+                entries.append(dict(
+                    name=name, ms=first["ms"], plain_ms=first["plain_ms"],
+                    bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                    library_ms=None,
+                    max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                    shape=f"L=28 H=3072 I=8192 pos={FUSED_POS} B=1 "
+                    f"({cases[0]}, Llama-3.2-3B step)",
+                    by_case={k: {x: r[x] for x in (
+                        "ms", "ms_without", "ms_ext", "bound_ms", "plain_ms",
+                        "rel_l2")} for k, r in rows.items()}))
             return entries
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
@@ -1903,9 +2183,9 @@ def phase_reference_check(q, what: str = "reference check",
     the switches as set) and through the "reference" backend, from the same
     cache after a 128-token prompt; the relative L2 difference of the logits
     must stay below 5e-2 (bf16 activations: the paths round at different
-    points, see PERF.md), and below 1e-1 on "cuda_a8", whose kernels also
-    round every linear's input to int8 per token (up to 1/254 of the row's
-    largest value)."""
+    points, see PERF.md), and below 1e-1 on "cuda_a8" or through a
+    whole-step kernel, which also round every linear's input to int8 per
+    token (up to 1/254 of the row's largest value)."""
     from ganq_tpu_torch.serve import stacked
 
     eng = q._get_engine()
@@ -1932,7 +2212,7 @@ def phase_reference_check(q, what: str = "reference check",
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite logits")
     rel = float((a - b).norm() / b.norm())
-    tol = 1e-1 if eng.backend == "cuda_a8" else 5e-2
+    tol = 1e-1 if eng.backend == "cuda_a8" or variant else 5e-2
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
     log(f"{what}: teacher-forced decode step (whole-step variant {variant}), "
         f"logits {tuple(a.shape)}, rel_l2({eng.backend}, reference)={rel:.3e}"
@@ -1943,6 +2223,19 @@ def phase_reference_check(q, what: str = "reference check",
         raise AssertionError(f"{what}: {eng.backend} and reference backends "
                              "disagree")
     return rel
+
+
+def _k14_sources() -> dict:
+    """Kernel 14's launches by source (``megastep_lowbit_decode.
+    by_source``), counted beside its total."""
+    from ganq_tpu_torch.ops.megastep_lowbit import megastep_lowbit_decode
+
+    return megastep_lowbit_decode.by_source
+
+
+def _by_source() -> dict:
+    """The run's kernel-14 launches by source, as ``k14:<source>`` keys."""
+    return {f"k14:{k}": v for k, v in _k14_sources().items() if v}
 
 
 def _kernel_counters():
@@ -1990,8 +2283,8 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     ``kernel_of(linear)`` per linear below 1024 rows (else the
     dequantize-once GEMM), the fused MLP (kernel 9) instead of a fused w8
     gateup/down on "cuda_a8" at up to 64 rows; per decode step the whole-step
-    kernel of ``variant`` once (12 for "w8", 13 for "w4", 14 for "w4p" and
-    "w8p"), else per layer the attention
+    kernel of ``variant`` once (12 for "w8", 13 for "w4", 14 for "w4p",
+    "w3", "w2", "w8p" and "wl8"), else per layer the attention
     half (kernel 11, ``GANQ_FUSED_LAYER=1``, B <= 8) or the fused qkv
     (kernel 10, ``GANQ_FUSED_QKV``) or the qkv linear, one flash decode
     unless kernel 11 ran, o, and the MLP as for the prompt; a quantized
@@ -2044,13 +2337,13 @@ def expected_launches(q, model, backend, B, S, new, kernel_of, variant):
     if isinstance(lm, QLinear) and lm.kind != "dense":
         lm_kernel = kernel_of_linear("cuda" if a8 else backend)(lm)
         add(lm_kernel)
-        if not (variant in ("w4p", "w8p")
+        if not (variant in stacked._LB_BITS
                 and stacked.lm_fold_engages(q.cfg, model)):
             add(lm_kernel, steps)
     if variant:
-        add({"w8": "megastep_decode_w8a8", "w4": "megastep4_decode",
-             "w4p": "megastep_lowbit_decode",
-             "w8p": "megastep_lowbit_decode"}[variant], steps)
+        add("megastep_decode_w8a8" if variant == "w8" else
+            "megastep4_decode" if variant == "w4" else
+            "megastep_lowbit_decode", steps)
         return out
     cfg = q.cfg
     for _ in range(steps):
@@ -2441,6 +2734,7 @@ def _run_requests(q, label, requests, rng, want_variant=None):
             ids = rng.integers(0, cfg.vocab_size, size=(B, S))
             for c in counters.values():
                 c.launches = 0
+            _k14_sources().clear()
             t0 = time.time()
             toks = q.generate(ids, max_new_tokens=new, max_seq=S + new)
             dt = time.time() - t0
@@ -2448,6 +2742,7 @@ def _run_requests(q, label, requests, rng, want_variant=None):
             if got != {k: v for k, v in want.items() if v}:
                 raise AssertionError(f"{label} request {name}: launches "
                                      f"{got}, expected {want}")
+            got.update(_by_source())
             if (toks.shape != (B, new) or toks.min() < 0
                     or toks.max() >= cfg.vocab_size):
                 raise AssertionError(f"{label} request {name}: bad tokens")
@@ -2492,30 +2787,34 @@ def _decode_ms(q, label, shapes, rng, env=None, layouts=("auto", "perlayer")):
     return out
 
 
-def _save_uniform_w4(cfg, ckpt, asym=False, actorder=False, seed=8):
-    """A random uniform W4 g128 model at ``cfg``
-    (``synthetic.make_model(kind="uniform")``) saved as a GPTQ v1
-    checkpoint from artifacts of its own codes and scales: symmetric, or
-    with random integer zero points in [4, 12] (``asym``, a ``sym=False``
-    checkpoint) and a balanced permuted g_idx (``actorder``, a
-    ``desc_act=True`` one: each layer's columns shuffled by one permutation
-    per shared input, g_idx recording each column's group)."""
-    from ganq_tpu_torch import QuantizeConfig
+def _uniform_gptq(cfg, bits=4, asym=False, actorder=False, seed=8):
+    """A random uniform ``bits``-bit g128 model at ``cfg``
+    (``synthetic.make_model(kind="uniform")``) and the GPTQ artifacts of its
+    own codes and scales: symmetric, or with random integer zero points in
+    [2^bits / 4, 3 * 2^bits / 4] (``asym``, a ``sym=False`` model; for
+    3 bits [2, 6]) and a
+    balanced permuted g_idx (``actorder``, a ``desc_act=True`` one: each
+    layer's columns shuffled by one permutation per shared input, g_idx
+    recording each column's group). The model's linears are rebuilt from
+    the artifacts (zero points and g_idx where they are set), so that it is
+    the model GPTQ quantize leaves in memory and its checkpoint's content.
+    Returns (model, artifacts)."""
     from ganq_tpu_torch.core.config import QUANT_METHOD
-    from ganq_tpu_torch.formats.checkpoint import save_quantized
     from ganq_tpu_torch.models import hf_import, synthetic
     from ganq_tpu_torch.models.registry import get_spec
-    from ganq_tpu_torch.ops.packing import unpack_int_rows
+    from ganq_tpu_torch.ops.packing import pack_int_rows, unpack_int_rows
+    from ganq_tpu_torch.ops.qlinear import QLinear
     from ganq_tpu_torch.quant.looper import QuantizedModule
 
-    qcfg = QuantizeConfig(desc_act=actorder, sym=not asym)
     gen = torch.Generator().manual_seed(seed)
     shared = {"self_attn.q_proj": "h", "self_attn.k_proj": "h",
               "self_attn.v_proj": "h", "self_attn.o_proj": "o",
               "mlp.gate_proj": "g", "mlp.up_proj": "g", "mlp.down_proj": "d"}
+    center = float(1 << (bits - 1))
     with torch.inference_mode():
-        model = synthetic.make_model(cfg, kind="uniform", bits=4, seed=seed,
-                                     device="cuda", dtype=torch.bfloat16)
+        model = synthetic.make_model(cfg, kind="uniform", bits=bits,
+                                     seed=seed, device="cuda",
+                                     dtype=torch.bfloat16)
         spec = get_spec("llama")
         arts = {}
         for i in range(len(model.layers)):
@@ -2524,21 +2823,44 @@ def _save_uniform_w4(cfg, ckpt, asym=False, actorder=False, seed=8):
                 p = hf_import.get_module(model, i, slot)
                 n = p.in_features
                 scale = p["scales"].cpu()
-                qidx = unpack_int_rows(p["qweight"], 4, n).to(torch.uint8).cpu()
+                qidx = unpack_int_rows(p["qweight"], bits, n).to(
+                    torch.uint8).cpu()
                 g_idx = torch.arange(n, dtype=torch.int32) // 128
                 if actorder:
                     perm = perms.setdefault(shared[mod],
                                             torch.randperm(n, generator=gen))
                     qidx, g_idx = qidx[:, perm], g_idx[perm]
-                zero = torch.full_like(scale, 8.0)
+                zero = torch.full_like(scale, center)
                 if asym:
-                    zero = torch.randint(4, 13, scale.shape, generator=gen
-                                         ).to(torch.float32)
+                    zero = torch.randint(1 << (bits - 2),
+                                         (3 << (bits - 2)) + 1, scale.shape,
+                                         generator=gen).to(torch.float32)
                 arts[f"{spec.layers_prefix}.{i}.{mod}"] = QuantizedModule(
-                    method=QUANT_METHOD.GPTQ, bits=4, group_size=128,
+                    method=QUANT_METHOD.GPTQ, bits=bits, group_size=128,
                     qidx=qidx, scale=scale, zero=zero, g_idx=g_idx)
-    save_quantized(ckpt, hf_import.config_to_hf(cfg), qcfg, model,
-                   artifacts=arts)
+                arrays = {"qweight": pack_int_rows(qidx.to(torch.int32),
+                                                   bits).cuda(),
+                          "scales": p["scales"]}
+                if asym:
+                    arrays["zeros"] = zero.cuda()
+                if actorder:
+                    arrays["g_idx"] = g_idx.cuda()
+                hf_import.set_module(model, i, slot,
+                                     QLinear("uniform", arrays, bits, n))
+    return model, arts
+
+
+def _save_uniform(cfg, ckpt, bits=4, asym=False, actorder=False, seed=8):
+    """:func:`_uniform_gptq`'s model saved as a GPTQ v1 checkpoint from its
+    artifacts (2, 4 or 8 bits: the layout has no 3-bit form)."""
+    from ganq_tpu_torch import QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import
+
+    model, arts = _uniform_gptq(cfg, bits, asym, actorder, seed)
+    save_quantized(ckpt, hf_import.config_to_hf(cfg),
+                   QuantizeConfig(bits=bits, desc_act=actorder, sym=not asym),
+                   model, artifacts=arts)
     del model, arts
     torch.cuda.empty_cache()
 
@@ -2631,7 +2953,7 @@ def phase_3b_path():
     # a symmetric uniform W4 g128 model: kernel 14's "w4p", and kernel 13
     with tempfile.TemporaryDirectory() as ckpt:
         t0 = time.time()
-        _save_uniform_w4(cfg, ckpt)
+        _save_uniform(cfg, ckpt)
         t1 = time.time()
         q = GanqModel.load(ckpt, dtype=torch.bfloat16)
         q._get_engine()
@@ -2685,7 +3007,7 @@ def phase_8b_path():
     results = {}
     with tempfile.TemporaryDirectory() as ckpt:
         t0 = time.time()
-        _save_uniform_w4(cfg, ckpt, asym=True, actorder=True, seed=14)
+        _save_uniform(cfg, ckpt, asym=True, actorder=True, seed=14)
         t1 = time.time()
         q = GanqModel.load(ckpt, dtype=torch.bfloat16)
         eng = q._get_engine()
@@ -3600,24 +3922,27 @@ GEMMA2_LAYERS = 2                  # depth of the Gemma-2 path (see PERF.md)
 GEMMA3_LONG_PROMPT = 1100          # past Gemma 3's window of 1024
 
 
-def _gemma_batching(q, label, rng, slots=4, n=6, long_prompt=0,
-                    max_seq=1280):
+def _whole_step_batching(q, label, rng, slots=4, n=6, long_prompt=0,
+                         max_seq=1280, variants=("w4p", "w8p"),
+                         need=("pa_norm",)):
     """``n`` seeded requests through a whole-step ``BatchingEngine`` of
-    ``q`` (``slots`` slots): the first of ``long_prompt`` tokens (when
-    given, so that its slot decodes past the window), the others of 16-256,
-    8-24 new tokens each, the launch counters set to 0 just before and read
-    just after; the launches must be the path's (per prefill under 1024
-    rows one kernel per linear of the stacked layers, one kernel 14 launch
-    a decode step). Returns (engine, launches, steps, seconds, tokens)."""
+    ``q`` (``slots`` slots), which must take one of kernel 14's
+    ``variants`` with the pack operands ``need`` (gemma's sandwich norms
+    by default): the first of ``long_prompt`` tokens (when given, so that
+    its slot decodes past the window), the others of 16-256, 8-24 new
+    tokens each, the launch counters set to 0 just before and read just
+    after; the launches must be the path's (per prefill under 1024 rows one
+    kernel per linear of the stacked layers, one kernel 14 launch a decode
+    step). Returns (engine, launches, steps, seconds, tokens)."""
     from ganq_tpu_torch.models.transformer import attn_linears
     from ganq_tpu_torch.serve import batching
 
     eng = batching.BatchingEngine(q.cfg, q.model, backend=q.backend,
                                   slots=slots, max_seq=max_seq,
                                   prompt_buckets=(64, 256, 1152))
-    if eng._mega_variant not in ("w4p", "w8p") or "pa_norm" not in eng._mp:
+    if eng._mega_variant not in variants or not set(need) <= set(eng._mp):
         raise AssertionError(f"{label}: the batching engine is not on "
-                             "kernel 14 with gemma's operands")
+                             f"kernel 14 {variants} with {need}")
     V = q.cfg.vocab_size
     eng.submit(rng.integers(0, V, size=20), max_new_tokens=3)
     eng.run_all()                                             # warm-up
@@ -3629,6 +3954,7 @@ def _gemma_batching(q, label, rng, slots=4, n=6, long_prompt=0,
     counters = _kernel_counters()
     for c in counters.values():
         c.launches = 0
+    _k14_sources().clear()
     torch.cuda.synchronize()
     t0 = time.time()
     ids = {eng.submit(p, max_new_tokens=m): i for i, (p, m) in
@@ -3658,6 +3984,7 @@ def _gemma_batching(q, label, rng, slots=4, n=6, long_prompt=0,
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want} ({steps} steps)")
+    launches.update(_by_source())
     log(f"{label} ({eng._mega_variant}, {slots} slots): {n} requests "
         f"(prompts {lens}), {n_tok} tokens in {steps} steps, "
         f"{dt * 1e3:.1f} ms: {n_tok / dt:.1f} tokens/s (host clock, prefills "
@@ -3739,7 +4066,7 @@ def phase_gemma3_path():
     out["decode_gemma3_w8p"] = _decode_ms(
         q, "Gemma-3-27B widths (kernel 14 w8p with gemma's operands)",
         ((1, 128, 16), (8, 64, 8)), rng)
-    eng, launches, steps, dt, n_tok = _gemma_batching(
+    eng, launches, steps, dt, n_tok = _whole_step_batching(
         q, "Gemma 3 batching", rng, long_prompt=GEMMA3_LONG_PROMPT)
     out["runs"].append(launches)
     rel = _gemma_teacher_forced(q, eng, "Gemma 3 batching",
@@ -3833,6 +4160,214 @@ def phase_gemma2_path():
     return out
 
 
+LOWBIT_PATH_LAYERS = 4             # depth of the 8B W3/W2 path (PERF.md)
+WALSH_QUANTIZE_LAYERS = 2          # depth of the GANQ-3 quantize path
+WALSH_SPEED_LAYERS = 28            # depth of the 3B "wl8" timing model
+MEGA_ON = {"GANQ_MEGASTEP": "1"}   # the whole step on a non-a8 backend
+
+
+def phase_w3w2_path():
+    """Kernel 14's "w3" and "w2" at Llama-3.1-8B's published widths
+    (huggingface.co/meta-llama/Llama-3.1-8B: hidden 4096, intermediate
+    14336, head_dim 128; LOWBIT_PATH_LAYERS of its 32 layers): a random
+    symmetric W2 g128 model saved as a GPTQ v1 checkpoint and loaded, and
+    a random symmetric W3 g128 model served from memory as GPTQ ``bits=3``
+    quantize leaves it (the GPTQ v1 layout has no 3-bit form in either
+    package: ``gptq_compat`` packs 2, 4 and 8 bits). Both select backend
+    "cuda"; with ``GANQ_MEGASTEP=1`` (as in ganq_tpu, the whole step
+    engages off "cuda_a8" only when asked) requests at batch 1, 8 and 64
+    decode through one kernel-14 launch a step (launches exact, a
+    teacher-forced step against the reference backend each), and decode ms
+    per step is timed against ``layout="perlayer"`` (kernel 5 at 3 and 2
+    bits). Then an asymmetric act-order W3 model (GPTQModel's default
+    layout: integer zero points, a balanced permuted g_idx) at batch 1
+    through "w3" with its zero points and column orders, and the batching
+    engine on the symmetric W3 model: 4 slots, 6 requests."""
+    from ganq_tpu_torch import GanqModel
+    from ganq_tpu_torch.models import synthetic
+
+    cfg = synthetic.llama_3_1_8b_config(LOWBIT_PATH_LAYERS)
+    rng = np.random.default_rng(21)
+    results = {"runs": []}
+    for bits in (2, 3):
+        variant, t0 = f"w{bits}", time.time()
+        if bits == 2:
+            with tempfile.TemporaryDirectory() as ckpt:
+                _save_uniform(cfg, ckpt, bits=2, seed=22)
+                q = GanqModel.load(ckpt, dtype=torch.bfloat16)
+        else:
+            q = GanqModel(cfg, _uniform_gptq(cfg, 3, seed=23)[0])
+        label = f"8B sym W{bits} g128"
+        log(f"{label}: built ({'GPTQ v1 checkpoint' if bits == 2 else 'in memory'}, "
+            f"{LOWBIT_PATH_LAYERS} layers) in {time.time() - t0:.1f} s; "
+            f"backend {q.backend}")
+        if q.backend != "cuda" or not q._get_engine().stacked:
+            raise AssertionError(f"{label}: not stacked on backend cuda")
+        saved = _request_env(MEGA_ON)
+        try:
+            q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+                       max_new_tokens=3, max_seq=32)                # warm-up
+        finally:
+            _restore_env(saved)
+        results["runs"] += list(_run_requests(q, label, (
+            (f"{variant}_b1", 1, 64, 16, MEGA_ON),
+            (f"{variant}_b8", 8, 64, 8, MEGA_ON),
+            (f"{variant}_b64", 64, 32, 4, MEGA_ON)), rng,
+            want_variant=variant).values())
+        results[f"decode_8b_{variant}"] = _decode_ms(
+            q, f"{label} (kernel 14 {variant} / perlayer)",
+            ((1, 64, 16), (8, 64, 16), (64, 32, 8)), rng, env=MEGA_ON)
+        if bits == 3:
+            saved = _request_env(MEGA_ON)
+            try:
+                _, launches, *_ = _whole_step_batching(
+                    q, f"{label} batching", rng, slots=4, n=6, max_seq=320,
+                    variants=("w3",), need=())
+            finally:
+                _restore_env(saved)
+            results["runs"].append(launches)
+        del q
+        torch.cuda.empty_cache()
+    q = GanqModel(cfg, _uniform_gptq(cfg, 3, asym=True, actorder=True,
+                                     seed=24)[0])
+    results["runs"] += list(_run_requests(
+        q, "8B asym act-order W3", (("w3_zp_ao_b1", 1, 64, 16, MEGA_ON),),
+        rng, want_variant="w3").values())
+    mp = q._get_engine().model.megapack_lb
+    if not {"qkv_sz", "ap_q", "ap_g", "ap_o"} <= set(mp):
+        raise AssertionError("the asym act-order W3 model is not on kernel "
+                             "14's zero-point act-order operands")
+    del q, mp
+    torch.cuda.empty_cache()
+    return results
+
+
+def _lut3_model(cfg, layers_seed=31):
+    """A random 3-bit ``lut`` model at ``cfg`` (8-entry codebooks) saved
+    with the port's checkpoint writer and loaded: returns (GanqModel,
+    seconds to build and save, seconds to load)."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as ckpt:
+        with torch.inference_mode():
+            model = synthetic.make_model(cfg, kind="lut", bits=3,
+                                         seed=layers_seed, device="cuda",
+                                         dtype=torch.bfloat16)
+        save_quantized(ckpt, hf_import.config_to_hf(cfg),
+                       QuantizeConfig(bits=3), model)
+        del model
+        torch.cuda.empty_cache()
+        t1 = time.time()
+        q = GanqModel.load(ckpt, dtype=torch.bfloat16)
+        t2 = time.time()
+    return q, t1 - t0, t2 - t1
+
+
+def phase_walsh_path():
+    """Kernel 14's "wl8" (exact 8-entry codebooks at 3 bits a weight) at
+    Llama-3.2-3B's published widths (huggingface.co/meta-llama/
+    Llama-3.2-3B): (a) the real path: a dense random model of
+    WALSH_QUANTIZE_LAYERS layers, GANQ ``bits=3`` quantize (16 rows of
+    512, as phase 6), saved as a ``lut`` checkpoint, loaded without
+    ``optimize()`` and asked greedy requests with ``GANQ_MEGASTEP=1``
+    through "wl8" (launches exact, teacher-forced against the reference
+    backend); (b) speed: a random 3-bit ``lut`` model of WALSH_SPEED_LAYERS
+    layers saved and loaded, decode ms per step at batch 1, 8 and 64
+    through "wl8" against ``layout="perlayer"`` (kernel 1 at 3 bits) and
+    against the same checkpoint after ``optimize()`` ("w8p", the int8
+    recode); (c) the batching engine on "wl8": 4 slots, 6 requests."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_dense
+    from ganq_tpu_torch.models import hf_import, synthetic
+
+    rng = np.random.default_rng(31)
+    results = {"runs": []}
+    # (a) dense -> GANQ bits=3 -> lut checkpoint -> load -> "wl8"
+    cfg = synthetic.llama_3_2_3b_config(WALSH_QUANTIZE_LAYERS)
+    qcfg = QuantizeConfig(bits=3, quant_method="ganq", act_sort="asc",
+                          l_damp_style="ganq", dead="mean",
+                          ganq_iterations=5, codebook_init="kmeans_exact")
+    rows = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                             size=(16, 512))
+    with tempfile.TemporaryDirectory() as dense_dir, \
+            tempfile.TemporaryDirectory() as qdir:
+        t0 = time.time()
+        with torch.inference_mode():
+            dense = synthetic.make_model(cfg, kind="dense", seed=6,
+                                         device="cuda", dtype=torch.bfloat16)
+        save_dense(dense_dir, hf_import.config_to_hf(cfg), dense)
+        del dense
+        torch.cuda.empty_cache()
+        g = GanqModel.load(dense_dir, qcfg)
+        t1 = time.time()
+        qlog = g.quantize(list(rows))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        g.save(qdir)
+        del g
+        torch.cuda.empty_cache()
+        q = GanqModel.load(qdir)
+        kinds = {(p.kind, p.bits, p["lut"].shape[-1]) for lp in q.model.layers
+                 for p in list(lp.attn.values()) + list(lp.mlp.values())}
+        log(f"GANQ-3 path: {len(qlog)} modules quantized in {t2 - t1:.1f} s "
+            f"({(t2 - t1) / WALSH_QUANTIZE_LAYERS:.1f} s a layer), saved "
+            f"(lut) and loaded: kinds {sorted(kinds)}, backend {q.backend}")
+        if kinds != {("lut", 3, 8)} or q.backend != "cuda":
+            raise AssertionError("the GANQ-3 checkpoint is not a 3-bit "
+                                 "8-entry lut model on backend cuda")
+        results["runs"] += list(_run_requests(q, "GANQ-3 lut (3B widths)", (
+            ("wl8_b1", 1, 128, 16, MEGA_ON),
+            ("wl8_b8", 8, 128, 8, MEGA_ON)), rng,
+            want_variant="wl8").values())
+        results["quantize_s_per_layer"] = (t2 - t1) / WALSH_QUANTIZE_LAYERS
+        del q
+        torch.cuda.empty_cache()
+    # (b) speed at full depth, against perlayer and optimize() ("w8p")
+    cfg = synthetic.llama_3_2_3b_config(WALSH_SPEED_LAYERS)
+    q, t_build, t_load = _lut3_model(cfg)
+    log(f"3B lut3 ({WALSH_SPEED_LAYERS} layers): built and saved in "
+        f"{t_build:.1f} s, loaded in {t_load:.1f} s")
+    shapes = ((1, 64, 16), (8, 64, 16), (64, 32, 8))
+    saved = _request_env(MEGA_ON)
+    try:
+        q.generate(rng.integers(0, cfg.vocab_size, size=(1, 16)),
+                   max_new_tokens=3, max_seq=32)                    # warm-up
+    finally:
+        _restore_env(saved)
+    results["runs"] += list(_run_requests(q, "3B lut3", (
+        ("wl8_3b_b1", 1, 64, 8, MEGA_ON),), rng,
+        want_variant="wl8").values())
+    results["decode_3b_wl8"] = _decode_ms(
+        q, "3B lut3 (kernel 14 wl8 / perlayer: kernel 1 at 3 bits)", shapes,
+        rng, env=MEGA_ON)
+    # (c) the batching engine on "wl8"
+    saved = _request_env(MEGA_ON)
+    try:
+        _, launches, *_ = _whole_step_batching(
+            q, "3B lut3 batching", rng, slots=4, n=6, max_seq=320,
+            variants=("wl8",), need=())
+    finally:
+        _restore_env(saved)
+    results["runs"].append(launches)
+    t0 = time.time()
+    q.optimize()
+    torch.cuda.synchronize()
+    log(f"3B lut3 optimize() in {time.time() - t0:.1f} s -> backend "
+        f"{q.backend}")
+    results["runs"] += list(_run_requests(q, "3B lut3 optimize()", (
+        ("w8p_3b_b1", 1, 64, 8, MEGA_ON),), rng,
+        want_variant="w8p").values())
+    results["decode_3b_w8p"] = _decode_ms(
+        q, "3B lut3 after optimize() (kernel 14 w8p)", shapes, rng,
+        env=MEGA_ON, layouts=("auto",))
+    del q
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     t_start = time.time()
     smi = phase_environment()
@@ -3902,6 +4437,22 @@ def main() -> int:
     gemma2 = phase_gemma2_path()
     phase_done("Gemma 2 path (phase 19)", t_start)
     runs += gemma2["runs"]
+    # kernel 14's "w3"/"w2" (8B widths) and "wl8" (3B widths, GANQ-3)
+    w3w2 = phase_w3w2_path()
+    phase_done("W3/W2 path (phase 20)", t_start)
+    runs += w3w2["runs"]
+    walsh = phase_walsh_path()
+    phase_done("GANQ-3 wl8 path (phase 21)", t_start)
+    runs += walsh["runs"]
+    # kernel 14's w3/w2 and wl8 sources, by their launches in phases 20-21
+    for name, srcs in (("megastep_lowbit_decode (w3/w2)",
+                        ("megastep_lowbit_w3w2", "megastep_lowbit_w3w2_ext")),
+                       ("megastep_lowbit_decode (wl8)",
+                        ("megastep_lowbit_walsh",))):
+        launches[name] = sum(r.get(f"k14:{x}", 0) for r in runs for x in srcs)
+        if any(sum(r.get(f"k14:{x}", 0) for r in runs) == 0 for x in srcs):
+            raise AssertionError(f"{name}: a source of {srcs} never "
+                                 "launched on its paths")
     for name in ("uniform_matmul", "uniform_a8_matmul", "w8_matmul",
                  "w8a8_matmul", "fused_mlp_w8a8", "fused_qkv_rope_w8a8",
                  "attn_half_decode_w8a8", "megastep_decode_w8a8",
@@ -3939,6 +4490,12 @@ def main() -> int:
            "megastep_lowbit_decode": (
                "ganq_tpu_torch/csrc/megastep_lowbit.cu",
                "ganq_tpu/ops/megastep_lowbit.py:1390"),
+           "megastep_lowbit_decode (w3/w2)": (
+               "ganq_tpu_torch/csrc/megastep_lowbit_w3w2.cu",
+               "ganq_tpu/ops/megastep_lowbit.py:1390"),
+           "megastep_lowbit_decode (wl8)": (
+               "ganq_tpu_torch/csrc/megastep_lowbit_walsh.cu",
+               "ganq_tpu/ops/megastep_lowbit.py:1390"),
            "moe_expert_decode": ("ganq_tpu_torch/csrc/moe_expert.cu",
                                  "ganq_tpu/ops/moe_expert.py:195")}
     line = {"kernels": [
@@ -3952,8 +4509,10 @@ def main() -> int:
          "shape": k["shape"]} for k in kernels]}
     log("decode ms per step (host clock): " + json.dumps(
         {k: v for d in (three_b, eight_b, mixtral, batching_run, eora,
-                        qwen3, internlm, qwen2, gemma3, gemma2)
+                        qwen3, internlm, qwen2, gemma3, gemma2, w3w2, walsh)
          for k, v in d.items() if k.startswith("decode_")}))
+    log("GANQ-3 path: " + json.dumps({"quantize_s_per_layer":
+                                      walsh["quantize_s_per_layer"]}))
     log("Gemma 3 path: " + json.dumps({"batching": gemma3["batching"]}))
     log("Qwen3 path: " + json.dumps({k: qwen3[k] for k in (
         "quantize_s_per_layer", "batching")}))
@@ -3966,6 +4525,7 @@ def main() -> int:
     log(json.dumps({"k14_lora": k14["lora"]}))
     log(json.dumps({"k14_arch": k14["arch"]}))
     log(json.dumps({"k14_gemma": k14["gemma"]}))
+    log(json.dumps({"k14_lowbit3": k14["lowbit3"]}))
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,9 +138,9 @@ class GanqModel:
                  seed: int = 0, layout: str = "auto") -> Union[str, np.ndarray]:
         """Generate from token ids [B, S] (or [S]) or, with a tokenizer, a
         string. Returns tokens [B, max_new_tokens], or the decoded string.
-        ``layout``: the engine's (:class:`~ganq_tpu_torch.serve.engine.Engine`);
-        "perlayer" serves layer by layer the requests that the stacked
-        layout refuses (a whole-step kernel not ported yet)."""
+        ``layout``: the engine's (:class:`~ganq_tpu_torch.serve.engine.Engine`):
+        "auto" stacks a homogeneous model and decodes through the whole-step
+        kernel its variant takes, "perlayer" serves it layer by layer."""
         is_str = isinstance(inputs, str)
         if is_str:
             if self.tokenizer is None:
@@ -306,12 +306,12 @@ class GanqModel:
         recoded models select ``"cuda_a8"``; the engine's stacked layout
         then runs the JAX package's fused kernels where its gates send a
         request (for ``w8``: the fused W8A8 MLP and, for head_dim-128 models
-        at decode batch <= 8, the whole-step megastep; for uniform 8-bit and
-        symmetric 4-bit models at decode batch <= 64, the group-scaled
-        whole step), and ``generate`` raises where they send it to a
-        whole-step variant not ported yet
-        (``serve/engine.stacked_only_kernel``), unless given
-        ``layout="perlayer"``. A MoE model's experts are recoded too, and on
+        at decode batch <= 8, the whole-step megastep; for uniform 8-, 4-,
+        3- and 2-bit models at decode batch <= 64, the group-scaled whole
+        step; ``layout="perlayer"`` keeps the per-layer kernels). A model
+        left with 3-bit 8-entry codebooks (``recode="none"`` or a load
+        without ``optimize``) decodes through the whole step's Walsh planes
+        ("wl8") under ``GANQ_MEGASTEP=1``. A MoE model's experts are recoded too, and on
         the card each MoE layer whose experts are uniform 4- or 8-bit gets
         kernel 15's packed copy (``ops/moe_expert.moe_megapack``), which its
         decode steps take (``models/transformer._moe_combine``)."""

@@ -6,20 +6,24 @@
 // trailing-unembed fold megastep_lowbit_lm.cu and megastep_lowbit_lm_opt.cu;
 // with the EoRA epilogue megastep_lowbit_lora*.cu; with the qk-norm and
 // biases megastep_lowbit_arch*.cu; with gemma's operands
-// megastep_lowbit_gemma.cu).
+// megastep_lowbit_gemma.cu; "w3" and "w2" megastep_lowbit_w3w2.cu, with
+// any optional operand megastep_lowbit_w3w2_ext.cu; "wl8", the Walsh LUT
+// decode, megastep_lowbit_walsh.cu).
 //
 // Replaces ganq_tpu/ops/megastep4.py megastep4_decode (Pallas
 // _megastep4_kernel) and ganq_tpu/ops/megastep_lowbit.py
-// megastep_lowbit_decode (_megastep_lb_kernel, bits 4 and 8; of its
-// optional operands the zero points *_sz, the act-order orders ap_*, the
-// trailing-unembed fold lm, the EoRA adapters la_* / lb_*, the qk-norm and
-// bias operands and gemma's sandwich norms, windows, softcap and dual
-// rope). The TPU kernels are one pallas_call walking
+// megastep_lowbit_decode (_megastep_lb_kernel, bits 8, 4, 3 and 2 and
+// walsh=7; of its optional operands the zero points *_sz, the act-order
+// orders ap_*, the trailing-unembed fold lm, the EoRA adapters la_* /
+// lb_*, the qk-norm and bias operands and gemma's sandwich norms,
+// windows, softcap and dual rope). The TPU kernels are one pallas_call walking
 // (layers, phases) in order and dequantize by algebra on masked int8 MXU
 // dots, because a TPU has no gather. Here a byte's codes are decoded by shift and mask: a
 // pair-nibble byte holds the codes of two output rows (or, in kernel 13's
 // K-major o and down, two output columns), and the warp that owns both
-// decodes it once. The numbers are the TPU kernels': per group of gs
+// decodes it once; at 3 and 2 bits a lane reads the 3 or 1 plane bytes of
+// a packed unit and recovers the codes of its 8 or 4 row blocks
+// (plane_fields). The numbers are the TPU kernels': per group of gs
 // columns the exact int32 dot z = x8 . (q - 2^(bits-1)) (the TPU's plane
 // algebra gives the same integer), then y += s_g * z in float32, group
 // after group in order, then y * sx. With zero points (kernel 14's *_sz)
@@ -106,7 +110,8 @@
 // blocks.
 //
 // Bound on this card: the weight bytes, L (Dqkv + Dq + 3 I) H bits / 8
-// (1.41 GB at Llama-3.2-3B for 4 bits, 2.82 GB for 8), plus their bf16
+// (1.41 GB at Llama-3.2-3B for 4 bits, 2.82 GB for 8, 1.06 for 3 and the
+// Walsh planes, 0.70 for 2), plus their bf16 (Walsh: float32 coefficient)
 // scales, the K/V history and, with EoRA, the bf16 factors (161 MB at 3B
 // and r = 64), over 3.35 TB/s. This first form pays 10-11
 // grid barriers a layer and leaves most blocks idle in the row and
@@ -133,10 +138,71 @@ constexpr int kSaBytes = 64;       // per-token scales of a staged group
 // 16-byte reads of lanes 128 columns apart fall in different banks
 __device__ __forceinline__ int padk(int k) { return (k >> 7) * kPad + (k & 127); }
 
+// kernel 14's "wl8" (the Walsh LUT decode) as a BITS value: 3 stored bit
+// planes, 7 monomial planes
+constexpr int kWalsh = 7;
+
+// output rows of one packed unit (a byte position of its planes): 2 at 4
+// bits, 8 at 3 (and in the Walsh planes), 4 at 2, 1 at 8
+template <int BITS>
+__host__ __device__ constexpr int fields() {
+  return BITS == 4 ? 2 : (BITS == 3 || BITS == kWalsh) ? 8 : BITS == 2 ? 4 : 1;
+}
+
+// plane bytes of one packed unit, each plane tF rows after the last
+template <int BITS>
+__host__ __device__ constexpr int planes() {
+  return (BITS == 3 || BITS == kWalsh) ? 3 : 1;
+}
+
+// token rows a staged group: a warp's values (packed rows x fields x token
+// rows) must fit its 32 lanes, so 3 bits take 2 and 2 bits 4
+template <int BITS>
+__host__ __device__ constexpr int max_tb() {
+  return BITS == 3 ? 2 : BITS == 2 ? 4 : 8;
+}
+
 // floats of one warp's group partials: 32 groups of up to V values, padded
+// (the Walsh walks: its 32 lanes' 32 integer dots, ``walsh_dots_block``)
 template <int TB, int BITS>
 __host__ __device__ constexpr int pf_floats() {
-  return 32 * (2 * (BITS == 4 ? 2 : 1) * TB + 1);
+  return BITS == kWalsh ? 1024 : 32 * (2 * fields<BITS>() * TB + 1);
+}
+
+// the packed row of unit p (tile t = p / tF, row i in its block) in
+// tile-major planes: t * NP * tF + i, its planes tF rows apart
+template <int BITS>
+__device__ __forceinline__ int unit_row(int p, int tF) {
+  if constexpr (planes<BITS>() == 1) return p;
+  else return (p / tF) * planes<BITS>() * tF + p % tF;
+}
+
+// the g_r codes (0 .. 2^bits - 1, one a byte) of 4 columns of a 3- or 2-bit
+// unit from its plane words pw (``_PLAN``; the top field of every plane is
+// stored XOR its sign bit, byte bit 7, and rows 2 and 5 of the 3-bit plan
+// are split across two planes, joined as hi << shift | lo)
+template <int BITS>
+__device__ __forceinline__ void plane_fields(const unsigned (&pw)[planes<BITS>()],
+                                             unsigned (&c)[fields<BITS>()]) {
+  constexpr unsigned m1 = 0x01010101u, m2 = 0x03030303u, m3 = 0x07070707u;
+  if constexpr (BITS == 3) {
+    const unsigned a = pw[0] ^ 0x80808080u, b = pw[1] ^ 0x80808080u,
+                   d = pw[2] ^ 0x80808080u;
+    c[0] = (a >> 5) & m3;
+    c[1] = (a >> 2) & m3;
+    c[2] = ((a & m2) << 1) | ((b >> 7) & m1);
+    c[3] = (b >> 4) & m3;
+    c[4] = (b >> 1) & m3;
+    c[5] = ((b & m1) << 2) | ((d >> 6) & m2);
+    c[6] = (d >> 3) & m3;
+    c[7] = d & m3;
+  } else {
+    const unsigned a = pw[0] ^ 0x80808080u;
+    c[0] = (a >> 6) & m2;
+    c[1] = (a >> 4) & m2;
+    c[2] = (a >> 2) & m2;
+    c[3] = a & m2;
+  }
 }
 
 // 4 bytes of 0..15 read as signed 4-bit fields
@@ -155,21 +221,28 @@ __device__ __forceinline__ void nibbles(unsigned w, int& hi, int& lo) {
 // against TB token rows of int8 activations staged in xs [TB][K] (padded,
 // ``padk``). Value v = (r * F + f) * TB + b is row block f of packed row r
 // (F = 2 nibble fields at 4 bits, the first row block in the high nibble
-// where hi_first; F = 1 byte at 8 bits, stored XOR 128) against token row
-// b. Lane g owns group g (gs columns, 32 groups a pass): the exact int32
-// dot of the centred codes, times the group's scale ``scale(v, g)`` (one
-// per (r, f)), plus, with ZP, the zero-point correction ``sz(v, g)``
-// times the group's activation sum (kernel 14's fields_y: s z + sz S in
-// float32), into the warp's partials pf; lane v < V then sums the groups
-// in order. Returns lane v's sum. (ZP is a template argument so that the
-// symmetric loop carries no activation sums.)
+// where hi_first; F = 1 byte at 8 bits, stored XOR 128; at 3 and 2 bits
+// the unit's NP plane rows, pstride bytes apart, hold F = 8 or 4 fields,
+// ``plane_fields``) against token row b. Lane g owns group g (gs columns,
+// 32 groups a pass): the exact int32 dot of the centred codes (at 3 and 2
+// bits the codes' dot less 2^(bits-1) times the activation sum), times
+// the group's scale ``scale(v, g)`` (one per (r, f)), plus, with ZP, the
+// zero-point correction ``sz(v, g)`` times the group's activation sum
+// (kernel 14's fields_y: s z + sz S in float32), into the warp's partials
+// pf; lane v < V then sums the groups in order. Returns lane v's sum. (ZP
+// is a template argument so that the symmetric loop carries no activation
+// sums.)
 template <int TB, int BITS, int NR, bool ZP, typename Scale, typename Sz>
 __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
                                            int K, const int8_t* xs, int gs,
                                            bool hi_first, float* pf,
-                                           Scale scale, Sz sz) {
-  constexpr int F = BITS == 4 ? 2 : 1;
+                                           Scale scale, Sz sz,
+                                           size_t pstride = 0) {
+  constexpr int F = fields<BITS>();
   constexpr int V = NR * F * TB;
+  constexpr bool LOW = BITS == 3 || BITS == 2;    // codes, then centred
+  constexpr int NP = planes<BITS>();
+  static_assert(V <= 32, "a lane per value");
   const int lane = threadIdx.x & 31;
   const int G = K / gs, n16 = gs / 16, xstride = (K >> 7) * kPad;
   float y = 0.f;
@@ -190,10 +263,18 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
 #pragma unroll 2
       for (int c = 0; c < n16; ++c) {
         const int k = g * gs + 16 * c;
-        int4 w[NR];
+        int4 w[NR * NP];
 #pragma unroll
-        for (int r = 0; r < NR; ++r)
-          w[r] = __ldg(reinterpret_cast<const int4*>(rows[r] + k));
+        for (int r = 0; r < NR; ++r) {
+          if constexpr (LOW) {
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+              w[r * NP + p] = __ldg(reinterpret_cast<const int4*>(
+                  rows[r] + p * pstride + k));
+          } else {
+            w[r] = __ldg(reinterpret_cast<const int4*>(rows[r] + k));
+          }
+        }
         const int kp = padk(k);
         int xw[TB][4];
 #pragma unroll
@@ -205,7 +286,7 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
           xw[b][2] = xv.z;
           xw[b][3] = xv.w;
         }
-        if constexpr (ZP) {
+        if constexpr (ZP || LOW) {
 #pragma unroll
           for (int b = 0; b < TB; ++b)
 #pragma unroll
@@ -214,23 +295,43 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
         }
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
-          const int ww[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+          if constexpr (LOW) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if constexpr (BITS == 8) {
+            for (int j = 0; j < 4; ++j) {
+              unsigned pw[NP], cf[F];
 #pragma unroll
-              for (int b = 0; b < TB; ++b)
-                acc[r * TB + b] = __dp4a(ww[j], xw[b][j], acc[r * TB + b]);
-            } else {
-              int hi, lo;
-              nibbles((unsigned)ww[j], hi, lo);
-              const int c0 = hi_first ? hi : lo, c1 = hi_first ? lo : hi;
+              for (int p = 0; p < NP; ++p) {
+                const int4 q = w[r * NP + p];
+                pw[p] = (unsigned)(j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z
+                                                                        : q.w);
+              }
+              plane_fields<BITS>(pw, cf);
 #pragma unroll
-              for (int b = 0; b < TB; ++b) {
-                acc[2 * r * TB + b] =
-                    __dp4a(c0, xw[b][j], acc[2 * r * TB + b]);
-                acc[(2 * r + 1) * TB + b] =
-                    __dp4a(c1, xw[b][j], acc[(2 * r + 1) * TB + b]);
+              for (int f = 0; f < F; ++f)
+#pragma unroll
+                for (int b = 0; b < TB; ++b)
+                  acc[(r * F + f) * TB + b] =
+                      __dp4a((int)cf[f], xw[b][j], acc[(r * F + f) * TB + b]);
+            }
+          } else {
+            const int ww[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (BITS == 8) {
+#pragma unroll
+                for (int b = 0; b < TB; ++b)
+                  acc[r * TB + b] = __dp4a(ww[j], xw[b][j], acc[r * TB + b]);
+              } else {
+                int hi, lo;
+                nibbles((unsigned)ww[j], hi, lo);
+                const int c0 = hi_first ? hi : lo, c1 = hi_first ? lo : hi;
+#pragma unroll
+                for (int b = 0; b < TB; ++b) {
+                  acc[2 * r * TB + b] =
+                      __dp4a(c0, xw[b][j], acc[2 * r * TB + b]);
+                  acc[(2 * r + 1) * TB + b] =
+                      __dp4a(c1, xw[b][j], acc[(2 * r + 1) * TB + b]);
+                }
               }
             }
           }
@@ -238,6 +339,7 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
       }
 #pragma unroll
       for (int v = 0; v < V; ++v) {
+        if constexpr (LOW) acc[v] -= (1 << (BITS - 1)) * xsum[v % TB];
         float p = __fmul_rn(sg[v / TB], (float)acc[v]);
         if constexpr (ZP)
           p = __fadd_rn(p, __fmul_rn(zg[v / TB], (float)xsum[v % TB]));
@@ -260,14 +362,15 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
 template <int TB, int BITS, int NR, bool OPT, typename Scale, typename Sz>
 __device__ __forceinline__ float group_dot_zp(
     const int8_t* const (&rows)[NR], int K, const int8_t* xs, int gs,
-    bool hi_first, float* pf, Scale scale, const float* szs, Sz sz) {
+    bool hi_first, float* pf, Scale scale, const float* szs, Sz sz,
+    size_t pstride = 0) {
   if constexpr (OPT) {
     if (szs)
       return group_dot<TB, BITS, NR, true>(rows, K, xs, gs, hi_first, pf,
-                                           scale, sz);
+                                           scale, sz, pstride);
   }
   return group_dot<TB, BITS, NR, false>(rows, K, xs, gs, hi_first, pf, scale,
-                                        sz);
+                                        sz, pstride);
 }
 
 // token rows b0 .. b0 + nb of src (row stride ld), columns k0 .. k0 + K,
@@ -572,7 +675,7 @@ __device__ __forceinline__ float lora_out(int r, XaOf xa_of, LbOf lb_of) {
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH,
           bool GEMMA = false>
 __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
-  constexpr int F = BITS == 4 ? 2 : 1;
+  constexpr int F = fields<BITS>(), NP = planes<BITS>();
   constexpr int FT = F * TB;
   const int H = a.H, Dqkv = a.q_dim + 2 * a.kv_dim, P = Dqkv / F;
   const int G = H / a.gs, tF = a.tq / F;
@@ -580,7 +683,7 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   const int units = P / 2, nrb = (units + kWarps - 1) / kWarps;
   const int groups = (a.B + TB - 1) / TB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int8_t* pk = a.qkv_pk + (size_t)l * P * H;
+  const int8_t* pk = a.qkv_pk + (size_t)l * NP * P * H;
   const bf16* sc = a.qkv_gs + (size_t)l * G * Dqkv;
   const float* bias = a.qkv_bias + (size_t)l * Dqkv;
   const float* szs = a.qkv_sz ? a.qkv_sz + (size_t)l * G * Dqkv : nullptr;
@@ -606,12 +709,14 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
       const int t = p / tF;
       return t * a.tq + f * tF + (p - t * tF);
     };
-    const int8_t* rows[2] = {pk + (size_t)p0 * H, pk + (size_t)p1 * H};
+    const int8_t* rows[2] = {pk + (size_t)unit_row<BITS>(p0, tF) * H,
+                             pk + (size_t)unit_row<BITS>(p1, tF) * H};
     const float y = group_dot_zp<TB, BITS, 2, OPT>(
         rows, H, xs, a.gs, !KMAJ, pf,
         [&](int v, int g) { return bf(sc, (size_t)g * Dqkv + row_of(v)); },
         szs,
-        [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; });
+        [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; },
+        (size_t)tF * H);
     float lora = 0.f;
     const bool with_lora = lora_on<LORA, GEMMA>(a);
     if (with_lora)
@@ -740,14 +845,14 @@ __device__ void qk_norm_rope_heads(const W8A8Args& a, int l, int b, int g,
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH,
           bool GEMMA = false>
 __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
-  constexpr int F = BITS == 4 ? 2 : 1;
+  constexpr int F = fields<BITS>(), NP = planes<BITS>();
   constexpr int FT = F * TB;
   const int H = a.H, I = a.I, ti = a.ti, ng = I / ti, G = H / a.gs;
   const int tF = ti / F, PI = I / F;
   const int nrb = (PI + kWarps - 1) / kWarps;
   const int groups = (a.B + TB - 1) / TB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int8_t* pk = a.gu_pk + (size_t)l * 2 * PI * H;
+  const int8_t* pk = a.gu_pk + (size_t)l * 2 * NP * PI * H;
   const bf16* sc = a.gu_gs + (size_t)l * G * 2 * I;
   const float* szs = a.gu_sz ? a.gu_sz + (size_t)l * G * 2 * I : nullptr;
   const int* perm = a.ap_g ? a.ap_g + (size_t)l * H : nullptr;
@@ -763,7 +868,9 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
     const int p = rb * kWarps + warp;
     if (p >= PI) continue;
     const int t = p / tF, i = p - t * tF;
-    const int8_t* rows[2] = {pk + (size_t)p * H, pk + (size_t)(PI + p) * H};
+    const int8_t* rows[2] = {
+        pk + (size_t)unit_row<BITS>(p, tF) * H,
+        pk + (size_t)(NP * PI + unit_row<BITS>(p, tF)) * H};
     auto col = [&](int v) {
       const int r = v / FT, f = (v / TB) % F;
       return (size_t)(2 * t + r) * ti + f * tF + i;
@@ -772,7 +879,8 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
         rows, H, xs, a.gs, !KMAJ, pf,
         [&](int v, int g) { return bf(sc, (size_t)g * 2 * I + col(v)); },
         szs,
-        [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; });
+        [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; },
+        (size_t)tF * H);
     const int b = lane % TB, f = (lane / TB) % F;
     float v;
     if constexpr (LORA || ARCH) {
@@ -819,8 +927,9 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 }
 
 // ------------------------------------------- kernel 14: row-major o, down
-// o_pk [H / F, q_dim]: a warp per two output rows (NR = 2 / F packed
-// rows); x[b][n] += (sum_g s_g z_g) * sa[b] for the rows n it owns (a8
+// o_pk [NP H / F, q_dim]: a warp per two output rows at 8 and 4 bits (NR =
+// 2 / F packed rows), per packed unit (F rows) at 3 and 2; x[b][n] +=
+// (sum_g s_g z_g) * sa[b] for the rows n it owns (a8
 // staged from the quantized attention output). LORA adds xa_o . lb_o[n]^T
 // to the product before the residual. GEMMA with sandwich norms writes the
 // product (bias and EoRA term added) to sand instead, for the norm pass.
@@ -828,13 +937,13 @@ template <int TB, int BITS, bool OPT, bool LORA, bool ARCH,
           bool GEMMA = false>
 __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
                               float* sa_s, float* pf) {
-  constexpr int F = BITS == 4 ? 2 : 1;
-  constexpr int FT = F * TB, NR = 2 / F;
+  constexpr int F = fields<BITS>(), NP = planes<BITS>();
+  constexpr int FT = F * TB, NR = F == 1 ? 2 : 1, VO = NR * FT;
   const int H = a.H, K = a.q_dim, P = H / F, Gq = K / a.gs;
   const int units = P / NR, nrb = (units + kWarps - 1) / kWarps;
   const int groups = (a.B + TB - 1) / TB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int8_t* pk = a.o_pk + (size_t)l * P * K;
+  const int8_t* pk = a.o_pk + (size_t)l * NP * P * K;
   const bf16* sc = a.o_gs + (size_t)l * Gq * H;
   const float* szs = a.o_sz ? a.o_sz + (size_t)l * Gq * H : nullptr;
   const int* perm = a.ap_o ? a.ap_o + (size_t)l * K : nullptr;
@@ -859,11 +968,12 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
     const float y = group_dot_zp<TB, BITS, NR, OPT>(
         rows, K, xs, a.gs, true, pf,
         [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); },
-        szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; });
+        szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; },
+        (size_t)P * K);
     float lora = 0.f;
     const bool with_lora = lora_on<LORA, GEMMA>(a);
     if (with_lora)
-      lora = lora_out<2 * TB>(
+      lora = lora_out<VO>(
           a.r_o,
           [&](int v) {
             return v % TB < nb ? a.xa_o + (size_t)(b0 + v % TB) * a.r_o
@@ -871,7 +981,7 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
           },
           [&](int v) { return a.lb_o + ((size_t)l * H + row_of(v)) * a.r_o; });
     const int b = lane % TB;
-    if (lane >= 2 * TB || b >= nb) continue;
+    if (lane >= VO || b >= nb) continue;
     float upd = __fmul_rn(y, sa_s[b]);
     if (with_lora) upd = __fadd_rn(upd, lora);
     if constexpr (ARCH) {
@@ -889,7 +999,8 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
   }
 }
 
-// dn_pk [H / F, I]: a warp per two output rows walks the MLP tiles in
+// dn_pk [NP H / F, I]: a warp per two output rows (per unit at 3 and 2
+// bits, as o) walks the MLP tiles in
 // order, ma += (sum over the tile's groups of s_g z_g) * sa_t, then adds ma
 // to the residual rows it owns (a8 staged per tile from the quantized
 // activation; dn_gs [NG * gtp, H], each tile's groups padded to gtp rows).
@@ -899,13 +1010,13 @@ template <int TB, int BITS, bool OPT, bool LORA, bool ARCH,
           bool GEMMA = false>
 __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
                                  float* sa_s, float* pf) {
-  constexpr int F = BITS == 4 ? 2 : 1;
-  constexpr int FT = F * TB, NR = 2 / F;
+  constexpr int F = fields<BITS>(), NP = planes<BITS>();
+  constexpr int FT = F * TB, NR = F == 1 ? 2 : 1, VO = NR * FT;
   const int H = a.H, I = a.I, ti = a.ti, ng = I / ti, P = H / F;
   const int units = P / NR, nrb = (units + kWarps - 1) / kWarps;
   const int groups = (a.B + TB - 1) / TB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int8_t* pk = a.dn_pk + (size_t)l * P * I;
+  const int8_t* pk = a.dn_pk + (size_t)l * NP * P * I;
   const bf16* sc = a.dn_gs + (size_t)l * ng * a.gtp * H;
   const float* szs = a.dn_sz ? a.dn_sz + (size_t)l * ng * a.gtp * H : nullptr;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
@@ -933,8 +1044,9 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
             },
             szs, [&](int v, int g) {
               return szs[(size_t)(t * a.gtp + g) * H + row_of(v)];
-            });
-        if (lane < 2 * TB)
+            },
+            (size_t)P * I);
+        if (lane < VO)
           ma = __fadd_rn(ma, __fmul_rn(y, sa_s[lane % TB]));
       }
     }
@@ -942,7 +1054,7 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
     float lora = 0.f;
     const bool with_lora = lora_on<LORA, GEMMA>(a);
     if (with_lora)
-      lora = lora_out<2 * TB>(
+      lora = lora_out<VO>(
           a.r_d,
           [&](int v) {
             return v % TB < nb ? a.xa_d + (size_t)(b0 + v % TB) * a.r_d
@@ -950,7 +1062,7 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
           },
           [&](int v) { return a.lb_d + ((size_t)l * H + row_of(v)) * a.r_d; });
     const int b = lane % TB;
-    if (lane >= 2 * TB || b >= nb) continue;
+    if (lane >= VO || b >= nb) continue;
     if (with_lora) ma = __fadd_rn(ma, lora);
     if constexpr (ARCH) {
       if (a.dn_bias)
@@ -964,6 +1076,418 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
     }
     float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
     *xr = __fadd_rn(*xr, ma);
+  }
+}
+
+// ------------------------------------ kernel 14: the Walsh LUT decode
+// "wl8" (BITS == kWalsh): per-row 8-entry codebooks through 3 stored bit
+// planes (megapack_walsh: tile-major, plane p's byte holds bit p of the
+// unit's 8 row blocks, row block r at byte bit 7 - r, unflipped). A warp
+// takes two packed units (16 output rows) against a staged group of 8
+// token rows and walks the product's whole column range with int8
+// tensor-core products (mma.sync m16n8k32): for each XOR monomial of
+// ``_MONO`` the A tile holds the 0/1 monomial bits of the 16 rows and B the
+// token rows, so D accumulates the exact int32 dots z_j; an all-ones A gives
+// each token's activation sum S. Integers are exact in any column order, so
+// the TPU kernel's column chunks set no rounding point. Then y = c0 S + c1
+// z1 + ... + c7 z7 in float32, in that order, with the row's coefficient
+// rows (``walsh_y``).
+
+// the float32 coefficient rows [L, 8, width] a Walsh pack keeps in the
+// scales' slots
+__device__ __forceinline__ const float* walsh_cf(const bf16* p) {
+  return reinterpret_cast<const float*>(p);
+}
+
+// one int8 tensor-core product D += A B: A 16 x 32 (row-major), B 32 x 8
+// (column-major), D 16 x 8 int32, in the fragment layouts of the PTX ISA
+__device__ __forceinline__ void mma_s8(int (&d)[4], unsigned a0, unsigned a1,
+                                       unsigned a2, unsigned a3, unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The integer dots of two packed units (u0, u1: their plane-0 rows, planes
+// pstride bytes apart; K columns, a multiple of 64) against the 8 token rows
+// staged in xs [8][K] (``padk``), over the 64-column chunks c0, c0 + cstep,
+// ...: z[j] the monomial dots in ``_MONO`` order, z[7] the activation
+// sums, in the D layout: lane (g = lane / 4, q = lane % 4) holds row block
+// g of unit 0 at tokens 2 q and 2 q + 1 (z[.][0], z[.][1]) and of unit 1
+// (z[.][2], z[.][3]). Per chunk each lane loads 16 bytes of every plane of
+// both units and of its token row; the two k-32 products take the words
+// 2 h and 2 h + 1 of them (a permutation of the 64 columns, the same for A
+// and B).
+__device__ __forceinline__ void walsh_dots(const int8_t* u0, const int8_t* u1,
+                                           size_t pstride, int K,
+                                           const int8_t* xs, int (&z)[8][4],
+                                           int c0, int cstep) {
+  constexpr unsigned m1 = 0x01010101u;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int xstride = (K >> 7) * kPad, sh = 7 - g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) z[j][i] = 0;
+  for (int k0 = 64 * c0; k0 < K; k0 += 64 * cstep) {
+    const int k = k0 + 16 * q;
+    const int4 xv = *reinterpret_cast<const int4*>(xs + (size_t)g * xstride +
+                                                   padk(k));
+    const unsigned xw[4] = {(unsigned)xv.x, (unsigned)xv.y, (unsigned)xv.z,
+                            (unsigned)xv.w};
+    unsigned pl[2][3][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(
+            (u ? u1 : u0) + p * pstride + k));
+        pl[u][p][0] = (unsigned)w.x;
+        pl[u][p][1] = (unsigned)w.y;
+        pl[u][p][2] = (unsigned)w.z;
+        pl[u][p][3] = (unsigned)w.w;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned mono[2][2][7];     // [unit][word 2 h + e][monomial]
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const unsigned b0 = pl[u][0][2 * h + e], b1 = pl[u][1][2 * h + e],
+                         b2 = pl[u][2][2 * h + e], b01 = b0 ^ b1;
+          mono[u][e][0] = (b0 >> sh) & m1;
+          mono[u][e][1] = (b1 >> sh) & m1;
+          mono[u][e][2] = (b2 >> sh) & m1;
+          mono[u][e][3] = (b01 >> sh) & m1;
+          mono[u][e][4] = ((b0 ^ b2) >> sh) & m1;
+          mono[u][e][5] = ((b1 ^ b2) >> sh) & m1;
+          mono[u][e][6] = ((b01 ^ b2) >> sh) & m1;
+        }
+#pragma unroll
+      for (int j = 0; j < 7; ++j)
+        mma_s8(z[j], mono[0][0][j], mono[1][0][j], mono[0][1][j],
+               mono[1][1][j], xw[2 * h], xw[2 * h + 1]);
+      mma_s8(z[7], m1, m1, m1, m1, xw[2 * h], xw[2 * h + 1]);
+    }
+  }
+}
+
+// The Walsh dots of one unit pair split over the block's warps: warp w
+// takes the chunks w, w + kWarps, ... (``walsh_dots``), and the block adds
+// the warps' integers in shared memory (red: kWarps * 1024 ints), exact in
+// any order; warp 0's lanes return the sums in z (the D layout). The
+// columns a warp walks in turn are an eighth of the product's, so the
+// chain of dependent loads is an eighth as long. Block-level: every
+// thread calls it; ends with a barrier.
+__device__ __forceinline__ void walsh_dots_block(const int8_t* u0,
+                                                 const int8_t* u1,
+                                                 size_t pstride, int K,
+                                                 const int8_t* xs, int* red,
+                                                 int (&z)[8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  walsh_dots(u0, u1, pstride, K, xs, z, warp, kWarps);
+  int* mine = red + warp * 1024;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mine[(j * 4 + i) * 32 + lane] = z[j][i];
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int t = 0;
+        for (int w = 0; w < kWarps; ++w) t += red[w * 1024 + (j * 4 + i) * 32 + lane];
+        z[j][i] = t;
+      }
+  }
+  __syncthreads();
+}
+
+// y = c0 S + c1 z1 + ... + c7 z7 in float32, in that order, of D value i;
+// the coefficients of output row ``row`` at cf[s * width + row] (the TPU
+// kernel's walsh_y recomposition, megastep_lowbit.py:471-477)
+__device__ __forceinline__ float walsh_y(const float* cf, size_t width,
+                                         int row, const int (&z)[8][4],
+                                         int i) {
+  float y = __fmul_rn(__ldg(cf + row), (float)z[7][i]);
+#pragma unroll
+  for (int j = 0; j < 7; ++j)
+    y = __fadd_rn(y, __fmul_rn(__ldg(cf + (size_t)(j + 1) * width + row),
+                               (float)z[j][i]));
+  return y;
+}
+
+// The Walsh phases give a block one unit pair and one group of 8 token
+// rows at a time (bu = token group * units + unit: a block stages its
+// group's rows once), its warps splitting the pair's columns
+// (``walsh_dots_block``); warp 0 then writes the pair's 16 rows x 8 tokens.
+
+// qkv + rope of "wl8": a block per rope pair of packed units (gphase_qkv's
+// pairs; tF = tq / 8 rows a row block); y * sx + bias (LORA: + xa_q .
+// lb_q[row]; ARCH with qk_nm: to qkv_f for phase 3), rope with the partner
+// (the other unit's value of the same row block and token, held by the same
+// lane) in float32, bf16 out to qkv_out and kn / vn
+template <bool LORA, bool ARCH, bool GEMMA>
+__device__ void wphase_qkv(const W8A8Args& a, int l, int8_t* xs, int* red) {
+  constexpr int TB = kGroupTB;
+  const int H = a.H, Dqkv = a.q_dim + 2 * a.kv_dim, P = Dqkv / 8;
+  const int tF = a.tq / 8;
+  const int n_rope = a.rd ? a.q_dim + a.kv_dim : 0;
+  const int units = P / 2, groups = (a.B + TB - 1) / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int8_t* pk = a.qkv_pk + (size_t)l * 3 * P * H;
+  const float* cf = walsh_cf(a.qkv_gs) + (size_t)l * 8 * Dqkv;
+  const float* bias = a.qkv_bias + (size_t)l * Dqkv;
+  bf16* kn = a.kn + (size_t)l * a.B * a.kv_dim;
+  bf16* vn = a.vn + (size_t)l * a.B * a.kv_dim;
+  const bool with_lora = lora_on<LORA, GEMMA>(a);
+  int staged = -1;
+  for (int bu = blockIdx.x; bu < units * groups; bu += gridDim.x) {
+    const int grp = bu / units, u = bu - grp * units;
+    const int b0 = grp * TB, nb = min(TB, a.B - b0);
+    if (grp != staged) {
+      __syncthreads();
+      stage_rows_ld<TB>(a.x8, H, 0, b0, nb, H, xs);
+      staged = grp;
+    }
+    int p0, p1, ci;
+    bool pair_rope;
+    qkv_pair(u, 128, a.rd, a.interleaved, P, p0, p1, ci, pair_rope);
+    int z[8][4];
+    walsh_dots_block(pk + (size_t)unit_row<kWalsh>(p0, tF) * H,
+                     pk + (size_t)unit_row<kWalsh>(p1, tF) * H,
+                     (size_t)tF * H, H, xs, red, z);
+    if (warp != 0) continue;
+    int rows[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = e ? p1 : p0, t = p / tF;
+      rows[e] = t * a.tq + g * tF + (p - t * tF);
+    }
+    float yv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 2 * q + (i & 1), row = rows[i >> 1];
+      yv[i] = 0.f;
+      if (n >= nb) continue;
+      float y = __fadd_rn(
+          __fmul_rn(walsh_y(cf, Dqkv, row, z, i), a.sx[b0 + n]), bias[row]);
+      if (with_lora)
+        y = __fadd_rn(y, lora_b(a.xa_q + (size_t)(b0 + n) * a.r_q,
+                                a.lb_q + ((size_t)l * Dqkv + row) * a.r_q,
+                                a.r_q));
+      yv[i] = y;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 2 * q + (i & 1), row = rows[i >> 1], b = b0 + n;
+      if (n >= nb) continue;
+      if constexpr (ARCH) {
+        if (a.qk_nm) {     // normed, roped and stored in phase 3
+          a.qkv_f[(size_t)b * Dqkv + row] = yv[i];
+          continue;
+        }
+      }
+      float out = yv[i];
+      if (pair_rope && row < n_rope) {
+        const float c = rope_table<GEMMA>(a, a.cos_half, l)[(size_t)b * a.cos_ld + ci];
+        const float sn = rope_table<GEMMA>(a, a.sin_half, l)[(size_t)b * a.cos_ld + ci];
+        const float pv = yv[i ^ 2];
+        out = __fadd_rn(__fmul_rn(yv[i], c), __fmul_rn(i < 2 ? -pv : pv, sn));
+      }
+      const bf16 o = __float2bfloat16(out);
+      a.qkv_out[(size_t)b * Dqkv + row] = o;
+      if (row >= a.q_dim + a.kv_dim)
+        vn[(size_t)b * a.kv_dim + row - a.q_dim - a.kv_dim] = o;
+      else if (row >= a.q_dim)
+        kn[(size_t)b * a.kv_dim + row - a.q_dim] = o;
+    }
+  }
+}
+
+// gate/up of "wl8": a block per packed unit of gate and the same unit of
+// up (tF = ti / 8; coefficient columns tile-major like gu_gs): act(g * sx)
+// * (u * sx) (LORA and ARCH terms added to each first) into act_a and
+// max|a| per (token row, tile) into amax
+template <bool LORA, bool ARCH, bool GEMMA>
+__device__ void wphase_gateup(const W8A8Args& a, int l, int8_t* xs, int* red) {
+  constexpr int TB = kGroupTB;
+  const int H = a.H, I = a.I, ti = a.ti, ng = I / ti;
+  const int tF = ti / 8, PI = I / 8, groups = (a.B + TB - 1) / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int8_t* pk = a.gu_pk + (size_t)l * 2 * 3 * PI * H;
+  const float* cf = walsh_cf(a.gu_gs) + (size_t)l * 8 * 2 * I;
+  const bool with_lora = lora_on<LORA, GEMMA>(a);
+  int staged = -1;
+  for (int bu = blockIdx.x; bu < PI * groups; bu += gridDim.x) {
+    const int grp = bu / PI, p = bu - grp * PI;
+    const int b0 = grp * TB, nb = min(TB, a.B - b0);
+    if (grp != staged) {
+      __syncthreads();
+      stage_rows_ld<TB>(a.x8, H, 0, b0, nb, H, xs);
+      staged = grp;
+    }
+    const int t = p / tF, i = p - t * tF;
+    const size_t ur = (size_t)unit_row<kWalsh>(p, tF);
+    int z[8][4];
+    walsh_dots_block(pk + ur * H, pk + ((size_t)3 * PI + ur) * H,
+                     (size_t)tF * H, H, xs, red, z);
+    if (warp != 0) continue;
+    const int cg = (2 * t) * ti + g * tF + i, cu = cg + ti;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 2 * q + e, b = b0 + n;
+      if (n >= nb) continue;
+      const float sxb = a.sx[b];
+      float gv = __fmul_rn(walsh_y(cf, 2 * I, cg, z, e), sxb);
+      float uv = __fmul_rn(walsh_y(cf, 2 * I, cu, z, e + 2), sxb);
+      if (with_lora) {
+        const float* xa = a.xa_g + (size_t)b * a.r_g;
+        gv = __fadd_rn(gv, lora_b(xa, a.lb_g + ((size_t)l * 2 * I + cg) * a.r_g,
+                                  a.r_g));
+        uv = __fadd_rn(uv, lora_b(xa, a.lb_g + ((size_t)l * 2 * I + cu) * a.r_g,
+                                  a.r_g));
+      }
+      if constexpr (ARCH) {
+        if (a.gu_bias) {
+          gv = __fadd_rn(gv, a.gu_bias[(size_t)l * 2 * I + cg]);
+          uv = __fadd_rn(uv, a.gu_bias[(size_t)l * 2 * I + cu]);
+        }
+      }
+      const float v = gated(gv, uv, a.act);
+      const int m = t * ti + g * tF + i;
+      a.act_a[(size_t)b * I + m] = v;
+      atomicMax(a.amax + (size_t)b * ng + t, __float_as_int(fabsf(v)));
+    }
+  }
+}
+
+// the "wl8" epilogue of o's and down's output row (token b): LORA adds
+// xa . lb[row]^T, ARCH the bias; GEMMA with a sandwich norm writes the
+// value to sand for the norm pass, otherwise it is added to the residual
+template <bool ARCH, bool GEMMA>
+__device__ __forceinline__ void walsh_out(const W8A8Args& a, int b, int row,
+                                          float v, bool with_lora,
+                                          const float* xa,
+                                          const bf16* lb, int r,
+                                          const float* bias,
+                                          const float* sand_norm) {
+  if (with_lora) v = __fadd_rn(v, lora_b(xa + (size_t)b * r, lb + (size_t)row * r, r));
+  if constexpr (ARCH) {
+    if (bias) v = __fadd_rn(v, bias[row]);
+  }
+  if constexpr (GEMMA) {
+    if (sand_norm) {
+      a.sand[(size_t)b * a.H + row] = v;
+      return;
+    }
+  }
+  float* xr = a.xs + (size_t)b * a.H + row;
+  *xr = __fadd_rn(*xr, v);
+}
+
+// o of "wl8": o_pk [3 H / 8, q_dim] (one tile, P = H / 8 units); a block
+// per two units (16 output rows, row g P + unit), x += y * sa (a8 staged
+// from the quantized attention output)
+template <bool LORA, bool ARCH, bool GEMMA>
+__device__ void wphase_o(const W8A8Args& a, int l, int8_t* xs, float* sa_s,
+                         int* red) {
+  constexpr int TB = kGroupTB;
+  const int H = a.H, K = a.q_dim, P = H / 8;
+  const int units = P / 2, groups = (a.B + TB - 1) / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int8_t* pk = a.o_pk + (size_t)l * 3 * P * K;
+  const float* cf = walsh_cf(a.o_gs) + (size_t)l * 8 * H;
+  const bool with_lora = lora_on<LORA, GEMMA>(a);
+  const float* bias = nullptr;
+  if constexpr (ARCH) bias = a.o_bias ? a.o_bias + (size_t)l * H : nullptr;
+  int staged = -1;
+  for (int bu = blockIdx.x; bu < units * groups; bu += gridDim.x) {
+    const int grp = bu / units, u = bu - grp * units;
+    const int b0 = grp * TB, nb = min(TB, a.B - b0);
+    if (grp != staged) {
+      __syncthreads();
+      if (threadIdx.x < TB)
+        sa_s[threadIdx.x] =
+            (int)threadIdx.x < nb ? attn_scale(a, b0 + threadIdx.x) : 1.f;
+      stage_rows_ld<TB>(a.a8, K, 0, b0, nb, K, xs);
+      staged = grp;
+    }
+    int z[8][4];
+    walsh_dots_block(pk + (size_t)(2 * u) * K, pk + (size_t)(2 * u + 1) * K,
+                     (size_t)P * K, K, xs, red, z);
+    if (warp != 0) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 2 * q + (i & 1), row = g * P + 2 * u + (i >> 1);
+      if (n >= nb) continue;
+      walsh_out<ARCH, GEMMA>(
+          a, b0 + n, row, __fmul_rn(walsh_y(cf, H, row, z, i), sa_s[n]),
+          with_lora, a.xa_o, a.lb_o + (size_t)l * H * a.r_o, a.r_o, bias,
+          GEMMA ? a.pa_norm : nullptr);
+    }
+  }
+}
+
+// down of "wl8": dn_pk [3 H / 8, I]; a block per two units walks the MLP
+// tiles in order, ma += y_t * sa_t (each tile's dots over its ti columns,
+// the a8 tile staged from the quantized activation), then adds ma to the
+// residual rows it owns
+template <bool LORA, bool ARCH, bool GEMMA>
+__device__ void wphase_down(const W8A8Args& a, int l, int8_t* xs,
+                            float* sa_s, int* red) {
+  constexpr int TB = kGroupTB;
+  const int H = a.H, I = a.I, ti = a.ti, ng = I / ti, P = H / 8;
+  const int units = P / 2, groups = (a.B + TB - 1) / TB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int8_t* pk = a.dn_pk + (size_t)l * 3 * P * I;
+  const float* cf = walsh_cf(a.dn_gs) + (size_t)l * 8 * H;
+  const bool with_lora = lora_on<LORA, GEMMA>(a);
+  const float* bias = nullptr;
+  if constexpr (ARCH) bias = a.dn_bias ? a.dn_bias + (size_t)l * H : nullptr;
+  for (int bu = blockIdx.x; bu < units * groups; bu += gridDim.x) {
+    const int grp = bu / units, u = bu - grp * units;
+    const int b0 = grp * TB, nb = min(TB, a.B - b0);
+    float ma[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < ng; ++t) {
+      __syncthreads();
+      if (threadIdx.x < TB)
+        sa_s[threadIdx.x] = (int)threadIdx.x < nb
+                                ? tile_scale(a.amax, b0 + threadIdx.x, ng, t)
+                                : 1.f;
+      stage_rows_ld<TB>(a.a8, I, t * ti, b0, nb, ti, xs);
+      int z[8][4];
+      walsh_dots_block(pk + (size_t)(2 * u) * I + (size_t)t * ti,
+                       pk + (size_t)(2 * u + 1) * I + (size_t)t * ti,
+                       (size_t)P * I, ti, xs, red, z);
+      if (warp == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = g * P + 2 * u + (i >> 1);
+          ma[i] = __fadd_rn(ma[i], __fmul_rn(walsh_y(cf, H, row, z, i),
+                                             sa_s[2 * q + (i & 1)]));
+        }
+      }
+    }
+    if (warp != 0) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 2 * q + (i & 1), row = g * P + 2 * u + (i >> 1);
+      if (n >= nb) continue;
+      walsh_out<ARCH, GEMMA>(a, b0 + n, row, ma[i], with_lora, a.xa_d,
+                             a.lb_d + (size_t)l * H * a.r_d, a.r_d, bias,
+                             GEMMA ? a.pm_norm : nullptr);
+    }
   }
 }
 
@@ -1145,6 +1669,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   unsigned char* work = smem + kHeadBytes + kWarps * kPf * sizeof(float);
   float* sa_s = reinterpret_cast<float*>(work);
   int8_t* xs_s = reinterpret_cast<int8_t*>(work + kSaBytes);
+  // the Walsh walks' integer partials, one 1024-int slab a warp
+  int* wred = reinterpret_cast<int*>(smem + kHeadBytes);
   const int H = a.H, I = a.I, ng = I / a.ti, Hkv = a.kv_dim / a.d;
   const size_t tid = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t nthreads = (size_t)gridDim.x * kThreads;
@@ -1177,7 +1703,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     grid.sync();
     // 2: qkv + rope; zero the MLP tile maxima
     for (size_t e = tid; e < (size_t)a.B * ng; e += nthreads) a.amax[e] = 0;
-    gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
+    if constexpr (BITS == kWalsh)
+      wphase_qkv<LORA, ARCH, GEMMA>(a, l, xs_s, wred);
+    else
+      gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
     grid.sync();
     // 3: attention (with qk-norm, its heads normed and roped first; GEMMA:
     // the layer's window and the softcap)
@@ -1224,6 +1753,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           y = __fadd_rn(y, a.partf[((size_t)g * a.B + b) * H + n]);
         a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
       }
+    } else if constexpr (BITS == kWalsh) {
+      wphase_o<LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, wred);
     } else {
       gphase_o_rows<TB, BITS, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, pf);
     }
@@ -1253,7 +1784,10 @@ __global__ void __launch_bounds__(kThreads, 2)
               a.r_g, a.xa_g, reinterpret_cast<float*>(xs_s));
     grid.sync();
     // 7: gate/up
-    gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
+    if constexpr (BITS == kWalsh)
+      wphase_gateup<LORA, ARCH, GEMMA>(a, l, xs_s, wred);
+    else
+      gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
     grid.sync();
     // 8: the activation's int8 rows per tile
     for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
@@ -1273,6 +1807,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                         reinterpret_cast<int*>(work), [&](int g) {
                           return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
                         });
+    } else if constexpr (BITS == kWalsh) {
+      wphase_down<LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, wred);
     } else {
       gphase_down_rows<TB, BITS, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, sa_s,
                                                          pf);
@@ -1352,14 +1888,30 @@ cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
 template <int BITS, bool KMAJ, bool OPT, bool LM = false, bool LORA = false,
           bool ARCH = false, bool GEMMA = false>
 cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
-  if (a.B <= 1)
-    return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
-  if (a.B <= 2)
-    return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
-  if (a.B <= 4)
-    return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
-  return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a,
-                                                                          s);
+  // the Walsh walks stage 8 token rows for the tensor-core products; the
+  // other decodes stage as few as the batch needs, at most max_tb<BITS>()
+  if constexpr (BITS == kWalsh) {
+    return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(
+        a, s);
+  } else {
+    if (a.B <= 1)
+      return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+    if constexpr (max_tb<BITS>() == 2) {
+      return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+    } else {
+      if (a.B <= 2)
+        return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+      if constexpr (max_tb<BITS>() == 4) {
+        return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+      } else {
+        if (a.B <= 4)
+          return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a,
+                                                                           s);
+        return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH,
+                              GEMMA>(a, s);
+      }
+    }
+  }
 }
 
 // whether any EoRA operand is set, and whether all of them are (a

@@ -72,7 +72,8 @@ struct W8A8Args {
   float* attn_amax;
   int* o32;
   int* part;
-  // kernels 13 and 14: packed codes, bf16 group scales [L, groups, rows],
+  // kernels 13 and 14: packed codes, bf16 group scales [L, groups, rows]
+  // (kernel 14's Walsh planes: float32 coefficient rows [L, 8, rows]),
   // float32 group partials of kernel 13's K-major products
   const int8_t* qkv_pk;
   const int8_t* o_pk;

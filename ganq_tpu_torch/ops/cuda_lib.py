@@ -34,7 +34,8 @@ KERNEL_SOURCES = ("lut_matmul", "flash_decode", "ganq_sstep", "uniform_matmul",
                   "megastep_lowbit_arch_lora", "megastep_lowbit_arch_lora_opt",
                   "megastep_lowbit_arch_lora_lm",
                   "megastep_lowbit_arch_lora_lm_opt", "megastep_lowbit_gemma",
-                  "moe_expert")
+                  "megastep_lowbit_w3w2", "megastep_lowbit_w3w2_ext",
+                  "megastep_lowbit_walsh", "moe_expert")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -97,8 +97,9 @@ def _uniform_mats(sp, bits: int, zeros: bool = False):
             for feature in later:
                 if feature in m:
                     raise NotImplementedError(
-                        f"megapack: {feature!r} artifacts (asym zero points, "
-                        "act-order, EoRA) are a later slice of the port")
+                        f"megapack4: {feature!r} artifacts (asym zero points, "
+                        "act-order, EoRA) are kernel 14's, not kernel 13's "
+                        "(as in ganq_tpu: megapack_lowbit takes them)")
         if not zeros and any("bias" in m for m in mats[1:]):
             raise ValueError("megapack4: kernel 13 takes no o/gate-up/down "
                              "biases")
@@ -136,13 +137,18 @@ def _dn_layout(dsc: torch.Tensor, I: int, ti: int, gs: int) -> torch.Tensor:
     return d.reshape(I // ti * gtp, H)
 
 
+def out_rows(m) -> int:
+    """Output rows of a uniform (``scales``) or ``lut`` linear."""
+    return (m["scales"] if "scales" in m else m["lut"]).shape[0]
+
+
 def common_pack_ops(sp, mats) -> Dict[str, torch.Tensor]:
     """Norms and the qkv bias, stacked (``megastep_lowbit.py:1686``, the
     operands every pack flavour shares on a llama model)."""
     L = len(mats)
     H = sp.layers[0].input_norm.weight.shape[0]
-    Dqkv = mats[0][0]["scales"].shape[0]
-    dev = mats[0][0]["scales"].device
+    Dqkv = out_rows(mats[0][0])
+    dev = sp.layers[0].input_norm.weight.device
 
     def bias(qkv):
         return (qkv["bias"].to(torch.float32) if "bias" in qkv
@@ -367,8 +373,11 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     ``rope_sel`` [L] picks layer l's rope table from cos/sin_half [2, B,
     rotary_dim / 2] (0 the global, 1 the local). ``pos`` [B] holds each
     slot's history length; cos/sin_half are otherwise [rotary_dim / 2] or
-    [B, rotary_dim / 2]. Returns (y, the float32 residual after the last
-    layer; k_new, v_new [L, B, kv_dim] bf16)."""
+    [B, rotary_dim / 2]. Where ``layer_ops(l)["walsh"]`` is set (kernel
+    14's "wl8") each product is the Walsh walk of its codes and [8, R]
+    coefficient rows (``megastep_lowbit.walsh_linear``; down's rows serve
+    every MLP tile) in place of the group walk. Returns (y, the float32
+    residual after the last layer; k_new, v_new [L, B, kv_dim] bf16)."""
     B, H = x.shape
     d = head_dim
     Hq, Hkv = q_dim // d, kv_dim // d
@@ -398,11 +407,19 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
     for li in range(L):
         op = layer_ops(li)
         lora = "la_q" in op
+        walsh = op.get("walsh", False)
+        if walsh:
+            from .megastep_lowbit import walsh_linear
+
+            def linear(v, c, s, z):
+                return walsh_linear(v, c, s)
+        else:
+            def linear(v, c, s, z):
+                return group_linear(v, c, s, gs, z)
         xf = rms_rows(xs, op["attn_norm"], eps, rms_offset)
         x8, sx = quantize_rows(xf)
         c, s, z = op["qkv"]
-        y = group_linear(perm(x8, op.get("ap_q")), c, s, gs, z) * sx \
-            + op["bias"]
+        y = linear(perm(x8, op.get("ap_q")), c, s, z) * sx + op["bias"]
         if lora:
             y = y + rank_r(rank_r(perm(xf, op.get("ap_q")), op["la_q"]),
                            op["lb_q"])
@@ -423,7 +440,7 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
                        scale, Tb, None if wins is None else wins[li], softcap)
         a8, sa = attn_out_int8(a.reshape(B, q_dim))
         c, s, z = op["o"]
-        upd = group_linear(perm(a8, op.get("ap_o")), c, s, gs, z) * sa
+        upd = linear(perm(a8, op.get("ap_o")), c, s, z) * sa
         if lora:
             af = perm(a.reshape(B, q_dim).to(torch.float32), op.get("ap_o"))
             upd = upd + rank_r(rank_r(af, op["la_o"]), op["lb_o"])
@@ -448,8 +465,8 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
 
         for t in range(I // ti):
             cols = slice(t * ti, (t + 1) * ti)
-            gu = [group_linear(x8, c[cols], s[:, cols], gs,
-                               tile(z, (slice(None), cols))) * sx
+            gu = [linear(x8, c[cols], s[:, cols],
+                         tile(z, (slice(None), cols))) * sx
                   for c, s, z in (op["gate"], op["up"])]
             if lora:
                 gu = [g + rank_r(xa_g, op[k][cols])
@@ -462,8 +479,9 @@ def grouped_step_plain(x: torch.Tensor, layer_ops: Callable[[int], dict],
             if lora:
                 xa_d = xa_d + rank_r(at, op["la_d"][:, cols])
             grp = slice(t * gti, (t + 1) * gti)
-            ma = ma + group_linear(a8m, dn_codes[:, cols], dn_s[grp], gs,
-                                   tile(dn_sz, grp)) * sam
+            ma = ma + linear(a8m, dn_codes[:, cols],
+                             dn_s if walsh else dn_s[grp],
+                             tile(dn_sz, grp)) * sam
         if lora:
             ma = ma + rank_r(xa_d, op["lb_d"])
         if "dn_bias" in op:

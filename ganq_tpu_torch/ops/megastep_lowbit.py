@@ -1,41 +1,50 @@
 """Whole decode step over all layers in one launch, plane-packed uniform
-weights (kernel 14), and the gates of its variants.
+weights or 3-bit codebooks (kernel 14), and the gates of its variants.
 
 The port of ``ganq_tpu/ops/megastep_lowbit.py``. ``ganq_tpu`` serves
 homogeneous uniform W4/W3/W2/W8 models ("w4p", "w3", "w2", "w8p") and true
 8-entry 3-bit codebooks ("wl8", the Walsh plane expansion) at decode batch
-<= 64 through ``megastep_lowbit_decode``. The port has the "w4p" and "w8p"
-variants, with zero points, act-order, EoRA adapters, qwen3's per-head
+<= 64 through ``megastep_lowbit_decode``; so does the port, with zero
+points and act-order (uniform variants), EoRA adapters, qwen3's per-head
 qk-norm, o/gate-up/down biases and gemma's sandwich norms, sliding windows,
-attention softcap and dual rope:
+attention softcap and dual rope (every variant):
 :func:`megapack_lowbit` packs the JAX package's planes (keys, shapes and
-bytes), zero-point corrections and adapter factors,
-:func:`actorder_transform` bakes act-order artifacts into a pack-only copy
-and gives the column orders of the activations, and
-:func:`megastep_lowbit_decode` launches ``csrc/megastep_lowbit.cu``
-(``ganq_megastep_lowbit``, one cooperative launch; packs with zero points or
-act-order ``csrc/megastep_lowbit_opt.cu``, with the lm fold
-``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``, with EoRA
-adapters ``csrc/megastep_lowbit_lora*.cu``, with the qk-norm rows or biases
-``csrc/megastep_lowbit_arch*.cu``, with gemma's operands
-``csrc/megastep_lowbit_gemma.cu``: :func:`kernel_library`) for CUDA tensors
-and runs :func:`megastep_lowbit_plain` only for CPU tensors; ``.launches``
-counts kernel calls. With ``lm`` (:func:`mega_lm_operands`) the step also
-folds the final norm and a ``w8`` lm_head in (the trailing-unembed fold,
-:func:`lm_fold_plain`) and returns the logits. It raises
-NotImplementedError naming the feature for every operand of a later
-sub-slice: w3/w2 and the Walsh LUTs.
+bytes), zero-point corrections and adapter factors, :func:`megapack_walsh`
+a ``lut`` model's 3 stored bit planes and its float32 Walsh coefficient
+rows (:func:`walsh_coef`), :func:`actorder_transform` bakes act-order
+artifacts into a pack-only copy and gives the column orders of the
+activations, and :func:`megastep_lowbit_decode` launches the kernel
+(:func:`kernel_library` names its source: ``csrc/megastep_lowbit.cu``,
+``ganq_megastep_lowbit``, one cooperative launch, for "w4p"/"w8p" packs
+without optional operands; with zero points or act-order
+``csrc/megastep_lowbit_opt.cu``, with the lm fold
+``csrc/megastep_lowbit_lm.cu`` and ``megastep_lowbit_lm_opt.cu``, with
+EoRA adapters ``csrc/megastep_lowbit_lora*.cu``, with the qk-norm rows or
+biases ``csrc/megastep_lowbit_arch*.cu``, with gemma's operands
+``csrc/megastep_lowbit_gemma.cu``; "w3"/"w2" ``csrc/megastep_lowbit_w3w2.cu``
+and, with any optional operand, ``megastep_lowbit_w3w2_ext.cu``; "wl8"
+``csrc/megastep_lowbit_walsh.cu``) for CUDA tensors and runs
+:func:`megastep_lowbit_plain` only for CPU tensors; ``.launches`` counts
+kernel calls. With ``lm`` (:func:`mega_lm_operands`) the step also folds
+the final norm and a ``w8`` lm_head in (the trailing-unembed fold,
+:func:`lm_fold_plain`) and returns the logits.
 
-The arithmetic is kernel 13's (``ops/megastep4.grouped_step_plain``): each
-product sums, over its groups in order, the group's bf16 scale times the
-exact int32 dot of the int8 activations with the centred codes ``q -
-2^(bits-1)`` (plus, with zero points, the group's correction ``sz`` times
-its activation sum, ``megastep_lowbit.py:479-494``). Two things differ from kernel 13: rope reads its partner lane
-in float32 (the TPU kernel rotates by lane rolls, ``_rope_rot``), and the
-MLP tile comes from :func:`_mlp_plan` (4096 for w4p and 2048 for w8p at
-Llama-3.2-3B widths). The flash block Tb follows the JAX wrapper's plan,
-which may halve it where the TPU's VMEM estimate is exceeded
-(:func:`megastep_lowbit_plan`).
+The arithmetic of the uniform variants is kernel 13's
+(``ops/megastep4.grouped_step_plain``): each product sums, over its groups
+in order, the group's bf16 scale times the exact int32 dot of the int8
+activations with the centred codes ``q - 2^(bits-1)`` (plus, with zero
+points, the group's correction ``sz`` times its activation sum,
+``megastep_lowbit.py:479-494``). "wl8" replaces the group walk by the
+Walsh walk (``megastep_lowbit.py:441-477``, :func:`walsh_linear`): the
+activation sum ``S`` and the 7 monomial dots ``z_j = x8 . m_j(q)``, exact
+integers over the walk's whole column range (a qkv or gate/up tile: H
+columns; o: q_dim; a down tile: ti), then ``c0 S + c1 z1 + ... + c7 z7``
+in float32 in that order with the row's coefficients. Two things differ
+from kernel 13: rope reads its partner lane in float32 (the TPU kernel
+rotates by lane rolls, ``_rope_rot``), and the MLP tile comes from
+:func:`_mlp_plan` (4096 for w4p and 2048 for w8p at Llama-3.2-3B widths).
+The flash block Tb follows the JAX wrapper's plan, which may halve it where
+the TPU's VMEM estimate is exceeded (:func:`megastep_lowbit_plan`).
 
 The gates (:func:`megastep_lowbit_fusable`, :func:`megastep_walsh_fusable`)
 and the plans and tile rules they read are copies, so that
@@ -54,7 +63,7 @@ import torch
 
 from .megastep4 import (_codes, _dn_layout, _gu_layout, _scales_t,
                         _uniform_mats, common_pack_ops, grouped_step_plain,
-                        nibble_rows)
+                        out_rows)
 from .fused_attention import rms_rows
 from .packing import pack_factor, pack_int_rows, unpack_int_rows
 from .uniform_matmul import quantize_rows
@@ -313,12 +322,12 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     Dqkv, rq], ``la_o`` [L, ro, q_dim], ``lb_o`` [L, H, ro], ``la_g`` [L,
     rg, H], ``lb_g`` [L, 2I, rg] with its rows tile-major like ``gu_s``
     (gate tile, then up tile), ``la_d`` [L, rd, I] and ``lb_d`` [L, H, rd].
-    Bits 4 and 8; packs one layer at a time. Act-order artifacts go through
-    :func:`actorder_transform` first (ValueError here)."""
-    if bits not in (4, 8):
-        raise NotImplementedError(
-            f"megapack_lowbit: {bits}-bit planes (w3/w2) are a later slice of "
-            "the port (ROADMAP.md queue B)")
+    Bits 8, 4, 3 and 2 (``_PLAN``: 3-bit planes hold 8 row blocks of a tile
+    in 3 bytes, rows 2 and 5 split across two of them; 2-bit planes 4 row
+    blocks in a byte); packs one layer at a time. Act-order artifacts go
+    through :func:`actorder_transform` first (ValueError here)."""
+    if bits not in _PLAN:
+        raise ValueError(f"megapack_lowbit: no plane plan for {bits} bits")
     lp0 = sp.layers[0]
     if any("g_idx" in m for m in (lp0.attn["qkv"], lp0.attn["o"],
                                   lp0.mlp["gateup"], lp0.mlp["down"])):
@@ -333,13 +342,10 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
     tq = _qkv_tile_lb(Dqkv, cfg.head_dim, g_r)
     ti = _mlp_plan(I, bits, H)[0]
     zp = any("zeros" in m for m in mats[0])
-    lora = all("lora_a" in m for m in mats[0])
     keys = ["qkv_pk", "qkv_s", "o_pk", "o_s", "gu_pk", "gu_s", "dn_pk",
             "dn_s"]
     if zp:
         keys += ["qkv_sz", "o_sz", "gu_sz", "dn_sz"]
-    if lora:
-        keys += list(_LORA_KEYS)
     out = {k: [] for k in keys}
     for qkv, o, gu, dn in mats:
         gcodes = _codes(gu)
@@ -357,7 +363,22 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
             out["o_sz"].append(_sz_t(o, bits))
             out["gu_sz"].append(_gu_layout(_sz_t(gu, bits), I, ti))
             out["dn_sz"].append(_dn_layout(_sz_t(dn, bits), I, ti, gs))
-        if lora:
+    mp = {k: torch.stack(v) for k, v in out.items()}
+    mp.update(_shared_pack_ops(cfg, sp, mats, I, ti))
+    return mp
+
+
+def _shared_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
+    """The operands every kernel-14 pack shares (``_common_pack_ops``,
+    ``megastep_lowbit.py:1686-1764``): norms and the qkv bias, the
+    architecture operands (:func:`_arch_pack_ops`) and, where all four
+    projections carry EoRA adapters, their factors rounded to bf16, gate/up's
+    ``lb_g`` rows tile-major like ``gu_s``."""
+    mp = common_pack_ops(sp, mats)
+    mp.update(_arch_pack_ops(cfg, sp, mats, I, ti))
+    if all("lora_a" in m for m in mats[0]):
+        out = {k: [] for k in _LORA_KEYS}
+        for qkv, o, gu, dn in mats:
             lbg = gu["lora_b"]
             lbg = torch.cat([lbg[a * I + t * ti:a * I + (t + 1) * ti]
                              for t in range(I // ti) for a in (0, 1)])
@@ -365,9 +386,7 @@ def megapack_lowbit(cfg, sp, bits: int = 3) -> Dict[str, torch.Tensor]:
                                 ("g", gu, lbg), ("d", dn, dn["lora_b"])):
                 out[f"la_{name}"].append(m["lora_a"].to(torch.bfloat16))
                 out[f"lb_{name}"].append(lb.to(torch.bfloat16))
-    mp = {k: torch.stack(v) for k, v in out.items()}
-    mp.update(common_pack_ops(sp, mats))
-    mp.update(_arch_pack_ops(cfg, sp, mats, I, ti))
+        mp.update({k: torch.stack(v) for k, v in out.items()})
     return mp
 
 
@@ -384,9 +403,9 @@ def _arch_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
     without one."""
     out = {}
     L = len(mats)
-    Dqkv = mats[0][0]["scales"].shape[0]
-    H = mats[0][1]["scales"].shape[0]
-    dev = mats[0][0]["scales"].device
+    Dqkv = out_rows(mats[0][0])
+    H = out_rows(mats[0][1])
+    dev = sp.layers[0].input_norm.weight.device
     d = cfg.head_dim
     lp0 = sp.layers[0]
     if lp0.q_norm is not None and cfg.qk_norm in (True, "head"):
@@ -421,6 +440,150 @@ def _arch_pack_ops(cfg, sp, mats, I: int, ti: int) -> Dict[str, torch.Tensor]:
         out["dn_bias"] = torch.stack([bias(m[3], H) for m in mats]).reshape(
             L, 1, H)
     return out
+
+
+# ------------------------------------------------------ the Walsh planes
+# Any function on 3 bits is a sum of 8 XOR monomials (``megastep_lowbit.py:
+# 184-200``): T[r, q] = c0[r] + sum_S c_S[r] * (XOR of q's bits in S), so
+# x . T[r, q_r] = c0[r] * sum(x) + sum_S c_S[r] * (x . m_S(q_r)).
+_MONO = ((0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2))
+
+
+def _walsh_basis_inv() -> np.ndarray:
+    """Inverse of M[c, S] (column 0 = 1, then the XOR monomials of code c):
+    exact coefficient recovery c = Minv @ T for any 8-entry codebook (the
+    port's own copy of ``megastep_lowbit.py:203``)."""
+    M = np.zeros((8, 8), np.float64)
+    M[:, 0] = 1.0
+    for j, S in enumerate(_MONO):
+        for c in range(8):
+            v = 0
+            for b in S:
+                v ^= (c >> b) & 1
+            M[c, 1 + j] = v
+    return np.linalg.inv(M)
+
+
+def walsh_coef(lut: torch.Tensor) -> torch.Tensor:
+    """[..., m, 8] codebooks -> [..., 8, m] float32 coefficient rows (c0
+    first, then the 7 monomials; ``megastep_lowbit.py:217``): the Walsh
+    transform of the table, each row's float32 products (exact: the inverse
+    holds 0, 1 and +-1/4) summed over the 8 entries in order, which gives
+    ``ganq_tpu``'s float32 einsum bit for bit."""
+    minv = torch.as_tensor(_walsh_basis_inv().astype(np.float32),
+                           device=lut.device)
+    t = lut.to(torch.float32)
+    acc = torch.zeros((*t.shape[:-1], 8), dtype=torch.float32,
+                      device=lut.device)
+    for k in range(8):
+        acc = acc + t[..., k:k + 1] * minv[:, k]
+    return acc.transpose(-1, -2).contiguous()
+
+
+def _walsh_plane_pack(codes: torch.Tensor, tile: int) -> torch.Tensor:
+    """[R, K] 3-bit codes -> [3 R / 8, K] int8 bit planes, tile-major
+    (``megastep_lowbit.py:225``): tile t's 3 planes at rows [t * 3 * tile /
+    8, ...); plane p's byte holds bit p of the tile's 8 row blocks, row
+    block r at byte bit 7 - r, unflipped."""
+    R, K = codes.shape
+    tF = tile // 8
+    c = codes.to(torch.int32).reshape(R // tile, 8, tF, K)
+    planes = []
+    for p in range(3):
+        byte = None
+        for r in range(8):
+            v = (c[:, r] >> p) & 1
+            byte = v if byte is None else (byte << 1) | v
+        planes.append(byte)
+    out = torch.stack(planes, dim=1).reshape(R // tile * 3 * tF, K)
+    return ((out + 128) % 256 - 128).to(torch.int8)
+
+
+def _walsh_codes(pk: torch.Tensor, tile: int) -> torch.Tensor:
+    """The 3-bit codes [R, K] (int32) of :func:`_walsh_plane_pack`'s
+    planes."""
+    b = pk.to(torch.int32) & 255
+    P, K = b.shape
+    tF = tile // 8
+    b = b.reshape(P // (3 * tF), 3, tF, K)
+    rows = [sum(((b[:, p] >> (7 - r)) & 1) << p for p in range(3))
+            for r in range(8)]
+    return torch.stack(rows, dim=1).reshape(P // 3 * 8, K)
+
+
+def walsh_linear(x8: torch.Tensor, codes: torch.Tensor,
+                 cf: torch.Tensor) -> torch.Tensor:
+    """The Walsh walk of one product (``walsh_y``, ``megastep_lowbit.py:
+    441-477``): x8 [B, K] (integers), 3-bit codes [R, K], coefficient rows
+    cf [8, R] float32 -> [B, R] float32 ``c0 S + c1 z1 + ... + c7 z7``, in
+    that order, S the activation sum and z_j the dot with monomial j's bits
+    (``_MONO``), exact integers over all K columns (float64 here: every
+    partial sum stays below 2^53)."""
+    x = x8.to(torch.float64)
+    c = codes.to(torch.int32)
+    cf = cf.to(torch.float32)
+    y = cf[0] * x.sum(dim=1, keepdim=True).to(torch.float32)
+    for j, mono in enumerate(_MONO):
+        m = 0
+        for b in mono:
+            m = m ^ ((c >> b) & 1)
+        z = (x @ m.to(torch.float64).T).to(torch.float32)
+        y = y + cf[1 + j] * z
+    return y
+
+
+def _lut3_mats(sp):
+    """The four fused linears of every layer, checked to be the 3-bit
+    8-entry ``lut`` artifacts of "wl8" (g_idx and zero points do not exist
+    on them)."""
+    out = []
+    for lp in sp.layers:
+        mats = (lp.attn["qkv"], lp.attn["o"], lp.mlp["gateup"], lp.mlp["down"])
+        if any(m.kind != "lut" or m.bits != 3 or m["lut"].shape[-1] != 8
+               for m in mats):
+            raise ValueError("megapack_walsh: every linear must be a 3-bit "
+                             "8-entry lut")
+        out.append(mats)
+    return out
+
+
+@torch.no_grad()
+def megapack_walsh(cfg, sp) -> Dict[str, torch.Tensor]:
+    """The "wl8" operands of kernel 14 from a stacked model of 3-bit
+    8-entry ``lut`` fused linears (``megastep_lowbit.py:1767``): the 3
+    stored bit planes of each projection (:func:`_walsh_plane_pack`,
+    exactly 3 bits a weight: ``qkv_pk``, ``o_pk``, ``gu_pk`` gate tiles then
+    up tiles, ``dn_pk``) and the float32 Walsh coefficient rows in the
+    scales' slots, ``qkv_s`` [L, 8, Dqkv], ``o_s`` [L, 8, H], ``gu_s`` [L, 8,
+    2I] tile-major (gate tile, then up tile) and ``dn_s`` [L, 8, H], plus
+    the operands every pack shares (:func:`_shared_pack_ops`). Packs one
+    layer at a time."""
+    mats = _lut3_mats(sp)
+    H = cfg.hidden_size
+    Dqkv = out_rows(mats[0][0])
+    I = out_rows(mats[0][2]) // 2
+    tq = _qkv_tile_lb(Dqkv, cfg.head_dim, 8)
+    ti = _mlp_plan(I, 3, H)[0]
+    out = {k: [] for k in ("qkv_pk", "qkv_s", "o_pk", "o_s", "gu_pk", "gu_s",
+                           "dn_pk", "dn_s")}
+
+    def codes(m):
+        return unpack_int_rows(m["idx_packed"], 3, m.in_features)
+
+    for qkv, o, gu, dn in mats:
+        gcodes = codes(gu)
+        out["qkv_pk"].append(_walsh_plane_pack(codes(qkv), tq))
+        out["qkv_s"].append(walsh_coef(qkv["lut"]))
+        out["o_pk"].append(_walsh_plane_pack(codes(o), H))
+        out["o_s"].append(walsh_coef(o["lut"]))
+        out["gu_pk"].append(torch.cat([_walsh_plane_pack(gcodes[:I], ti),
+                                       _walsh_plane_pack(gcodes[I:], ti)]))
+        out["gu_s"].append(_gu_layout(walsh_coef(gu["lut"]), I, ti))
+        out["dn_pk"].append(_walsh_plane_pack(codes(dn), H))
+        out["dn_s"].append(walsh_coef(dn["lut"]))
+    mp = {k: torch.stack(v) for k, v in out.items()}
+    mp.update(_shared_pack_ops(cfg, sp, mats, I, ti))
+    return mp
 
 
 # kernel 14's qk-norm and bias operands (the ARCH instantiations)
@@ -538,7 +701,8 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
                          lora: Optional[tuple] = None,
                          tv: int = 0, qkn: bool = False,
                          biases: bool = False,
-                         sand: bool = False) -> Dict[str, int]:
+                         sand: bool = False,
+                         walsh: bool = False) -> Dict[str, int]:
     """The JAX wrapper's run-time plan (``megastep_lowbit.py:966-1087``):
     the qkv tile ``tq``, the MLP tile ``ti`` (baked into the pack), the
     tiles per grid step ``ptq``/``ptg`` and the flash block ``Tb``:
@@ -548,8 +712,10 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
     act-order ``aperm`` (the JAX package's Beneš masks, 2 log2(n) - 1
     stages), the EoRA ranks ``lora`` (rq, ro, rg, rd), the fold's
     vocabulary tile ``tv``, the qk-norm rows ``qkn``, the o/gate-up/down
-    ``biases`` and gemma's sandwich norms ``sand``. Tb and ti set rounding
-    points."""
+    ``biases`` and gemma's sandwich norms ``sand``. With ``walsh`` ("wl8",
+    bits 3) the estimate counts the 8 coefficient rows in the scales' place
+    and ``gs`` is ignored (``megastep_lowbit.py:974-984``). Tb and ti set
+    rounding points."""
     metas, _, _, g_r = _plan_meta(bits)
     npl = len(metas)
     d = head_dim
@@ -561,8 +727,11 @@ def megastep_lowbit_plan(B: int, H: int, q_dim: int, kv_dim: int,
         Tb //= 2
     ti, ptg = _mlp_plan(I, bits, H)
     NG = I // ti
-    gtp8 = -(-(ti // gs) // 8) * 8
-    Gp, Gq = H // gs, q_dim // gs
+    if walsh:
+        gtp8 = Gp = Gq = 8
+    else:
+        gtp8 = -(-(ti // gs) // 8) * 8
+        Gp, Gq = H // gs, q_dim // gs
     Bp = -(-B // 8) * 8
 
     def _per_step(n_tiles, tile_bytes, cap):
@@ -650,32 +819,60 @@ def _lora_ranks(mp) -> Optional[tuple]:
     return tuple(mp[f"la_{n}"].shape[1] for n in ("q", "o", "g", "d"))
 
 
+def _group_size(mp, H: int, walsh: int) -> int:
+    """The group size of a uniform pack; 128 for a Walsh pack, whose walks
+    take no groups (the kernel's checks read it)."""
+    return 128 if walsh else H // mp["qkv_s"].shape[1]
+
+
 def _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
-             qkv_cap_mb, lm=None):
-    _, _, _, g_r = _plan_meta(bits)
+             qkv_cap_mb, lm=None, walsh: int = 0):
+    metas, _, _, g_r = _plan_meta(bits)
     H = x.shape[1]
     return megastep_lowbit_plan(
         x.shape[0], H, q_dim, kv_dim, head_dim, k_cache.shape[2],
-        mp["qkv_pk"].shape[1] * g_r, mp["gu_s"].shape[2] // 2, bits,
-        H // mp["qkv_s"].shape[1], block_t, qkv_cap_mb, zp="qkv_sz" in mp,
-        aperm="ap_q" in mp, lora=_lora_ranks(mp),
+        mp["qkv_pk"].shape[1] * g_r // len(metas), mp["gu_s"].shape[2] // 2,
+        bits, _group_size(mp, H, walsh), block_t, qkv_cap_mb,
+        zp="qkv_sz" in mp, aperm="ap_q" in mp, lora=_lora_ranks(mp),
         tv=lm["scale"].shape[-1] if lm is not None else 0,
-        qkn="qk_nm" in mp, biases="o_bias" in mp, sand="pa_norm" in mp)
+        qkn="qk_nm" in mp, biases="o_bias" in mp, sand="pa_norm" in mp,
+        walsh=bool(walsh))
 
 
 # --------------------------------------------------------------- the step
 def _plane_codes(pk: torch.Tensor, tile: int, bits: int) -> torch.Tensor:
-    """Centred codes ``q - 2^(bits-1)`` [R, K] of 4- or 8-bit planes: an
-    8-bit plane byte read signed is the centred code; a 4-bit plane holds
-    the tile's first row block in its high nibble."""
+    """Centred codes ``q - 2^(bits-1)`` [R, K] (int32) of
+    :func:`_plane_pack`'s planes: an 8-bit plane byte read signed is the
+    centred code; a sub-byte plane's fields follow ``_PLAN``, the top field
+    of each plane stored XOR its sign bit and a split row joined as ``hi <<
+    shift | lo``."""
     if bits == 8:
         return pk.to(torch.int32)
-    return nibble_rows(pk, tile, True)
+    plan = _PLAN[bits]
+    g_r = max(r for segs in plan for (r, _, _) in segs) + 1
+    P, K = pk.shape
+    tF = tile // g_r
+    b = (pk.to(torch.int32) & 255).reshape(P // (len(plan) * tF), len(plan),
+                                           tF, K)
+    rows = [0] * g_r
+    for p, segs in enumerate(plan):
+        pos = 8
+        for j, (row, shift, w) in enumerate(segs):
+            pos -= w
+            v = (b[:, p] >> pos) & ((1 << w) - 1)
+            if j == 0:
+                v = v ^ (1 << (w - 1))
+            rows[row] = rows[row] + (v << shift)
+    q = torch.stack(rows, dim=1).reshape(P // len(plan) * g_r, K)
+    return q - (1 << (bits - 1))
 
 
 def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
-                  gs: int):
-    """Layer l's decoded operands of a :func:`megapack_lowbit` pack."""
+                  gs: int, walsh: int = 0):
+    """Layer l's decoded operands of a :func:`megapack_lowbit` pack, or
+    with ``walsh`` of a :func:`megapack_walsh` pack (then the products'
+    codes are the 3-bit codes, their scales the [8, R] coefficient rows and
+    ``walsh`` is set)."""
     H = mp["o_s"].shape[2]
     I = mp["gu_s"].shape[2] // 2
     NG = I // ti
@@ -714,19 +911,28 @@ def _layer_ops_lb(mp: Dict[str, torch.Tensor], bits: int, tq: int, ti: int,
                 "lb_up": lbg[:, 1].reshape(I, rg), "la_d": mp["la_d"][l],
                 "lb_d": mp["lb_d"][l]}
 
+    if walsh:
+        def codes(pk, tile):
+            return _walsh_codes(pk, tile)
+    else:
+        def codes(pk, tile):
+            return _plane_codes(pk, tile, bits)
+
     def ops(l):
         gpk = mp["gu_pk"][l]
         gs_, us_ = gate_up("gu_s", l)
         gz, uz = gate_up("gu_sz", l) if zp else (None, None)
         return {**lora(l),
-            "qkv": (_plane_codes(mp["qkv_pk"][l], tq, bits), mp["qkv_s"][l],
+            "qkv": (codes(mp["qkv_pk"][l], tq), mp["qkv_s"][l],
                     mp["qkv_sz"][l] if zp else None),
-            "o": (_plane_codes(mp["o_pk"][l], H, bits), mp["o_s"][l],
+            "o": (codes(mp["o_pk"][l], H), mp["o_s"][l],
                   mp["o_sz"][l] if zp else None),
-            "gate": (_plane_codes(gpk[:Pi], ti, bits), gs_, gz),
-            "up": (_plane_codes(gpk[Pi:], ti, bits), us_, uz),
-            "down": (_plane_codes(mp["dn_pk"][l], H, bits), down("dn_s", l),
+            "gate": (codes(gpk[:Pi], ti), gs_, gz),
+            "up": (codes(gpk[Pi:], ti), us_, uz),
+            "down": (codes(mp["dn_pk"][l], H),
+                     mp["dn_s"][l] if walsh else down("dn_s", l),
                      down("dn_sz", l) if zp else None),
+            "walsh": bool(walsh),
             "bias": mp["qkv_bias"][l, 0], "attn_norm": mp["attn_norm"][l, 0],
             "mlp_norm": mp["mlp_norm"][l, 0], **arch(l),
             **{k: mp[k][l].long() for k in ("ap_q", "ap_g", "ap_o")
@@ -743,16 +949,17 @@ def megastep_lowbit_plain(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                           rms_offset: float = 0.0, scale: float = 1.0,
                           act: str = "silu", block_t: int = 128,
                           bits: int = 4, lm=None, qkv_cap_mb: int = 12,
-                          softcap: float = 0.0, windows=None, rope_sel=None):
-    """Plain version of kernel 14 ("w4p", "w8p", with the lm fold where
-    ``lm`` is given, gemma's softcap, windows and dual rope where they are),
-    with the kernel's arithmetic. Shapes and results as
-    :func:`megastep_lowbit_decode`."""
+                          softcap: float = 0.0, windows=None, rope_sel=None,
+                          walsh: int = 0):
+    """Plain version of kernel 14 ("w4p", "w3", "w2", "w8p" by ``bits``,
+    "wl8" with ``walsh=7``; with the lm fold where ``lm`` is given, gemma's
+    softcap, windows and dual rope where they are), with the kernel's
+    arithmetic. Shapes and results as :func:`megastep_lowbit_decode`."""
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
-                    qkv_cap_mb, lm)
-    gs = x.shape[1] // mp["qkv_s"].shape[1]
+                    qkv_cap_mb, lm, walsh)
+    gs = _group_size(mp, x.shape[1], walsh)
     xs, kn, vn = grouped_step_plain(
-        x, _layer_ops_lb(mp, bits, plan["tq"], plan["ti"], gs),
+        x, _layer_ops_lb(mp, bits, plan["tq"], plan["ti"], gs, walsh),
         mp["qkv_pk"].shape[0], k_cache, v_cache, pos, cos_half, sin_half,
         q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim, rotary_dim=rotary_dim,
         interleaved=interleaved, eps=eps, rms_offset=rms_offset, scale=scale,
@@ -817,16 +1024,6 @@ def mega_lm_operands(cfg, sp, max_tile_bytes: int = 4 * 1024 * 1024
             "norm": sp.final_norm.weight.to(torch.float32).reshape(H)}
 
 
-def _later_feature(bits: int, walsh: int = 0) -> Optional[str]:
-    """The first feature of a kernel 14 call that a later slice of the port
-    brings (w3/w2, then wl8: ``ROADMAP.md`` queue B), or None."""
-    if walsh:
-        return "the Walsh LUT planes (wl8)"
-    if bits not in (4, 8):
-        return f"{bits}-bit planes (w3/w2)"
-    return None
-
-
 def pos_vector(pos, B: int, device) -> torch.Tensor:
     """Per-slot positions [B] int32 on ``device`` from a host int, a 0-d or
     a [B] tensor."""
@@ -853,9 +1050,11 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
                    eps: float, rms_offset: float, scale: float, act: str,
                    lm: Optional[Dict[str, torch.Tensor]] = None,
                    fold_rows: Optional[dict] = None, softcap: float = 0.0,
-                   windows=None, rope_sel=None):
+                   windows=None, rope_sel=None, walsh: int = 0):
     """Check the operands of a whole-step kernel 13 or 14 call and launch it
-    (``csrc/<library>.cu``). ``keys`` names the pack's code operands. The
+    (``csrc/<library>.cu``). ``keys`` names the pack's code operands; with
+    ``walsh`` (kernel 14's "wl8") the scales' slots hold float32
+    coefficient rows [L, 8, R] (:func:`megapack_walsh`). The
     kernel reads x and writes y in float32; y is returned in x's type. With
     kernel 14's ``lm`` (:func:`mega_lm_operands`) the kernel folds the
     unembed in and the logits come fourth; ``fold_rows``, a dict, then
@@ -872,16 +1071,16 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     B, H = x.shape
     d = head_dim
     Hkv = kv_dim // d
-    F = 2 if bits == 4 else 1
+    metas, _, _, g_r = _plan_meta(bits)
     qkv_pk, o_pk, gu_pk, dn_pk = (mp[keys[k]] for k in ("qkv", "o", "gu",
                                                         "dn"))
     L = qkv_pk.shape[0]
-    Dqkv = qkv_pk.shape[1] * F
+    Dqkv = qkv_pk.shape[1] * g_r // len(metas)
     I = mp["gu_s"].shape[2] // 2
     T = k_cache.shape[2]
     rd = rotary_dim or 0
     if (d != 128 or Dqkv != q_dim + 2 * kv_dim or (q_dim // d) % Hkv
-            or q_dim // d // Hkv > 8 or H % (128 * F) or gs % 128
+            or q_dim // d // Hkv > 8 or H % (128 * g_r) or gs % 128
             or H % gs or q_dim % gs or ti % gs or I % ti or Tb > 256
             or T % Tb or rd % 2 or rd > d or act not in ACT_CODES):
         raise ValueError(f"{what}: head_dim 128, at most 8 query heads per kv "
@@ -895,9 +1094,15 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
                     (keys["gu"], gu_pk), (keys["dn"], dn_pk)):
         if t.dtype != torch.int8 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous int8")
+    sdt = torch.float32 if walsh else torch.bfloat16
     for name in ("qkv_s", "o_s", "gu_s", "dn_s"):
-        if mp[name].dtype != torch.bfloat16 or not mp[name].is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous bf16")
+        if mp[name].dtype != sdt or not mp[name].is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {sdt}")
+    if walsh and (bits != 3 or tuple(mp["dn_s"].shape) != (L, 8, H)
+                  or any(k in mp for k in ("qkv_sz", "ap_q"))):
+        raise ValueError(f"{what}: the Walsh planes are 3-bit, with [L, 8, "
+                         "R] coefficient rows, no zero points and no "
+                         "act-order")
     extra = {}
     for name, field, dtype, shape in (
             ("qkv_sz", "qkv_sz", torch.float32, mp["qkv_s"].shape),
@@ -1029,7 +1234,8 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         act=ACT_CODES[act], eps=eps, rms_offset=rms_offset, scale=scale,
         cache_sb=Hkv * T * d, cache_sg=T * d, cache_st=d,
         cache_sl=B * Hkv * T * d, gs=gs, bits=bits, tq=tq,
-        gtp=mp["dn_s"].shape[1] // ng, cos_ld=rd // 2, kmajor=int(kmajor),
+        gtp=8 if walsh else mp["dn_s"].shape[1] // ng, cos_ld=rd // 2,
+        kmajor=int(kmajor),
         V=V, softcap=float(softcap or 0.0), **ranks)
     if lm is None:
         return y.to(x.dtype), kn, vn
@@ -1047,17 +1253,27 @@ def gemma_call(mp: Dict[str, torch.Tensor], softcap=0.0, windows=None,
 
 
 def kernel_library(mp: Dict[str, torch.Tensor], fold: bool,
-                   gemma: bool = False) -> str:
-    """The kernel-14 source a pack's call runs: a call with gemma's
-    operands (:func:`gemma_call`) the GEMMA instantiation
+                   gemma: bool = False, bits: int = 4, walsh: int = 0) -> str:
+    """The kernel-14 source a pack's call runs. "wl8" (``walsh``) the Walsh
+    instantiation (``csrc/megastep_lowbit_walsh.cu``, every optional
+    operand a runtime flag); "w3"/"w2" (``bits`` 3 or 2)
+    ``csrc/megastep_lowbit_w3w2.cu``, or with any optional operand
+    ``megastep_lowbit_w3w2_ext.cu`` (each a runtime flag). "w4p"/"w8p": a
+    call with gemma's operands (:func:`gemma_call`) the GEMMA instantiation
     (``csrc/megastep_lowbit_gemma.cu``, which takes every other optional
-    operand too, each nullable); otherwise packs with qwen3's qk-norm
-    or o/gate-up/down biases the ARCH instantiations
+    operand too, each nullable); otherwise packs with qwen3's qk-norm or
+    o/gate-up/down biases the ARCH instantiations
     (``csrc/megastep_lowbit_arch*.cu``), with EoRA adapters the ones with
     the rank-r epilogue (``_lora``), steps with the fold theirs (``_lm``),
     packs with zero points or act-order the ones that read them (``_opt``);
     each optional operand is compiled into its own instantiations, so that
     the kernels without it keep their code."""
+    if walsh:
+        return "megastep_lowbit_walsh"
+    extended = (gemma or fold or "la_q" in mp or "qkv_sz" in mp
+                or "ap_q" in mp or any(k in mp for k in _ARCH_KEYS))
+    if bits in (3, 2):
+        return "megastep_lowbit_w3w2" + ("_ext" if extended else "")
     if gemma:
         return "megastep_lowbit_gemma"
     return ("megastep_lowbit"
@@ -1078,9 +1294,11 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                            rope_sel=None, lm=None, walsh: int = 0,
                            qkv_cap_mb: int = 12,
                            fold_rows: Optional[dict] = None):
-    """Kernel 14, one decode step over all layers ("w4p" at ``bits=4``,
-    "w8p" at ``bits=8``). x [B, H] (B <= 64, the embedded current token);
-    ``mp`` from :func:`megapack_lowbit`, with the zero-point corrections
+    """Kernel 14, one decode step over all layers ("w4p", "w3", "w2",
+    "w8p" at ``bits`` 4, 3, 2, 8; "wl8" at ``bits=3, walsh=7``). x [B, H]
+    (B <= 64, the embedded current token); ``mp`` from
+    :func:`megapack_lowbit` (from :func:`megapack_walsh` for "wl8"), with
+    the zero-point corrections
     ``*_sz``, the act-order orders ``ap_*`` (:func:`actorder_transform`),
     the EoRA factors ``la_*``/``lb_*``, qwen3's ``qk_nm``, the
     o/gate-up/down biases and gemma's sandwich norms ``pa_norm``/``pm_norm``
@@ -1094,16 +1312,14 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
     norm, in x's type; k_new and v_new [L, B, kv_dim] bf16), and with
     ``lm`` (:func:`mega_lm_operands`: the trailing-unembed fold) the
     float32 logits [B, V] fourth. ``fold_rows``: see :func:`launch_grouped`
-    (the card only). The other arguments are the JAX wrapper's; w3/w2 bits
-    and ``walsh`` raise NotImplementedError naming their feature."""
+    (the card only). The other arguments are the JAX wrapper's; ``walsh``
+    takes 7 (the exact 8-entry codebook) or 0."""
     B, H = x.shape
     if B > 64:
         raise ValueError("megastep_lowbit_decode: B <= 64")
-    later = _later_feature(bits, walsh)
-    if later:
-        raise NotImplementedError(
-            f"megastep_lowbit_decode: {later} comes with a later slice of the "
-            "port (ROADMAP.md queue B)")
+    if walsh not in (0, 7) or (walsh and bits != 3):
+        raise ValueError("megastep_lowbit_decode: walsh=7 at bits=3 (the "
+                         "exact 8-entry codebooks) or walsh=0")
     if x.device.type == "cpu":
         return megastep_lowbit_plain(x, mp, k_cache, v_cache, pos, cos_half,
                                      sin_half, q_dim=q_dim, kv_dim=kv_dim,
@@ -1113,29 +1329,35 @@ def megastep_lowbit_decode(x: torch.Tensor, mp: Dict[str, torch.Tensor],
                                      act=act, block_t=block_t, bits=bits,
                                      lm=lm, qkv_cap_mb=qkv_cap_mb,
                                      softcap=softcap, windows=windows,
-                                     rope_sel=rope_sel)
+                                     rope_sel=rope_sel, walsh=walsh)
     plan = _plan_of(x, mp, k_cache, q_dim, kv_dim, head_dim, bits, block_t,
-                    qkv_cap_mb, lm)
+                    qkv_cap_mb, lm, walsh)
     lib = kernel_library(mp, lm is not None,
-                         gemma_call(mp, softcap, windows, rope_sel))
+                         gemma_call(mp, softcap, windows, rope_sel), bits,
+                         walsh)
     out = launch_grouped(
         lib, f"ganq_{lib}", "megastep_lowbit_decode",
         x, mp, {"qkv": "qkv_pk", "o": "o_pk", "gu": "gu_pk", "dn": "dn_pk"},
         k_cache, v_cache, pos, cos_half, sin_half, bits=bits, kmajor=False,
-        tq=plan["tq"], ti=plan["ti"], gs=H // mp["qkv_s"].shape[1],
+        tq=plan["tq"], ti=plan["ti"], gs=_group_size(mp, H, walsh),
         Tb=plan["Tb"], q_dim=q_dim, kv_dim=kv_dim, head_dim=head_dim,
         rotary_dim=rotary_dim, interleaved=interleaved, eps=eps,
         rms_offset=rms_offset, scale=scale, act=act, lm=lm,
         fold_rows=fold_rows, softcap=softcap, windows=windows,
-        rope_sel=rope_sel)
+        rope_sel=rope_sel, walsh=walsh)
     megastep_lowbit_decode.launches += 1
+    by = megastep_lowbit_decode.by_source
+    by[lib] = by.get(lib, 0) + 1
     return out
 
 
 megastep_lowbit_decode.launches = 0
+# launches by kernel source (``kernel_library``), beside the total
+megastep_lowbit_decode.by_source = {}
 
 __all__ = ["megastep_lowbit_decode", "megastep_lowbit_plain",
            "lm_fold_plain", "lm_vocab_plain", "mega_lm_operands",
-           "megapack_lowbit", "megastep_lowbit_plan",
+           "megapack_lowbit", "megapack_walsh", "walsh_coef", "walsh_linear",
+           "megastep_lowbit_plan",
            "megastep_lowbit_fusable", "megastep_walsh_fusable", "_PLAN",
            "_plan_meta", "_mlp_plan"]

@@ -4,7 +4,8 @@
 point (``ganq_fused_mlp``, ``ganq_fused_qkv_rope``, ``ganq_attn_half``,
 ``ganq_megastep_w8``, ``ganq_megastep4``, ``ganq_megastep_lowbit``) takes a
 pointer to one; the group-scaled kernels 13 and 14 read the fields after
-``x_bf16`` and after ``part`` too (kernel 14 alone the zero-point
+``x_bf16`` and after ``part`` too (the scales' fields hold kernel 14's
+float32 Walsh coefficient rows for "wl8"; kernel 14 alone the zero-point
 corrections, the act-order column orders, the lm fold's operands and
 vocabulary size ``V``, the EoRA epilogue's factors, scratch and ranks,
 the qk-norm rows, the o/gate-up/down biases and the qk-norm's float32

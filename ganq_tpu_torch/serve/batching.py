@@ -12,12 +12,12 @@ Two modes, picked at construction in ``ganq_tpu``'s order:
   (``stack_layers(recode="affine")``), ``w8`` layers convert to uniform
   8-bit (``w8p_stacked``, at every slot count, unless ``GANQ_W8_PLANE=0``:
   only the plane kernels take per-slot positions) and ``mega_enabled``
-  picks kernel 13 ("w4") or 14 ("w4p", "w8p"): one launch per decode step
-  over every slot, at per-slot positions, with a ``w8`` lm_head folded into
-  that launch (``ops/megastep_lowbit.mega_lm_operands``). The per-layer
-  model is dropped; prompts prefill through the stacked layers. A variant
-  whose kernel the port has not yet (kernel 14's w3/w2/wl8) raises
-  NotImplementedError here. Qwen3's qk-norm and InternLM's biases ride
+  picks kernel 13 ("w4") or 14 ("w4p", "w3", "w2", "w8p", and "wl8" for
+  3-bit 8-entry codebooks): one launch per decode step over every slot, at
+  per-slot positions, with a ``w8`` lm_head folded into that launch
+  (``ops/megastep_lowbit.mega_lm_operands``). The per-layer model is
+  dropped; prompts prefill through the stacked layers. Qwen3's qk-norm and
+  InternLM's biases ride
   the step in the pack (kernel 14's ``qk_nm``, ``o_bias``, ``gu_bias``,
   ``dn_bias``), gemma's sandwich norms too (``pa_norm``, ``pm_norm``), and
   its windows, softcap and dual rope as arguments at each slot's
@@ -125,7 +125,8 @@ def _mega_decode_slots(cfg: ModelConfig, sp: Model, mp, mk: torch.Tensor,
                        backend: str = "reference",
                        fold: bool = True) -> torch.Tensor:
     """One whole-step launch over all slots at per-slot positions ``pos``
-    [S] (kernel 13 for "w4", 14 for "w4p"/"w8p"): per-row rope tables and
+    [S] (kernel 13 for "w4", 14 for "w4p"/"w3"/"w2"/"w8p" and, with
+    ``walsh=7``, "wl8"): per-row rope tables and
     histories; then each slot's new k/v written at its own position of
     mk/mv [L, S * Hkv, T, d] (in place; a retired slot past T writes its
     last row, as ``dynamic_update_slice`` clamps). Kernel 14 folds a ``w8``
@@ -144,6 +145,8 @@ def _mega_decode_slots(cfg: ModelConfig, sp: Model, mp, mk: torch.Tensor,
     else:
         step_fn = megastep_lowbit_decode
         kw["bits"] = stacked._LB_BITS[variant]
+        if variant == "wl8":
+            kw["walsh"] = 7          # the exact 8-entry codebooks
         kv_dim = stacked._lb_kv_dim(cfg, mp, kw["bits"])
         lm = mega_lm_operands(cfg, sp) if fold else None
         if lm is not None:

@@ -12,11 +12,10 @@ dense-MLP model of more than one layer through the stacked layout
 ``lut`` linear whose codebook lies on an affine grid into a ``uniform``
 linear and fuses each layer's rows, and ``prepack`` (at batch 1, as there)
 packs the whole-step megastep's operands. Requests then take the fused
-kernels and the megasteps (kernels 12-14) where the JAX engine's gates send
-them. Where its gate picks a whole-step variant the port does not have yet
-(kernel 14's later sub-slices: :func:`stacked_only_kernel`), the engine
-raises; ``layout="perlayer"`` serves the model as given, layer by layer, as
-the JAX engine's ``layout="perlayer"`` does. MoE models stay per layer,
+kernels and the megasteps (kernels 12-14, every variant) where the JAX
+engine's gates send them; ``layout="perlayer"`` serves the model as given,
+layer by layer, as the JAX engine's ``layout="perlayer"`` does. MoE models
+stay per layer,
 where the fused expert kernel (kernel 15) serves their decode steps
 (``models/transformer._moe_combine``), and so do act-order models whose
 groups are not balanced (``prepack`` raises ValueError).
@@ -36,23 +35,6 @@ from ..models.transformer import (Model, ModelConfig, causal_mask, embed,
                                   rope_tables_all, unembed)
 
 Cache = List[Dict[str, torch.Tensor]]
-
-
-def stacked_only_kernel(cfg: ModelConfig, sp: Optional[Model], backend: str,
-                        batch: int, max_new_tokens: int,
-                        device="cuda") -> Optional[str]:
-    """What of the whole-step kernel that the JAX engine's stacked layout
-    runs for this request the port has not ported, or None: where the
-    request decodes and ``serve/stacked.mega_enabled`` picks a variant that
-    ``serve/stacked.missing_kernel`` names (kernel 14's "w3", "w2" and
-    "wl8"). ``sp`` is the engine's
-    stacked model."""
-    from . import stacked
-
-    if max_new_tokens <= 1:
-        return None
-    return stacked.missing_kernel(
-        cfg, sp, stacked.mega_enabled(cfg, sp, backend, batch, device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
@@ -200,9 +182,6 @@ class Engine:
             except ValueError:
                 sp = None            # mixed kinds or bits, or act-order
                                      # groups out of balance: per layer
-            except NotImplementedError:
-                # a later kernel-14 variant: its requests raise in generate
-                sp = stacked.certify_stacked(sp)
         if layout == "stacked" and sp is None:
             raise ValueError("layout='stacked' requires homogeneous layer "
                              "parameters")
@@ -230,24 +209,12 @@ class Engine:
                  eos_id: int = -1, seed: int = 0,
                  max_seq: Optional[int] = None) -> np.ndarray:
         """Tokens [B, max_new_tokens]; ``max_seq`` sizes this request's KV
-        cache (default the engine's). Raises NotImplementedError where the
-        JAX engine would run an unported whole-step kernel
-        (:func:`stacked_only_kernel`)."""
+        cache (default the engine's)."""
         ids = self._prepare(input_ids, max_new_tokens, max_seq)
         T = max_seq or self.max_seq
         if self.stacked:
             from . import stacked
 
-            kernel = stacked_only_kernel(self.cfg, self.model, self.backend,
-                                         ids.shape[0], max_new_tokens,
-                                         self.device)
-            if kernel:
-                raise NotImplementedError(
-                    f"the JAX engine serves this request through {kernel} "
-                    "of its stacked layout, which comes with a later slice "
-                    "of the port (ROADMAP.md queue B); pass "
-                    "layout='perlayer' (per-layer kernels) or "
-                    "backend='cuda'")
             ck, cv = stacked.init_cache(self.cfg, len(self.model.layers),
                                         ids.shape[0], T, self.device)
             out = stacked.generate_tokens(
@@ -291,4 +258,4 @@ class Engine:
 
 
 __all__ = ["Engine", "init_cache", "prefill", "decode_step", "generate_tokens",
-           "sample", "next_key", "stacked_only_kernel"]
+           "sample", "next_key"]

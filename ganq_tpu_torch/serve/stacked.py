@@ -11,12 +11,12 @@ Fusing rows changes no row's numbers.
 Routing follows the JAX package's. :func:`mega_enabled` picks the whole-step
 variant of a request from the gates of the whole-step kernels, in the JAX
 order: ``"w8"`` is kernel 12 (``ops/megastep.py``), ``"w4"`` kernel 13
-(``ops/megastep4.py``), ``"w4p"`` and ``"w8p"`` kernel 14
-(``ops/megastep_lowbit.py``, with zero points, act-order, EoRA adapters,
-the trailing-unembed lm fold, qwen3's qk-norm, o/gate-up/down biases and
-gemma's sandwich norms, windows, softcap and dual rope);
-kernel 14's ``"w3"``, ``"w2"`` and ``"wl8"`` come with later slices
-(:func:`missing_kernel`, ``ROADMAP.md`` queue B). The
+(``ops/megastep4.py``), ``"w4p"``, ``"w3"``, ``"w2"`` and ``"w8p"``
+(uniform planes) and ``"wl8"`` (3-bit 8-entry codebooks through the Walsh
+planes) kernel 14 (``ops/megastep_lowbit.py``, with EoRA adapters, the
+trailing-unembed lm fold, qwen3's qk-norm, o/gate-up/down biases and
+gemma's sandwich norms, windows, softcap and dual rope; the uniform
+variants with zero points and act-order too). The
 decode steps of a request with a variant run
 the megastep once per step; the others, and every prefill, run the layers
 one by one (``models/transformer.layer_forward``), where the fused MLP
@@ -46,17 +46,13 @@ from .engine import decode_step as _decode_layers
 from .engine import prefill as _prefill_layers
 from .engine import next_key, sample
 
-# whole-step variants and the kernel that serves each; kernel 14's variants
-# by their plane bits (``stacked.py:195``)
+# kernel 14's variants by their plane bits (``stacked.py:195``)
 _LB_BITS = {"w4p": 4, "w3": 3, "w2": 2, "w8p": 8, "wl8": 3}
-_KERNEL_OF = {"w8": "megastep_decode_w8a8 (kernel 12)",
-              "w4": "megastep4_decode (kernel 13)"}
-for _v in _LB_BITS:
-    _KERNEL_OF[_v] = f"megastep_lowbit_decode (kernel 14, variant {_v!r})"
-# the variants the port serves, and the attribute of the stacked model that
-# keeps each one's pack
+# the attribute of the stacked model that keeps each variant's pack
+# (``stacked.py:345-369``)
 _PACK_ATTR = {"w8": "megapack_w8", "w4": "megapack4", "w4p": "megapack_lb",
-              "w8p": "megapack_lb"}
+              "w3": "megapack_lb", "w2": "megapack_lb", "w8p": "megapack_lb",
+              "wl8": "megapack_wl"}
 
 
 def _layer(lp: Layer, attn: Dict[str, QLinear], mlp: Dict[str, QLinear],
@@ -246,8 +242,7 @@ def _fold_logit_epilogue(cfg: ModelConfig, logits: torch.Tensor
                          ) -> torch.Tensor:
     """logit_scale and softcap on the folded logits: the tail of the
     unembed that stays outside the kernel (``ganq_tpu/serve/stacked.py:
-    494-502``). The port's configurations carry neither yet, so this is
-    the identity for them."""
+    494-502``); Gemma 2's final logit softcap is one."""
     ls = getattr(cfg, "logit_scale", None)
     if ls is not None:
         logits = logits * torch.tensor(ls, dtype=logits.dtype,
@@ -258,28 +253,23 @@ def _fold_logit_epilogue(cfg: ModelConfig, logits: torch.Tensor
     return logits
 
 
-def missing_kernel(cfg: ModelConfig, sp: Optional[Model],
-                   variant: Optional[str]) -> Optional[str]:
-    """What of the whole-step kernel that serves ``variant`` the port has
-    not ported, or None: kernel 14's "w3", "w2" and "wl8" variants."""
-    if variant is None or variant in _PACK_ATTR:
-        return None
-    return _KERNEL_OF[variant]
-
-
 def _pack(cfg: ModelConfig, sp: Model, variant: str):
-    """The variant's pack; kernel 14's bakes act-order artifacts first
-    (``actorder_transform``: ValueError on unbalanced groups) and carries
-    the activations' column orders."""
+    """The variant's pack: "wl8" the Walsh planes (``megapack_walsh``);
+    kernel 14's uniform variants bake act-order artifacts first
+    (``actorder_transform``: ValueError on unbalanced groups) and carry the
+    activations' column orders."""
     from ..ops.megastep import megapack
     from ..ops.megastep4 import megapack4
-    from ..ops.megastep_lowbit import actorder_transform, megapack_lowbit
+    from ..ops.megastep_lowbit import (actorder_transform, megapack_lowbit,
+                                       megapack_walsh)
 
     with torch.no_grad():
         if variant == "w8":
             return megapack(cfg, sp)
         if variant == "w4":
             return megapack4(cfg, sp)
+        if variant == "wl8":
+            return megapack_walsh(cfg, sp)
         bits = _LB_BITS[variant]
         tsp, aps = actorder_transform(cfg, sp, bits)
         mp = megapack_lowbit(cfg, tsp, bits)
@@ -293,21 +283,16 @@ def prepack(cfg: ModelConfig, sp: Model, backend: str, batch: int,
     ``w8`` to uniform 8-bit for batches above 8 (``GANQ_W8_PLANE=0`` opts
     out), and pack the megastep's operands once for the variant this batch
     takes, one pack per kernel (``sp.megapack_w8``, ``sp.megapack4``,
-    ``sp.megapack_lb``, act-order artifacts baked into kernel 14's); a
-    variant or an operand of a later slice raises NotImplementedError
-    naming it, act-order groups that are not balanced ValueError (the
-    engine then serves the model per layer, as the JAX engine does)."""
+    ``sp.megapack_lb``, act-order artifacts baked into kernel 14's, and
+    ``sp.megapack_wl``, the Walsh planes); act-order groups that are not
+    balanced raise ValueError (the engine then serves the model per layer,
+    as the JAX engine does)."""
     if os.environ.get("GANQ_LUT_AFFINE", "1") != "0":
         sp = certify_stacked(sp)
     if (mega_env_enabled(backend, batch, device) and batch > 8
             and os.environ.get("GANQ_W8_PLANE", "1") != "0"):
         sp = w8p_stacked(sp)
     variant = mega_enabled(cfg, sp, backend, batch, device)
-    missing = missing_kernel(cfg, sp, variant)
-    if missing:
-        raise NotImplementedError(
-            f"the whole-step variant {variant!r} runs {missing}, which the "
-            "port does not have yet (ROADMAP.md queue B)")
     if variant and getattr(sp, _PACK_ATTR[variant], None) is None:
         setattr(sp, _PACK_ATTR[variant], _pack(cfg, sp, variant))
     return sp
@@ -317,9 +302,6 @@ def _mega_pack_for(cfg: ModelConfig, sp: Model, variant: str):
     """The prepacked megastep operands for ``variant`` (packed here, and
     kept, when :func:`prepack` did not: ``GANQ_W4_PLANE=0`` sends a model
     prepacked for "w4p" to kernel 13)."""
-    missing = missing_kernel(cfg, sp, variant)
-    if missing:
-        raise NotImplementedError(f"{missing} is not ported yet")
     mp = getattr(sp, _PACK_ATTR[variant], None)
     if mp is None:
         mp = _pack(cfg, sp, variant)
@@ -406,7 +388,8 @@ def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
                      cv: torch.Tensor, token: torch.Tensor, pos: torch.Tensor,
                      backend: str, variant: str = "w8") -> torch.Tensor:
     """One decode step through the whole-step kernel of ``variant`` (kernel
-    12 for "w8", 13 for "w4", 14 for "w4p"/"w8p"). ck/cv in the megastep
+    12 for "w8", 13 for "w4", 14 for "w4p"/"w3"/"w2"/"w8p" and, with
+    ``walsh=7``, "wl8"). ck/cv in the megastep
     layout, updated in place with the step's k/v at ``pos`` after the
     kernel. Kernel 14 takes gemma's windows, softcap and dual rope
     (:func:`_mega_rope_kw`), and folds the final norm and a ``w8`` lm_head
@@ -428,6 +411,8 @@ def _decode_one_mega(cfg: ModelConfig, sp: Model, mp, ck: torch.Tensor,
         kv_dim = _lb_kv_dim(cfg, mp, _LB_BITS[variant])
         step_fn = megastep_lowbit_decode
         kw["bits"] = _LB_BITS[variant]
+        if variant == "wl8":
+            kw["walsh"] = 7          # the exact 8-entry codebooks
         if lm_fold_engages(cfg, sp):
             kw["lm"] = mega_lm_operands(cfg, sp)
     else:
@@ -510,5 +495,5 @@ def greedy_decode(cfg: ModelConfig, sp: Model, cache_k: torch.Tensor,
 
 __all__ = ["fuse_layer", "recode_layer_w8", "recode_layer_affine",
            "stack_layers", "certify_stacked", "w8p_stacked", "mega_enabled",
-           "mega_env_enabled", "missing_kernel", "lm_fold_engages", "prepack", "prefill",
+           "mega_env_enabled", "lm_fold_engages", "prepack", "prefill",
            "decode_step", "generate_tokens", "greedy_decode", "init_cache"]

@@ -38,6 +38,7 @@ from test_torch_megastep_lowbit import (_step_inputs, inject_zp_ao,
                                         np_uniform_llama)
 from test_torch_serve import _flatten_jax
 from test_torch_stacked import _np, _port_cfg, np_llama
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 _FAMILIES = ("llama", "mistral", "qwen2", "yi", "mobilellm", "qwen3",
              "internlm")
@@ -282,17 +283,17 @@ _GATE_ARCHS = ("llama", "qwen3", "internlm", "qwen2")
 def test_gates_match_jax(monkeypatch, arch, kind, bits):
     """The gates of kernels 11 (``attn_half_fusable``), 12, 13 and 14, the
     variant ``mega_enabled`` picks at batches 1 to 64 and
-    ``stacked_only_kernel`` equal ganq_tpu's on head_dim-128 models of each
-    family: qwen3's qk-norm keeps a model off kernels 10-13 and on kernel
-    14; internlm's o bias off kernels 11-13; qwen2's q/k/v biases off
-    none. Every such request is served (none is refused)."""
+    the pack of that variant equal ganq_tpu's on head_dim-128 models of
+    each family: qwen3's qk-norm keeps a model off kernels 10-13 and on
+    kernel 14; internlm's o bias off kernels 11-13; qwen2's q/k/v biases
+    off none. Every such request is served: its variant's pack is built on
+    the stacked model."""
     from ganq_tpu.ops import fused_layer as jfl
     from ganq_tpu.ops import megastep as jms
     from ganq_tpu.ops import megastep4 as jm4
     from ganq_tpu_torch.ops import fused_layer as tfl
     from ganq_tpu_torch.ops import megastep as tms
     from ganq_tpu_torch.ops import megastep4 as tm4
-    from ganq_tpu_torch.serve import engine as teng
 
     jcfg, params, tcfg, tmodel = arch_pair(
         4 if kind == "w8" else bits, arch == "qwen3", False)
@@ -326,8 +327,9 @@ def test_gates_match_jax(monkeypatch, arch, kind, bits):
     for batch in (1, 8, 9, 64):
         want = jst.mega_enabled(jcfg, sp, "pallas_a8", batch)
         assert tst.mega_enabled(tcfg, tsp, "cuda_a8", batch, "cpu") == want
-        assert teng.stacked_only_kernel(tcfg, tsp, "cuda_a8", batch, 4,
-                                        "cpu") is None
+        if want is not None:
+            assert tst._mega_pack_for(tcfg, tsp, want) is getattr(
+                tsp, tst._PACK_ATTR[want])
     if arch == "qwen3":
         assert not tms.megastep_fusable(tcfg, tsp)
         assert not tm4.megastep4_fusable(tcfg, tsp)

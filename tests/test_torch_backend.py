@@ -13,6 +13,7 @@ from ganq_tpu_torch.models import transformer as ttr
 from ganq_tpu_torch.ops import qlinear as tql
 from ganq_tpu_torch.ops.packing import pack_int_rows
 from ganq_tpu_torch.serve import engine as teng
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 CPU, GPU = torch.device("cpu"), torch.device("cuda")
 

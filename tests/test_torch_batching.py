@@ -31,6 +31,7 @@ from ganq_tpu_torch.serve.engine import Engine
 
 from test_torch_serve import _flatten_jax
 from test_torch_stacked import np_llama
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 VOCAB = 128
 
@@ -270,16 +271,30 @@ def test_whole_step_mode_matches_per_layer(variant, monkeypatch):
 
 
 def test_unported_variant_raises_at_construction(monkeypatch):
-    """A model whose whole-step variant the port has not yet (kernel 14's
-    "w2", a 2-bit uniform model) raises NotImplementedError naming queue B
-    when the batching engine is built; it is not served per layer."""
+    """Kernel 14's "w2" (a 2-bit uniform model), which earlier slices
+    refused at construction, is the batching engine's whole-step variant
+    with ``GANQ_MEGASTEP=1``: its pack holds the 2-bit planes, and its
+    tokens for three requests on two slots agree with the per-layer
+    engine's (``GANQ_MEGASTEP=0``) on at least 90% of the tokens (the int8
+    activations of the whole step)."""
     monkeypatch.setenv("GANQ_MEGASTEP", "1")
     cfg = tsyn.llama_config(hidden=512, inter=1024, layers=2, heads=4,
                             kv_heads=2, vocab=256, max_pos=128)
     model = tsyn.make_model(cfg, kind="uniform", bits=2, seed=2,
                             device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        BatchingEngine(cfg, model, slots=2, max_seq=64, device="cpu")
-    monkeypatch.setenv("GANQ_MEGASTEP", "0")
-    assert BatchingEngine(cfg, model, slots=2, max_seq=64,
-                          device="cpu")._mega_variant is None
+    prompts = [np.arange(1, 6), np.arange(7, 16), np.arange(20, 23)]
+    out = {}
+    for env in ("1", "0"):
+        monkeypatch.setenv("GANQ_MEGASTEP", env)
+        eng = BatchingEngine(cfg, model, slots=2, max_seq=64, device="cpu")
+        assert eng._mega_variant == ("w2" if env == "1" else None)
+        if env == "1":
+            assert eng._mp is eng._sp.megapack_lb
+            assert eng._mp["qkv_pk"].shape[1] == (512 + 2 * 256) // 4
+        for p in prompts:
+            eng.submit(p, max_new_tokens=4)
+        out[env] = eng.run_all()
+    n_tok = sum(len(v) for v in out["0"].values())
+    n_agree = sum((np.asarray(out["1"][k]) == np.asarray(out["0"][k])).sum()
+                  for k in out["0"])
+    assert n_agree >= 0.9 * n_tok, out

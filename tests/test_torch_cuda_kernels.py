@@ -1240,3 +1240,87 @@ def test_megastep_lowbit_gemma_refuses_a_partial_launch(gen):
                                        **kw)
         finally:
             w8a8_args.launch = real
+
+
+# -------------------------------------- kernel 14's "w3", "w2" and "wl8"
+from chip_smoke import _grouped_pack as _smoke_pack
+
+# 3-bit planes (8 row blocks of 128-lane fields) need hidden, q_dim and the
+# tiles to be multiples of 1024: a small shape and Llama-3.2-3B's widths
+_LOWBIT3_SHAPES = [(2, 1024, 1024, 512, 1024), (2, 3072, 3072, 1024, 8192)]
+
+
+@pytest.mark.parametrize("L,H,q_dim,kv_dim,I", _LOWBIT3_SHAPES)
+@pytest.mark.parametrize("variant", ["w3", "w2", "wl8"])
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("ops", ["none", "zp_ao", "lm", "lora", "qkn_bias",
+                                 "gemma", "all"])
+def test_megastep_lowbit_w3_w2_wl8_match_plain(gen, L, H, q_dim, kv_dim, I,
+                                               variant, B, ops):
+    """Kernel 14's "w3"/"w2" (``megastep_lowbit_w3w2.cu``; with any optional
+    operand ``megastep_lowbit_w3w2_ext.cu``) and "wl8"
+    (``megastep_lowbit_walsh.cu``, the Walsh planes and coefficient rows)
+    against their plain version, alone and with each operand family of
+    ``ganq_tpu``'s gates at these bits: zero points with act-order (the
+    uniform variants only: lut artifacts have none), the lm fold (V = 384),
+    the EoRA epilogue (rank 16), qwen3's qk-norm rows with o/gate-up/down
+    biases, gemma 2's sandwich norms, window (24) and softcap (gelu-tanh,
+    rms_offset 1), and all of them together; within one bf16 ulp plus 1e-2
+    of the largest (3.5e-2 with gemma's operands: ``ganq_tpu``'s gemma
+    bound), the zero-point bound of the other kernel-14 cases. Each call is
+    one launch of the source ``kernel_library`` names."""
+    from ganq_tpu_torch.ops.megastep_lowbit import (kernel_library,
+                                                    lm_fold_plain)
+
+    walsh = 7 if variant == "wl8" else 0
+    bits = 2 if variant == "w2" else 3
+    if walsh and ops in ("zp_ao", "all"):
+        pytest.skip("lut artifacts carry no zero points or act-order")
+    zpao = ops in ("zp_ao", "all")
+    mp = _zp_ao_operands(gen, _smoke_pack(gen, L, H, q_dim, kv_dim, I, bits,
+                                          False, walsh=bool(walsh)),
+                         L, H, q_dim, bits, zpao, zpao)
+    if ops in ("lora", "all"):
+        mp = _lora_operands(gen, mp, L, H, q_dim, kv_dim, I, 16)
+    if ops in ("qkn_bias", "all"):
+        mp = _arch_operands(gen, mp, L, H, q_dim, kv_dim, I, True, True)
+    gemma = ops in ("gemma", "all")
+    T = 64
+    gkw, kw = {}, dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128,
+                       rotary_dim=128, scale=1.0 / math.sqrt(128), bits=bits,
+                       walsh=walsh)
+    if gemma:
+        cfg = _gemma_cfg("g2", L, H, q_dim, kv_dim, I, 24)
+        qk = mp.pop("qk_nm", None)
+        gkw = _gemma_operands(gen, mp, cfg, L)
+        if qk is not None:
+            mp["qk_nm"] = qk
+        gkw["windows"] = torch.tensor([cfg.layer_window(i) or T
+                                       for i in range(L)], dtype=torch.int32,
+                                      device="cuda")
+        kw.update(scale=cfg.attn_scale, rms_offset=1.0, act="gelu_tanh",
+                  eps=1e-6)
+    lm = _lm_operands(gen, 384, H) if ops in ("lm", "all") else None
+    pos = [(50 + 7 * b) % (T - 1) for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = dict(megastep_lowbit_decode.by_source)
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos, sin,
+                                 lm=lm, **kw, **gkw)
+    lib = kernel_library(mp, lm is not None, gemma, bits, walsh)
+    assert lib == ("megastep_lowbit_walsh" if walsh else
+                   "megastep_lowbit_w3w2" + ("" if ops == "none" else "_ext"))
+    assert megastep_lowbit_decode.by_source[lib] == before.get(lib, 0) + 1
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, cos, sin,
+                                       **kw, **gkw)
+    torch.cuda.synchronize()
+    rel = 3.5e-2 if gemma else 1e-2
+    what = f"megastep_lowbit {variant} {ops} H={H} B={B}"
+    _close(got[1], pk, rel, what + " k_new")
+    _close(got[2], pv, rel, what + " v_new")
+    _close(got[0], py, rel, what + " y")
+    if lm is not None:
+        _close(got[3], lm_fold_plain(got[0], lm, kw.get("eps", 1e-5),
+                                     kw.get("rms_offset", 0.0)), 5e-3,
+               what + " logits")

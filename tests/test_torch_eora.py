@@ -49,6 +49,7 @@ from ganq_tpu_torch.ops.packing import pack_int_rows  # noqa: E402
 from ganq_tpu_torch.quant.eora_flow import generate_eora  # noqa: E402
 
 from test_torch_quantize import QCFG, VOCAB, _rows, dense  # noqa: E402,F401
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 SLOTS = ("attn.q", "attn.k", "attn.v", "attn.o", "mlp.gate", "mlp.up",
          "mlp.down")

@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ganq_tpu.ops import fused_attention as jfa
 from ganq_tpu_torch.ops import fused_attention as tfa
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 T = 512          # two of the JAX kernel's 256-key tiles
 

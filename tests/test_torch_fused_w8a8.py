@@ -33,6 +33,7 @@ from ganq_tpu_torch.ops import fused_attention as tfa
 from ganq_tpu_torch.ops import fused_layer as tfl
 from ganq_tpu_torch.ops import fused_mlp as tfm
 from ganq_tpu_torch.ops import qlinear as tql
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _bf16(rng, shape, scale=1.0):

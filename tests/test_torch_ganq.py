@@ -17,6 +17,7 @@ from ganq_tpu.quant import ganq as jg
 from ganq_tpu_torch.core.config import QuantizeConfig
 from ganq_tpu_torch.ops import ganq_solver as sol
 from ganq_tpu_torch.quant import ganq as tg
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _t(a):

@@ -17,6 +17,7 @@ from ganq_tpu.quant import ganq as jganq
 from ganq_tpu.quant.preamble import _ganq_L
 from ganq_tpu_torch.ops import ganq_solver as sol
 from ganq_tpu_torch.quant.ganq import s_step_reference
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _problem(seed, m, n, V):

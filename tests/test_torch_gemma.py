@@ -39,6 +39,7 @@ from test_torch_megastep import _t
 from test_torch_megastep_lowbit import _step_inputs, np_uniform_llama
 from test_torch_serve import _flatten_jax
 from test_torch_stacked import _np, np_llama
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 WINDOW = 8
 _TYPES = ("gemma", "gemma2", "gemma3_text", "gemma3")
@@ -298,8 +299,12 @@ def test_gemma_plain_matches_jax_interpret(gemma_packs, case):
 def test_wrapper_picks_the_gemma_instantiation(gemma_packs):
     """A call with any of gemma's operands launches the GEMMA source
     (``csrc/megastep_lowbit_gemma.cu``, which takes zero points, the fold
-    and EoRA adapters too); the others keep theirs; w3/w2 and the Walsh
-    planes still raise, naming queue B."""
+    and EoRA adapters too); the others keep theirs; at 3 and 2 bits and
+    through the Walsh planes, which earlier slices refused, gemma's
+    operands ride the runtime-flag sources (``megastep_lowbit_w3w2_ext``,
+    ``megastep_lowbit_walsh``), and a 2-bit Gemma 2 step is served (its
+    plain version: ``test_torch_lowbit_w3_walsh.py`` holds it to
+    ganq_tpu's oracle)."""
     tmp = gemma_packs["gemma2", 4][3]
     assert tlb.gemma_call(tmp) and tlb.kernel_library(tmp, True, True) == \
         "megastep_lowbit_gemma"
@@ -310,14 +315,15 @@ def test_wrapper_picks_the_gemma_instantiation(gemma_packs):
     assert tlb.gemma_call(bare, rope_sel=[1, 0])
     assert tlb.kernel_library(bare, False) == "megastep_lowbit"
     from ganq_tpu_torch.ops import cuda_lib
-    assert "megastep_lowbit_gemma" in cuda_lib.KERNEL_SOURCES
-    x = torch.zeros((1, 256), dtype=torch.bfloat16)
-    kc = torch.zeros((2, 1, 64, 128), dtype=torch.bfloat16)
-    for extra, what in (({"bits": 3}, "w3/w2"), ({"walsh": 7}, "Walsh")):
-        with pytest.raises(NotImplementedError, match="queue B"):
-            tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
-                                       q_dim=256, kv_dim=128, head_dim=128,
-                                       **{"bits": 4, **extra})
+    for lib in ("megastep_lowbit_gemma", "megastep_lowbit_w3w2_ext",
+                "megastep_lowbit_walsh"):
+        assert lib in cuda_lib.KERNEL_SOURCES
+    for bits, walsh, lib in ((3, 0, "megastep_lowbit_w3w2_ext"),
+                             (2, 0, "megastep_lowbit_w3w2_ext"),
+                             (3, 7, "megastep_lowbit_walsh")):
+        assert tlb.kernel_library(tmp, False, True, bits, walsh) == lib
+        assert tlb.kernel_library(bare, False, False, bits, walsh) == (
+            lib if walsh else "megastep_lowbit_w3w2")
 
 
 # ------------------------------------------------------------------- gates

@@ -32,6 +32,7 @@ from ganq_tpu_torch.quant import gptq as tgptq
 from ganq_tpu_torch.quant import quantizer as tqz
 from ganq_tpu_torch.quant.looper import QuantizedModule
 from tests.test_torch_serve import _flatten_jax
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 VOCAB = 256
 QCFG = dict(quant_method="gptq", bits=4, group_size=32, desc_act=True)

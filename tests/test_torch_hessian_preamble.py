@@ -11,6 +11,7 @@ from ganq_tpu.quant.hessian import HessianAccumulator as JHessian
 from ganq_tpu_torch.core.config import QuantizeConfig
 from ganq_tpu_torch.quant import preamble as tpre
 from ganq_tpu_torch.quant.hessian import HessianAccumulator
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _t(a):

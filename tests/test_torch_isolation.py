@@ -13,6 +13,7 @@ from ganq_tpu_torch import GanqModel
 from ganq_tpu_torch.formats import checkpoint
 from ganq_tpu_torch.models import hf_import, synthetic
 from ganq_tpu_torch.serve.engine import Engine
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

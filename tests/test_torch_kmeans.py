@@ -12,6 +12,7 @@ from ganq_tpu.ops import kmeans as jkm
 from ganq_tpu.ops import kmeans_exact as jkx
 from ganq_tpu_torch.ops import kmeans as tkm
 from ganq_tpu_torch.ops import kmeans_exact as tkx
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def test_exact_kmeans_is_bit_identical():

@@ -22,6 +22,7 @@ from ganq_tpu.ops import lut_matmul as jlm
 from ganq_tpu.ops import qlinear as jql
 from ganq_tpu.ops.packing import pack_factor, pack_int_rows
 from ganq_tpu_torch.ops import lut_matmul as tlm
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture

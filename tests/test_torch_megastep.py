@@ -15,6 +15,8 @@ So the port is held to the interpret-mode kernel within one bf16 ulp plus
 softmax in one piece) at the JAX test's own tolerance (2e-2 for k/v, 5e-2
 for y, ``tests/test_megastep.py``)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from ganq_tpu_torch.ops import megastep as tms
 
 from test_torch_fused_w8a8 import assert_kernel_close
 from test_torch_stacked import np_llama
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _t(a):
@@ -61,6 +64,9 @@ def test_megastep_matches_jax(B):
     cos, sin = np.cos(ang), np.sin(ang)
     x = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32) * 0.4,
                     jnp.bfloat16)
+    # the oracle compiled once for both positions (eager, every op of its
+    # first call compiles on its own)
+    reference = jax.jit(functools.partial(jms.megastep_reference, **kw))
     for pos in (3, 50):
         kc = np.array(jnp.asarray(rng.normal(size=(L, B, T, d)).astype(
             np.float32) * 0.3, jnp.bfloat16).astype(jnp.float32))
@@ -72,8 +78,8 @@ def test_megastep_matches_jax(B):
             ref = jax.block_until_ready(jms.megastep_decode_w8a8(
                 x, mp, jk, jv, jnp.int32(pos), jnp.asarray(cos),
                 jnp.asarray(sin), block_t=32, **kw))
-        oracle = jms.megastep_reference(x, mp, jk, jv, pos, jnp.asarray(cos),
-                                        jnp.asarray(sin), **kw)
+        oracle = reference(x, mp, jk, jv, jnp.int32(pos), jnp.asarray(cos),
+                           jnp.asarray(sin))
         got = tms.megastep_decode_w8a8(
             _t(x), mpt, _t(jk), _t(jv), torch.tensor(pos, dtype=torch.int32),
             torch.from_numpy(cos), torch.from_numpy(sin), block_t=32, **kw)

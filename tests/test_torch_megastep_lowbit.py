@@ -40,6 +40,7 @@ from test_torch_fused_w8a8 import assert_kernel_close
 from test_torch_megastep import _t
 from test_torch_serve import _flatten_jax
 from test_torch_stacked import _np, _pair, _port_cfg
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 # the JAX tests' smallest shapes: kernel 14's (tests/test_megastep_lowbit.py:
@@ -93,13 +94,18 @@ def test_packs_match_jax_bytes(packed, variant):
 
 
 def test_pack_refuses_later_features(packed):
-    """3-bit planes are a later sub-slice of kernel 14: the pack raises.
-    Zero points are kernel 14's (kernel 13's pack still refuses them), and
-    act-order artifacts must go through ``actorder_transform`` first, as
-    in ganq_tpu (ValueError)."""
+    """Kernel 14 packs planes at 8, 4, 3 and 2 bits (the 3- and 2-bit
+    packs, which earlier slices refused, are held to ganq_tpu's bytes in
+    ``test_torch_lowbit_w3_walsh.py``): a pack at 3 bits takes 3-bit
+    linears only (ValueError for this 4-bit model), and bits without a
+    plane plan raise. Zero points are kernel 14's (kernel 13's pack still
+    refuses them), and act-order artifacts must go through
+    ``actorder_transform`` first, as in ganq_tpu (ValueError)."""
     _, _, _, tcfg, _, tsp = packed["w4p"]
-    with pytest.raises(NotImplementedError, match="w3/w2"):
+    with pytest.raises(ValueError, match="uniform 3-bit"):
         tlb.megapack_lowbit(tcfg, tsp, 3)
+    with pytest.raises(ValueError, match="no plane plan"):
+        tlb.megapack_lowbit(tcfg, tsp, 5)
     lin = tsp.layers[0].attn["qkv"]
     lin.register_buffer("zeros", torch.full_like(lin["scales"], 7.0))
     try:
@@ -287,14 +293,54 @@ def test_plain_matches_jax_interpret(packed, variant, B):
                                    rtol=5e-2 if name == "y" else 2e-2)
 
 
+def _random_lowbit_pack(tmp, bits, walsh, seed=4):
+    """A kernel-14 pack of random codes at ``bits`` (with ``walsh`` the
+    Walsh planes and float32 coefficient rows) in the layout of the pack
+    ``tmp`` (its norms and qkv bias kept)."""
+    metas, _, _, g_r = tlb._plan_meta(bits)
+    L, _, H = tmp["qkv_pk"].shape
+    Dqkv, I = tmp["qkv_bias"].shape[2], tmp["gu_s"].shape[2] // 2
+    q_dim = tmp["o_pk"].shape[2]
+    gen = torch.Generator().manual_seed(seed)
+
+    def codes(R, K):
+        return torch.randint(-128, 128, (L, R * len(metas) // g_r, K),
+                             generator=gen, dtype=torch.int32).to(torch.int8)
+
+    def coef(R):
+        return tlb.walsh_coef(torch.randn((L, R, 8), generator=gen) * 0.01)
+
+    mp = {k: tmp[k] for k in ("attn_norm", "mlp_norm", "qkv_bias")}
+    mp.update(qkv_pk=codes(Dqkv, H), o_pk=codes(H, q_dim),
+              gu_pk=codes(2 * I, H), dn_pk=codes(H, I))
+    if walsh:
+        mp.update(qkv_s=coef(Dqkv), o_s=coef(H), gu_s=coef(2 * I),
+                  dn_s=coef(H))
+        return mp
+    ti = tlb._mlp_plan(I, bits, H)[0]
+    gtp = -(-(ti // 128) // 8) * 8
+
+    def scales(G, R):
+        return (torch.rand((L, G, R), generator=gen) * 1e-3).to(
+            torch.bfloat16)
+
+    mp.update(qkv_s=scales(H // 128, Dqkv), o_s=scales(q_dim // 128, H),
+              gu_s=scales(H // 128, 2 * I), dn_s=scales(I // ti * gtp, H))
+    return mp
+
+
 def test_wrappers_refuse_later_features(packed):
-    """Each operand or argument of a later sub-slice of kernel 14 (w3/w2,
-    the Walsh planes) raises NotImplementedError naming its feature, on the
-    CPU as on the card (zero points and act-order are served:
-    ``test_zero_point_actorder_*``; the lm fold: ``test_lm_fold_*``; EoRA
-    adapters: ``test_lora_*``; qwen3's qk-norm, the o/gate-up/down biases
-    and gemma's softcap, windows and sandwich norms are served here and held
-    against ganq_tpu in ``test_torch_arch.py`` and ``test_torch_gemma.py``)."""
+    """Kernel 14's variants that earlier slices refused are served: on a
+    pack of random 3-bit ("w3"), 2-bit ("w2") and Walsh ("wl8", walsh=7)
+    planes at these widths the wrapper runs its plain version on the CPU
+    (finite outputs of the step's shapes) and names the source it launches
+    on the card (``megastep_lowbit_w3w2``, ``megastep_lowbit_walsh``); only
+    ``walsh`` other than 7 at 3 bits (or 0) is refused (ValueError). Zero
+    points and act-order are served (``test_zero_point_actorder_*``; the lm
+    fold: ``test_lm_fold_*``; EoRA adapters: ``test_lora_*``; qwen3's
+    qk-norm, the o/gate-up/down biases and gemma's softcap, windows and
+    sandwich norms are served here and held against ganq_tpu in
+    ``test_torch_arch.py`` and ``test_torch_gemma.py``)."""
     jcfg, _, _, _, tmp, _ = packed["w8p"]
     B, T, d = 1, 64, 128
     x = torch.zeros((B, jcfg.hidden_size), dtype=torch.bfloat16)
@@ -302,11 +348,21 @@ def test_wrappers_refuse_later_features(packed):
                      dtype=torch.bfloat16)
     kw = dict(q_dim=jcfg.q_dim, kv_dim=jcfg.num_key_value_heads * d,
               head_dim=d, bits=8)
-    for extra, what in (({"walsh": 7}, "Walsh"),
-                        ({"bits": 3}, "w3/w2")):
-        with pytest.raises(NotImplementedError, match=what):
+    for bits, walsh, lib in ((3, 7, "megastep_lowbit_walsh"),
+                             (3, 0, "megastep_lowbit_w3w2"),
+                             (2, 0, "megastep_lowbit_w3w2")):
+        mp = _random_lowbit_pack(tmp, bits, walsh)
+        y, kn, vn = tlb.megastep_lowbit_decode(
+            x + 0.1, mp, kc, kc, 3, None, None,
+            **{**kw, "bits": bits, "walsh": walsh})
+        assert y.shape == x.shape and kn.shape == (2, B, kw["kv_dim"])
+        assert torch.isfinite(y.float()).all()
+        assert tlb.kernel_library(mp, False, False, bits, walsh) == lib
+    for bits, walsh in ((8, 7), (3, 3)):
+        with pytest.raises(ValueError, match="walsh=7"):
             tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
-                                       **{**kw, **extra})
+                                       **{**kw, "bits": bits,
+                                          "walsh": walsh})
     for extra in ({"softcap": 30.0}, {"windows": [T, T]}):
         y, _, _ = tlb.megastep_lowbit_decode(x, tmp, kc, kc, 3, None, None,
                                              **{**kw, **extra})

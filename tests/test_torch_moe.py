@@ -30,6 +30,7 @@ from ganq_tpu_torch.ops.packing import pack_int_rows as tpack
 
 from test_torch_fused_w8a8 import assert_kernel_close
 from test_torch_megastep import _t
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _cfgs(E, H, I, k):

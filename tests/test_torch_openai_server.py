@@ -17,6 +17,7 @@ import torch
 
 from ganq_tpu_torch import GanqModel
 from ganq_tpu_torch.models import synthetic as tsyn
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 class CharTokenizer:

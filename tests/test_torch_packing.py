@@ -1,6 +1,8 @@
 """Planar packing of the PyTorch port: packed int32 words bit-exact with the
 JAX package for 2, 3, 4 and 8 bits, and unpacking exact both ways."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +11,23 @@ import jax.numpy as jnp
 
 from ganq_tpu.ops import packing as jpack
 from ganq_tpu_torch.ops import packing as tpack
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads_per_worker():
+    """Under pytest-xdist (``PYTEST_XDIST_WORKER_COUNT`` worker processes)
+    torch's intra-op threads of a worker are the cores over the workers, at
+    least one: torch's default of a thread per core in every worker
+    oversubscribes the cores and its OpenMP threads spin (a batching case of
+    ``test_torch_lowbit_w3_walsh.py`` took 313 s under such load, 45 s with
+    one thread). A single process keeps torch's default; the previous count
+    is restored. The port's test modules import this fixture."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = torch.get_num_threads()
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])

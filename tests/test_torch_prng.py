@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from ganq_tpu.serve.engine import _sample as jax_sample
 from ganq_tpu_torch.core import prng
 from ganq_tpu_torch.serve.engine import next_key, sample
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 SEEDS = (0, 1, 2**31 - 1, 2**40 + 5, -3)
 SHAPES = ((5,), (3, 7), (2, 3, 4), (1, 300))

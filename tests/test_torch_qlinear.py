@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from ganq_tpu.ops import qlinear as jql
 from ganq_tpu_torch.ops import qlinear as tql
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4])

@@ -36,6 +36,7 @@ from ganq_tpu_torch.models.registry import get_spec
 from ganq_tpu_torch.quant.looper import QuantizedModule, packed_params
 from ganq_tpu_torch.ops import qlinear as tql
 from tests.test_torch_serve import _flatten_jax
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 VOCAB = 256
 QCFG = dict(bits=4, quant_method="ganq", ganq_iterations=3, act_sort="asc",

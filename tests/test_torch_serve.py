@@ -33,6 +33,7 @@ from ganq_tpu_torch.models import hf_import as thf
 from ganq_tpu_torch.models import transformer as ttr
 from ganq_tpu_torch.ops import qlinear as tql
 from ganq_tpu_torch.serve import engine as teng
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 VOCAB = 256
 QCFG = dict(bits=4, quant_method="ganq", ganq_iterations=2, act_sort="asc",
@@ -426,17 +427,21 @@ def test_engine_perlayer_layout_serves_stored_codebooks_as_jax():
 def test_stacked_only_kernels_are_named_where_jax_runs_them(
         monkeypatch, kind, bits, lm, hidden, heads, backend, batch, prompt,
         new, want):
-    """The port's engine refuses exactly the requests that ganq_tpu's
-    stacked layout serves through a whole-step variant the port has not
-    ported: where ganq_tpu's ``mega_enabled`` (on by default for
-    "pallas_a8" on a TPU, here forced with ``GANQ_MEGASTEP=1``) picks
-    kernel 14's "w3", "w2" or "wl8" for a request that decodes. The port's
-    gate, on the card, gives the same variant. Kernels 12 ("w8"), 13 ("w4")
-    and 14's "w4p" and "w8p", with zero points, act-order, EoRA adapters
-    and the trailing-unembed fold of a ``w8`` lm_head
-    (``mega_lm_operands``), and o/gate-up/down biases (``uniform_bias``),
-    serve every other request."""
+    """The port's engine serves every request that ganq_tpu's stacked layout
+    serves through a whole-step variant, with the variant ganq_tpu picks:
+    where ganq_tpu's ``mega_enabled`` (on by default for "pallas_a8" on a
+    TPU, here forced with ``GANQ_MEGASTEP=1``) picks a variant for a
+    request, the port's gate on the card gives the same one, and for a
+    request that decodes the variant's pack is built and kept on the
+    stacked model: kernels 12 ("w8"), 13 ("w4") and 14's "w4p", "w8p" and,
+    since the earlier slices refused them, "w3", "w2" and "wl8" (``want``:
+    "w2" here, whose request then decodes through kernel 14's plain
+    version with ``GANQ_MEGASTEP=1``), with zero points, act-order, EoRA
+    adapters, the trailing-unembed fold of a ``w8`` lm_head
+    (``mega_lm_operands``) and o/gate-up/down biases (``uniform_bias``)."""
     from ganq_tpu.serve import stacked as jst
+
+    from ganq_tpu_torch.serve import stacked as tst
 
     jcfg, jparams, tmodel = _affine_model((kind,) * 2, hidden, heads, bits,
                                           lm)
@@ -446,15 +451,20 @@ def test_stacked_only_kernels_are_named_where_jax_runs_them(
     variant = jst.mega_enabled(jcfg, sp, "pallas_a8" if backend == "cuda_a8"
                                else "pallas", batch)
     monkeypatch.delenv("GANQ_MEGASTEP", raising=False)
-    later = variant in ("w3", "w2", "wl8")
-    refused = new > 1 and later
-    eng = teng.Engine(_port_cfg(hidden, heads), tmodel, backend="reference",
-                      device="cpu")
+    cfg = _port_cfg(hidden, heads)
+    eng = teng.Engine(cfg, tmodel, backend="reference", device="cpu")
     assert eng.stacked
-    got = teng.stacked_only_kernel(_port_cfg(hidden, heads), eng.model,
-                                   backend, batch, new, device="cuda")
-    assert (got is not None) == refused
-    assert got is None if want is None else want in got
+    assert tst.mega_enabled(cfg, eng.model, backend, batch, "cuda") == variant
+    if variant is not None and new > 1:
+        mp = tst._mega_pack_for(cfg, eng.model, variant)
+        assert mp is getattr(eng.model, tst._PACK_ATTR[variant])
+    assert (want is None) == (variant not in ("w3", "w2", "wl8"))
+    if want is not None:
+        assert want == repr(variant)
+        monkeypatch.setenv("GANQ_MEGASTEP", "1")
+        out = eng.generate(_ids(3, (batch, prompt)), max_new_tokens=new,
+                           max_seq=prompt + new)
+        assert out.shape == (batch, new)
 
 
 def test_optimize_whole_step_greedy_matches_jax(monkeypatch):

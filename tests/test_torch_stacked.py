@@ -30,6 +30,7 @@ from ganq_tpu_torch.serve import engine as teng
 from ganq_tpu_torch.serve import stacked as tst
 
 from test_torch_serve import _flatten_jax
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _np_linear(rng, out_f, in_f, kind, bits, dtype=jnp.bfloat16):
@@ -223,12 +224,12 @@ def test_prepack_routes_and_refuses_as_jax(monkeypatch):
     """``prepack`` at batch 1 packs the operands of the whole-step kernel
     the variant takes (kernel 12's for w8, kernel 14's for uniform W4, with
     zero points and act-order too, and kernel 13's at request time under
-    ``GANQ_W4_PLANE=0``); where the
-    variant is one of kernel 14's later sub-slices ("w2" here) it raises,
-    naming the kernel, and the engine serves such a model without it (its
-    decoding requests raise through ``stacked_only_kernel``). Off by default
-    on the CPU, as ganq_tpu's is; on by default for "cuda_a8" on the
-    card."""
+    ``GANQ_W4_PLANE=0``); kernel 14's "w2" (which earlier slices refused)
+    packs too, its 2-bit planes on ``megapack_lb``, and the engine keeps
+    the pack and serves its decoding requests through the variant ganq_tpu
+    picks ("w2" at batch 4, none at batch 65 or without decode steps). Off
+    by default on the CPU, as ganq_tpu's is; on by default for "cuda_a8"
+    on the card."""
     _, _, tcfg, w8 = _pair(256, 2, 1, 512, "w8", vocab=64)
     _, _, _, u4 = _pair(256, 2, 1, 512, "uniform", 4, vocab=64)
     _, _, tcfg2, u2 = _pair(512, 4, 2, 512, "uniform", 2, vocab=64)
@@ -249,20 +250,20 @@ def test_prepack_routes_and_refuses_as_jax(monkeypatch):
     assert "qkv_p4" in tst._mega_pack_for(tcfg, sp, "w4")
     assert sp.megapack4 is not None
     monkeypatch.delenv("GANQ_W4_PLANE")
-    with pytest.raises(NotImplementedError, match="kernel 14"):
-        tst.prepack(tcfg2, tst.stack_layers(u2, recode="affine"), "cuda_a8",
-                    1, "cpu")
+    sp2 = tst.prepack(tcfg2, tst.stack_layers(u2, recode="affine"),
+                      "cuda_a8", 1, "cpu")
+    # 2-bit planes: one plane byte holds 4 row blocks
+    assert sp2.megapack_lb["qkv_pk"].shape[1] == (512 + 2 * 256) // 4
     eng = teng.Engine(tcfg2, u2, backend="reference", device="cpu")
-    assert eng.stacked and getattr(eng.model, "megapack_lb", None) is None
-    got = teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 8, "cpu")
-    assert "kernel 14" in got and "'w2'" in got
-    assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 1,
-                                    "cpu") is None
-    assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 65, 8,
-                                    "cpu") is None
+    assert eng.stacked and eng.model.megapack_lb is not None
+    for batch, want in ((4, "w2"), (65, None)):
+        assert tst.mega_enabled(tcfg2, eng.model, "cuda_a8", batch,
+                                "cpu") == want
+    out = eng.generate(np.zeros((4, 3), np.int64), max_new_tokens=2,
+                       max_seq=8)
+    assert out.shape == (4, 2)
     eng4 = teng.Engine(tcfg, u4, backend="reference", device="cpu")
-    assert teng.stacked_only_kernel(tcfg, eng4.model, "cuda_a8", 4, 8,
-                                    "cpu") is None
+    assert tst.mega_enabled(tcfg, eng4.model, "cuda_a8", 4, "cpu") == "w4p"
     # zero points and act-order: kernel 14's pack carries the corrections
     # and the activations' column orders, and the requests are served
     from test_torch_megastep_lowbit import zp_ao_pair
@@ -271,10 +272,9 @@ def test_prepack_routes_and_refuses_as_jax(monkeypatch):
                      "cuda_a8", 1, "cpu")
     assert {"qkv_sz", "dn_sz", "ap_q", "ap_g", "ap_o"} <= set(sp.megapack_lb)
     assert "g_idx" in sp.layers[0].attn["qkv"]       # prefill keeps g_idx
-    assert teng.stacked_only_kernel(tcfg3, sp, "cuda_a8", 4, 8, "cpu") is None
+    assert tst.mega_enabled(tcfg3, sp, "cuda_a8", 4, "cpu") == "w4p"
     monkeypatch.setenv("GANQ_MEGASTEP", "0")
-    assert teng.stacked_only_kernel(tcfg2, eng.model, "cuda_a8", 4, 8,
-                                    "cpu") is None
+    assert tst.mega_enabled(tcfg2, eng.model, "cuda_a8", 4, "cpu") is None
 
 
 # ------------------------------------------------- the slice as a whole

@@ -14,6 +14,7 @@ from ganq_tpu.ops import uniform_matmul as jum
 from ganq_tpu.ops.packing import pack_int_rows as jpack
 from ganq_tpu_torch.ops import uniform_matmul as tum
 from ganq_tpu_torch.ops.packing import pack_int_rows
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _problem(seed, bits, B, M, K, G, sym=False, permuted=False):

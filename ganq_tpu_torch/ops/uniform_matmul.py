@@ -127,6 +127,22 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# floats of partial-sum scratch by (sizing symbol, shape)
+_SCRATCH: dict = {}
+
+
+def _partials(symbol: str, x: torch.Tensor, *shape: int):
+    """The float32 scratch for the partial sums of a product whose K the
+    kernel splits over blocks (``symbol`` sizes it for this shape, once a
+    shape), or None."""
+    n = _SCRATCH.get((symbol,) + shape)
+    if n is None:
+        fn = cuda_lib.function("uniform_matmul", symbol,
+                               [ctypes.c_int] * len(shape))
+        n = _SCRATCH[(symbol,) + shape] = fn(*shape)
+    return torch.empty(n, dtype=torch.float32, device=x.device) if n else None
+
+
 def uniform_matmul(x: torch.Tensor, qweight: torch.Tensor,
                    scales: torch.Tensor, zeros: Optional[torch.Tensor],
                    g_idx: Optional[torch.Tensor], bits: int = 4) -> torch.Tensor:
@@ -148,14 +164,18 @@ def uniform_matmul(x: torch.Tensor, qweight: torch.Tensor,
     B = x2.shape[0]
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     if B and M:
+        x_bf16 = int(x.dtype == torch.bfloat16)
+        part = _partials("ganq_uniform_matmul_scratch", x,
+                         B, M, width, bits, x_bf16)
         fn = cuda_lib.function(
             "uniform_matmul", "ganq_uniform_matmul",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         status = fn(x2.data_ptr(), qw.data_ptr(), sc.data_ptr(),
                     zp.data_ptr() if zp is not None else None,
                     gi.data_ptr() if gi is not None else None,
-                    out.data_ptr(), B, M, width, G, -(-K // G), bits,
-                    int(x.dtype == torch.bfloat16), _stream(x))
+                    out.data_ptr(),
+                    part.data_ptr() if part is not None else None, B, M,
+                    width, G, -(-K // G), bits, x_bf16, _stream(x))
         cuda_lib.check(status, "uniform_matmul")
         uniform_matmul.launches += 1
     return out.reshape(*x.shape[:-1], M)
@@ -209,14 +229,18 @@ def uniform_a8_matmul(x: torch.Tensor, qweight: torch.Tensor,
         x8 = torch.empty((B, K), dtype=torch.int8, device=x.device)
         sx = torch.empty((B,), dtype=torch.float32, device=x.device)
         sumx = torch.empty((B, G), dtype=torch.int32, device=x.device)
+        part = _partials("ganq_uniform_a8_matmul_scratch", x, B, M, width,
+                         bits)
         fn = cuda_lib.function(
             "uniform_matmul", "ganq_uniform_a8_matmul",
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         status = fn(x2.data_ptr(), qw.data_ptr(), sc.data_ptr(),
                     zp.data_ptr() if zp is not None else None,
                     x8.data_ptr(), sx.data_ptr(),
-                    sumx.data_ptr(), out.data_ptr(), B, M, width, G, bits,
-                    int(x.dtype == torch.bfloat16), _stream(x))
+                    sumx.data_ptr(), out.data_ptr(),
+                    part.data_ptr() if part is not None else None, B, M,
+                    width, G, bits, int(x.dtype == torch.bfloat16),
+                    _stream(x))
         cuda_lib.check(status, "uniform_a8_matmul")
         uniform_a8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], M)

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time kernels 5 (``uniform_matmul``) and 6 (``uniform_a8_matmul``) for the
+port found at a checkout root, to compare two builds of them on one card.
+
+    python3 scripts/torch_port_uniform_ab.py ROOT [--batches 1,8,128,512]
+        [--x-dtype bf16|float32] [--kernels k5,k6] [--eager] [--step]
+
+ROOT is a checkout of the repository (``.`` or, for the parent commit, a
+``git archive`` of it unpacked under ``build/``); its ``uniform_matmul``
+source builds into ROOT/build. The cases are ``chip_smoke.py``'s: symmetric
+codes with 128-column groups at the Llama-3.2-1B linears, kernel 5 at 4
+bits and kernel 6 at 4 and 8 bits, x in ``--x-dtype`` (kernel 6 quantizes
+it either way), at each batch; each time is the CUDA-graph replay of
+``chip_smoke.time_ms`` over rotating weight copies (cold from memory), and
+the library matmul on the dequantized weight (in x's type) is timed
+beside it. ``--eager`` adds each case's time per call in an eager loop of wrapper
+calls on one weight (host clock: the wrapper's host cost where it exceeds
+the kernel's). ``--step`` adds the per-layer decode step of two models at
+Llama-3.2-1B widths, 4 layers (``chip_smoke._decode_ms``, host clock,
+``layout="perlayer"``, 47 steps at batch 1 and 8): an asymmetric
+act-order W4 model on backend "cuda" (every linear through kernel 5) and
+a symmetric W4 one on "cuda_a8" (kernel 6). Prints one line ``TIMING
+{json}``: per case the kernel ms, the library ms and the bound ms (and
+``eager_ms``), per step model its ms by batch. Run the two roots in turns in one call (parent,
+change, change, parent): host and card differ between calls.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root")
+    ap.add_argument("--batches", default="1,8,128,512")
+    ap.add_argument("--x-dtype", default="bf16", choices=("bf16", "float32"))
+    ap.add_argument("--kernels", default="k5,k6")
+    ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--step", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
+
+    import torch
+
+    import chip_smoke as cs
+    from ganq_tpu_torch.ops import cuda_lib
+    from ganq_tpu_torch.ops.packing import pack_int_rows
+    from ganq_tpu_torch.ops.uniform_matmul import (dequantize_uniform,
+                                                   uniform_a8_matmul,
+                                                   uniform_matmul)
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    cuda_lib.build_all(("uniform_matmul",))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [int(b) for b in args.batches.split(",")]
+    xt = torch.bfloat16 if args.x_dtype == "bf16" else torch.float32
+
+    def eager_ms(fn, a, iters=300):
+        fn(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*a)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def make(M, K, bits):
+        codes = torch.randint(0, 2**bits, (M, K), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        scales = (torch.rand((M, K // 128), generator=gen, device="cuda")
+                  * 0.003 + 0.001) * min(1.0, 16.0 / 2**bits)
+        packed = pack_int_rows(codes, bits)
+        return (packed, scales, None, None, bits)
+
+    out = {"root": args.root, "x_dtype": args.x_dtype}
+    with torch.inference_mode():
+        for name, kernel, bits, peak in (
+                ("k5", uniform_matmul, 4, cs.BF16_FLOPS_PER_S),
+                ("k6", uniform_a8_matmul, 4, cs.INT8_OPS_PER_S),
+                ("k6", uniform_a8_matmul, 8, cs.INT8_OPS_PER_S)):
+            if name not in args.kernels.split(","):
+                continue
+            for label, (M, K) in cs.LLAMA_1B_LINEARS.items():
+                n = cs.copies_for(M * K * bits // 8)
+                weights = [make(M, K, bits) for _ in range(n)]
+                dense = [dequantize_uniform(w[0], w[1], None, None, bits,
+                                            K).to(xt)
+                         for w in weights[:cs.copies_for(2 * M * K)]]
+                for B in batches:
+                    x = torch.randn((B, K), generator=gen,
+                                    device="cuda").to(xt)
+                    iters = max(2 * n, 30)
+                    k_ms = cs.time_ms(kernel, [(x, *w) for w in weights],
+                                      iters)
+                    l_ms = cs.time_ms(lambda xx, w: torch.matmul(xx, w.T),
+                                      [(x, w) for w in dense], iters)
+                    nbytes = (B * K * 2 + M * K * bits // 8
+                              + M * (K // 128) * 4 + B * M * 2)
+                    b_ms, _ = cs.bound(nbytes, 2.0 * B * M * K, peak)
+                    out[f"{name}_w{bits}_{label}_B{B}"] = dict(
+                        ms=k_ms, library_ms=l_ms, bound_ms=b_ms)
+                    if args.eager:
+                        out[f"{name}_w{bits}_{label}_B{B}"]["eager_ms"] = (
+                            eager_ms(kernel, (x, *weights[0])))
+                del weights, dense
+                torch.cuda.empty_cache()
+        if args.step:
+            import numpy as np
+
+            from ganq_tpu_torch import GanqModel
+            from ganq_tpu_torch.models import synthetic
+
+            cfg = synthetic.llama_3_2_1b_config(4)
+            for tag, backend, model in (
+                    ("k5_actorder_w4", "cuda", cs._uniform_gptq(
+                        cfg, 4, asym=True, actorder=True, seed=8)[0]),
+                    ("k6_sym_w4", "cuda_a8", synthetic.make_model(
+                        cfg, kind="uniform", bits=4, seed=9))):
+                q = GanqModel(cfg, model, backend=backend)
+                q.generate(np.zeros((1, 8), dtype=np.int64),
+                           max_new_tokens=2, max_seq=16,
+                           layout="perlayer")                   # warm-up
+                ms = cs._decode_ms(q, f"{tag} per-layer step", (
+                    (1, 32, 48), (8, 32, 48)), np.random.default_rng(3),
+                    layouts=("perlayer",))
+                out[f"step_{tag}"] = {B: v["perlayer"]
+                                      for B, v in ms.items()}
+                del q, model
+                torch.cuda.empty_cache()
+    print("TIMING", json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

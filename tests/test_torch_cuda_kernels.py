@@ -10,7 +10,9 @@ activations, padded K, ragged batch tiles, GQA ratios 1/4/32, head dims 64
 and 128, and positions at tile edges; for the S-step kernels ragged m and n
 (n not a multiple of the 128-column block) and codebooks of 4 to 256
 entries; for the uniform and int8 kernels every bit width, symmetric and
-asymmetric zeros, sequential and permuted ``g_idx``, and batches 1 to 512.
+asymmetric zeros, sequential and permuted ``g_idx``, batches 1 to 1023
+(the decode, tile and split paths of kernels 5-6), and output widths that
+are no multiple of the row tiles.
 """
 
 import math
@@ -276,18 +278,47 @@ def _assert_within_ulp(got, exact):
     assert bool((err <= tol).all()), float(err.max())
 
 
+# output width M: 72; 204, no multiple of the 8-row decode tiles or the
+# 64-row tiles (the last tile's rows past M are read from row M - 1 and
+# never stored); 512, a k/v linear, whose 64 decode row tiles at B = 1
+# leave the card short of blocks, so K is split over blocks and a second
+# launch adds the partial sums in order
+_UNIFORM_M = [72, 204, 512]
+
+
+def _split_scratch(B, M, width, bits):
+    """The partial-sum scratch (floats) kernels 5 (bf16 x) and 6 plan for
+    a shape: nonzero where they split K over blocks."""
+    import ctypes
+
+    from ganq_tpu_torch.ops import cuda_lib
+
+    return (cuda_lib.function("uniform_matmul", "ganq_uniform_matmul_scratch",
+                              [ctypes.c_int] * 5)(B, M, width, bits, 1),
+            cuda_lib.function("uniform_matmul",
+                              "ganq_uniform_a8_matmul_scratch",
+                              [ctypes.c_int] * 4)(B, M, width, bits))
+
+
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
-@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+@pytest.mark.parametrize("B", [1, 3, 8, 16, 33, 128, 512, 1023])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", ["seq", "perm", "sym", "odd"])
-def test_uniform_matmul_matches_plain(gen, bits, B, dtype, groups):
+@pytest.mark.parametrize("M", _UNIFORM_M)
+def test_uniform_matmul_matches_plain(gen, bits, B, dtype, groups, M):
     """Kernel 5 at every g_idx kind: the weight rounded to x's type as the
     plain version rounds it, the sum within one ulp of the float64 sum.
-    "odd" is a width of 9 words (unaligned) with one group."""
-    M = 72
-    K, G = (1024, 8) if groups != "odd" else (9 * pack_factor(bits), 1)
+    "odd" is a width of 9 words (unaligned) with one group. B <= 8 with bf16
+    x runs the decode path (split over K at M = 512, K = 2048), B >= 9 the
+    tensor-core tile path ("perm" with zero points included); float32 x
+    the GEMV up to 40 rows, the CUDA-core tile beyond; "odd" the GEMV."""
+    K, G = (1024, 8) if M != 512 else (2048, 16)
+    if groups == "odd":
+        K, G = 9 * pack_factor(bits), 1
     packed, scales, zeros, g_idx = _uniform_problem(
         gen, bits, M, K, G, sym=groups == "sym", permuted=groups == "perm")
+    if M == 512 and B == 1 and bits in (4, 8) and groups != "odd":
+        assert _split_scratch(B, M, packed.shape[1], bits)[0] > 0
     x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
     before = uniform_matmul.launches
     got = uniform_matmul(x, packed, scales, zeros, g_idx, bits)
@@ -301,17 +332,22 @@ def test_uniform_matmul_matches_plain(gen, bits, B, dtype, groups):
 
 
 @pytest.mark.parametrize("bits,K,G", [(4, 1024, 8), (4, 1024, 1), (8, 1024, 8),
-                                      (3, 1024, 8), (2, 2048, 16), (8, 2048, 8)])
-@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+                                      (3, 1024, 8), (2, 2048, 16), (8, 2048, 8),
+                                      (4, 2048, 16)])
+@pytest.mark.parametrize("B", [1, 3, 8, 16, 33, 128, 512, 1023])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sym", [True, False])
-def test_uniform_a8_matmul_matches_plain(gen, bits, K, G, B, dtype, sym):
+@pytest.mark.parametrize("M", _UNIFORM_M)
+def test_uniform_a8_matmul_matches_plain(gen, bits, K, G, B, dtype, sym, M):
     """Kernel 6 against its plain version: the same int8 activations, exact
     integer dots per group against float32 sums of the same products;
-    within 1e-5 of the output scale plus one ulp of x's type."""
-    M = 72
+    within 1e-5 of the output scale plus one ulp of x's type. At M = 512,
+    K = 2048 and B = 1 the decode path splits K over blocks; B = 1023
+    ends in a ragged tile of token rows."""
     packed, scales, zeros, _ = _uniform_problem(gen, bits, M, K, G, sym,
                                                 permuted=False)
+    if M == 512 and K == 2048 and B == 1 and bits in (4, 8):
+        assert _split_scratch(B, M, packed.shape[1], bits)[1] > 0
     x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
     before = (uniform_a8_matmul.launches, uniform_matmul.launches)
     got = uniform_a8_matmul(x, packed, scales, zeros, None, bits)

@@ -16,9 +16,9 @@ Phases, each of which raises (exit code != 0) on failure:
    float32 matmul of the same operation count as a yardstick) and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 989
    TFLOP/s in bf16, 1979 TOP/s in int8 and 67 TFLOP/s in float32). Kernels
-   5-6 (uniform linears) run at batch 1, 8, 128 and 512, kernels 7-8 (int8
-   linears) at 1, 8 and 512; their library yardstick is a bf16 matmul on
-   the dequantized weight. Kernels 9-12 (the
+   5-6 (uniform linears) and 7-8 (int8 linears) run at batch 1, 8, 128 and
+   512; their library yardstick is a bf16 matmul on the dequantized
+   weight. Kernels 9-12 (the
    fused W8A8 MLP, norm + qkv + rope, attention half and whole decode step)
    run at the Llama-3.2-3B shapes, batch 1 and 8 (and 64 for 9 and 10);
    the group-scaled whole decode steps, kernel 14 ("w4p", "w8p", "w3",
@@ -569,9 +569,11 @@ def check_uniform_kernels(gen) -> list:
 
 def check_w8_kernels(gen) -> list:
     """Kernels 7 (``w8_matmul``) and 8 (``w8a8_matmul``) on per-row int8
-    weights (the ``optimize("w8")`` recode). Kernel 8 and its plain version
-    quantize x alike and sum integers exactly: they are expected to agree
-    bit for bit, and are held to the same bound as the others."""
+    weights (the ``optimize("w8")`` recode) at batch 1 and 8 (the decode
+    path), 128 (a typical prompt) and 512 (the tile path). Kernel 8 and its
+    plain version quantize x alike and sum integers exactly: they are
+    expected to agree bit for bit, and are held to the same bound as the
+    others."""
     from ganq_tpu_torch.ops.w8_matmul import (w8_matmul, w8_matmul_reference,
                                               w8a8_matmul, w8a8_reference)
 
@@ -590,7 +592,8 @@ def check_w8_kernels(gen) -> list:
             ("w8_matmul", w8_matmul, w8_matmul_reference, BF16_FLOPS_PER_S),
             ("w8a8_matmul", w8a8_matmul, w8a8_reference, INT8_OPS_PER_S)):
         rows, worst = _linear_rows(name, kernel, plain, make, nbytes_of, peak,
-                                   gen, ((8, "int8 per-row"),))
+                                   gen, ((8, "int8 per-row"),),
+                                   batches=(1, 8, 128, 512))
         entry = dict(rows[(8, "down", 1)])
         entry.update(name=name, max_abs_err=worst,
                      shape="int8 M=2048 K=8192 B=1 (down, decode)")

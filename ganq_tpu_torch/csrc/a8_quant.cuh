@@ -1,6 +1,7 @@
-// Per-token int8 activation quantization shared by the int8-activation
-// kernels (uniform_matmul.cu kernel 6, w8_matmul.cu kernel 8), and the
-// element helpers both sources use.
+// Per-token int8 activation quantization of the uniform int8-activation
+// kernel (uniform_matmul.cu kernel 6), and the element helpers that source
+// and w8_matmul.cu use (kernel 8 forms its sx as XLA compiles the JAX
+// kernel's: w8_matmul.cu, sx_of).
 //
 // The rounding rule is the JAX package's jnp.round(x / sx): per token row
 // sx = max(max|x| / 127, 1e-12), x8 = clamp(rint(x / sx), -127, 127) with an

@@ -105,7 +105,7 @@
 // packed words, a chunk of x (or x8) is staged in shared memory per block,
 // and token rows come in tiles of kMaxTB per block row.
 
-#include "a8_quant.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -235,18 +235,6 @@ uniform_gemv_kernel(const XT* __restrict__ x, const int32_t* __restrict__ qw,
       if (lane == 0 && j < nb && m0 + r < M)
         store(out + (size_t)(b0 + j) * M + m0 + r, v);
     }
-}
-
-// dynamic shared memory above 48 KB has to be allowed once per kernel
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, bool& raised) {
-  if (smem > 48 * 1024 && !raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    raised = true;
-  }
-  return cudaSuccess;
 }
 
 template <typename XT, int BITS, int TB>
@@ -402,60 +390,12 @@ cudaError_t launch_a8(const void* x8, const void* sx, const void* sumx,
 }
 
 // ------------------------------------------------------ tensor-core paths
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory; lane L gives row L & 7 of
-// matrix L >> 3
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ uint2 ldg2(const int32_t* p) {
   return __ldg(reinterpret_cast<const uint2*>(p));
 }
 __device__ __forceinline__ uint4 ldg4(const int32_t* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
-// two weights rounded to bf16 in one register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // an int32 group dot as a float, exactly: |d| < 2^22 (128 columns of
 // |x8| <= 127 and |code| <= 128), so d + 0x4B400000 is the bit pattern of
 // 2^23 + 2^22 + d; one integer add and one float add, on full-rate pipes
@@ -489,14 +429,6 @@ __device__ __forceinline__ float2 sz_col(const float* __restrict__ scales,
   const int g = gidx ? __ldg(gidx + col) : col / gs;
   const size_t i = (size_t)r * G + g;
   return make_float2(__ldg(scales + i), zeros ? __ldg(zeros + i) : center);
-}
-
-__device__ __forceinline__ void store_out(void* out, int out_bf16, size_t o,
-                                          float v) {
-  if (out_bf16)
-    store(static_cast<bf16*>(out) + o, v);
-  else
-    store(static_cast<float*>(out) + o, v);
 }
 
 constexpr int kDecWarps = 8;     // most warps of a decode block
@@ -1291,22 +1223,6 @@ uniform_a8_tc_tile(const int8_t* __restrict__ x8,
                  gridDim.z > 1 ? part : nullptr, sx);
 }
 
-// the splits' partial sums [nsplit][B][M] added in split order (times sx
-// for kernel 6) into the output
-__global__ void __launch_bounds__(256)
-sum_splits_kernel(const float* __restrict__ part, int nsplit, int B, int M,
-                  const float* __restrict__ sx, void* __restrict__ out,
-                  int out_bf16) {
-  const size_t n = (size_t)B * M;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = part[i];
-    for (int s = 1; s < nsplit; ++s) v += part[(size_t)s * n + i];
-    if (sx) v *= __ldg(sx + i / M);
-    store_out(out, out_bf16, i, v);
-  }
-}
-
 // ------------------------------------------------------------- planning
 enum Path { kGemv, kDecode, kTileBf16, kTileF32 };
 
@@ -1410,11 +1326,7 @@ cudaError_t sum_splits(const Plan& pl, const float* part, int B, int M,
                        const float* sx, void* out, int out_bf16,
                        cudaStream_t s) {
   if (pl.nsplit <= 1) return cudaSuccess;
-  const size_t n = (size_t)B * M;
-  const int blocks = (int)min((n + 255) / 256, (size_t)4096);
-  sum_splits_kernel<<<blocks, 256, 0, s>>>(part, pl.nsplit, B, M, sx, out,
-                                           out_bf16);
-  return cudaGetLastError();
+  return launch_sum_splits(part, pl.nsplit, B, M, sx, out, out_bf16, s);
 }
 
 template <int BITS, int NT>

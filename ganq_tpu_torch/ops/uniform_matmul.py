@@ -127,20 +127,20 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-# floats of partial-sum scratch by (sizing symbol, shape)
+# elements of scratch by (sizing symbol, shape)
 _SCRATCH: dict = {}
 
 
-def _partials(symbol: str, x: torch.Tensor, *shape: int):
-    """The float32 scratch for the partial sums of a product whose K the
-    kernel splits over blocks (``symbol`` sizes it for this shape, once a
-    shape), or None."""
+def _scratch(lib: str, symbol: str, dtype: torch.dtype, x: torch.Tensor,
+             *shape: int):
+    """The scratch a kernel of library ``lib`` needs at this shape (the
+    partial sums of a product whose K it splits over blocks, ...), in
+    elements of ``dtype`` as ``symbol`` sizes it once a shape, or None."""
     n = _SCRATCH.get((symbol,) + shape)
     if n is None:
-        fn = cuda_lib.function("uniform_matmul", symbol,
-                               [ctypes.c_int] * len(shape))
+        fn = cuda_lib.function(lib, symbol, [ctypes.c_int] * len(shape))
         n = _SCRATCH[(symbol,) + shape] = fn(*shape)
-    return torch.empty(n, dtype=torch.float32, device=x.device) if n else None
+    return torch.empty(n, dtype=dtype, device=x.device) if n else None
 
 
 def uniform_matmul(x: torch.Tensor, qweight: torch.Tensor,
@@ -165,8 +165,8 @@ def uniform_matmul(x: torch.Tensor, qweight: torch.Tensor,
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     if B and M:
         x_bf16 = int(x.dtype == torch.bfloat16)
-        part = _partials("ganq_uniform_matmul_scratch", x,
-                         B, M, width, bits, x_bf16)
+        part = _scratch("uniform_matmul", "ganq_uniform_matmul_scratch",
+                        torch.float32, x, B, M, width, bits, x_bf16)
         fn = cuda_lib.function(
             "uniform_matmul", "ganq_uniform_matmul",
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -229,8 +229,8 @@ def uniform_a8_matmul(x: torch.Tensor, qweight: torch.Tensor,
         x8 = torch.empty((B, K), dtype=torch.int8, device=x.device)
         sx = torch.empty((B,), dtype=torch.float32, device=x.device)
         sumx = torch.empty((B, G), dtype=torch.int32, device=x.device)
-        part = _partials("ganq_uniform_a8_matmul_scratch", x, B, M, width,
-                         bits)
+        part = _scratch("uniform_matmul", "ganq_uniform_a8_matmul_scratch",
+                        torch.float32, x, B, M, width, bits)
         fn = cuda_lib.function(
             "uniform_matmul", "ganq_uniform_a8_matmul",
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

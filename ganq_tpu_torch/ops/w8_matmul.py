@@ -16,7 +16,10 @@ padding (K' >= K) and x is zero-padded to match.
   version on the CPU. Its own plain version is :func:`w8a8_reference`.
 
 The wrappers take the plain versions only for CPU tensors; for a CUDA tensor
-they launch their kernel or raise. ``.launches`` counts kernel calls.
+they launch their kernel or raise. ``.launches`` counts kernel calls. The C
+entries pick a decode, tile or GEMV path by shape (``csrc/w8_matmul.cu``);
+a call gets one scratch buffer, sized through the library once a shape:
+the partial sums of a K split and, for kernel 8, x8 and sx.
 """
 
 from __future__ import annotations
@@ -28,8 +31,7 @@ import torch
 
 from . import cuda_lib
 from .packing import pack_factor, unpack_int_rows
-from .uniform_matmul import (_X_TYPES, _aligned, _pick_tile, _stream,
-                             quantize_rows)
+from .uniform_matmul import _X_TYPES, _aligned, _pick_tile, _scratch, _stream
 
 
 def recode_lut_to_int8(lut: torch.Tensor, idx_packed: torch.Tensor, bits: int,
@@ -56,12 +58,26 @@ def w8_matmul_reference(x: torch.Tensor, w8: torch.Tensor,
     return x @ w[:, :K].T.to(x.dtype)
 
 
+def quantize_rows_w8a8(x2: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 8's int8 activations of x2 [B, K]: (x8 as float32 integers,
+    sx [B, 1]) with ``sx = max(max|x| * fl(1/127), 1e-12)``, the product
+    into which XLA compiles the JAX kernel's ``max|x| / 127.0`` (it differs
+    from the quotient in the last bit on some rows), and ``x8 =
+    clamp(round(x / sx), -127, 127)``, an IEEE quotient, ties to even."""
+    xf = x2.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=1, keepdim=True)
+    sx = torch.clamp(amax * (1.0 / 127.0), min=1e-12)
+    return torch.clamp(torch.round(xf / sx), -127, 127), sx
+
+
 def w8a8_reference(x: torch.Tensor, w8: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel 8: x zero-padded to K', per-token int8
-    activations, the integer dot (exact in float64), ``(acc * sx) * s``."""
+    activations (:func:`quantize_rows_w8a8`), the integer dot (exact in
+    float64), ``(acc * sx) * s``."""
     M, Kp = w8.shape
-    x8, sx = quantize_rows(_padded_rows(x, Kp))
+    x8, sx = quantize_rows_w8a8(_padded_rows(x, Kp))
     acc = (x8.to(torch.float64) @ w8.to(torch.float64).T).to(torch.float32)
     y = (acc * sx) * scale.to(torch.float32).reshape(1, M)
     return y.reshape(*x.shape[:-1], M).to(x.dtype)
@@ -103,12 +119,16 @@ def w8_matmul(x: torch.Tensor, w8: torch.Tensor,
     B = x2.shape[0]
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     if B and M:
+        x_bf16 = int(x.dtype == torch.bfloat16)
+        scratch = _scratch("w8_matmul", "ganq_w8_matmul_scratch", torch.uint8,
+                           x, B, M, Kp, x_bf16)
         fn = cuda_lib.function(
             "w8_matmul", "ganq_w8_matmul",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         status = fn(x2.data_ptr(), wq.data_ptr(), sc.data_ptr(),
-                    out.data_ptr(), B, M, Kp, int(x.dtype == torch.bfloat16),
-                    _stream(x))
+                    out.data_ptr(),
+                    scratch.data_ptr() if scratch is not None else None, B, M,
+                    Kp, x_bf16, _stream(x))
         cuda_lib.check(status, "w8_matmul")
         w8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], M)
@@ -141,14 +161,15 @@ def w8a8_matmul(x: torch.Tensor, w8: torch.Tensor,
     B = x2.shape[0]
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     if B and M:
-        x8 = torch.empty((B, Kp), dtype=torch.int8, device=x.device)
-        sx = torch.empty((B,), dtype=torch.float32, device=x.device)
+        x_bf16 = int(x.dtype == torch.bfloat16)
+        scratch = _scratch("w8_matmul", "ganq_w8a8_matmul_scratch",
+                           torch.uint8, x, B, M, Kp, x_bf16)
         fn = cuda_lib.function(
             "w8_matmul", "ganq_w8a8_matmul",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        status = fn(x2.data_ptr(), wq.data_ptr(), sc.data_ptr(), x8.data_ptr(),
-                    sx.data_ptr(), out.data_ptr(), B, M, Kp,
-                    int(x.dtype == torch.bfloat16), _stream(x))
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        status = fn(x2.data_ptr(), wq.data_ptr(), sc.data_ptr(),
+                    scratch.data_ptr() if scratch is not None else None,
+                    out.data_ptr(), B, M, Kp, x_bf16, _stream(x))
         cuda_lib.check(status, "w8a8_matmul")
         w8a8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], M)
@@ -157,4 +178,4 @@ def w8a8_matmul(x: torch.Tensor, w8: torch.Tensor,
 w8a8_matmul.launches = 0
 
 __all__ = ["w8_matmul", "w8_matmul_reference", "w8a8_matmul", "w8a8_reference",
-           "recode_lut_to_int8", "w8a8_eligible"]
+           "quantize_rows_w8a8", "recode_lut_to_int8", "w8a8_eligible"]

@@ -11,7 +11,7 @@ and 128, and positions at tile edges; for the S-step kernels ragged m and n
 (n not a multiple of the 128-column block) and codebooks of 4 to 256
 entries; for the uniform and int8 kernels every bit width, symmetric and
 asymmetric zeros, sequential and permuted ``g_idx``, batches 1 to 1023
-(the decode, tile and split paths of kernels 5-6), and output widths that
+(the decode, tile and split paths of kernels 5-8), and output widths that
 are no multiple of the row tiles.
 """
 
@@ -402,14 +402,41 @@ def _w8_problem(gen, M, Kp):
     return w8, scale
 
 
-@pytest.mark.parametrize("K,Kp", [(1024, 1024), (1000, 1024), (72, 72)])
-@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+def _w8_scratch(B, M, Kp, x_bf16):
+    """The scratch bytes kernels 7 and 8 plan for a shape: kernel 7's is
+    nonzero where it splits K over blocks; kernel 8's holds x8 and sx, and
+    the partial sums where it splits K."""
+    import ctypes
+
+    from ganq_tpu_torch.ops import cuda_lib
+
+    return tuple(cuda_lib.function("w8_matmul", sym, [ctypes.c_int] * 4)(
+        B, M, Kp, x_bf16) for sym in ("ganq_w8_matmul_scratch",
+                                      "ganq_w8a8_matmul_scratch"))
+
+
+# (K, K'): K' = 14336 is Llama-3.1-8B's down projection
+_W8_KKP = [(1024, 1024), (1000, 1024), (72, 72), (8192, 8192),
+           (14336, 14336)]
+_W8_B = [1, 3, 8, 9, 33, 128, 512, 1023]
+_W8_M = [8, 72, 136, 512]
+
+
+@pytest.mark.parametrize("K,Kp", _W8_KKP)
+@pytest.mark.parametrize("B", _W8_B)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_w8_matmul_matches_plain(gen, K, Kp, B, dtype):
+@pytest.mark.parametrize("M", _W8_M)
+def test_w8_matmul_matches_plain(gen, K, Kp, B, dtype, M):
     """Kernel 7: the weight rounded to x's type as the plain version rounds
-    it, the sum within one ulp of the float64 sum; x zero-padded past K."""
-    M = 72
+    it, the sum within one ulp of the float64 sum; x zero-padded past K.
+    bf16 x runs the decode path up to 8 rows (16 where it splits no K) and
+    the tensor-core tile beyond (K split over blocks at M = 512, K' =
+    8192); float32 x the GEMV
+    up to 40 rows and the CUDA-core tile beyond; K' = 72 (no multiple of
+    16) the GEMV."""
     w8, scale = _w8_problem(gen, M, Kp)
+    if dtype == torch.bfloat16 and (M, Kp, B) == (512, 8192, 128):
+        assert _w8_scratch(B, M, Kp, 1)[0] > 0
     x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
     before = w8_matmul.launches
     got = w8_matmul(x, w8, scale)
@@ -422,15 +449,43 @@ def test_w8_matmul_matches_plain(gen, K, Kp, B, dtype):
                                atol=1e-2 * float(plain.abs().max()))
 
 
-@pytest.mark.parametrize("K,Kp,M", [(1024, 1024, 72), (1000, 1024, 72),
-                                    (72, 72, 8), (2048, 2048, 136)])
-@pytest.mark.parametrize("B", [1, 3, 8, 33, 512])
+@pytest.mark.parametrize("kernel", ["w8", "w8a8"])
+def test_w8_decode_splits_long_rows(gen, kernel):
+    """At 8 token rows the decode path splits K over blocks where the staged
+    x would not fit beside the weight rings (K' = 28672, Llama-3.1-70B's
+    down: kernel 7's bf16 slice and kernel 8's int8 one) and adds the
+    partial sums in a second launch."""
+    B, M, K = 8, 72, 28672
+    w8, scale = _w8_problem(gen, M, K)
+    x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+    scratch = _w8_scratch(B, M, K, 1)
+    if kernel == "w8":
+        assert scratch[0] > 0
+        got = w8_matmul(x, w8, scale)
+        _assert_within_ulp(got, x.double() @ (w8.float() * scale).to(
+            torch.bfloat16).double().T)
+    else:
+        assert scratch[1] > B * K + 4 * B   # x8, sx and the partial sums
+        torch.testing.assert_close(w8a8_matmul(x, w8, scale),
+                                   w8a8_reference(x, w8, scale), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("K,Kp,M", [
+    (K, Kp, M) for K, Kp in _W8_KKP for M in _W8_M
+    if Kp % 128 == 0 or M <= 8] + [(2048, 2048, 136)])
+@pytest.mark.parametrize("B", _W8_B)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w8a8_matmul_matches_plain(gen, K, Kp, M, B, dtype):
     """Kernel 8 equals its plain version bit for bit: the same int8
-    activations (IEEE division, ties to even), an exact integer dot on both
-    sides, and the same two float products in the same order."""
+    activations (sx as XLA forms it, an IEEE quotient, ties to even), an
+    exact integer dot on both sides (split over blocks or not), and the
+    same two float products in the same order. K' = 72 passes the gate at
+    M <= 8 only (the GEMV)."""
     w8, scale = _w8_problem(gen, M, Kp)
+    x_bf16 = int(dtype == torch.bfloat16)
+    if (B, M, Kp) == (128, 512, 8192):   # x8, sx and K-split partial sums
+        assert _w8_scratch(B, M, Kp, x_bf16)[1] > B * Kp + 2 * B * M * 4
     x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
     before = (w8a8_matmul.launches, w8_matmul.launches)
     got = w8a8_matmul(x, w8, scale)

@@ -69,15 +69,18 @@ def test_recode_lut_to_int8_matches_jax():
 
 @pytest.mark.parametrize("kernel", ["w8", "w8a8"])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_w8_kernels_match_jax(kernel, dtype):
+@pytest.mark.parametrize("B", [1, 8, 40, 128])
+def test_w8_kernels_match_jax(kernel, dtype, B):
     """The w8 recode of the same lut linear through both packages' kernels
-    (ganq_tpu's in interpret mode, K' = 256 so its gate admits the shape).
-    w8: both round the weight to x's type and sum in float32 (1e-5 of the
-    scale; one bf16 ulp for bf16). w8a8: the same int8 activations and
-    exact integer dots, so the results are equal."""
+    (ganq_tpu's in interpret mode, K' = 256 so its gate admits the shape),
+    at the token rows of each of the port's paths on the card (decode up
+    to 8, the float32 GEMV up to 40, the tiles beyond). w8: both round the
+    weight to x's type and sum in float32 (1e-5 of the scale; one bf16 ulp
+    for bf16). w8a8: the same int8 activations and exact integer dots, so
+    the results are equal."""
     j, t = _lut_pair(1, 4, 32, 256)
     jq, tq = jql.recode_w8(j), tql.recode_w8(t)
-    x = np.random.default_rng(2).normal(size=(8, 256)).astype(np.float32)
+    x = np.random.default_rng(2).normal(size=(B, 256)).astype(np.float32)
     jx = jnp.asarray(x).astype(dtype)
     tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == jnp.bfloat16
                                 else torch.float32)

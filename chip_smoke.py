@@ -16,9 +16,9 @@ Phases, each of which raises (exit code != 0) on failure:
    float32 matmul of the same operation count as a yardstick) and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 989
    TFLOP/s in bf16, 1979 TOP/s in int8 and 67 TFLOP/s in float32). Kernels
-   5-6 (uniform linears) and 7-8 (int8 linears) run at batch 1, 8, 128 and
-   512; their library yardstick is a bf16 matmul on the dequantized
-   weight. Kernels 9-12 (the
+   1 (``lut`` linears), 5-6 (uniform linears) and 7-8 (int8 linears) run at
+   batch 1, 8, 128 and 512; their library yardstick is a bf16 matmul on the
+   dequantized weight. Kernels 9-12 (the
    fused W8A8 MLP, norm + qkv + rope, attention half and whole decode step)
    run at the Llama-3.2-3B shapes, batch 1 and 8 (and 64 for 9 and 10);
    the group-scaled whole decode steps, kernel 14 ("w4p", "w8p", "w3",
@@ -277,7 +277,7 @@ def check_lut_matmul(gen) -> dict:
         dense = [torch.take_along_dim(
             lut.float(), unpack_int_rows(p, bits, K).long(), dim=1
         ).to(torch.bfloat16) for lut, p in weights[:copies_for(2 * M * K)]]
-        for B in (1, 8, 512):
+        for B in (1, 8, 128, 512):
             x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
             lut, packed = weights[0]
             got = lut_matmul(x, lut, packed, bits)
@@ -959,7 +959,7 @@ def _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, kmajor, gs=128,
     return mp
 
 
-ZP_AO_LAYERS = 8                   # depth of kernel 14's 8B-width cases
+ZP_AO_LAYERS = 4                   # depth of kernel 14's 8B-width cases
 
 
 def _zp_ao_operands(gen, mp, L, H, q_dim, bits, zp, ao):
@@ -1330,7 +1330,7 @@ def check_lora(gen) -> dict:
     return rows
 
 
-ARCH_CHECK_LAYERS = 4              # depth of kernel 14's qk-norm/bias cases
+ARCH_CHECK_LAYERS = 2              # depth of kernel 14's qk-norm/bias cases
 
 
 def _arch_operands(gen, mp, L, H, q_dim, kv_dim, I, qkn, bias):
@@ -1498,7 +1498,7 @@ def check_arch(gen) -> dict:
 
 
 GEMMA3_CHECK_LAYERS = 6            # one period of Gemma 3's 5:1 pattern
-GEMMA2_CHECK_LAYERS = 4            # two of Gemma 2's sliding/full pairs
+GEMMA2_CHECK_LAYERS = 2            # one of Gemma 2's sliding/full pairs
 
 
 def _gemma_operands(gen, mp, cfg, L):
@@ -1716,7 +1716,7 @@ def check_gemma(gen) -> dict:
 
 
 LOWBIT3_LAYERS = 28                # w3/w2/wl8 at Llama-3.2-3B: every layer
-LOWBIT3_OPT_LAYERS = 4             # depth of their optional-operand cases
+LOWBIT3_OPT_LAYERS = 2             # depth of their optional-operand cases
 
 
 def _k14_call(lib, x, mp, kc, vc, pos_t, cos, sin, *, bits, walsh=0, **kw):
@@ -2998,7 +2998,7 @@ def phase_3b_path():
     return results
 
 
-EIGHT_B_LAYERS = 4                 # depth of the 8B path (see PERF.md)
+EIGHT_B_LAYERS = 2                 # depth of the 8B path (see PERF.md)
 MIXTRAL_LAYERS = 2                 # depth of the Mixtral path (see PERF.md)
 
 
@@ -3112,7 +3112,7 @@ def phase_mixtral_path():
     return results
 
 
-BATCHING_LAYERS = 4                # depth of the batching path (PERF.md)
+BATCHING_LAYERS = 2                # depth of the batching path (PERF.md)
 
 
 class ByteTokenizer:
@@ -4172,7 +4172,7 @@ def phase_gemma2_path():
     return out
 
 
-LOWBIT_PATH_LAYERS = 4             # depth of the 8B W3/W2 path (PERF.md)
+LOWBIT_PATH_LAYERS = 2             # depth of the 8B W3/W2 path (PERF.md)
 WALSH_QUANTIZE_LAYERS = 2          # depth of the GANQ-3 quantize path
 WALSH_SPEED_LAYERS = 28            # depth of the 3B "wl8" timing model
 MEGA_ON = {"GANQ_MEGASTEP": "1"}   # the whole step on a non-a8 backend

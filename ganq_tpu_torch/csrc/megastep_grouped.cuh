@@ -422,12 +422,13 @@ __device__ __forceinline__ void stage_rows_ord(const int8_t* src,
   stage_rows_ld<TB>(src, K, 0, b0, nb, K, xs);
 }
 
-// the attention output's int8 scale of token row b: max(1e-12, max|a|) / 127
+// the attention output's int8 scale of token row b: max(1e-12, max|a|) *
+// fl(1/127) (sa_of)
 __device__ __forceinline__ float attn_scale(const W8A8Args& a, int b) {
   const int Hkv = a.kv_dim / a.d;
   float m = 1e-12f;
   for (int g = 0; g < Hkv; ++g) m = fmaxf(m, a.attn_amax[b * Hkv + g]);
-  return m / 127.f;
+  return sa_of(m);
 }
 
 __device__ __forceinline__ float bf(const bf16* p, size_t i) {

@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, 2) megastep_kernel(W8A8Args a) {
       float m = 1e-12f;
       for (int g = 0; g < Hkv; ++g) m = fmaxf(m, a.attn_amax[b * Hkv + g]);
       a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(__fmul_rn(
-          (float)a.o32[e], m / 127.f), a.o_t_scale[(size_t)l * H + n]));
+          (float)a.o32[e], sa_of(m)), a.o_t_scale[(size_t)l * H + n]));
     }
     grid.sync();
     for (int b = blockIdx.x; b < a.B; b += gridDim.x)

@@ -1,5 +1,6 @@
-// Helpers shared by the tensor-core paths of uniform_matmul.cu (kernels
-// 5-6) and w8_matmul.cu (kernels 7-8): mma.sync and ldmatrix wrappers,
+// Helpers shared by the tensor-core paths of lut_matmul.cu (kernel 1),
+// flash_decode.cu (kernel 2), uniform_matmul.cu (kernels 5-6) and
+// w8_matmul.cu (kernels 7-8): mma.sync and ldmatrix wrappers,
 // cp.async, the opt-in to more than 48 KB of dynamic shared memory, and the
 // second launch that adds the float32 partial sums of a K split in split
 // order.
@@ -53,12 +54,30 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       : "r"(a));
 }
 
+// the same, each matrix transposed: lane L gets column L >> 2 of rows 2 (L
+// & 3) and 2 (L & 3) + 1
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 // 16 bytes global -> shared; zero-filled (nothing read) when !ok
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
                "l"(src), "r"(ok ? 16 : 0));
+}
+// 8 bytes global -> shared (through L1); zero-filled when !ok
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(a),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -17,9 +17,9 @@
 //
 // * uniform_a8_matmul (Pallas kernel _uniform_a8_kernel, pallas_call at
 //   :244, int8 MXU dots per 128-column group), entry
-//   ganq_uniform_a8_matmul: per token row sx = max(max|x| / 127, 1e-12),
-//   x8 = clamp(rint(x / sx), -127, 127) (IEEE division, ties to even, as
-//   jnp.round), then per group an exact int32 dot of x8 with the codes
+//   ganq_uniform_a8_matmul: per token row sx = max(max|x| * fl(1/127),
+//   1e-12) and x8 = clamp(rint(x / sx), -127, 127) (a8_quant.cuh, the rule
+//   of every int8-activation kernel), then per group an exact int32 dot of x8 with the codes
 //   (8-bit codes centred by 128 to fit int8, the offset folded into the
 //   zero side: z' = z - 128), and
 //
@@ -259,7 +259,7 @@ cudaError_t launch_uniform(const void* x, const void* qw, const void* scales,
 }
 
 // ------------------------------------------------- the GEMV, kernel 6
-// (the activation quantization, quant_rows_kernel, is in a8_quant.cuh)
+// (the activation quantization, quant_rows_a8_kernel, is in a8_quant.cuh)
 
 // four int8 values, as one int32 for __dp4a
 __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
@@ -1522,8 +1522,8 @@ extern "C" int ganq_uniform_a8_matmul(const void* x, const void* qw,
   // the group sums of x8 feed only the zero side, which the tensor-core
   // paths skip for symmetric 8-bit codes (z' = 128 - 128 = 0)
   const bool need_sumx = pl.path == kGemv || zeros || bits < 8;
-  cudaError_t err = launch_quant(x, x_bf16, B, K, x8, sx,
-                                 need_sumx ? sumx : nullptr, G, gs, s);
+  cudaError_t err = quant_a8(x, x_bf16, B, K, x8, sx,
+                             need_sumx ? sumx : nullptr, G, gs, s);
   if (err != cudaSuccess) return (int)err;
   float* pp = static_cast<float*>(part);
   switch (bits) {

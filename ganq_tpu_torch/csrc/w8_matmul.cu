@@ -13,10 +13,9 @@
 //
 // * w8a8_matmul (Pallas kernel _w8a8_kernel, pallas_call at :146), entry
 //   ganq_w8a8_matmul: per token row sx = max(max|x| * fl(1/127), 1e-12)
-//   (sx_of: the product XLA makes of the JAX kernel's max|x| / 127.0), x8 =
-//   clamp(rint(x / sx), -127, 127) (IEEE division, ties to even, as
-//   jnp.round), an exact int32 dot acc = x8 . w8[m], and out[b, m] =
-//   (float(acc) * sx[b]) * scale[m], in that order.
+//   and x8 = clamp(rint(x / sx), -127, 127) (a8_quant.cuh, the rule of
+//   every int8-activation kernel), an exact int32 dot acc = x8 . w8[m],
+//   and out[b, m] = (float(acc) * sx[b]) * scale[m], in that order.
 //
 // x arrives zero-padded to the weight's K' columns. Bounds on an H100 SXM.
 // Bytes: the int8 weight, M * K', plus x and the output, over 3.35 TB/s.
@@ -52,10 +51,11 @@
 //    not fit beside the rings (~144 KB), and a second launch then adds the
 //    partial sums (float32 in split order for kernel 7, int32 for kernel 8,
 //    which then applies its epilogue). Kernel 8's x8 and sx come from
-//    quant_rows_a8_kernel, and the decode kernel is launched so that it may
-//    start while that runs (programmatic dependent launch): it copies its
-//    first weights, then waits for the quantization before it stages x8. A
-//    decode kernel that quantized x itself was measured slower (PERF.md).
+//    quant_rows_a8_kernel (a8_quant.cuh), and the decode kernel is launched
+//    so that it may start while that runs (programmatic dependent launch):
+//    it copies its first weights, then waits for the quantization before it
+//    stages x8. A decode kernel that quantized x itself was measured slower
+//    (PERF.md).
 // 2. Prefill, more rows, K' a multiple of 16: tiled GEMMs on mma.sync, each
 //    weight read once per block column of token rows, both operands through
 //    a four-stage cp.async ring of 64-column steps. Kernel 8
@@ -242,7 +242,7 @@ void w8_tiles(const void* x, const void* w8, const void* scale, void* out,
 }
 
 // ------------------------------------------------------------ kernel 8
-// (the activation quantization, quant_rows_kernel, is in a8_quant.cuh)
+// (the activation quantization, quant_rows_a8_kernel, is in a8_quant.cuh)
 
 template <typename OT, int TB>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -363,30 +363,6 @@ __device__ __forceinline__ uint2 w8_bf16x4(uint32_t w, float s) {
                     pack_bf16(w8f(wx, 2) * s, w8f(wx, 3) * s));
 }
 
-// element i of a 16-byte load of x as a float
-template <typename XT>
-__device__ __forceinline__ float x_at(const uint4& u, int i);
-template <>
-__device__ __forceinline__ float x_at<float>(const uint4& u, int i) {
-  return __uint_as_float(i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w);
-}
-template <>
-__device__ __forceinline__ float x_at<bf16>(const uint4& u, int i) {
-  const uint32_t w = (i >> 1) == 0 ? u.x : (i >> 1) == 1 ? u.y
-                   : (i >> 1) == 2 ? u.z : u.w;
-  return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
-}
-
-// Kernel 8's token-row scale: sx = max(max|x| * fl(1/127), 1e-12). The
-// JAX kernel writes max|x| / 127.0, a division by a constant that XLA
-// compiles into this product (it differs from the IEEE quotient in the last
-// bit on some rows); x8 = clamp(rint(x / sx), -127, 127) stays an IEEE
-// quotient (quant8, a8_quant.cuh). Kernels 6 and 9-15 keep the quotient
-// (ROADMAP.md queue C).
-__device__ __forceinline__ float sx_of(float amax) {
-  return fmaxf(amax * (1.f / 127.f), 1e-12f);
-}
-
 // Programmatic dependent launch: a kernel launched by launch_dependent
 // (kernel 8's decode kernel after its quantization, its split sum after
 // its tile) may start while the previous kernel runs; it waits here before
@@ -394,85 +370,6 @@ __device__ __forceinline__ float sx_of(float amax) {
 // weights first)
 __device__ __forceinline__ void wait_for_prior() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// kernel 8's activation quantization: a block per token row. Where K' is a
-// multiple of 16 and the row fits (at most kQuantVecs 16-byte loads a
-// thread) the row stays in registers and x is read once; otherwise twice,
-// an element at a time. It lets a dependent launch start at once.
-constexpr int kQuantVecs = 8;
-
-template <typename XT>
-__global__ void __launch_bounds__(kQuantThreads)
-quant_rows_a8_kernel(const XT* __restrict__ x, int Kp,
-                     int8_t* __restrict__ x8, float* __restrict__ sx) {
-  constexpr int V = 16 / (int)sizeof(XT);
-  __shared__ float red[kQuantThreads / 32];
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int b = blockIdx.x;
-  const XT* xr = x + (size_t)b * Kp;
-  const int nv = Kp / V;
-  const bool vec = Kp % 16 == 0 && nv <= kQuantVecs * kQuantThreads;
-  uint4 u[kQuantVecs];
-  float amax = 0.f;
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < kQuantVecs; ++i) {
-      const int v = threadIdx.x + i * kQuantThreads;
-      u[i] = v < nv ? __ldg(reinterpret_cast<const uint4*>(xr) + v)
-                    : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        amax = fmaxf(amax, fabsf(x_at<XT>(u[i], e)));
-    }
-  } else {
-    for (int k = threadIdx.x; k < Kp; k += kQuantThreads)
-      amax = fmaxf(amax, fabsf(to_f(xr[k])));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = amax;
-  __syncthreads();
-  amax = red[0];
-#pragma unroll
-  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float s = sx_of(amax);
-  int8_t* dr = x8 + (size_t)b * Kp;
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < kQuantVecs; ++i) {
-      const int v = threadIdx.x + i * kQuantThreads;
-      if (v >= nv) break;
-      uint32_t q[V / 4];
-#pragma unroll
-      for (int k = 0; k < V / 4; ++k) q[k] = 0u;
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        q[e / 4] |= (uint32_t)(quant8(x_at<XT>(u[i], e), s) & 0xff)
-                    << (8 * (e % 4));
-      if constexpr (V == 8)
-        *reinterpret_cast<uint2*>(dr + (size_t)v * V) = make_uint2(q[0], q[1]);
-      else
-        *reinterpret_cast<uint32_t*>(dr + (size_t)v * V) = q[0];
-    }
-  } else {
-    for (int k = threadIdx.x; k < Kp; k += kQuantThreads)
-      dr[k] = (int8_t)quant8(to_f(xr[k]), s);
-  }
-  if (threadIdx.x == 0) sx[b] = s;
-}
-
-cudaError_t quant_a8(const void* x, int x_bf16, int B, int Kp, int8_t* x8,
-                     float* sx, cudaStream_t s) {
-  if (x_bf16)
-    quant_rows_a8_kernel<bf16><<<B, kQuantThreads, 0, s>>>(
-        static_cast<const bf16*>(x), Kp, x8, sx);
-  else
-    quant_rows_a8_kernel<float><<<B, kQuantThreads, 0, s>>>(
-        static_cast<const float*>(x), Kp, x8, sx);
-  return cudaGetLastError();
 }
 
 constexpr int kDecCols = 512;   // columns of a warp's chunk
@@ -1365,7 +1262,7 @@ extern "C" int ganq_w8a8_matmul(const void* x, const void* w8,
   int8_t* x8 = reinterpret_cast<int8_t*>(sp);
   float* sx = reinterpret_cast<float*>(sp + align16((size_t)B * Kp));
   sp += align16((size_t)B * Kp) + align16(4 * B);
-  cudaError_t err = quant_a8(x, x_bf16, B, Kp, x8, sx, s);
+  cudaError_t err = quant_a8(x, x_bf16, B, Kp, x8, sx, nullptr, 0, 0, s);
   if (err != cudaSuccess) return (int)err;
   int* part = pl.nsplit > 1 ? reinterpret_cast<int*>(sp) : nullptr;
   switch (pl.path) {

@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) attn_resid_kernel(W8A8Args a) {
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
     float m = 1e-12f;
     for (int g = 0; g < Hkv; ++g) m = fmaxf(m, a.attn_amax[b * Hkv + g]);
-    const float sa = m / 127.f;
+    const float sa = sa_of(m);
     const XT* x = static_cast<const XT*>(a.x) + (size_t)b * a.H;
     XT* y = static_cast<XT*>(a.y) + (size_t)b * a.H;
     for (int n = threadIdx.x; n < a.H; n += kThreads) {

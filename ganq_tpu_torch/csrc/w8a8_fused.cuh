@@ -11,7 +11,8 @@
 // Numerics are the TPU kernels' (ganq_tpu/ops/fused_mlp.py, fused_attention.py,
 // fused_layer.py, megastep.py), in the same order, so that the plain PyTorch
 // versions (ganq_tpu_torch/ops/*) reproduce them:
-// * int8 activations: a8_quant.cuh's rule (IEEE division, ties to even);
+// * int8 activations: a8_quant.cuh's rule (sx = max|x| * fl(1/127), the
+//   codes an IEEE quotient with ties to even);
 // * int8 products: exact int32 sums (dp4a), then ((float)acc * sx) * s;
 // * rope: y * cos + (bf16(y_partner) * sign) * sin, no fused multiply-add;
 // * MLP: per-tile activation scales; the down product of each tile is an
@@ -20,7 +21,7 @@
 //   p rounded to bf16 before p . v, l summed from the unrounded p, masked
 //   scores -1e30, keys at or past pos never read, the current token folded
 //   in last; the output's int8 scale is max(1e-12, max|a| over all heads)
-//   / 127 per batch row.
+//   * fl(1/127) per batch row (sa_of, a8_quant.cuh).
 // Reductions across blocks that must be exact are int32 atomics (sums) or
 // integer max on float bits (non-negative maxima), so results do not depend
 // on the order blocks run in.
@@ -241,7 +242,7 @@ __device__ void row_norm_quant(const T* __restrict__ xr, int H, int K,
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < kRowRegs; ++i) amax = fmaxf(amax, fabsf(h[i]));
-    const float s = fmaxf(block_max(amax, red) / 127.f, 1e-12f);
+    const float s = sx_of(block_max(amax, red));
 #pragma unroll
     for (int i = 0; i < kRowRegs; ++i) {
       const int k = threadIdx.x + i * kThreads;
@@ -270,7 +271,7 @@ __device__ void row_norm_quant(const T* __restrict__ xr, int H, int K,
     amax = fmaxf(amax, fabsf(h));
   }
   amax = block_max(amax, red);
-  const float s = fmaxf(amax / 127.f, 1e-12f);
+  const float s = sx_of(amax);
 #pragma unroll 4
   for (int k = threadIdx.x; k < K; k += kThreads) {
     const float v = to_f(xr[k]);
@@ -461,7 +462,7 @@ __device__ void phase_gateup(const W8A8Args& a, const int8_t* __restrict__ w,
 
 __device__ __forceinline__ float tile_scale(const int* amax, int b, int ng,
                                             int t) {
-  return fmaxf(__int_as_float(amax[(size_t)b * ng + t]) / 127.f, 1e-12f);
+  return sx_of(__int_as_float(amax[(size_t)b * ng + t]));
 }
 
 // ----------------------------------------------------- K-major product
@@ -519,8 +520,8 @@ __device__ void stage_kchunk(const float* __restrict__ src, int ld, int B,
 }
 
 // o32 [B, H] += a8 . o_t over the first q_dim rows of o_t [rows, H] (int32
-// atomics), a8 from attn [B, q_dim] with sa = max(1e-12, max|a|) / 127 per
-// batch row (from the per-kv-head maxima attn_amax [B, Hkv]).
+// atomics), a8 from attn [B, q_dim] with sa = max(1e-12, max|a|) * fl(1/127)
+// per batch row (from the per-kv-head maxima attn_amax [B, Hkv]).
 template <int TB>
 __device__ void phase_oproj(const W8A8Args& a, const int8_t* __restrict__ ot,
                             const float* attn, const float* attn_amax,
@@ -531,7 +532,7 @@ __device__ void phase_oproj(const W8A8Args& a, const int8_t* __restrict__ ot,
     if ((int)threadIdx.x < a.B)
       for (int g = 0; g < Hkv; ++g)
         m = fmaxf(m, attn_amax[threadIdx.x * Hkv + g]);
-    sa[threadIdx.x] = m / 127.f;
+    sa[threadIdx.x] = sa_of(m);
   }
   __syncthreads();
   const int nk = a.q_dim / kKChunk, nn = (a.H + kNCols - 1) / kNCols;

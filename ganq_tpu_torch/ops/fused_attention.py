@@ -326,10 +326,10 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"cache {tuple(k_cache.shape)}")
     qpk = Hq // Hkv
-    if d % 8 or d > 128 or qpk * d > 4096:
+    if d % 8 or d > 128 or qpk > 32:
         raise ValueError(f"flash_decode kernel: needs head_dim % 8 == 0, "
-                         f"head_dim <= 128 and qpk*head_dim <= 4096, got "
-                         f"head_dim={d}, qpk={qpk}")
+                         f"head_dim <= 128 and at most 32 query heads a kv "
+                         f"head, got head_dim={d}, qpk={qpk}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"flash_decode kernel: {name} must be contiguous "
@@ -338,6 +338,8 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"flash_decode kernel: {name} must be 16-byte "
                              "aligned on q's device")
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:                 # the kernel copies q in 16 bytes
+        qb = qb.clone()
     if isinstance(pos, torch.Tensor):
         pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(1)
     else:
@@ -351,15 +353,31 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           device=q.device)
     fn = cuda_lib.function(
         "flash_decode", "ganq_flash_decode",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
     status = fn(qb.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 pos_t.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                part_ml.data_ptr(), B, T, Hkv, qpk, d, nsplit, float(scale),
+                part_ml.data_ptr(), _arrival_counts(q.device, B * Hkv),
+                B, T, Hkv, qpk, d, nsplit, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(status, "flash_decode")
     flash_decode_attention.launches += 1
     return out
+
+
+_COUNTS = {}
+
+
+def _arrival_counts(device: torch.device, n: int) -> int:
+    """The address of at least ``n`` int32 arrival counters for kernel 2's
+    combine on ``device``: zero when made, and the kernel sets each back to
+    zero when it is done with it, so calls that do not overlap on the device
+    (the port's: one stream at a time) share them."""
+    buf = _COUNTS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTS[device] = buf
+    return buf.data_ptr()
 
 
 flash_decode_attention.launches = 0

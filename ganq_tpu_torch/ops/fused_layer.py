@@ -5,7 +5,7 @@ fused int8 qkv product, bias and rope (kernel 10's work), flash GQA attention
 over the cache history below ``pos`` with the current token's k/v folded in
 last, the per-row int8 quantization of the attention output (one scale per
 batch row across all heads, starting from 1e-12, the max taken before the
-division by 127), the int8 o product against the transposed o weight
+product with fl(1/127)), the int8 o product against the transposed o weight
 ``o_t_w8 [Dq, H]`` and the residual. Batch rows <= 8.
 
 The flash walk has the TPU kernel's rounding points (:func:`flash_rows`):
@@ -27,7 +27,7 @@ import torch
 
 from .fused_attention import (_check_fused_shapes, _f32, _int_dot,
                               fused_qkv_rope_plain, qkv_fusable_tile)
-from .uniform_matmul import _aligned
+from .uniform_matmul import INV127, _aligned
 
 _NEG_BIG = -1e30
 
@@ -100,10 +100,12 @@ def flash_rows(q: torch.Tensor, k_hist: torch.Tensor, v_hist: torch.Tensor,
 
 def attn_out_int8(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The attention output's int8 rows: a [B, Dq] float32 -> (a8 as float32
-    integers, sa [B, 1]) with ``sa = max(1e-12, max|a|) / 127`` (one scale
-    per batch row across all heads)."""
+    integers, sa [B, 1]) with ``sa = max(1e-12, max|a|) * fl(1/127)`` (one
+    scale per batch row across all heads): the JAX kernels' running max
+    starts at 1e-12 and is divided by 127.0 after, a product under XLA. The
+    codes divide as :func:`quantize_rows`'s do."""
     amax = torch.clamp(torch.amax(torch.abs(a), dim=1, keepdim=True), min=1e-12)
-    sa = amax / torch.full_like(amax, 127.0)
+    sa = amax * torch.full_like(amax, INV127)
     return torch.clamp(torch.round(a / sa), -127, 127), sa
 
 

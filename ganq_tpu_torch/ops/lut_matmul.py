@@ -8,7 +8,10 @@ int32 words (``ops/packing.py``), possibly padded past K.
 (``csrc/lut_matmul.cu``) for a CUDA tensor and runs the plain version,
 :func:`lut_matmul_reference`, only for a CPU tensor. On CUDA it takes every
 shape the serving path gives it (bits 2/3/4, any M, padded K, any number of
-rows) or raises; there is no silent fallback.
+rows) or raises; there is no silent fallback. The C entry picks a decode,
+tile or GEMV path by shape; a call that splits K over blocks gets one
+scratch buffer for the partial sums, sized through the library once a
+shape.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from . import cuda_lib
 from .packing import pack_factor, unpack_int_rows
+from .uniform_matmul import _scratch
 
 _X_TYPES = (torch.bfloat16, torch.float32)
 
@@ -81,13 +85,16 @@ def lut_matmul(x: torch.Tensor, lut: torch.Tensor, idx_packed: torch.Tensor,
     B = x2.shape[0]
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     if B:
+        x_bf16 = int(x.dtype == torch.bfloat16)
+        scratch = _scratch("lut_matmul", "ganq_lut_matmul_scratch",
+                           torch.uint8, x, B, M, width, bits, x_bf16)
         fn = cuda_lib.function(
             "lut_matmul", "ganq_lut_matmul",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         status = fn(x2.data_ptr(), lut.data_ptr(), idx.data_ptr(),
-                    out.data_ptr(), B, M, width, bits,
-                    int(x.dtype == torch.bfloat16),
-                    int(lut.dtype == torch.bfloat16),
+                    out.data_ptr(),
+                    scratch.data_ptr() if scratch is not None else None, B, M,
+                    width, bits, x_bf16, int(lut.dtype == torch.bfloat16),
                     torch.cuda.current_stream(x.device).cuda_stream)
         cuda_lib.check(status, "lut_matmul")
         lut_matmul.launches += 1

@@ -974,9 +974,10 @@ def lm_fold_plain(xs: torch.Tensor, lm: Dict[str, torch.Tensor], eps: float,
                   rms_offset: float = 0.0) -> torch.Tensor:
     """The trailing-unembed fold of kernel 14 (``megastep_lowbit.py:
     893-914``): the final rmsnorm of the float32 residual ``xs`` [B, H],
-    its int8 rows (``quantize_rows``: a true division, ties to even), the
-    exact integer dot with the int8 lm_head rows, and ``(dv * sx) * scale``
-    in float32: logits [B, V]. ``lm`` from :func:`mega_lm_operands`."""
+    its int8 rows (``quantize_rows``: sx = max|x| * fl(1/127), codes an
+    IEEE quotient with ties to even), the exact integer dot with the int8
+    lm_head rows, and ``(dv * sx) * scale`` in float32: logits [B, V].
+    ``lm`` from :func:`mega_lm_operands`."""
     x8, sx = quantize_rows(rms_rows(xs, lm["norm"], eps, rms_offset))
     return lm_vocab_plain(x8, sx, lm)
 

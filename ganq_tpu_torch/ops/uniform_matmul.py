@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -73,15 +74,26 @@ def uniform_matmul_reference(x: torch.Tensor, qweight: torch.Tensor,
     return x @ w.T.to(x.dtype)
 
 
+# fl(1/127): jitted JAX compiles ``max|x| / 127.0`` into a product with it
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """A token row's int8 scale from its float32 max|x|: ``max(max|x| *
+    fl(1/127), 1e-12)``, the float32 product into which XLA compiles the
+    JAX package's ``max(max|x| / 127.0, 1e-12)`` (it differs from the IEEE
+    quotient in the last bit on some rows)."""
+    return torch.clamp(amax * torch.full_like(amax, INV127), min=1e-12)
+
+
 def quantize_rows(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token int8 activations of x2 [B, K]: (x8 as float32 integers,
-    sx [B, 1]) with ``sx = max(max|x| / 127, 1e-12)`` and ``x8 =
-    clamp(round(x / sx), -127, 127)``, ties to even (the kernels' rule)."""
+    sx [B, 1]) with sx from :func:`row_scale` and ``x8 = clamp(round(x /
+    sx), -127, 127)``, an IEEE quotient with ties to even (``jnp.round``
+    divides by a traced value). The rule of every int8-activation point of
+    the port (``csrc/a8_quant.cuh`` on the card)."""
     xf = x2.to(torch.float32)
-    amax = torch.amax(torch.abs(xf), dim=1, keepdim=True)
-    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
-    # product with its reciprocal, which is not the IEEE quotient
-    sx = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    sx = row_scale(torch.amax(torch.abs(xf), dim=1, keepdim=True))
     return torch.clamp(torch.round(xf / sx), -127, 127), sx
 
 
@@ -249,5 +261,5 @@ def uniform_a8_matmul(x: torch.Tensor, qweight: torch.Tensor,
 uniform_a8_matmul.launches = 0
 
 __all__ = ["uniform_matmul", "uniform_matmul_reference", "uniform_a8_matmul",
-           "uniform_a8_reference", "quantize_rows", "a8_eligible",
-           "dequantize_uniform", "group_map"]
+           "uniform_a8_reference", "quantize_rows", "row_scale", "INV127",
+           "a8_eligible", "dequantize_uniform", "group_map"]

@@ -31,7 +31,8 @@ import torch
 
 from . import cuda_lib
 from .packing import pack_factor, unpack_int_rows
-from .uniform_matmul import _X_TYPES, _aligned, _pick_tile, _scratch, _stream
+from .uniform_matmul import (_X_TYPES, _aligned, _pick_tile, _scratch, _stream,
+                             quantize_rows)
 
 
 def recode_lut_to_int8(lut: torch.Tensor, idx_packed: torch.Tensor, bits: int,
@@ -58,26 +59,13 @@ def w8_matmul_reference(x: torch.Tensor, w8: torch.Tensor,
     return x @ w[:, :K].T.to(x.dtype)
 
 
-def quantize_rows_w8a8(x2: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 8's int8 activations of x2 [B, K]: (x8 as float32 integers,
-    sx [B, 1]) with ``sx = max(max|x| * fl(1/127), 1e-12)``, the product
-    into which XLA compiles the JAX kernel's ``max|x| / 127.0`` (it differs
-    from the quotient in the last bit on some rows), and ``x8 =
-    clamp(round(x / sx), -127, 127)``, an IEEE quotient, ties to even."""
-    xf = x2.to(torch.float32)
-    amax = torch.amax(torch.abs(xf), dim=1, keepdim=True)
-    sx = torch.clamp(amax * (1.0 / 127.0), min=1e-12)
-    return torch.clamp(torch.round(xf / sx), -127, 127), sx
-
-
 def w8a8_reference(x: torch.Tensor, w8: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel 8: x zero-padded to K', per-token int8
-    activations (:func:`quantize_rows_w8a8`), the integer dot (exact in
-    float64), ``(acc * sx) * s``."""
+    activations (``uniform_matmul.quantize_rows``, the port's one rule), the
+    integer dot (exact in float64), ``(acc * sx) * s``."""
     M, Kp = w8.shape
-    x8, sx = quantize_rows_w8a8(_padded_rows(x, Kp))
+    x8, sx = quantize_rows(_padded_rows(x, Kp))
     acc = (x8.to(torch.float64) @ w8.to(torch.float64).T).to(torch.float32)
     y = (acc * sx) * scale.to(torch.float32).reshape(1, M)
     return y.reshape(*x.shape[:-1], M).to(x.dtype)
@@ -178,4 +166,4 @@ def w8a8_matmul(x: torch.Tensor, w8: torch.Tensor,
 w8a8_matmul.launches = 0
 
 __all__ = ["w8_matmul", "w8_matmul_reference", "w8a8_matmul", "w8a8_reference",
-           "quantize_rows_w8a8", "recode_lut_to_int8", "w8a8_eligible"]
+           "recode_lut_to_int8", "w8a8_eligible"]

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Time kernels 5 (``uniform_matmul``), 6 (``uniform_a8_matmul``), 7
-(``w8_matmul``) and 8 (``w8a8_matmul``) for the port found at a checkout
-root, to compare two builds of them on one card.
+"""Time kernels 1 (``lut_matmul``), 2 (``flash_decode_attention``), 5
+(``uniform_matmul``), 6 (``uniform_a8_matmul``), 7 (``w8_matmul``) and 8
+(``w8a8_matmul``) for the port found at a checkout root, to compare two
+builds of them on one card.
 
     python3 scripts/torch_port_uniform_ab.py ROOT [--batches 1,8,128,512]
-        [--x-dtype bf16|float32] [--kernels k5,k6,k7,k8] [--eager] [--step]
-        [--check] [--profile]
+        [--x-dtype bf16|float32] [--kernels k1,k2,k5,k6,k7,k8] [--eager]
+        [--step] [--check] [--profile]
 
 ROOT is a checkout of the repository (``.`` or, for the parent commit, a
-``git archive`` of it unpacked under ``build/``); its ``uniform_matmul`` and
-``w8_matmul`` sources build into ROOT/build. The cases are
-``chip_smoke.py``'s at the Llama-3.2-1B linears: kernels 5-6 on symmetric
-codes with 128-column groups, kernel 5 at 4 bits and kernel 6 at 4 and 8
-bits (``check_uniform_kernels``); kernels 7-8 on per-row int8 weights
+``git archive`` of it unpacked under ``build/``); its kernel sources build
+into ROOT/build. The cases are ``chip_smoke.py``'s at the Llama-3.2-1B
+linears: kernel 1 on 4-bit ``lut`` codes with a sorted random bf16
+codebook a row (``check_lut_matmul``); kernels 5-6 on symmetric codes with
+128-column groups, kernel 5 at 4 bits and kernel 6 at 4 and 8 bits
+(``check_uniform_kernels``); kernels 7-8 on per-row int8 weights
 (``check_w8_kernels``), and kernel 7 also on the Llama-3.1-8B lm_head
-(128256 x 4096) at one token row. x is in ``--x-dtype`` (the a8 kernels
-quantize it either way), at each batch; each time is the CUDA-graph replay
+(128256 x 4096) at one token row; kernel 2 at the smoke's flash-decode
+cases (Hq 32, Hkv 8, d 64, T 2048; B 1 and 8 at pos 0, 300 and 2047,
+``check_flash_decode``; the library there is
+``scaled_dot_product_attention`` over keys 0..pos). x is in ``--x-dtype``
+(the a8 kernels quantize it either way; kernel 2's q is bf16), at each
+batch; each time is the CUDA-graph replay
 of ``chip_smoke.time_ms`` over rotating weight copies (cold from memory),
 and the library matmul on the dequantized weight (in x's type) is timed
 beside it. ``--eager`` adds each case's time per call in an eager loop of
@@ -56,8 +62,13 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    import torch.nn.functional as F
+
     from ganq_tpu_torch.ops import cuda_lib
-    from ganq_tpu_torch.ops.packing import pack_int_rows
+    from ganq_tpu_torch.ops.fused_attention import (
+        flash_decode_attention, flash_decode_split_reference)
+    from ganq_tpu_torch.ops.lut_matmul import lut_matmul, lut_matmul_reference
+    from ganq_tpu_torch.ops.packing import pack_int_rows, unpack_int_rows
     from ganq_tpu_torch.ops.uniform_matmul import (dequantize_uniform,
                                                    uniform_a8_matmul,
                                                    uniform_matmul)
@@ -70,7 +81,9 @@ def main() -> int:
         raise RuntimeError("needs a CUDA device")
     kernels = args.kernels.split(",")
     cuda_lib.build_all(
-        [src for src, ks in (("uniform_matmul", ("k5", "k6")),
+        [src for src, ks in (("lut_matmul", ("k1",)),
+                             ("flash_decode", ("k2",)),
+                             ("uniform_matmul", ("k5", "k6")),
                              ("w8_matmul", ("k7", "k8")))
          if any(k in kernels for k in ks)])
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -126,12 +139,26 @@ def main() -> int:
     def dense_w8(w, M, K, bits):
         return w[0].float() * w[1]
 
+    def make_lut(M, K, bits):
+        lut = torch.sort(torch.randn((M, 2**bits), generator=gen,
+                                     device="cuda") * 0.006,
+                         dim=1).values.to(torch.bfloat16)
+        idx = torch.randint(0, 2**bits, (M, K), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        return (lut, pack_int_rows(idx, bits), bits)
+
+    def dense_lut(w, M, K, bits):
+        return torch.take_along_dim(w[0].float(), unpack_int_rows(
+            w[1], bits, K).long(), dim=1)
+
     lm_head = {"lm_head": (128256, 4096)}
 
     out = {"root": args.root, "x_dtype": args.x_dtype}
     with torch.inference_mode():
         linears = cs.LLAMA_1B_LINEARS
         for name, kernel, bits, peak, mk, dense_of, shapes, bs in (
+                ("k1", lut_matmul, 4, cs.BF16_FLOPS_PER_S, make_lut,
+                 dense_lut, linears, batches),
                 ("k5", uniform_matmul, 4, cs.BF16_FLOPS_PER_S, make,
                  dense_uniform, linears, batches),
                 ("k6", uniform_a8_matmul, 4, cs.INT8_OPS_PER_S, make,
@@ -160,6 +187,8 @@ def main() -> int:
                     l_ms = cs.time_ms(lambda xx, w: torch.matmul(xx, w.T),
                                       [(x, w) for w in dense], iters)
                     wbytes = (M * K + M * 4 if name in ("k7", "k8") else
+                              M * K * bits // 8 + M * 2**bits * 2
+                              if name == "k1" else
                               M * K * bits // 8 + M * (K // 128) * 4)
                     nbytes = (B * K + B * M) * x.element_size() + wbytes
                     b_ms, _ = cs.bound(nbytes, 2.0 * B * M * K, peak)
@@ -169,7 +198,8 @@ def main() -> int:
                         out[f"{name}_w{bits}_{label}_B{B}"]["eager_ms"] = (
                             eager_ms(kernel, (x, *weights[0])))
                     if args.check:
-                        plain = {uniform_matmul: uniform_matmul_reference,
+                        plain = {lut_matmul: lut_matmul_reference,
+                                 uniform_matmul: uniform_matmul_reference,
                                  uniform_a8_matmul: uniform_a8_reference,
                                  w8_matmul: w8_matmul_reference,
                                  w8a8_matmul: w8a8_reference}[kernel]
@@ -182,6 +212,48 @@ def main() -> int:
                             kernel_us(kernel, (x, *weights[0])))
                 del weights, dense
                 torch.cuda.empty_cache()
+        if "k2" in kernels:
+            Hq, Hkv, d, T = 32, 8, 64, 2048
+            scale = 1.0 / d**0.5
+            for B in (1, 8):
+                for pos in (0, 300, T - 1):
+                    n = cs.copies_for(2 * B * (pos + 1) * Hkv * d * 2, cap=64)
+                    caches = [tuple(torch.randn(
+                        (B, T, Hkv, d), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+                        for _ in range(n)]
+                    q = torch.randn((B, Hq, d), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    pos_t = torch.tensor(pos, dtype=torch.int32,
+                                         device="cuda")
+
+                    def library(qq, kk, vv, pos=pos):
+                        return F.scaled_dot_product_attention(
+                            qq[:, :, None], kk[:, :pos + 1].transpose(1, 2),
+                            vv[:, :pos + 1].transpose(1, 2), scale=scale,
+                            enable_gqa=True)
+
+                    iters = max(2 * n, 30)
+                    a = [(q, kk, vv, pos_t, scale) for kk, vv in caches]
+                    k_ms = cs.time_ms(flash_decode_attention, a, iters)
+                    l_ms = cs.time_ms(library, [(q, kk, vv)
+                                                for kk, vv in caches], iters)
+                    nbytes = 2 * B * Hq * d * 2 + 2 * B * (pos + 1) * Hkv * d * 2
+                    b_ms, _ = cs.bound(nbytes, 4.0 * B * Hq * (pos + 1) * d)
+                    key = f"k2_B{B}_pos{pos}"
+                    out[key] = dict(ms=k_ms, library_ms=l_ms, bound_ms=b_ms)
+                    if args.eager:
+                        out[key]["eager_ms"] = eager_ms(flash_decode_attention,
+                                                        a[0])
+                    if args.check:
+                        got = flash_decode_attention(*a[0]).float()
+                        ref = flash_decode_split_reference(*a[0]).float()
+                        out[key]["max_abs_err"] = float((got - ref).abs().max())
+                    if args.profile:
+                        out[key]["kernel_us"] = kernel_us(flash_decode_attention,
+                                                          a[0])
+                    del caches
+                    torch.cuda.empty_cache()
         if args.step:
             import numpy as np
 

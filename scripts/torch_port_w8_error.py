@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Kernel 7's summation error at long rows (``w8_matmul``, bf16 x), beside
-two library sums of the same exact products, to tell a fault of the kernel
-from float32 rounding.
+"""The summation error of kernel 7 (``w8_matmul``) or kernel 1
+(``lut_matmul``, 4-bit codes) with bf16 x at long rows, beside two library
+sums of the same exact products, to tell a fault of the kernel from float32
+rounding.
 
-    python3 scripts/torch_port_w8_error.py ROOT [--kp 8192,14336]
-        [--m 72,136,512] [--batch 1023]
+    python3 scripts/torch_port_w8_error.py ROOT [--kernel k7|k1]
+        [--kp 8192,14336] [--m 72,136,512] [--batch 1023]
 
 ROOT is a checkout of the repository (``.``, or a copy of the tree with
 one change to the plan, such as the K split held to 1). For each K' and M
-the inputs are drawn as ``tests/test_torch_cuda_kernels.py::_w8_problem``
-draws them (int8 weights, per-row scales in [1e-4, 4e-4), x ~ N(0, 1) in
-bf16, from seed 0). Each product is held against the float64 sum of x
-times the weights rounded to bf16: "kernel" (kernel 7; its K split is read
-from ``ganq_w8_matmul_scratch``), "cublas_bf16" (``torch.matmul`` in bf16
+the inputs are drawn from seed 0: for kernel 7 as
+``tests/test_torch_cuda_kernels.py::_w8_problem`` draws them (int8
+weights, per-row scales in [1e-4, 4e-4)), for kernel 1 as ``_lut_problem``
+does (a sorted N(0, 1) bf16 codebook a row, uniform codes); x ~ N(0, 1) in
+bf16. Each product is held against the float64 sum of x times the weights
+rounded to bf16: "kernel" (its K split over blocks is read from
+``ganq_w8_matmul_scratch`` or ``ganq_lut_matmul_scratch``, where ROOT has
+it), "cublas_bf16" (``torch.matmul`` in bf16
 on the tensor cores, reduced-precision reductions off) and "cublas_f32"
 (``torch.matmul`` in float32 with TF32 off, on the CUDA cores), each
 rounded to bf16. Per product: the largest error, the largest excess over
@@ -29,6 +33,7 @@ import sys
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root")
+    ap.add_argument("--kernel", default="k7", choices=("k7", "k1"))
     ap.add_argument("--kp", default="8192,14336")
     ap.add_argument("--m", default="72,136,512")
     ap.add_argument("--batch", type=int, default=1023)
@@ -38,15 +43,29 @@ def main() -> int:
     import torch
 
     from ganq_tpu_torch.ops import cuda_lib
+    from ganq_tpu_torch.ops.lut_matmul import lut_matmul
+    from ganq_tpu_torch.ops.packing import pack_int_rows, unpack_int_rows
     from ganq_tpu_torch.ops.w8_matmul import w8_matmul
 
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    scratch = cuda_lib.function("w8_matmul", "ganq_w8_matmul_scratch",
-                                [ctypes.c_int] * 4)
     B = args.batch
+
+    def splits(M, Kp):
+        """Blocks along K of the kernel's plan at this shape (None where
+        ROOT's library has no scratch entry)."""
+        lib, sym, shape = (("w8_matmul", "ganq_w8_matmul_scratch", (B, M, Kp,
+                                                                    1))
+                           if args.kernel == "k7" else
+                           ("lut_matmul", "ganq_lut_matmul_scratch",
+                            (B, M, Kp // 8, 4, 1)))
+        try:
+            fn = cuda_lib.function(lib, sym, [ctypes.c_int] * len(shape))
+        except AttributeError:
+            return None
+        return max(1, fn(*shape) // (B * M * 4))
 
     def measure(got, exact):
         scale = float(exact.abs().max())
@@ -58,21 +77,34 @@ def main() -> int:
                 "past_bound": int((err > ulp + 1e-6 * scale).sum()),
                 "scale": scale}
 
-    out = {"root": args.root, "batch": B}
+    out = {"root": args.root, "kernel": args.kernel, "batch": B}
     for Kp in (int(k) for k in args.kp.split(",")):
         for M in (int(m) for m in args.m.split(",")):
             gen = torch.Generator(device="cuda").manual_seed(0)
-            w8 = torch.randint(-127, 128, (M, Kp), generator=gen,
-                               device="cuda", dtype=torch.int32).to(torch.int8)
-            s = torch.rand((M, 1), generator=gen, device="cuda") * 3e-4 + 1e-4
+            if args.kernel == "k7":
+                w8 = torch.randint(-127, 128, (M, Kp), generator=gen,
+                                   device="cuda",
+                                   dtype=torch.int32).to(torch.int8)
+                s = torch.rand((M, 1), generator=gen,
+                               device="cuda") * 3e-4 + 1e-4
+                w = (w8.float() * s).to(torch.bfloat16)
+                run = (w8_matmul, (w8, s))
+            else:
+                lut = torch.sort(torch.randn((M, 16), generator=gen,
+                                             device="cuda"),
+                                 dim=1).values.to(torch.bfloat16)
+                packed = pack_int_rows(torch.randint(
+                    0, 16, (M, Kp), generator=gen, device="cuda",
+                    dtype=torch.int32), 4)
+                w = torch.take_along_dim(lut, unpack_int_rows(
+                    packed, 4, Kp).long(), dim=1)
+                run = (lut_matmul, (lut, packed, 4))
             x = torch.randn((B, Kp), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            w = (w8.float() * s).to(torch.bfloat16)
             exact = x.double() @ w.double().T
-            nsplit = scratch(B, M, Kp, 1) // (B * M * 4)
             out[f"Kp{Kp}_M{M}"] = {
-                "kernel_nsplit": max(1, nsplit),
-                "kernel": measure(w8_matmul(x, w8, s), exact),
+                "kernel_nsplit": splits(M, Kp),
+                "kernel": measure(run[0](x, *run[1]), exact),
                 "cublas_bf16": measure(x @ w.T, exact),
                 "cublas_f32": measure((x.float() @ w.float().T).to(
                     torch.bfloat16), exact)}

@@ -61,15 +61,20 @@ def _lut_problem(gen, bits, M, K, Kp):
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4])
-@pytest.mark.parametrize("B", [1, 2, 3, 8, 9, 33, 1023])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 9, 16, 17, 33, 128, 512, 1023])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K", [1100, 72])
+@pytest.mark.parametrize("K", [1100, 72, 8192, 14336])
 def test_lut_matmul_matches_plain(gen, bits, B, dtype, K):
     """f32: float32 sums in another order, 1e-5 of the output scale. bf16:
-    both round a float32 sum once, so they differ by at most one ulp.
-    K = 1100 packs to a padded width that is a multiple of 8 words (GEMV
-    and, for bf16 beyond 8 rows, the tensor-core kernel); K = 72 packs to
-    an odd width (the GEMV's unaligned path)."""
+    within one ulp plus 1e-6 of the output scale of the float64 sum (a
+    float32 sum rounded once), as kernel 7 is held. bf16 x runs the decode
+    path up to 8 rows (16 where it splits no K; split over blocks at K' =
+    14336 with 8 rows, whose x slice does not fit beside the rings) and the
+    tensor-core tile beyond (split over blocks here, M = 72 leaving the SMs
+    idle; no tensor-core chain longer than 2048 columns at K' = 8192 and
+    14336, Llama-3.1-8B's down); f32 x the GEMV. K = 1100 packs to a
+    padded width; K = 72, and 1100 at 2 bits, to widths that are no
+    multiple of 16 words (the GEMV for every x)."""
     M = 72                                  # not a multiple of a row tile
     pf = pack_factor(bits)
     align = 128 * pf if K > 128 * pf else pf    # as lut_linear pads
@@ -86,8 +91,7 @@ def test_lut_matmul_matches_plain(gen, bits, B, dtype, K):
     if dtype == torch.float32:
         torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5 * scale)
     else:
-        ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(1e-30))) - 7)
-        assert bool(((got.double() - exact).abs() <= ulp + 1e-6 * scale).all())
+        _assert_within_ulp(got, exact)
 
 
 def test_lut_matmul_f32_codebook_and_leading_dims(gen):
@@ -147,14 +151,38 @@ def test_flash_decode_matches_plain(gen, hq, hkv, d, pos, B):
 
 @pytest.mark.parametrize("pos", [0, 50, 95])
 def test_flash_decode_single_span(gen, pos):
-    """A cache of at most 128 rows is one span: one block per (row, kv head),
-    and the combining pass only divides."""
+    """A cache of at most 128 rows is one span: one block per (row, kv
+    head), which writes its output directly."""
     B, hq, hkv, d, T = 2, 16, 4, 64, 96
     q = torch.randn((B, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((B, T, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn((B, T, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
     got = flash_decode_attention(q, k, v, pos, 0.125)
     _assert_flash_close(q, k, v, pos, 0.125, got)
+
+
+@pytest.mark.parametrize("pos", [0, 127, 128, 255, 256, 4095])
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 64), (16, 4, 128), (8, 1, 80)])
+def test_flash_decode_long_cache(gen, pos, B, hq, hkv, d):
+    """A cache of 4096 rows (32 spans of 128 keys) at span edges: one span
+    (pos 0, 127), two (128, 255), three (256) and all 32 (4095), where the
+    last span block of each (row, kv head) to finish combines; blocks past
+    pos read nothing, so poisoning those rows changes nothing. d = 80 pads
+    the head dimension to the mma's 16 with zeros."""
+    T = 4096
+    q = torch.randn((B, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, T, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, T, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    got = flash_decode_attention(q, k, v, pos_t, scale)
+    _assert_flash_close(q, k, v, pos, scale, got)
+    k[:, pos + 1:] = float("nan")
+    v[:, pos + 1:] = float("nan")
+    for _ in range(2):   # the arrival counters are back at zero
+        again = flash_decode_attention(q, k, v, pos_t, scale)
+        torch.testing.assert_close(again, got, atol=0, rtol=0)
 
 
 def test_flash_decode_reads_f32_query_as_bf16(gen):
@@ -329,6 +357,25 @@ def test_uniform_matmul_matches_plain(gen, bits, B, dtype, groups, M):
     plain = uniform_matmul_reference(x, packed, scales, zeros, g_idx, bits)
     torch.testing.assert_close(got.float(), plain.float(), rtol=1e-2,
                                atol=1e-2 * float(plain.abs().max()))
+
+
+@pytest.mark.parametrize("K", [8192, 14336])
+@pytest.mark.parametrize("B", [1, 8, 9, 128, 512, 1023])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_uniform_matmul_long_rows(gen, K, B, bits):
+    """Kernel 5 with bf16 x over the long rows of Llama-3.1-8B's down
+    projection and beyond Llama-3.2-1B's (K' 8192, 14336, 128-column
+    groups): within one ulp plus 1e-6 of the output scale of the float64
+    sum, the bound kernel 7 is held to, on the decode path (B <= 8) and
+    the tensor-core tile path."""
+    M = 136
+    packed, scales, zeros, g_idx = _uniform_problem(
+        gen, bits, M, K, K // 128, sym=False, permuted=False)
+    x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
+    got = uniform_matmul(x, packed, scales, zeros, g_idx, bits)
+    w = dequantize_uniform(packed, scales, zeros, g_idx, bits, K).to(
+        torch.bfloat16)
+    _assert_within_ulp(got, x.double() @ w.double().T)
 
 
 @pytest.mark.parametrize("bits,K,G", [(4, 1024, 8), (4, 1024, 1), (8, 1024, 8),
@@ -541,6 +588,7 @@ from ganq_tpu_torch.ops.fused_attention import (fused_qkv_rope_plain,
                                                 fused_qkv_rope_w8a8)
 from ganq_tpu_torch.ops.fused_layer import (attn_half_decode_w8a8,
                                             attn_half_plain)
+from ganq_tpu_torch.ops.uniform_matmul import INV127, row_scale
 from ganq_tpu_torch.ops.fused_mlp import (fused_mlp_plain, fused_mlp_tile,
                                           fused_mlp_w8a8)
 from ganq_tpu_torch.ops.megastep import megastep_decode_w8a8, megastep_plain
@@ -588,6 +636,135 @@ def test_fused_mlp_matches_plain(gen, H, Hp, I, Ip, B, fold, dtype):
     torch.cuda.synchronize()
     assert fused_mlp_tile(I, Hp) in (256, 512, 1024)
     _close(got, plain, 5e-3, f"fused_mlp H={H} I={I} B={B}")
+
+
+def _rows_where_quotient_differs(gen, n, K):
+    """n float32 rows of K N(0, 1) values whose max|x| / 127 (the IEEE
+    quotient) differs in the last bit from max|x| * fl(1/127), the scale
+    every quantization point forms."""
+    rows = []
+    while sum(len(r) for r in rows) < n:
+        x = torch.randn((256, K), generator=gen, device="cuda")
+        m = x.abs().amax(dim=1, keepdim=True)
+        differ = (m / torch.full_like(m, 127.0)) != row_scale(m)
+        rows.append(x[differ[:, 0]])
+    return torch.cat(rows)[:n].contiguous()
+
+
+def _capture_launch(monkeypatch):
+    """The tensors of the next W8A8Args launches, by field name."""
+    from ganq_tpu_torch.ops import w8a8_args
+
+    seen = []
+    real = w8a8_args.launch
+
+    def spy(library, symbol, what, tensors, device, **scalars):
+        seen.append(tensors)
+        return real(library, symbol, what, tensors, device, **scalars)
+
+    monkeypatch.setattr(w8a8_args, "launch", spy)
+    return seen
+
+
+@pytest.mark.parametrize("point", ["k6", "k8", "k9-15 rows", "k9-15 tiles",
+                                   "k11-14 attention out"])
+def test_quantization_points_form_the_product(gen, monkeypatch, point):
+    """Every CUDA int8-activation point forms its scale as jitted JAX does,
+    max|x| * fl(1/127) (a8_quant.cuh sx_of / sa_of), on rows where the IEEE
+    quotient differs from it, and codes from an IEEE quotient. Kernel 6 and
+    8's quantization launch (a8_quant.cuh), the x rows of kernels 9-15
+    (row_norm_quant, seen through kernel 10's sx), their activation tiles
+    (tile_scale, through kernel 9's codes) and the attention outputs of
+    kernels 11-14 (sa_of, through kernel 11's residual)."""
+    if point in ("k6", "k8", "k9-15 rows"):
+        K = 1024
+        x = _rows_where_quotient_differs(gen, 16, K)
+        want = row_scale(x.abs().amax(dim=1, keepdim=True))[:, 0]
+        B = x.shape[0]
+        if point == "k6":
+            import ctypes
+
+            from ganq_tpu_torch.ops import cuda_lib
+
+            packed, scales, zeros, _ = _uniform_problem(gen, 4, 64, K, 8,
+                                                        False, False)
+            x8 = torch.empty((B, K), dtype=torch.int8, device="cuda")
+            sx = torch.empty((B,), dtype=torch.float32, device="cuda")
+            sumx = torch.empty((B, 8), dtype=torch.int32, device="cuda")
+            out = torch.empty((B, 64), dtype=torch.float32, device="cuda")
+            part = torch.empty(1 << 20, dtype=torch.float32, device="cuda")
+            fn = cuda_lib.function(
+                "uniform_matmul", "ganq_uniform_a8_matmul",
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            cuda_lib.check(fn(
+                x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), x8.data_ptr(), sx.data_ptr(),
+                sumx.data_ptr(), out.data_ptr(), part.data_ptr(), B, 64,
+                packed.shape[1], 8, 4, 0,
+                torch.cuda.current_stream().cuda_stream), "k6")
+        elif point == "k8":
+            import ctypes
+
+            from ganq_tpu_torch.ops import cuda_lib
+
+            w8, scale = _w8_problem(gen, 64, K)
+            scratch = torch.empty(_w8_scratch(B, 64, K, 0)[1],
+                                  dtype=torch.uint8, device="cuda")
+            out = torch.empty((B, 64), dtype=torch.float32, device="cuda")
+            fn = cuda_lib.function(
+                "w8_matmul", "ganq_w8a8_matmul",
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            cuda_lib.check(fn(
+                x.data_ptr(), w8.data_ptr(), scale.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), B, 64, K, 0,
+                torch.cuda.current_stream().cuda_stream), "k8")
+            x8 = scratch[:B * K].view(torch.int8).reshape(B, K)
+            off = -(-B * K // 16) * 16
+            sx = scratch[off:off + 4 * B].view(torch.float32)
+        else:
+            seen = _capture_launch(monkeypatch)
+            w, s = _w8(gen, 512, K)
+            fused_qkv_rope_w8a8(x, None, w, s, None, None, None, 256, 128,
+                                128, 0, fold_norm=False)
+            x8, sx = seen[-1]["x8"], seen[-1]["sx"]
+        torch.cuda.synchronize()
+        assert torch.equal(sx, want), point
+        codes = torch.clamp(torch.round(x / want[:, None]), -127, 127)
+        assert torch.equal(x8.float(), codes), point
+    elif point == "k9-15 tiles":
+        seen = _capture_launch(monkeypatch)
+        H, I, B = 256, 1536, 64
+        gu, gs = _w8(gen, 2 * I, H)
+        dn, ds = _w8(gen, H, I)
+        x = torch.randn((B, H), generator=gen, device="cuda")
+        fused_mlp_w8a8(x, gu, gs, dn, ds)
+        t = seen[-1]
+        torch.cuda.synchronize()
+        ng = t["amax"].shape[1]
+        m = t["amax"].view(torch.float32).repeat_interleave(I // ng, dim=1)
+        sa = row_scale(m)
+        assert bool(((m / torch.full_like(m, 127.0)) != sa).any())
+        codes = torch.clamp(torch.round(t["act_a"] / sa), -127, 127)
+        assert torch.equal(t["a8"].float(), codes)
+    else:
+        seen = _capture_launch(monkeypatch)
+        differ = 0
+        for pos in range(12):
+            args = _attn_problem(gen, 8, 512, 128, 256, 64, pos + 1)
+            x = args[0].float()
+            y, _, _ = attn_half_decode_w8a8(
+                x, *args[1:], pos + 1, q_dim=512, kv_dim=128, head_dim=128,
+                rotary_dim=128, scale=1.0 / math.sqrt(128))
+            t = seen[-1]
+            torch.cuda.synchronize()
+            m = torch.clamp(t["attn_amax"].reshape(8, 1).amax(dim=1,
+                                                               keepdim=True),
+                            min=1e-12)
+            sa = m * torch.full_like(m, INV127)
+            differ += int(((m / torch.full_like(m, 127.0)) != sa).sum())
+            want = x + (t["o32"].float() * sa) * t["o_t_scale"].reshape(1, -1)
+            assert torch.equal(y, want)
+        assert differ > 0
 
 
 def _rope(gen, d):

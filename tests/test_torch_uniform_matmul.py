@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -77,21 +78,43 @@ def test_uniform_matmul_bf16_and_symmetric_matches_jax():
     np.testing.assert_allclose(got, ref, rtol=2**-7, atol=1e-6)
 
 
+def _rows_where_quotient_differs(rng, n, K):
+    """n float32 rows of K N(0, 1) values whose max|x| / 127 (the IEEE
+    quotient) differs from max|x| * fl(1/127) (the product jitted JAX
+    computes) in the last bit."""
+    inv = np.float32(1.0) / np.float32(127.0)
+    rows = []
+    while len(rows) < n:
+        x = rng.normal(size=(64, K)).astype(np.float32)
+        m = np.abs(x).max(axis=1)
+        rows += list(x[m / np.float32(127.0) != m * inv])
+    return np.stack(rows[:n])
+
+
 def test_quantized_activations_are_exact():
-    """The port's per-token int8 activations (IEEE division, ties to even)
-    equal the Pallas kernels' formula bit for bit, ties included."""
+    """The port's per-token int8 activations equal the jitted JAX formula of
+    the Pallas kernels bit for bit: sx = max|x| * fl(1/127) (XLA's product
+    for the division by the constant 127.0) on rows where the IEEE quotient
+    differs from it, and codes from an IEEE quotient, ties to even."""
     rng = np.random.default_rng(3)
-    x = rng.normal(size=(5, 256)).astype(np.float32)
+    x = np.concatenate([rng.normal(size=(5, 256)).astype(np.float32),
+                        _rows_where_quotient_differs(rng, 6, 256)])
     x[0, :8] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]   # sx = 1: ties
     x[1] = 0.0                                                 # sx floor
-    xf = jnp.asarray(x)
-    sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True) / 127.0,
-                     1e-12)
-    x8 = jnp.clip(jnp.round(xf / sx), -127, 127)
+
+    @jax.jit
+    def jax_rows(xf):
+        sx = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True) / 127.0,
+                         1e-12)
+        return jnp.clip(jnp.round(xf / sx), -127, 127), sx
+
+    x8, sx = jax_rows(jnp.asarray(x))
     got8, got_sx = tum.quantize_rows(torch.from_numpy(x))
     np.testing.assert_array_equal(got8.numpy(), np.asarray(x8))
     np.testing.assert_array_equal(got_sx.numpy(), np.asarray(sx))
     assert got8[0, :8].tolist() == [127, 0, 2, 2, -0, -2, -2, 4]
+    amax = np.abs(x[5:]).max(axis=1, keepdims=True)
+    assert (got_sx.numpy()[5:] != amax / np.float32(127.0)).all()
 
 
 @pytest.mark.parametrize("bits,K,G,sym", [(4, 1024, 8, False),

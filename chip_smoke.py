@@ -145,8 +145,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12          # dense TF32 tensor-core peak
 QUANTIZE_LAYERS = 2                # depth of the quantize path (see PERF.md)
-PALLAS_PATH_LAYERS = 2             # depth of its solver_backend="pallas" run
+PALLAS_PATH_LAYERS = 1             # depth of its solver_backend="pallas" run
 GPTQ_LAYERS = 2                    # depth of the GPTQ path (see PERF.md)
 GPTQ_SIDE_LAYERS = 2               # depth of its desc_act=False runs
 L2_FLUSH_BYTES = 100 * 2**20       # rotate inputs past the 50 MB L2
@@ -385,16 +386,20 @@ def check_flash_decode(gen) -> dict:
 
 
 SSTEP_CASES = [(label, m, n, 16) for label, (m, n) in LLAMA_1B_LINEARS.items()] \
-    + [("q/o", 2048, 2048, 8), ("q/o", 2048, 2048, 4), ("small", 256, 512, 256)]
+    + [("q/o", 2048, 2048, 8), ("q/o", 2048, 2048, 4), ("small", 256, 512, 256),
+       ("8B down", 4096, 14336, 16)]
 
 
 def check_s_step(gen) -> list:
     """Kernels 3 and 4 against their plain versions at the Llama-3.2-1B
-    shapes (V = 16), V = 8 and 4 on q/o and V = 256 on a small shape. W and
-    sorted codebooks of std 0.02, H = X^T X / 2n from a seeded X, L its GANQ
-    factor. Held to: index agreement >= 0.999, Werr within 1e-4 (abs and
-    rel) where the indices agree, quad loss tr(E H E^T) within 1e-5
-    relative of the plain version's."""
+    shapes (V = 16), V = 8 and 4 on q/o, V = 256 on a small shape and the
+    Llama-3.1-8B down projection (V = 16). W and sorted codebooks of std
+    0.02, H = X^T X / 2n from a seeded X, L its GANQ factor. Held to: index
+    agreement >= 0.999, Werr within 1e-4 (abs and rel) where the indices
+    agree, quad loss tr(E H E^T) within 1e-5 relative of the plain
+    version's. Two bounds: the products' operations in float32 on the CUDA
+    cores (``bound_ms``) and as three TF32 passes on the tensor cores
+    (``bound_tf32_ms``, the 3xTF32 products' own)."""
     from ganq_tpu_torch.core.backend import full_f32_matmul
     from ganq_tpu_torch.ops.ganq_solver import (s_step, s_step_blocked,
                                                 s_step_blocked_kernel,
@@ -416,8 +421,15 @@ def check_s_step(gen) -> list:
                        dim=1).values * 0.02
         for name, (kernel, plain) in kernels.items():
             Q, E = kernel(W, L, T)
-            Qp, Ep = plain(W, L, T)
             torch.cuda.synchronize()
+            # the plain version (0.1-3 s a call) is timed on this one call
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            Qp, Ep = plain(W, L, T)
+            end.record()
+            torch.cuda.synchronize()
+            p_ms = start.elapsed_time(end)
             same = Q == Qp
             agree = float(same.float().mean())
             werr_err = float((E[same] - Ep[same]).abs().max())
@@ -432,7 +444,6 @@ def check_s_step(gen) -> list:
                     f"max |dWerr| {werr_err:.3e}, quad loss rel {loss_rel:.3e}")
             slow = name == "s_step" or n > 4096
             k_ms = event_ms(kernel, (W, L, T), 2 if slow else 5)
-            p_ms = event_ms(plain, (W, L, T), 1)
             B = torch.randn((n, n // 2), generator=gen, device="cuda")
             with full_f32_matmul():
                 y_ms = event_ms(torch.matmul, (W, B), 5)
@@ -440,15 +451,17 @@ def check_s_step(gen) -> list:
             flops = m * n * (n - 1) + 3 * m * n * V
             nbytes = 4 * (3 * m * n + n * n + m * V)
             b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            t_ms = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0]
             rows[name][(label, V)] = dict(
                 ms=k_ms, plain_ms=p_ms, yardstick_ms=y_ms, bound_ms=b_ms,
-                bound_by=b_by, agreement=agree, max_abs_err=werr_err,
-                quad_loss_rel=loss_rel)
+                bound_by=b_by, bound_tf32_ms=t_ms, agreement=agree,
+                max_abs_err=werr_err, quad_loss_rel=loss_rel)
             log(f"{name} {label} m={m} n={n} V={V}: agreement={agree:.6f} "
                 f"max|dWerr| where agreeing={werr_err:.3e} quad_loss_rel="
                 f"{loss_rel:.3e} (tol 0.999 / 1e-4 / 1e-5) kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} yardstick_f32_matmul_ms={y_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by}) bound_share={b_ms / k_ms:.3f}")
+                f"bound_ms={b_ms:.4f} ({b_by}, float32) bound_tf32_ms="
+                f"{t_ms:.4f} (3 TF32 passes) bound_share={b_ms / k_ms:.3f}")
         del W, H, L, T
     entries = []
     for name, by_case in rows.items():
@@ -2892,8 +2905,10 @@ def phase_3b_path():
     megastep and through ``layout="perlayer"`` on the same model. Then the
     same checkpoint's ``optimize()`` (uniform 8-bit, 128-column groups) is
     served through kernel 14's "w8p" variant at batch 1, 8, 16 and 64, one
-    launch a decode step, and a symmetric uniform W4 g128 model (saved as
-    GPTQ v1, loaded) through "w4p" at batch 1 and 16 and through kernel 13
+    launch a decode step, and a symmetric uniform W4 g128 model of
+    THREE_B_W4_LAYERS layers (saved as GPTQ v1, loaded: host work that grows
+    with depth; phase 3 times kernels 13-14 at all 28) through "w4p" at
+    batch 1 and 16 and through kernel 13
     with ``GANQ_W4_PLANE=0`` at batch 1 and 8, with their decode ms per
     step against ``layout="perlayer"``. Returns the launch counts of every
     request (``runs``) and the decode times."""
@@ -2965,12 +2980,13 @@ def phase_3b_path():
     # a symmetric uniform W4 g128 model: kernel 14's "w4p", and kernel 13
     with tempfile.TemporaryDirectory() as ckpt:
         t0 = time.time()
-        _save_uniform(cfg, ckpt)
+        _save_uniform(synthetic.llama_3_2_3b_config(THREE_B_W4_LAYERS), ckpt)
         t1 = time.time()
         q = GanqModel.load(ckpt, dtype=torch.bfloat16)
         q._get_engine()
         torch.cuda.synchronize()
-        log(f"3B sym W4: built+saved (GPTQ v1) in {t1 - t0:.1f} s, loaded, "
+        log(f"3B sym W4 ({THREE_B_W4_LAYERS} layers): built+saved (GPTQ v1) "
+            f"in {t1 - t0:.1f} s, loaded, "
             f"stacked and packed in {time.time() - t1:.1f} s; backend "
             f"{q.backend}; device memory "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2998,6 +3014,7 @@ def phase_3b_path():
     return results
 
 
+THREE_B_W4_LAYERS = 8              # depth of the 3B path's sym W4 model
 EIGHT_B_LAYERS = 2                 # depth of the 8B path (see PERF.md)
 MIXTRAL_LAYERS = 2                 # depth of the Mixtral path (see PERF.md)
 
@@ -4516,8 +4533,8 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-         **{x: k[x] for x in ("agreement", "yardstick_ms", "ms_b8",
-                              "bound_ms_b8", "by_case") if x in k},
+         **{x: k[x] for x in ("agreement", "yardstick_ms", "bound_tf32_ms",
+                              "ms_b8", "bound_ms_b8", "by_case") if x in k},
          "shape": k["shape"]} for k in kernels]}
     log("decode ms per step (host clock): " + json.dumps(
         {k: v for d in (three_b, eight_b, mixtral, batching_run, eora,

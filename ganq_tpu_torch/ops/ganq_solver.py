@@ -7,12 +7,13 @@ lower-triangular f32 and one codebook T [m, V] f32 per row (V = 2^bits, 4 to
 backward walk over the columns.
 
 - :func:`s_step_blocked_kernel` (kernel 3, replaces ``s_step_blocked_pallas``):
-  128-column blocks right to left, a trailing product per block plus an
-  in-block walk. Its plain version is :func:`s_step_blocked`, in the same
-  block order.
+  128-column blocks right to left, a K-split trailing product per block
+  (partial sums added in split order) plus an in-block walk. Its plain
+  version is :func:`s_step_blocked`, in the same block order.
 - :func:`s_step_kernel` (kernel 4, replaces ``s_step_pallas``): the
-  per-column walk, each column's residual a dot product over the committed
-  columns. Its plain version is the per-column :func:`s_step`.
+  per-column walk in one launch, each 16-column block's residuals one
+  3xTF32 product over the committed columns. Its plain version is the
+  per-column :func:`s_step`.
 
 The wrappers run the plain version only for CPU tensors; for a CUDA tensor
 they launch the kernel (any m, any n, V = 4 .. 256) or raise. ``.launches``
@@ -103,14 +104,17 @@ def s_step_blocked_kernel(W: torch.Tensor, L: torch.Tensor, T: torch.Tensor
     if W.device.type == "cpu":
         return s_step_blocked(W, L, T)
     m, n, V = _check(W, L, T, "s_step_blocked kernel")
-    W, L, T = W.contiguous(), L.contiguous(), T.contiguous()
+    W, T = W.contiguous(), T.contiguous()
+    Lt = L.T.contiguous()       # a view of the column-major Cholesky factor
     Werr = torch.empty_like(W)
     Q = torch.empty((m, n), dtype=torch.int32, device=W.device)
-    scratch = torch.empty((BLOCK, m), dtype=torch.float32, device=W.device)
+    size = cuda_lib.function("ganq_sstep", "ganq_sstep_blocked_scratch",
+                             [ctypes.c_int] * 2)(m, n)
+    scratch = torch.empty((size,), dtype=torch.float32, device=W.device)
     fn = cuda_lib.function("ganq_sstep", "ganq_sstep_blocked",
                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
-    status = fn(W.data_ptr(), L.data_ptr(), T.data_ptr(), Werr.data_ptr(),
+    status = fn(W.data_ptr(), Lt.data_ptr(), T.data_ptr(), Werr.data_ptr(),
                 Q.data_ptr(), scratch.data_ptr(), m, n, V,
                 torch.cuda.current_stream(W.device).cuda_stream)
     cuda_lib.check(status, "s_step_blocked kernel")
@@ -125,7 +129,7 @@ def s_step_kernel(W: torch.Tensor, L: torch.Tensor, T: torch.Tensor
         return s_step(W, L, T)
     m, n, V = _check(W, L, T, "s_step kernel")
     W, T = W.contiguous(), T.contiguous()
-    Lt = L.T.contiguous()
+    Lt = L.T.contiguous()       # a view of the column-major Cholesky factor
     Werr = torch.empty_like(W)
     Q = torch.empty((m, n), dtype=torch.int32, device=W.device)
     fn = cuda_lib.function("ganq_sstep", "ganq_sstep_columns",

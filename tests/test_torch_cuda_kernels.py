@@ -220,7 +220,17 @@ def _assert_sstep_close(W, T, H, got, plain):
     assert abs(loss - ref) <= 1e-5 * abs(ref)
 
 
-@pytest.mark.parametrize("m,n", [(33, 130), (200, 384), (64, 257)])
+# (33, 130), (200, 384), (64, 257): m below and across the row tiles (128
+# rows a block of kernel 3, 16 of kernel 4), n ragged against the 128- and
+# 16-column blocks, one K chunk; (300, 890): several K chunks, kernel 3's
+# serial schedule, n not a multiple of 4 (the scalar paths); (1000, 1101):
+# the same on the overlapped schedule; (2048, 8192): Llama-3.2-1B's down
+# projection
+SSTEP_SHAPES = [(33, 130), (200, 384), (64, 257), (300, 890), (1000, 1101),
+                (2048, 8192)]
+
+
+@pytest.mark.parametrize("m,n", SSTEP_SHAPES)
 @pytest.mark.parametrize("V", [4, 8, 16, 256])
 def test_s_step_blocked_kernel_matches_plain(gen, m, n, V):
     W, L, T, H = _sstep_problem(gen, m, n, V)
@@ -231,7 +241,7 @@ def test_s_step_blocked_kernel_matches_plain(gen, m, n, V):
     _assert_sstep_close(W, T, H, got, s_step_blocked(W, L, T))
 
 
-@pytest.mark.parametrize("m,n", [(33, 130), (200, 384), (64, 257)])
+@pytest.mark.parametrize("m,n", SSTEP_SHAPES)
 @pytest.mark.parametrize("V", [4, 8, 16, 256])
 def test_s_step_kernel_matches_plain(gen, m, n, V):
     W, L, T, H = _sstep_problem(gen, m, n, V)

@@ -5,8 +5,16 @@ per-column one, plain version of kernel 4) are held against the JAX
 ``s_step`` and against the Pallas ``s_step_blocked_pallas`` run in interpret
 mode, as ``tests/test_ganq.py`` runs it: index agreement > 0.999 and Werr
 within 1e-4. On CPU tensors the kernel wrappers take these plain versions.
+
+An interpret-mode call costs seconds, so the problems of the three codebook
+widths share one, and one JAX ``s_step``: rows are independent, so they are
+stacked over one L, each codebook padded to the widest with 1e30 (a
+codeword that is never nearer, which leaves every arithmetic select of the
+kernel's walk exact: a run of the narrow codebook alone gives the same codes
+and errors).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -36,13 +44,36 @@ def _close(got, Q_ref, E_ref):
     np.testing.assert_allclose(E, np.asarray(E_ref), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("V", [4, 8, 16])
-def test_plain_s_steps_match_jax_and_pallas(V):
-    m, n = 128, 256
-    W, L, T = _problem(V, m, n, V)
-    Qj, Ej = jganq.s_step(W, L, T)
+WIDTHS = (4, 8, 16)
+
+
+@pytest.fixture(scope="module")
+def reference_runs():
+    """Per codebook width V: (W, L, T), 64 x 256 with one L for every
+    width, and the (Q, Werr) of its rows from the JAX scan and from the
+    interpret-mode Pallas kernel."""
+    m, n = 64, 256
+    _, L, _ = _problem(0, 8, n, 4)
+    probs = {}
+    for V in WIDTHS:
+        W, _, T = _problem(V, m, n, V)
+        probs[V] = (W, L, T)
+    Vmax = max(WIDTHS)
+    Ws = np.concatenate([probs[V][0] for V in WIDTHS])
+    Ts = np.concatenate([np.pad(probs[V][2], ((0, 0), (0, Vmax - V)),
+                                constant_values=1e30) for V in WIDTHS])
+    runs = [jganq.s_step(Ws, L, Ts)]
     with pltpu.force_tpu_interpret_mode():
-        Qp, Ep = s_step_blocked_pallas(W, L, T)
+        runs.append(jax.block_until_ready(s_step_blocked_pallas(Ws, L, Ts)))
+    runs = [[np.asarray(a) for a in run] for run in runs]
+    return {V: (probs[V], *[[a[i * m:(i + 1) * m] for a in run]
+                            for run in runs])
+            for i, V in enumerate(WIDTHS)}
+
+
+@pytest.mark.parametrize("V", WIDTHS)
+def test_plain_s_steps_match_jax_and_pallas(reference_runs, V):
+    (W, L, T), (Qj, Ej), (Qp, Ep) = reference_runs[V]
     args = [torch.from_numpy(a) for a in (W, L, T)]
     for plain in (sol.s_step, sol.s_step_blocked):
         got = plain(*args)

@@ -262,23 +262,27 @@ def check_lut_matmul(gen) -> dict:
     from ganq_tpu_torch.ops.lut_matmul import lut_matmul, lut_matmul_reference
     from ganq_tpu_torch.ops.packing import pack_int_rows, unpack_int_rows
 
-    bits = 4
     worst = 0.0
     rows = {}
-    for label, (M, K) in LLAMA_1B_LINEARS.items():
+    # 4 bits on every linear; 8 bits (256-entry codebooks) on down
+    cases = [(4, label, M, K, (1, 8, 128, 512))
+             for label, (M, K) in LLAMA_1B_LINEARS.items()]
+    cases.append((8, "down", *LLAMA_1B_LINEARS["down"], (1, 128)))
+    for bits, label, M, K, batches in cases:
+        V = 2**bits
         wbytes = M * K * bits // 8
         n = copies_for(wbytes)
         weights = []
         for _ in range(n):
-            lut = torch.sort(torch.randn((M, 16), generator=gen, device="cuda")
+            lut = torch.sort(torch.randn((M, V), generator=gen, device="cuda")
                              * 0.006, dim=1).values.to(torch.bfloat16)
-            idx = torch.randint(0, 16, (M, K), generator=gen, device="cuda",
+            idx = torch.randint(0, V, (M, K), generator=gen, device="cuda",
                                 dtype=torch.int32)
             weights.append((lut, pack_int_rows(idx, bits)))
         dense = [torch.take_along_dim(
             lut.float(), unpack_int_rows(p, bits, K).long(), dim=1
         ).to(torch.bfloat16) for lut, p in weights[:copies_for(2 * M * K)]]
-        for B in (1, 8, 128, 512):
+        for B in batches:
             x = torch.randn((B, K), generator=gen, device="cuda").to(torch.bfloat16)
             lut, packed = weights[0]
             got = lut_matmul(x, lut, packed, bits)
@@ -301,21 +305,23 @@ def check_lut_matmul(gen) -> dict:
             p_ms = time_ms(lut_matmul_reference, args, max(len(args), 10))
             l_ms = time_ms(lambda xx, w: torch.matmul(xx, w.T),
                            [(x, w) for w in dense], iters)
-            nbytes = B * K * 2 + M * 16 * 2 + wbytes + B * M * 2
+            nbytes = B * K * 2 + M * V * 2 + wbytes + B * M * 2
             b_ms, b_by = bound(nbytes, 2.0 * B * M * K)
             worst = max(worst, float(err.max()))
-            rows[(label, B)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                    bound_ms=b_ms, bound_by=b_by,
-                                    max_abs_err=float(err.max()))
-            log(f"lut_matmul bits=4 {label} M={M} K={K} B={B}: "
+            rows[(bits, label, B)] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=float(err.max()))
+            log(f"lut_matmul bits={bits} {label} M={M} K={K} B={B}: "
                 f"max_abs_err={float(err.max()):.3e} (tol: 1 bf16 ulp + 2e-5 "
                 f"of max|out|) kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
                 f"library_ms={l_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / k_ms:.3f}")
         del weights, dense
-    entry = dict(rows[("down", 1)])
+    entry = dict(rows[(4, "down", 1)])
     entry.update(name="lut_matmul", max_abs_err=worst,
-                 shape="bits=4 M=2048 K=8192 B=1 (down projection, decode)")
+                 shape="bits=4 M=2048 K=8192 B=1 (down projection, decode)",
+                 by_case={f"bits8_down_b{B}": rows[(8, "down", B)]
+                          for B in (1, 128)})
     return entry
 
 
@@ -2199,6 +2205,55 @@ def phase_main_path(ckpt_dir: str):
     if launches != expected:
         raise AssertionError("kernel launch counts differ from the path's")
     return q, launches, metrics
+
+
+LUT8_LAYERS = 2                    # depth of the 8-bit lut model of phase 4
+
+
+def lut8_served(ckpt_dir: str) -> int:
+    """Phase 4's 8-bit run: a GANQ ``bits=8`` lut model (Llama-3.2-1B
+    widths, LUT8_LAYERS layers, 256-entry codebooks) saved and loaded with
+    the default backend, which must pick "cuda" (kernel 1 at 8 bits), one
+    request through ``generate`` with kernel 1's and kernel 2's launches
+    counted from 0, then the teacher-forced step against the "reference"
+    backend (``phase_reference_check``). Returns kernel 1's launches."""
+    from ganq_tpu_torch import GanqModel, QuantizeConfig
+    from ganq_tpu_torch.formats.checkpoint import save_quantized
+    from ganq_tpu_torch.models import hf_import, synthetic
+    from ganq_tpu_torch.ops.fused_attention import flash_decode_attention
+    from ganq_tpu_torch.ops.lut_matmul import lut_matmul
+
+    cfg = synthetic.llama_3_2_1b_config(LUT8_LAYERS)
+    with torch.inference_mode():
+        model = synthetic.make_model(cfg, kind="lut", bits=8, seed=3,
+                                     device="cuda", dtype=torch.bfloat16)
+    save_quantized(ckpt_dir, hf_import.config_to_hf(cfg),
+                   QuantizeConfig(bits=8, quant_method="ganq"), model)
+    del model
+    q = GanqModel.load(ckpt_dir, dtype=torch.bfloat16)
+    if q.backend != "cuda" or q.device.type != "cuda":
+        raise AssertionError(f"8-bit lut model: backend {q.backend} on "
+                             f"{q.device}, not the card's \"cuda\"")
+    linears = sum(len(lp.attn) + len(lp.mlp)
+                  for lp in q._get_engine().model.layers)
+    ids = torch.randint(0, cfg.vocab_size, (1, 32),
+                        generator=torch.Generator().manual_seed(5)).numpy()
+    new = 8
+    lut_matmul.launches = 0
+    flash_decode_attention.launches = 0
+    out = q.generate(ids, max_new_tokens=new)
+    launches = {"lut_matmul": lut_matmul.launches,
+                "flash_decode": flash_decode_attention.launches}
+    expected = {"lut_matmul": new * linears,
+                "flash_decode": (new - 1) * LUT8_LAYERS}
+    log(f"8-bit lut model ({LUT8_LAYERS} layers, backend {q.backend}): "
+        f"tokens {out[0].tolist()}, launches {launches} (expected "
+        f"{expected})")
+    if out.shape != (1, new) or launches != expected:
+        raise AssertionError("8-bit lut model: tokens or launch counts "
+                             "differ from the path's")
+    phase_reference_check(q, "8-bit lut reference check")
+    return launches["lut_matmul"]
 
 
 def phase_reference_check(q, what: str = "reference check",
@@ -4408,6 +4463,12 @@ def main() -> int:
         q, launches, _ = phase_main_path(ckpt.name)
         phase_reference_check(q)
         del q
+        torch.cuda.empty_cache()
+        lut8 = tempfile.TemporaryDirectory()
+        try:
+            launches["lut_matmul"] += lut8_served(lut8.name)
+        finally:
+            lut8.cleanup()
         torch.cuda.empty_cache()
         # the default S-step (kernel 3) on the README path; then the same
         # path with solver_backend="pallas" (kernel 4) at a cut depth

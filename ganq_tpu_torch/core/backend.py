@@ -37,7 +37,7 @@ REFERENCE = "reference"
 # quantized kinds each CUDA backend runs, with their bit widths
 _KERNELS = {
     CUDA_A8: {"uniform": (4, 8), "w8": (8,)},
-    CUDA: {"lut": (2, 3, 4), "uniform": (2, 3, 4, 8), "w8": (8,)},
+    CUDA: {"lut": (2, 3, 4, 8), "uniform": (2, 3, 4, 8), "w8": (8,)},
 }
 # priority on a CUDA device, mirroring the JAX package's
 # AUTO_SELECT_BACKEND_ORDER (pallas_a8, then pallas)
@@ -70,8 +70,7 @@ def full_f32_matmul():
 
 def _missing_kernel(kind: str, bits: int) -> str:
     if kind == "lut":
-        return (f"the lut_matmul kernel takes 2, 3 or 4 bits, not {bits} "
-                "(ROADMAP.md queue C)")
+        return f"the lut_matmul kernel takes 2, 3, 4 or 8 bits, not {bits}"
     return f"no slice of the port brings kind={kind} bits={bits} yet"
 
 

@@ -78,12 +78,21 @@
 //    would leave more than half the SMs idle; a second launch adds the
 //    partial sums in split order.
 // 3. The GEMV (lut_gemv_kernel) takes float32 x, at every batch, with its
-//    exact float FMAs, and bf16 x whose width is no multiple of 16. Each
+//    exact float FMAs, bf16 x whose width is no multiple of 16, and 8-bit
+//    codes at up to kGemv8Rows token rows. Each
 //    warp owns kRows output rows and its lanes stride over 16-byte groups
 //    of packed words (kChunkQ groups of a row in flight a chunk); the x
 //    values of a group's columns are loaded once and reused for all kRows
 //    rows and all planes share the word loads. Larger B runs more block
 //    rows, each reading the weights again (from L2).
+//
+// 8-bit codes (256-entry codebooks, four codes a word) have no pair
+// tables: 64K pairs a row would not fit. Up to kGemv8Rows token rows take
+// the GEMV, whose warps stage their rows' codebooks as float32 (2 rows x
+// 256 entries, 2 KB a warp) and look each code up there; more rows take
+// lut_tc_tile at 64 rows x 64 token rows a block (two warps), whose rows'
+// bf16 codebooks (32 KB) are staged once and decoded in registers as at
+// 2-4 bits, K split to the same kTcChainCols columns a block.
 
 #include "mma_sync.cuh"
 
@@ -853,10 +862,10 @@ void plan_tile(Plan& pl, int B, int M, int width) {
   pl.path = kTile;
   const int steps = width / kTcStepW;
   const int chain = (steps + tc_chain<BITS>() - 1) / tc_chain<BITS>();
-  const bool large = BITS != 2 && B > 64 &&
+  const bool large = BITS != 2 && BITS != 8 && B > 64 &&
                      4 * ((M + 255) / 256) * ((B + 127) / 128) * chain >=
                          3 * kSMs;
-  pl.wn = large ? 8 : 4;
+  pl.wn = BITS == 8 ? 2 : large ? 8 : 4;
   pl.nt = large ? 16 : 8;
   const int nb = (B + 8 * pl.nt - 1) / (8 * pl.nt);
   const int bm = 32 * pl.wn;
@@ -878,11 +887,23 @@ Plan plan_bits(int B, int M, int width, int x_bf16) {
   return pl;
 }
 
+// 8 bits: the GEMV up to kGemv8Rows token rows, the tile beyond
+constexpr int kGemv8Rows = 16;
+
+template <>
+Plan plan_bits<8>(int B, int M, int width, int x_bf16) {
+  Plan pl;
+  if (!x_bf16 || width % 16 || B <= kGemv8Rows || M <= 0) return pl;
+  plan_tile<8>(pl, B, M, width);
+  return pl;
+}
+
 Plan plan_lut(int B, int M, int width, int bits, int x_bf16) {
   switch (bits) {
     case 2: return plan_bits<2>(B, M, width, x_bf16);
     case 3: return plan_bits<3>(B, M, width, x_bf16);
     case 4: return plan_bits<4>(B, M, width, x_bf16);
+    case 8: return plan_bits<8>(B, M, width, x_bf16);
     default: return Plan();
   }
 }
@@ -923,7 +944,9 @@ cudaError_t launch_tc(const Plan& pl, const void* x, const void* lut,
   const int32_t* ib = static_cast<const int32_t*>(idx);
   bf16* ob = static_cast<bf16*>(out);
   cudaError_t err;
-  if (pl.path == kDecode && B > 8) {
+  if constexpr (BITS == 8) {   // the tile alone (plan_bits<8>)
+    err = launch_tile<8, 2, 8>(pl, xb, lb, ib, ob, part, B, M, width, s);
+  } else if (pl.path == kDecode && B > 8) {
     static int raised = 48 * 1024;
     err = raise_smem(lut_tc_decode<BITS, true>, pl.smem, raised);
     if (err != cudaSuccess) return err;
@@ -956,6 +979,7 @@ int gemv_types(const void* x, const void* lut, const void* idx, void* out,
     case 2: err = gemv_bits<XT, LT, 2>(x, lut, idx, out, B, M, width, stream); break;
     case 3: err = gemv_bits<XT, LT, 3>(x, lut, idx, out, B, M, width, stream); break;
     case 4: err = gemv_bits<XT, LT, 4>(x, lut, idx, out, B, M, width, stream); break;
+    case 8: err = gemv_bits<XT, LT, 8>(x, lut, idx, out, B, M, width, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -981,7 +1005,7 @@ extern "C" int ganq_lut_matmul(const void* x, const void* lut, const void* idx,
                                int width, int bits, int x_bf16, int lut_bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits < 2 || bits > 4) return (int)cudaErrorInvalidValue;
+  if (bits < 2 || (bits > 4 && bits != 8)) return (int)cudaErrorInvalidValue;
   if (x_bf16 && lut_bf16) {
     const Plan pl = plan_lut(B, M, width, bits, 1);
     float* part = static_cast<float*>(scratch);
@@ -989,6 +1013,7 @@ extern "C" int ganq_lut_matmul(const void* x, const void* lut, const void* idx,
       switch (bits) {
         case 2: return (int)launch_tc<2>(pl, x, lut, idx, out, part, B, M, width, s);
         case 3: return (int)launch_tc<3>(pl, x, lut, idx, out, part, B, M, width, s);
+        case 8: return (int)launch_tc<8>(pl, x, lut, idx, out, part, B, M, width, s);
         default: return (int)launch_tc<4>(pl, x, lut, idx, out, part, B, M, width, s);
       }
     }

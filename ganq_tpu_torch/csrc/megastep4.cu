@@ -7,7 +7,8 @@
 // each row tile with the tile's first half in the low nibble; o and down
 // are K-major and pair columns (c, c + H / 2), so their products are
 // written as float32 group partials and summed in group order by an
-// elementwise pass; rope reads its partner lane rounded to bf16. Bound: the
+// elementwise pass over the grid, whose last unit of a row forms the row's
+// norm; rope reads its partner lane rounded to bf16. Bound: the
 // 4-bit weight bytes and bf16 scales of all layers plus the K/V history
 // over 3.35 TB/s (0.43 ms a step at Llama-3.2-3B and short contexts).
 
@@ -22,8 +23,9 @@
 // cos/sin_half [B, cos_ld]. Out kn/vn [L, B, kv_dim] bf16. Scratch:
 // qkv_out [B, Dqkv] bf16, x8 [B, H], sx [B], xs [B, H], act_a [B, I], amax
 // [B, I / ti], a8 [B, max(q_dim, I)], attn [B, q_dim], attn_amax [B Hkv],
-// partf [max(q_dim, I) / gs, B, H]. Returns the cooperative launch's
-// cudaError_t.
+// partf [max(q_dim, I) / gs, B, H], and the attention items' att_part,
+// att_flag and att_count (the last two zero between calls, see W8A8Args).
+// Returns the cooperative launch's cudaError_t.
 extern "C" int ganq_megastep4(const W8A8Args* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p->bits != 4 || !p->kmajor || p->B > 8 || lora_any(p) ||

@@ -34,37 +34,50 @@
 //
 // One cooperative launch (cudaLaunchCooperativeKernel; the grid is
 // occupancy times SMs, every block runs every phase and passes every
-// barrier). Per layer, with a grid barrier after each:
+// barrier). Per layer, with a grid barrier after each (7 a layer at one
+// token row, 8 with more):
 //
-//   0  layer entry: the residual x (the input at layer 0; kernel 13 adds
-//      the previous layer's MLP from its group partials)
-//   1  attention norm and int8 rows, a block per token row
+//   1  the layer's entry into the residual row (the input at layer 0),
+//      then the attention norm and int8 rows: a block per token row
+//      (kernel 13 adds the previous layer's MLP from its group partials
+//      over the grid, and the last unit of a row to finish forms its norm
+//      through a counter per row)
 //   2  qkv + bias + rope, a warp per rope pair of packed rows; zero the
 //      MLP tile maxima
-//   3  flash attention, a block per (token row, kv head), each row at its
-//      own history length pos[b]
-//   4  the attention output's int8 rows (a8, one scale per token row)
-//   5  the o product: kernel 14 a warp per two output rows, which adds
-//      (sum_g s_g z_g) * sa to the residual row it owns; kernel 13 (K-major
-//      o) a block per (group, 1024 byte columns) writing s_g * z_g, then an
-//      elementwise pass summing the groups in order into the residual
-//   6  MLP norm and int8 rows
-//   7  gate/up, a warp per (gate, up) packed row pair: act(g) * u and the
-//      per-tile max|a| (integer max on float bits)
-//   8  the activation's int8 rows per MLP tile
-//   9  the down product: kernel 14 a warp per two output rows walking the
+//   3  flash attention, an item per (flash block, token row, kv head),
+//      each row at its own history length pos[b] (gphase_attention: the
+//      blocks' maxima published and their p . v combined in block order by
+//      the unit's last item)
+//   4  the o product, whose staging forms the attention output's int8 rows
+//      (quant8 with the row's scale over all heads, attn_scale: the codes
+//      an int8 pass would store): kernel 14 a warp per two output rows,
+//      which adds (sum_g s_g z_g) * sa to the residual rows it owns;
+//      kernel 13 (K-major o) a block per (group, 1024 byte columns)
+//      writing s_g * z_g, summed in group order by phase 5
+//   5  (kernel 13: the o residual over the grid) the MLP norm and int8
+//      rows, a block per row
+//   6  gate/up, a warp per (gate, up) packed row pair: act(g) * u and the
+//      per-tile max|a| (integer max on float bits); with more than one
+//      token row the activation's int8 rows per tile follow in a pass of
+//      their own (at one, down forms them as it stages them)
+//   7  the down product: kernel 14 a warp per two output rows walking the
 //      ti tiles in order (ma += y_t * sa_t, then x += ma); kernel 13 group
-//      partials as in 5, summed at the next layer's entry
+//      partials as in 4, summed at the next layer's entry
 //
-// Kernel 14 with the EoRA epilogue (the LORA instantiations) adds, without a
-// barrier of its own, the rank-r terms of the TPU kernel: phase 1 forms
-// xa_q = xf . la_q^T from the normed float rows (xf before their int8
-// rows), which phase 2 adds as xa_q . lb_q[row]^T after the qkv bias and
-// before rope; phase 4 forms xa_o from the float attention output, which
-// phase 5 adds with the o product before the residual; phase 6 forms xa_g,
-// which phase 7 adds to gate and up before the activation; phase 8 forms
-// xa_d = sum over the MLP tiles, in tile order, of a_t . la_d[:, t]^T from
-// the float activation, which phase 9 adds with the down product. The A
+// At 8 bits the products of one or two token rows take every lane
+// (group_dot_wide), and at 4 and 8 bits batches of token groups (B > 8)
+// take the tensor-core tiles of the TCK instantiation (warp_tile_dot).
+//
+// Kernel 14 with the EoRA epilogue (the LORA instantiations) adds the rank-r
+// terms of the TPU kernel: phase 1 forms xa_q = xf . la_q^T from the
+// normed float rows (xf before their int8 rows), which phase 2 adds as
+// xa_q . lb_q[row]^T after the qkv bias and before rope; a pass after
+// phase 3, with a barrier of its own, forms xa_o from the float attention
+// output, which phase 4 adds with the o product before the residual; phase
+// 5 forms xa_g, which phase 6 adds to gate and up before the activation;
+// the pass after phase 6 (with a barrier of its own) forms xa_d = sum over the
+// MLP tiles, in tile order, of a_t . la_d[:, t]^T from the float
+// activation, which phase 7 adds with the down product. The A
 // products are float32 dots (a block per 8 token rows and 4 ranks, its
 // warps splitting the columns, 16-byte loads of A), the B products r
 // float32 multiply-adds per output by the lane that owns it, reading lb_*
@@ -81,7 +94,8 @@
 // first normalizes the heads it reads, its query heads, key head and value
 // head (qk_norm_rope_heads: each head's mean square over its 128 lanes,
 // the per-lane weight where qk_nm's mask is set), ropes and stores them in
-// bf16: every head has one owner and the norm adds no grid barrier.
+// bf16: every item of the unit writes the same values, and the norm adds
+// no grid barrier.
 //
 // Kernel 14 with gemma's operands (the GEMMA instantiation,
 // megastep_lowbit_gemma.cu, which also takes every operand above, each run
@@ -89,11 +103,13 @@
 // rope_sel: o's and down's products (bias and EoRA term added) go to the
 // scratch sand instead of the residual, and a row pass (sandwich_row, a
 // block per token row) norms them into it: the post-attention norm with
-// the MLP norm of phase 6 (one more grid barrier only with the EoRA
-// epilogue, whose A product reads every row), the post-MLP norm at the next
-// layer's entry or, after the last layer, with y; phase 3 walks a sliding
-// layer's keys from pos - window + 1 (none before it read) and caps the
-// scaled scores; rope_table picks layer l's table of two.
+// the MLP norm of phase 5, the post-MLP norm with the next layer's
+// attention norm of phase 1 (one more grid barrier each only with the
+// EoRA epilogue, whose A products read every row) or, after the last
+// layer, with y; phase 3 reads a sliding layer's keys from pos - window + 1
+// (none before it read; its first block runs to the next multiple of Tb,
+// so the blocks are a walk's from key 0) and caps the scaled scores;
+// rope_table picks layer l's table of two.
 //
 // and after the last layer y = x. Kernel 14 with the trailing-unembed fold
 // (the LM instantiations) then runs, after a barrier each, the final norm
@@ -113,9 +129,8 @@
 // (1.41 GB at Llama-3.2-3B for 4 bits, 2.82 GB for 8, 1.06 for 3 and the
 // Walsh planes, 0.70 for 2), plus their bf16 (Walsh: float32 coefficient)
 // scales, the K/V history and, with EoRA, the bf16 factors (161 MB at 3B
-// and r = 64), over 3.35 TB/s. This first form pays 10-11
-// grid barriers a layer and leaves most blocks idle in the row and
-// attention phases, as kernel 12 does.
+// and r = 64), over 3.35 TB/s. The row phases (1, 5) still keep a block a
+// token row busy and the rest at the barrier.
 
 #pragma once
 
@@ -123,6 +138,7 @@
 
 #include <algorithm>
 
+#include "mma_sync.cuh"
 #include "w8a8_fused.cuh"
 
 namespace cg = cooperative_groups;
@@ -356,14 +372,152 @@ __device__ __forceinline__ float group_dot(const int8_t* const (&rows)[NR],
   return y;
 }
 
+// group_dot at 4 and 8 bits, one or two token rows and 128-column groups,
+// with every lane loading: lane l takes the 16-byte chunks l, l + 32, ...
+// of each packed row (a group is 8 consecutive chunks: at load step i
+// lanes 8 j .. 8 j + 7 hold group 4 i + j), a window's 8 / NR load steps
+// in flight at once, lane j holding the scales of the window's group j.
+// Each lane forms the dp4a partial dots of its chunk; the group's 8 lanes
+// add them (integers: exact, in any order) and its first lane writes p =
+// s_g z (+ sz_g S_g with ZP) into the warp's partials pf; then lane v < V
+// sums the window's groups in order, as group_dot does: the same floats.
+template <int TB, int BITS, int NR, bool ZP, typename Scale, typename Sz>
+__device__ __forceinline__ float group_dot_wide(
+    const int8_t* const (&rows)[NR], int K, const int8_t* xs, bool hi_first,
+    float* pf, Scale scale, Sz sz) {
+  constexpr int F = fields<BITS>();
+  constexpr int V = NR * F * TB, RF = NR * F;
+  constexpr int kWin = 8 / NR;              // load steps of a window
+  static_assert(BITS == 4 || BITS == 8, "one or two codes a byte");
+  const int lane = threadIdx.x & 31;
+  const int G = K >> 7, NL = K >> 4, xstride = (K >> 7) * kPad;
+  float y = 0.f;
+  for (int g0 = 0; g0 < G; g0 += 4 * kWin) {
+    const int c0 = g0 * 8;                  // the window's first chunk
+    const int n = min(4 * kWin, G - g0);    // the window's groups
+    int4 w[kWin][NR];
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) {
+      const int c = c0 + 32 * i + lane;
+      const bool ok = c < NL;
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        w[i][r] = ok ? __ldg(reinterpret_cast<const int4*>(rows[r] + 16 * c))
+                     : make_int4(0, 0, 0, 0);
+    }
+    // lane j holds the scales of the window's group j, for its writer
+    float sgl[RF], zgl[RF];
+#pragma unroll
+    for (int u = 0; u < RF; ++u) {
+      sgl[u] = lane < n ? scale(u * TB, g0 + lane) : 0.f;
+      if constexpr (ZP) zgl[u] = lane < n ? sz(u * TB, g0 + lane) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kWin; ++i) {
+      if (4 * i >= n) break;                // uniform across the warp
+      const int c = c0 + 32 * i + lane;
+      const bool ok = c < NL;
+      int xw[TB][4];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        int4 xv = make_int4(0, 0, 0, 0);
+        if (ok)
+          xv = *reinterpret_cast<const int4*>(xs + (size_t)b * xstride +
+                                             padk(16 * c));
+        xw[b][0] = xv.x; xw[b][1] = xv.y; xw[b][2] = xv.z; xw[b][3] = xv.w;
+      }
+      int acc[V], xsum[TB];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0;
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        xsum[b] = 0;
+        if constexpr (ZP) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            xsum[b] = __dp4a(xw[b][j], 0x01010101, xsum[b]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const int ww[4] = {w[i][r].x, w[i][r].y, w[i][r].z, w[i][r].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (BITS == 8) {
+#pragma unroll
+            for (int b = 0; b < TB; ++b)
+              acc[r * TB + b] = __dp4a(ww[j], xw[b][j], acc[r * TB + b]);
+          } else {
+            int hi, lo;
+            nibbles((unsigned)ww[j], hi, lo);
+            const int f0 = hi_first ? hi : lo, f1 = hi_first ? lo : hi;
+#pragma unroll
+            for (int b = 0; b < TB; ++b) {
+              acc[2 * r * TB + b] = __dp4a(f0, xw[b][j], acc[2 * r * TB + b]);
+              acc[(2 * r + 1) * TB + b] =
+                  __dp4a(f1, xw[b][j], acc[(2 * r + 1) * TB + b]);
+            }
+          }
+        }
+      }
+      // the group's 8 lanes' integers
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], o);
+        if constexpr (ZP) {
+#pragma unroll
+          for (int b = 0; b < TB; ++b)
+            xsum[b] += __shfl_xor_sync(0xffffffffu, xsum[b], o);
+        }
+      }
+      const int gl = 4 * i + (lane >> 3);   // the group in the window
+      float sg[RF], zg[RF];
+#pragma unroll
+      for (int u = 0; u < RF; ++u) {
+        sg[u] = __shfl_sync(0xffffffffu, sgl[u], gl);
+        if constexpr (ZP) zg[u] = __shfl_sync(0xffffffffu, zgl[u], gl);
+      }
+      if ((lane & 7) == 0 && ok) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          float p = __fmul_rn(sg[v / TB], (float)acc[v]);
+          if constexpr (ZP)
+            p = __fadd_rn(p, __fmul_rn(zg[v / TB], (float)xsum[v % TB]));
+          pf[gl * (V + 1) + v] = p;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane < V)
+      for (int j = 0; j < n; ++j) y = __fadd_rn(y, pf[j * (V + 1) + lane]);
+    __syncwarp();
+  }
+  return y;
+}
+
 // group_dot with the zero-point corrections where szs is given; OPT (a
 // kernel with optional operands) compiles that choice in at all, so that
-// the symmetric kernels carry none of it
+// the symmetric kernels carry none of it. At 4 and 8 bits, one or two
+// token rows and 128-column groups at 8 bits: group_dot_wide (at 4 bits
+// its group sums and nibble fields cost more than its loads gain, PERF.md)
 template <int TB, int BITS, int NR, bool OPT, typename Scale, typename Sz>
 __device__ __forceinline__ float group_dot_zp(
     const int8_t* const (&rows)[NR], int K, const int8_t* xs, int gs,
     bool hi_first, float* pf, Scale scale, const float* szs, Sz sz,
     size_t pstride = 0) {
+  if constexpr (BITS == 8 && TB <= 2) {
+    if (gs == 128) {
+      if constexpr (OPT) {
+        if (szs)
+          return group_dot_wide<TB, BITS, NR, true>(rows, K, xs, hi_first,
+                                                    pf, scale, sz);
+      }
+      return group_dot_wide<TB, BITS, NR, false>(rows, K, xs, hi_first, pf,
+                                                 scale, sz);
+    }
+  }
   if constexpr (OPT) {
     if (szs)
       return group_dot<TB, BITS, NR, true>(rows, K, xs, gs, hi_first, pf,
@@ -420,6 +574,46 @@ __device__ __forceinline__ void stage_rows_ord(const int8_t* src,
     }
   }
   stage_rows_ld<TB>(src, K, 0, b0, nb, K, xs);
+}
+
+// token rows b0 .. b0 + nb of the float32 activations src (row stride ld;
+// columns k0 .. k0 + K, or with OPT and perm given column perm[k] for
+// staged column k) as int8 codes quant8(v, sa[b]) into xs [TB][K] padded
+// (``padk``); rows past nb are zeros: the codes an int8 pass would store
+// (the attention output's with its row scale, an MLP tile's with its tile
+// scale), formed where a product stages them. Block-level: sa must be
+// visible to every thread; ends with a barrier.
+template <int TB, bool OPT>
+__device__ void stage_quant(const float* __restrict__ src, int ld,
+                            const int* __restrict__ perm, int k0, int b0,
+                            int nb, int K, const float* sa, int8_t* xs) {
+  const int xstride = (K >> 7) * kPad;
+  if (OPT && perm) {
+    for (int e = threadIdx.x; e < TB * K; e += kThreads) {
+      const int b = e / K, k = e - b * K;
+      xs[(size_t)b * xstride + padk(k)] =
+          b < nb ? (int8_t)quant8(src[(size_t)(b0 + b) * ld + __ldg(perm + k)],
+                                  sa[b])
+                 : (int8_t)0;
+    }
+  } else {
+    const int n4 = K / 4;
+    for (int e = threadIdx.x; e < TB * n4; e += kThreads) {
+      const int b = e / n4, c = e - b * n4;
+      unsigned v = 0;
+      if (b < nb) {
+        const float4 f = *reinterpret_cast<const float4*>(
+            src + (size_t)(b0 + b) * ld + k0 + 4 * c);
+        const float s = sa[b];
+        v = (unsigned)(quant8(f.x, s) & 0xff) |
+            ((unsigned)(quant8(f.y, s) & 0xff) << 8) |
+            ((unsigned)(quant8(f.z, s) & 0xff) << 16) |
+            ((unsigned)(quant8(f.w, s) & 0xff) << 24);
+      }
+      *reinterpret_cast<unsigned*>(xs + (size_t)b * xstride + padk(4 * c)) = v;
+    }
+  }
+  __syncthreads();
 }
 
 // the attention output's int8 scale of token row b: max(1e-12, max|a|) *
@@ -665,6 +859,192 @@ __device__ __forceinline__ float lora_out(int r, XaOf xa_of, LbOf lb_of) {
   return xv ? lora_b(xv, lb_of(lane), r) : 0.f;
 }
 
+// ------------------------------------------ 4 and 8 bits: tensor-core tiles
+// At 4 and 8 bits the row-major products take their group dots on int8
+// mma.sync m16n8k32: a warp takes a tile of 16 output rows (8 pair-nibble
+// packed rows at 4 bits, both fields; 16 packed rows at 8) against a
+// staged token group of up to 8 rows (the N side; a batch's token groups
+// are the inner unit index, as before) and walks the product's groups in
+// order. Each lane loads 16 bytes of its two packed rows (8 bits: of four)
+// per 128 columns, every lane busy, with kTileRing chunks and their
+// scales in flight in registers; the codes enter the products as they are
+// stored (8 bits: the byte XOR 128 is the centred code) or as the two
+// nibble fields' centred codes (``nibbles``). Inside a 128-column chunk the
+// k order is a permutation of the columns, the same for the codes and the
+// activations (lane t's words 2 s, 2 s + 1 of its two 16-byte pieces at k
+// step s), and the sums are integers: the group dots z are exact, the
+// dp4a walk's. Each lane then adds p_g = s_g z_g (+ sz_g S_g with zero
+// points, S_g the group's activation sums from a product with all-ones
+// codes) to the sums of the (row, token) pairs it holds, group after group
+// in order: the TPU kernel's floats, with no barrier. A weight byte is
+// read once per token group (from L2 after the first) and multiplied on
+// the tensor cores, where the dp4a walk multiplied it once per token.
+template <int BITS>
+__host__ __device__ constexpr int tile_ring() {
+  return BITS == 4 ? 4 : 2;       // chunks in flight (4 KB of codes a warp)
+}
+
+
+// tiles a block's iteration gives its warps (one each): the fewest, a
+// power of two up to kWarps, whose iterations fill the grid once
+__device__ __forceinline__ int tiles_per_block(int work) {
+  int w = 1;
+  while (w < kWarps && (long long)w * gridDim.x < work) w *= 2;
+  return w;
+}
+
+// The warp's tile: tile row m < 16 is field f(m) of packed row i(m) (4
+// bits: m < 8 the first field, ``hi_first``: the high nibble, of packed
+// row m, m >= 8 the second field of packed row m - 8; 8 bits: packed row
+// m), lane (g, t) reading packed rows r0 = row g and r1 = row g + 8 (8
+// bits; at 4 bits r0 serves both) with scale columns c0 (tile row g) and
+// c1 (g + 8); xs [TB][K] the staged token rows (``padk``), rows past TB
+// zero. Returns in y the sums of tile rows g and g + 8 at token rows 2 t
+// and 2 t + 1 (y[0], y[1] and y[2], y[3]).
+template <int TB, int BITS, bool ZP, typename Scale, typename Sz>
+__device__ __forceinline__ void warp_tile_dot(const int8_t* r0,
+                                              const int8_t* r1, int c0,
+                                              int c1, int K,
+                                              const int8_t* xs, int gs,
+                                              bool hi_first, Scale scale,
+                                              Sz sz, float (&y)[4]) {
+  static_assert(BITS == 4 || BITS == 8, "the tile path's codes");
+  constexpr int R = tile_ring<BITS>();
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int nc = K >> 7, nch = gs >> 7;
+  const bool tok = g8 < TB;
+  const int8_t* xr = xs + (size_t)(tok ? g8 : 0) * ((K >> 7) * kPad) + 16 * t4;
+  int4 w[R][2], v[R][2];
+  float s[R][2], u[R][2];
+  // chunk q's codes, and at a group's last chunk the group's scales
+  auto load = [&](int q, int4 (&wq)[2], int4 (&vq)[2], float (&sq)[2],
+                  float (&uq)[2]) {
+    const int k = q * 128 + 16 * t4;
+    wq[0] = __ldg(reinterpret_cast<const int4*>(r0 + k));
+    wq[1] = __ldg(reinterpret_cast<const int4*>(r0 + k + 64));
+    if constexpr (BITS == 8) {
+      vq[0] = __ldg(reinterpret_cast<const int4*>(r1 + k));
+      vq[1] = __ldg(reinterpret_cast<const int4*>(r1 + k + 64));
+    }
+    if (q % nch == nch - 1) {
+      const int g = q / nch;
+      sq[0] = scale(c0, g);
+      sq[1] = scale(c1, g);
+      if constexpr (ZP) {
+        uq[0] = sz(c0, g);
+        uq[1] = sz(c1, g);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (i < nc) load(i, w[i], v[i], s[i], u[i]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) y[e] = 0.f;
+  int z[4] = {0, 0, 0, 0}, zs[4] = {0, 0, 0, 0};
+  for (int q0 = 0; q0 < nc; q0 += R) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int q = q0 + i;
+      if (q >= nc) break;
+      int4 x0 = make_int4(0, 0, 0, 0), x1 = x0;
+      if (tok) {
+        x0 = *reinterpret_cast<const int4*>(xr + q * kPad);
+        x1 = *reinterpret_cast<const int4*>(xr + q * kPad + 64);
+      }
+      const unsigned xw[8] = {(unsigned)x0.x, (unsigned)x0.y, (unsigned)x0.z,
+                              (unsigned)x0.w, (unsigned)x1.x, (unsigned)x1.y,
+                              (unsigned)x1.z, (unsigned)x1.w};
+      const unsigned aw[8] = {
+          (unsigned)w[i][0].x, (unsigned)w[i][0].y, (unsigned)w[i][0].z,
+          (unsigned)w[i][0].w, (unsigned)w[i][1].x, (unsigned)w[i][1].y,
+          (unsigned)w[i][1].z, (unsigned)w[i][1].w};
+      unsigned bw[8];
+      if constexpr (BITS == 8) {
+        bw[0] = (unsigned)v[i][0].x; bw[1] = (unsigned)v[i][0].y;
+        bw[2] = (unsigned)v[i][0].z; bw[3] = (unsigned)v[i][0].w;
+        bw[4] = (unsigned)v[i][1].x; bw[5] = (unsigned)v[i][1].y;
+        bw[6] = (unsigned)v[i][1].z; bw[7] = (unsigned)v[i][1].w;
+      }
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        uint32_t fa[4];
+        if constexpr (BITS == 4) {
+          int h0, l0, h1, l1;
+          nibbles(aw[2 * st], h0, l0);
+          nibbles(aw[2 * st + 1], h1, l1);
+          fa[0] = (uint32_t)(hi_first ? h0 : l0);
+          fa[1] = (uint32_t)(hi_first ? l0 : h0);
+          fa[2] = (uint32_t)(hi_first ? h1 : l1);
+          fa[3] = (uint32_t)(hi_first ? l1 : h1);
+        } else {
+          fa[0] = aw[2 * st];
+          fa[1] = bw[2 * st];
+          fa[2] = aw[2 * st + 1];
+          fa[3] = bw[2 * st + 1];
+        }
+        mma_s8(z, fa, xw[2 * st], xw[2 * st + 1]);
+        if constexpr (ZP) {
+          constexpr uint32_t kOnes[4] = {0x01010101u, 0x01010101u,
+                                         0x01010101u, 0x01010101u};
+          mma_s8(zs, kOnes, xw[2 * st], xw[2 * st + 1]);
+        }
+      }
+      if (q % nch == nch - 1) {           // the group's last chunk
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = __fmul_rn(s[i][e >> 1], (float)z[e]);
+          if constexpr (ZP) {
+            p = __fadd_rn(p, __fmul_rn(u[i][e >> 1], (float)zs[e]));
+            zs[e] = 0;
+          }
+          y[e] = __fadd_rn(y[e], p);
+          z[e] = 0;
+        }
+      }
+      if (q + R < nc) load(q + R, w[i], v[i], s[i], u[i]);
+    }
+  }
+}
+
+// warp_tile_dot with the zero-point corrections where szs is given (OPT:
+// as group_dot_zp)
+template <int TB, int BITS, bool OPT, typename Scale, typename Sz>
+__device__ __forceinline__ void warp_tile_dot_zp(
+    const int8_t* r0, const int8_t* r1, int c0, int c1, int K,
+    const int8_t* xs, int gs, bool hi_first, Scale scale, const float* szs,
+    Sz sz, float (&y)[4]) {
+  if constexpr (OPT) {
+    if (szs) {
+      warp_tile_dot<TB, BITS, true>(r0, r1, c0, c1, K, xs, gs, hi_first,
+                                    scale, sz, y);
+      return;
+    }
+  }
+  warp_tile_dot<TB, BITS, false>(r0, r1, c0, c1, K, xs, gs, hi_first, scale,
+                                 sz, y);
+}
+
+// a lane's warp_tile_dot sums into the warp's tile [16][8] of shared
+// memory (after the warp's reads of the last tile), for the units' lanes
+__device__ __forceinline__ void tile_store(float* yt, const float (&y)[4]) {
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  __syncwarp();
+  *reinterpret_cast<float2*>(yt + g8 * 8 + 2 * t4) = make_float2(y[0], y[1]);
+  *reinterpret_cast<float2*>(yt + (g8 + 8) * 8 + 2 * t4) =
+      make_float2(y[2], y[3]);
+  __syncwarp();
+}
+
+// the tile row of value v of a unit whose packed rows are tile rows i0 (r
+// = 0) and i0 + di (r = 1), value v = (r F + f) TB + b: field f of packed
+// row i0 + r di (F = 2: tile rows i and i + 8; F = 1: row i)
+template <int TB, int F>
+__device__ __forceinline__ int tile_row(int v, int i0, int di) {
+  const int r = v / (F * TB), f = (v / TB) % F, i = i0 + r * di;
+  return F == 2 ? i + 8 * f : i;
+}
+
 // ------------------------------------------------------------ qkv + rope
 // Packed qkv rows in rope pairs (rows of one pair share their 128-lane
 // position, so the pairs of packed rows are the output rows' pairs in every
@@ -674,15 +1054,22 @@ __device__ __forceinline__ float lora_out(int r, XaOf xa_of, LbOf lb_of) {
 // xa_q . lb_q[row]^T after the bias; GEMMA reads layer l's rope table
 // (``rope_table``).
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH,
-          bool GEMMA = false>
+          bool GEMMA = false, bool TCK = false>
 __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = fields<BITS>(), NP = planes<BITS>();
   constexpr int FT = F * TB;
+  // TC (the TCK kernel: 4 and 8 bits, batches of token groups): a warp's
+  // tile holds U
+  // rope pairs (warp_tile_dot); otherwise a warp takes one (group_dot)
+  constexpr bool TC = TCK && (BITS == 4 || BITS == 8);
+  constexpr int U = TC ? 8 / F : 1;
   const int H = a.H, Dqkv = a.q_dim + 2 * a.kv_dim, P = Dqkv / F;
   const int G = H / a.gs, tF = a.tq / F;
   const int n_rope = a.rd ? a.q_dim + a.kv_dim : 0;
-  const int units = P / 2, nrb = (units + kWarps - 1) / kWarps;
-  const int groups = (a.B + TB - 1) / TB;
+  const int units = P / 2, groups = (a.B + TB - 1) / TB;
+  const int ntiles = units / U;
+  const int W = TC ? tiles_per_block(ntiles * groups) : kWarps;
+  const int nrb = (ntiles + W - 1) / W;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.qkv_pk + (size_t)l * NP * P * H;
   const bf16* sc = a.qkv_gs + (size_t)l * G * Dqkv;
@@ -691,6 +1078,12 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   const int* perm = a.ap_q ? a.ap_q + (size_t)l * H : nullptr;
   bf16* kn = a.kn + (size_t)l * a.B * a.kv_dim;
   bf16* vn = a.vn + (size_t)l * a.B * a.kv_dim;
+  float* yt = pf;                       // TC: the warp's tile sums
+  // output row of field f of packed row p
+  auto out_row = [&](int p, int f) {
+    const int t = p / tF;
+    return t * a.tq + f * tF + (p - t * tF);
+  };
   int staged = -1;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
@@ -700,68 +1093,98 @@ __device__ void gphase_qkv(const W8A8Args& a, int l, int8_t* xs, float* pf) {
       stage_rows_ord<TB, OPT>(a.x8, perm, b0, nb, H, xs);
       staged = grp;
     }
-    const int u = rb * kWarps + warp;
-    if (u >= units) continue;
-    int p0, p1, ci;
-    bool pair_rope;
-    qkv_pair(u, 128, a.rd, a.interleaved, P, p0, p1, ci, pair_rope);
-    auto row_of = [&](int v) {
-      const int p = v < FT ? p0 : p1, f = (v / TB) % F;
-      const int t = p / tF;
-      return t * a.tq + f * tF + (p - t * tF);
-    };
-    const int8_t* rows[2] = {pk + (size_t)unit_row<BITS>(p0, tF) * H,
-                             pk + (size_t)unit_row<BITS>(p1, tF) * H};
-    const float y = group_dot_zp<TB, BITS, 2, OPT>(
-        rows, H, xs, a.gs, !KMAJ, pf,
-        [&](int v, int g) { return bf(sc, (size_t)g * Dqkv + row_of(v)); },
-        szs,
-        [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; },
-        (size_t)tF * H);
-    float lora = 0.f;
-    const bool with_lora = lora_on<LORA, GEMMA>(a);
-    if (with_lora)
-      lora = lora_out<2 * FT>(
-          a.r_q,
-          [&](int v) {
-            return v % TB < nb ? a.xa_q + (size_t)(b0 + v % TB) * a.r_q
-                               : nullptr;
-          },
-          [&](int v) {
-            return a.lb_q + ((size_t)l * Dqkv + row_of(v)) * a.r_q;
-          });
-    const int b = lane % TB;
-    const bool mine = lane < 2 * FT && b < nb;
-    const int row = row_of(lane < 2 * FT ? lane : 0);
-    float yv = 0.f;
-    if (mine) {
-      yv = __fadd_rn(__fmul_rn(y, a.sx[b0 + b]), bias[row]);
-      if (with_lora) yv = __fadd_rn(yv, lora);
+    const int tile = rb * W + warp;      // TC: the warp's tile; else unit
+    if (warp >= W || tile >= ntiles) continue;
+    if constexpr (TC) {
+      // tile row i < U: the first packed row of pair tile U + i; U + i:
+      // its second
+      auto packed = [&](int i) {
+        int q0, q1, c;
+        bool rp;
+        qkv_pair(tile * U + i % U, 128, a.rd, a.interleaved, P, q0, q1, c,
+                 rp);
+        return i < U ? q0 : q1;
+      };
+      auto orow = [&](int m) {
+        return F == 2 ? out_row(packed(m & 7), m >> 3) : out_row(packed(m), 0);
+      };
+      const int g8 = lane >> 2;
+      float y4[4];
+      warp_tile_dot_zp<TB, BITS, OPT>(
+          pk + (size_t)packed(g8) * H,
+          pk + (size_t)packed(F == 2 ? g8 : g8 + 8) * H, orow(g8),
+          orow(g8 + 8), H, xs, a.gs, !KMAJ,
+          [&](int c, int g) { return bf(sc, (size_t)g * Dqkv + c); }, szs,
+          [&](int c, int g) { return szs[(size_t)g * Dqkv + c]; }, y4);
+      tile_store(yt, y4);
     }
-    const float yp = __shfl_sync(0xffffffffu, yv,
-                                 lane < FT ? lane + FT : lane - FT);
-    if (!mine) continue;
-    if constexpr (ARCH) {
-      if (a.qk_nm) {       // normed, roped and stored in phase 3
-        a.qkv_f[(size_t)(b0 + b) * Dqkv + row] = yv;
-        continue;
+    for (int j = 0; j < U; ++j) {
+      const int u = tile * U + j;
+      int p0, p1, ci;
+      bool pair_rope;
+      qkv_pair(u, 128, a.rd, a.interleaved, P, p0, p1, ci, pair_rope);
+      auto row_of = [&](int v) {
+        return out_row(v < FT ? p0 : p1, (v / TB) % F);
+      };
+      float y;
+      if constexpr (TC) {
+        y = yt[tile_row<TB, F>(lane < 2 * FT ? lane : 0, j, U) * 8 +
+               lane % TB];
+      } else {
+        const int8_t* rows[2] = {pk + (size_t)unit_row<BITS>(p0, tF) * H,
+                                 pk + (size_t)unit_row<BITS>(p1, tF) * H};
+        y = group_dot_zp<TB, BITS, 2, OPT>(
+            rows, H, xs, a.gs, !KMAJ, pf,
+            [&](int v, int g) { return bf(sc, (size_t)g * Dqkv + row_of(v)); },
+            szs,
+            [&](int v, int g) { return szs[(size_t)g * Dqkv + row_of(v)]; },
+            (size_t)tF * H);
       }
+      float lora = 0.f;
+      const bool with_lora = lora_on<LORA, GEMMA>(a);
+      if (with_lora)
+        lora = lora_out<2 * FT>(
+            a.r_q,
+            [&](int v) {
+              return v % TB < nb ? a.xa_q + (size_t)(b0 + v % TB) * a.r_q
+                                 : nullptr;
+            },
+            [&](int v) {
+              return a.lb_q + ((size_t)l * Dqkv + row_of(v)) * a.r_q;
+            });
+      const int b = lane % TB;
+      const bool mine = lane < 2 * FT && b < nb;
+      const int row = row_of(lane < 2 * FT ? lane : 0);
+      float yv = 0.f;
+      if (mine) {
+        yv = __fadd_rn(__fmul_rn(y, a.sx[b0 + b]), bias[row]);
+        if (with_lora) yv = __fadd_rn(yv, lora);
+      }
+      const float yp = __shfl_sync(0xffffffffu, yv,
+                                   lane < FT ? lane + FT : lane - FT);
+      if (!mine) continue;
+      if constexpr (ARCH) {
+        if (a.qk_nm) {     // normed, roped and stored in phase 3
+          a.qkv_f[(size_t)(b0 + b) * Dqkv + row] = yv;
+          continue;
+        }
+      }
+      float out = yv;
+      if (pair_rope && row < n_rope) {
+        const float c = rope_table<GEMMA>(a, a.cos_half,
+                                          l)[(size_t)(b0 + b) * a.cos_ld + ci];
+        const float sn = rope_table<GEMMA>(a, a.sin_half,
+                                           l)[(size_t)(b0 + b) * a.cos_ld + ci];
+        const float pv = KMAJ ? bf16r(yp) : yp;
+        out = __fadd_rn(__fmul_rn(yv, c), __fmul_rn(lane < FT ? -pv : pv, sn));
+      }
+      const bf16 o = __float2bfloat16(out);
+      a.qkv_out[(size_t)(b0 + b) * Dqkv + row] = o;
+      if (row >= a.q_dim + a.kv_dim)
+        vn[(size_t)(b0 + b) * a.kv_dim + row - a.q_dim - a.kv_dim] = o;
+      else if (row >= a.q_dim)
+        kn[(size_t)(b0 + b) * a.kv_dim + row - a.q_dim] = o;
     }
-    float out = yv;
-    if (pair_rope && row < n_rope) {
-      const float c =
-          rope_table<GEMMA>(a, a.cos_half, l)[(size_t)(b0 + b) * a.cos_ld + ci];
-      const float sn =
-          rope_table<GEMMA>(a, a.sin_half, l)[(size_t)(b0 + b) * a.cos_ld + ci];
-      const float pv = KMAJ ? bf16r(yp) : yp;
-      out = __fadd_rn(__fmul_rn(yv, c), __fmul_rn(lane < FT ? -pv : pv, sn));
-    }
-    const bf16 o = __float2bfloat16(out);
-    a.qkv_out[(size_t)(b0 + b) * Dqkv + row] = o;
-    if (row >= a.q_dim + a.kv_dim)
-      vn[(size_t)(b0 + b) * a.kv_dim + row - a.q_dim - a.kv_dim] = o;
-    else if (row >= a.q_dim)
-      kn[(size_t)(b0 + b) * a.kv_dim + row - a.q_dim] = o;
   }
 }
 
@@ -838,25 +1261,58 @@ __device__ void qk_norm_rope_heads(const W8A8Args& a, int l, int b, int g,
 }
 
 // --------------------------------------------------------------- gate/up
+// the block's arrival at counter c, n arrivals at once: thread 0 adds
+// them with acquire-release semantics after a block barrier (releasing the
+// block's writes, acquiring those of the arrivals before it) and returns
+// whether they complete need arrivals, setting the counter back to zero
+// then. Block-level; last_s: an int of shared memory.
+__device__ __forceinline__ bool arrive(int* c, int n, int need,
+                                       int* last_s) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int prev;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], %2;\n"
+                 : "=r"(prev) : "l"(c), "r"(n) : "memory");
+    *last_s = prev + n == need;
+    if (*last_s) *c = 0;
+  }
+  __syncthreads();
+  return *last_s;
+}
+
+
 // A warp per (gate, up) packed row pair of gu_pk [2 I / F, H] (gate tiles,
 // then up tiles; tile-major scales gu_gs [G, 2 I]): act(g * sx) * (u * sx)
 // into act_a [B, I] and max|a| per (token row, tile) into amax. LORA adds
 // xa_g . lb_g[row]^T to gate and up before the activation (lb_g's rows
 // tile-major like the scales' columns).
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LORA, bool ARCH,
-          bool GEMMA = false>
+          bool GEMMA = false, bool TCK = false>
 __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
   constexpr int F = fields<BITS>(), NP = planes<BITS>();
   constexpr int FT = F * TB;
+  // TC (the TCK kernel: 4 and 8 bits, batches of token groups): a warp's
+  // tile holds U
+  // (gate, up) row pairs (warp_tile_dot); otherwise a warp takes one
+  // (group_dot)
+  constexpr bool TC = TCK && (BITS == 4 || BITS == 8);
+  constexpr int U = TC ? 8 / F : 1;
   const int H = a.H, I = a.I, ti = a.ti, ng = I / ti, G = H / a.gs;
   const int tF = ti / F, PI = I / F;
-  const int nrb = (PI + kWarps - 1) / kWarps;
-  const int groups = (a.B + TB - 1) / TB;
+  const int groups = (a.B + TB - 1) / TB, ntiles = PI / U;
+  const int W = TC ? tiles_per_block(ntiles * groups) : kWarps;
+  const int nrb = (ntiles + W - 1) / W;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.gu_pk + (size_t)l * 2 * NP * PI * H;
   const bf16* sc = a.gu_gs + (size_t)l * G * 2 * I;
   const float* szs = a.gu_sz ? a.gu_sz + (size_t)l * G * 2 * I : nullptr;
   const int* perm = a.ap_g ? a.ap_g + (size_t)l * H : nullptr;
+  float* yt = pf;                       // TC: the warp's tile sums
+  // scale column of field f of unit q's gate (r = 0) or up (r = 1) row
+  auto col_of = [&](int q, int r, int f) {
+    const int tq = q / tF;
+    return (2 * tq + r) * ti + f * tF + (q - tq * tF);
+  };
   int staged = -1;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
@@ -866,64 +1322,90 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
       stage_rows_ord<TB, OPT>(a.x8, perm, b0, nb, H, xs);
       staged = grp;
     }
-    const int p = rb * kWarps + warp;
-    if (p >= PI) continue;
-    const int t = p / tF, i = p - t * tF;
-    const int8_t* rows[2] = {
-        pk + (size_t)unit_row<BITS>(p, tF) * H,
-        pk + (size_t)(NP * PI + unit_row<BITS>(p, tF)) * H};
-    auto col = [&](int v) {
-      const int r = v / FT, f = (v / TB) % F;
-      return (size_t)(2 * t + r) * ti + f * tF + i;
-    };
-    const float y = group_dot_zp<TB, BITS, 2, OPT>(
-        rows, H, xs, a.gs, !KMAJ, pf,
-        [&](int v, int g) { return bf(sc, (size_t)g * 2 * I + col(v)); },
-        szs,
-        [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; },
-        (size_t)tF * H);
-    const int b = lane % TB, f = (lane / TB) % F;
-    float v;
-    if constexpr (LORA || ARCH) {
-      // gate (lanes < FT) and up (FT .. 2 FT) each add their rank-r term
-      // (LORA) and bias (ARCH) to y * sx, then the up value goes to its
-      // gate lane
-      float lora = 0.f;
-      const bool with_lora = lora_on<LORA, GEMMA>(a);
-      if (with_lora)
-        lora = lora_out<2 * FT>(
-            a.r_g,
-            [&](int w) {
-              return w % TB < nb ? a.xa_g + (size_t)(b0 + w % TB) * a.r_g
-                                 : nullptr;
-            },
-            [&](int w) {
-              return a.lb_g + ((size_t)l * 2 * I + col(w)) * a.r_g;
-            });
-      const bool ok = lane < 2 * FT && b < nb;
-      float yy = 0.f;
-      if (ok) {
-        yy = __fmul_rn(y, a.sx[b0 + b]);
-        if (with_lora) yy = __fadd_rn(yy, lora);
-        if constexpr (ARCH) {
-          if (a.gu_bias)
-            yy = __fadd_rn(yy, a.gu_bias[(size_t)l * 2 * I + col(lane)]);
-        }
-      }
-      const float yu = __shfl_sync(0xffffffffu, yy,
-                                   lane < FT ? lane + FT : lane);
-      if (lane >= FT || b >= nb) continue;
-      v = gated(yy, yu, a.act);
-    } else {
-      const float yu = __shfl_sync(0xffffffffu, y,
-                                   lane < FT ? lane + FT : lane);
-      if (lane >= FT || b >= nb) continue;
-      const float sxb = a.sx[b0 + b];
-      v = gated(__fmul_rn(y, sxb), __fmul_rn(yu, sxb), a.act);
+    const int tile = rb * W + warp;      // TC: the warp's tile; else unit
+    if (warp >= W || tile >= ntiles) continue;
+    if constexpr (TC) {
+      // tile row i < U: the gate row of unit tile U + i; U + i: its up row
+      auto prow = [&](int i) {
+        return pk + ((size_t)(i < U ? 0 : PI) + tile * U + i % U) * H;
+      };
+      auto orow = [&](int m) {
+        const int i = F == 2 ? m & 7 : m;
+        return col_of(tile * U + i % U, i / U, F == 2 ? m >> 3 : 0);
+      };
+      const int g8 = lane >> 2;
+      float y4[4];
+      warp_tile_dot_zp<TB, BITS, OPT>(
+          prow(g8), prow(F == 2 ? g8 : g8 + 8), orow(g8), orow(g8 + 8), H, xs,
+          a.gs, !KMAJ,
+          [&](int c, int g) { return bf(sc, (size_t)g * 2 * I + c); }, szs,
+          [&](int c, int g) { return szs[(size_t)g * 2 * I + c]; }, y4);
+      tile_store(yt, y4);
     }
-    const int m = t * ti + f * tF + i;
-    a.act_a[(size_t)(b0 + b) * I + m] = v;
-    atomicMax(a.amax + (size_t)(b0 + b) * ng + t, __float_as_int(fabsf(v)));
+    for (int j = 0; j < U; ++j) {
+      const int p = tile * U + j;
+      const int t = p / tF, i = p - t * tF;
+      auto col = [&](int v) {
+        return (size_t)col_of(p, v / FT, (v / TB) % F);
+      };
+      float y;
+      if constexpr (TC) {
+        y = yt[tile_row<TB, F>(lane < 2 * FT ? lane : 0, j, U) * 8 +
+               lane % TB];
+      } else {
+        const int8_t* rows[2] = {
+            pk + (size_t)unit_row<BITS>(p, tF) * H,
+            pk + (size_t)(NP * PI + unit_row<BITS>(p, tF)) * H};
+        y = group_dot_zp<TB, BITS, 2, OPT>(
+            rows, H, xs, a.gs, !KMAJ, pf,
+            [&](int v, int g) { return bf(sc, (size_t)g * 2 * I + col(v)); },
+            szs,
+            [&](int v, int g) { return szs[(size_t)g * 2 * I + col(v)]; },
+            (size_t)tF * H);
+      }
+      const int b = lane % TB, f = (lane / TB) % F;
+      float v;
+      if constexpr (LORA || ARCH) {
+        // gate (lanes < FT) and up (FT .. 2 FT) each add their rank-r term
+        // (LORA) and bias (ARCH) to y * sx, then the up value goes to its
+        // gate lane
+        float lora = 0.f;
+        const bool with_lora = lora_on<LORA, GEMMA>(a);
+        if (with_lora)
+          lora = lora_out<2 * FT>(
+              a.r_g,
+              [&](int w) {
+                return w % TB < nb ? a.xa_g + (size_t)(b0 + w % TB) * a.r_g
+                                   : nullptr;
+              },
+              [&](int w) {
+                return a.lb_g + ((size_t)l * 2 * I + col(w)) * a.r_g;
+              });
+        const bool ok = lane < 2 * FT && b < nb;
+        float yy = 0.f;
+        if (ok) {
+          yy = __fmul_rn(y, a.sx[b0 + b]);
+          if (with_lora) yy = __fadd_rn(yy, lora);
+          if constexpr (ARCH) {
+            if (a.gu_bias)
+              yy = __fadd_rn(yy, a.gu_bias[(size_t)l * 2 * I + col(lane)]);
+          }
+        }
+        const float yu = __shfl_sync(0xffffffffu, yy,
+                                     lane < FT ? lane + FT : lane);
+        if (lane >= FT || b >= nb) continue;
+        v = gated(yy, yu, a.act);
+      } else {
+        const float yu = __shfl_sync(0xffffffffu, y,
+                                     lane < FT ? lane + FT : lane);
+        if (lane >= FT || b >= nb) continue;
+        const float sxb = a.sx[b0 + b];
+        v = gated(__fmul_rn(y, sxb), __fmul_rn(yu, sxb), a.act);
+      }
+      const int m = t * ti + f * tF + i;
+      a.act_a[(size_t)(b0 + b) * I + m] = v;
+      atomicMax(a.amax + (size_t)(b0 + b) * ng + t, __float_as_int(fabsf(v)));
+    }
   }
 }
 
@@ -935,19 +1417,28 @@ __device__ void gphase_gateup(const W8A8Args& a, int l, int8_t* xs, float* pf) {
 // to the product before the residual. GEMMA with sandwich norms writes the
 // product (bias and EoRA term added) to sand instead, for the norm pass.
 template <int TB, int BITS, bool OPT, bool LORA, bool ARCH,
-          bool GEMMA = false>
+          bool GEMMA = false, bool TCK = false>
 __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
                               float* sa_s, float* pf) {
   constexpr int F = fields<BITS>(), NP = planes<BITS>();
   constexpr int FT = F * TB, NR = F == 1 ? 2 : 1, VO = NR * FT;
+  // TC (the TCK kernel: 4 and 8 bits, batches of token groups): a warp's
+  // tile holds U
+  // units of two output rows (warp_tile_dot); otherwise a warp takes one
+  // (group_dot)
+  constexpr bool TC = TCK && (BITS == 4 || BITS == 8);
+  constexpr int U = TC ? 8 : 1;
   const int H = a.H, K = a.q_dim, P = H / F, Gq = K / a.gs;
-  const int units = P / NR, nrb = (units + kWarps - 1) / kWarps;
-  const int groups = (a.B + TB - 1) / TB;
+  const int units = P / NR, groups = (a.B + TB - 1) / TB;
+  const int ntiles = units / U;
+  const int W = TC ? tiles_per_block(ntiles * groups) : kWarps;
+  const int nrb = (ntiles + W - 1) / W;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.o_pk + (size_t)l * NP * P * K;
   const bf16* sc = a.o_gs + (size_t)l * Gq * H;
   const float* szs = a.o_sz ? a.o_sz + (size_t)l * Gq * H : nullptr;
   const int* perm = a.ap_o ? a.ap_o + (size_t)l * K : nullptr;
+  float* yt = pf;                       // TC: the warp's tile sums
   int staged = -1;
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
@@ -957,46 +1448,75 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
       if (threadIdx.x < TB)
         sa_s[threadIdx.x] =
             (int)threadIdx.x < nb ? attn_scale(a, b0 + threadIdx.x) : 1.f;
-      stage_rows_ord<TB, OPT>(a.a8, perm, b0, nb, K, xs);
+      __syncthreads();
+      stage_quant<TB, OPT>(a.attn, K, perm, 0, b0, nb, K, sa_s, xs);
       staged = grp;
     }
-    const int u = rb * kWarps + warp;
-    if (u >= units) continue;
-    auto row_of = [&](int v) { return ((v / TB) % F) * P + NR * u + v / FT; };
-    const int8_t* rows[NR];
+    const int tile = rb * W + warp;      // TC: the warp's tile; else unit
+    if (warp >= W || tile >= ntiles) continue;
+    if constexpr (TC) {
+      // tile row i: packed row NR U tile + i (8 bits) or its fields (4)
+      const int p0 = NR * U * tile, g8 = lane >> 2;
+      auto orow = [&](int m) {
+        return F == 2 ? (m >> 3) * P + p0 + (m & 7) : p0 + m;
+      };
+      float y4[4];
+      warp_tile_dot_zp<TB, BITS, OPT>(
+          pk + (size_t)(p0 + g8) * K,
+          pk + (size_t)(p0 + (F == 2 ? g8 : g8 + 8)) * K, orow(g8),
+          orow(g8 + 8), K, xs, a.gs, true,
+          [&](int c, int g) { return bf(sc, (size_t)g * H + c); }, szs,
+          [&](int c, int g) { return szs[(size_t)g * H + c]; }, y4);
+      tile_store(yt, y4);
+    }
+    for (int j = 0; j < U; ++j) {
+      const int u = tile * U + j;
+      auto row_of = [&](int v) {
+        return ((v / TB) % F) * P + NR * u + v / FT;
+      };
+      float y;
+      if constexpr (TC) {
+        y = yt[tile_row<TB, F>(lane < VO ? lane : 0, NR * j, 1) * 8 +
+               lane % TB];
+      } else {
+        const int8_t* rows[NR];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) rows[r] = pk + (size_t)(NR * u + r) * K;
-    const float y = group_dot_zp<TB, BITS, NR, OPT>(
-        rows, K, xs, a.gs, true, pf,
-        [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); },
-        szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; },
-        (size_t)P * K);
-    float lora = 0.f;
-    const bool with_lora = lora_on<LORA, GEMMA>(a);
-    if (with_lora)
-      lora = lora_out<VO>(
-          a.r_o,
-          [&](int v) {
-            return v % TB < nb ? a.xa_o + (size_t)(b0 + v % TB) * a.r_o
-                               : nullptr;
-          },
-          [&](int v) { return a.lb_o + ((size_t)l * H + row_of(v)) * a.r_o; });
-    const int b = lane % TB;
-    if (lane >= VO || b >= nb) continue;
-    float upd = __fmul_rn(y, sa_s[b]);
-    if (with_lora) upd = __fadd_rn(upd, lora);
-    if constexpr (ARCH) {
-      if (a.o_bias)
-        upd = __fadd_rn(upd, a.o_bias[(size_t)l * H + row_of(lane)]);
-    }
-    if constexpr (GEMMA) {
-      if (a.pa_norm) {
-        a.sand[(size_t)(b0 + b) * H + row_of(lane)] = upd;
-        continue;
+        for (int r = 0; r < NR; ++r) rows[r] = pk + (size_t)(NR * u + r) * K;
+        y = group_dot_zp<TB, BITS, NR, OPT>(
+            rows, K, xs, a.gs, true, pf,
+            [&](int v, int g) { return bf(sc, (size_t)g * H + row_of(v)); },
+            szs, [&](int v, int g) { return szs[(size_t)g * H + row_of(v)]; },
+            (size_t)P * K);
       }
+      float lora = 0.f;
+      const bool with_lora = lora_on<LORA, GEMMA>(a);
+      if (with_lora)
+        lora = lora_out<VO>(
+            a.r_o,
+            [&](int v) {
+              return v % TB < nb ? a.xa_o + (size_t)(b0 + v % TB) * a.r_o
+                                 : nullptr;
+            },
+            [&](int v) {
+              return a.lb_o + ((size_t)l * H + row_of(v)) * a.r_o;
+            });
+      const int b = lane % TB;
+      if (lane >= VO || b >= nb) continue;
+      float upd = __fmul_rn(y, sa_s[b]);
+      if (with_lora) upd = __fadd_rn(upd, lora);
+      if constexpr (ARCH) {
+        if (a.o_bias)
+          upd = __fadd_rn(upd, a.o_bias[(size_t)l * H + row_of(lane)]);
+      }
+      if constexpr (GEMMA) {
+        if (a.pa_norm) {
+          a.sand[(size_t)(b0 + b) * H + row_of(lane)] = upd;
+          continue;
+        }
+      }
+      float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
+      *xr = __fadd_rn(*xr, upd);
     }
-    float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
-    *xr = __fadd_rn(*xr, upd);
   }
 }
 
@@ -1008,32 +1528,74 @@ __device__ void gphase_o_rows(const W8A8Args& a, int l, int8_t* xs,
 // LORA adds xa_d . lb_d[n]^T to ma before the residual; GEMMA with
 // sandwich norms writes ma to sand instead, for the norm pass.
 template <int TB, int BITS, bool OPT, bool LORA, bool ARCH,
-          bool GEMMA = false>
+          bool GEMMA = false, bool TCK = false>
 __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
                                  float* sa_s, float* pf) {
   constexpr int F = fields<BITS>(), NP = planes<BITS>();
   constexpr int FT = F * TB, NR = F == 1 ? 2 : 1, VO = NR * FT;
+  // TC (the TCK kernel: 4 and 8 bits, batches of token groups): a warp's
+  // tile holds U
+  // units of two output rows (warp_tile_dot); otherwise a warp takes one
+  // (group_dot)
+  constexpr bool TC = TCK && (BITS == 4 || BITS == 8);
+  constexpr int U = TC ? 8 : 1;
   const int H = a.H, I = a.I, ti = a.ti, ng = I / ti, P = H / F;
-  const int units = P / NR, nrb = (units + kWarps - 1) / kWarps;
-  const int groups = (a.B + TB - 1) / TB;
+  const int units = P / NR, groups = (a.B + TB - 1) / TB;
+  const int ntiles = units / U;
+  const int W = TC ? tiles_per_block(ntiles * groups) : kWarps;
+  const int nrb = (ntiles + W - 1) / W;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int8_t* pk = a.dn_pk + (size_t)l * NP * P * I;
   const bf16* sc = a.dn_gs + (size_t)l * ng * a.gtp * H;
   const float* szs = a.dn_sz ? a.dn_sz + (size_t)l * ng * a.gtp * H : nullptr;
+  float* yt = pf;                       // TC: the warp's tile sums
   for (int bu = blockIdx.x; bu < nrb * groups; bu += gridDim.x) {
     const int rb = bu / groups, grp = bu - rb * groups;
     const int b0 = grp * TB, nb = min(TB, a.B - b0);
-    const int u = rb * kWarps + warp;
-    auto row_of = [&](int v) { return ((v / TB) % F) * P + NR * u + v / FT; };
-    float ma = 0.f;
+    const int tile = rb * W + warp;      // TC: the warp's tile; else unit
+    const bool busy = warp < W && tile < ntiles;
+    // TC: the tile's sums of (rows g, g + 8) x (tokens 2 t, 2 t + 1);
+    // otherwise lane v's
+    float ma[4] = {0.f, 0.f, 0.f, 0.f};
     for (int t = 0; t < ng; ++t) {
       __syncthreads();
       if (threadIdx.x < TB)
         sa_s[threadIdx.x] = (int)threadIdx.x < nb
                                 ? tile_scale(a.amax, b0 + threadIdx.x, ng, t)
                                 : 1.f;
-      stage_rows_ld<TB>(a.a8, I, t * ti, b0, nb, ti, xs);
-      if (u < units) {
+      if constexpr (TB == 1) {    // no int8 pass at one token row
+        __syncthreads();
+        stage_quant<TB, false>(a.act_a, I, nullptr, t * ti, b0, nb, ti, sa_s,
+                               xs);
+      } else {
+        stage_rows_ld<TB>(a.a8, I, t * ti, b0, nb, ti, xs);
+      }
+      if (!busy) continue;
+      if constexpr (TC) {
+        const int p0 = NR * U * tile, g8 = lane >> 2, t4 = lane & 3;
+        auto orow = [&](int m) {
+          return F == 2 ? (m >> 3) * P + p0 + (m & 7) : p0 + m;
+        };
+        float y4[4];
+        warp_tile_dot_zp<TB, BITS, OPT>(
+            pk + (size_t)(p0 + g8) * I + (size_t)t * ti,
+            pk + (size_t)(p0 + (F == 2 ? g8 : g8 + 8)) * I + (size_t)t * ti,
+            orow(g8), orow(g8 + 8), ti, xs, a.gs, true,
+            [&](int c, int g) {
+              return bf(sc, (size_t)(t * a.gtp + g) * H + c);
+            },
+            szs, [&](int c, int g) {
+              return szs[(size_t)(t * a.gtp + g) * H + c];
+            }, y4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ma[e] = __fadd_rn(ma[e],
+                            __fmul_rn(y4[e], sa_s[(2 * t4 + (e & 1)) % TB]));
+      } else {
+        const int u = tile;
+        auto row_of = [&](int v) {
+          return ((v / TB) % F) * P + NR * u + v / FT;
+        };
         const int8_t* rows[NR];
 #pragma unroll
         for (int r = 0; r < NR; ++r)
@@ -1048,35 +1610,48 @@ __device__ void gphase_down_rows(const W8A8Args& a, int l, int8_t* xs,
             },
             (size_t)P * I);
         if (lane < VO)
-          ma = __fadd_rn(ma, __fmul_rn(y, sa_s[lane % TB]));
+          ma[0] = __fadd_rn(ma[0], __fmul_rn(y, sa_s[lane % TB]));
       }
     }
-    if (u >= units) continue;
-    float lora = 0.f;
-    const bool with_lora = lora_on<LORA, GEMMA>(a);
-    if (with_lora)
-      lora = lora_out<VO>(
-          a.r_d,
-          [&](int v) {
-            return v % TB < nb ? a.xa_d + (size_t)(b0 + v % TB) * a.r_d
-                               : nullptr;
-          },
-          [&](int v) { return a.lb_d + ((size_t)l * H + row_of(v)) * a.r_d; });
-    const int b = lane % TB;
-    if (lane >= VO || b >= nb) continue;
-    if (with_lora) ma = __fadd_rn(ma, lora);
-    if constexpr (ARCH) {
-      if (a.dn_bias)
-        ma = __fadd_rn(ma, a.dn_bias[(size_t)l * H + row_of(lane)]);
-    }
-    if constexpr (GEMMA) {
-      if (a.pm_norm) {
-        a.sand[(size_t)(b0 + b) * H + row_of(lane)] = ma;
-        continue;
+    if (!busy) continue;
+    if constexpr (TC) tile_store(yt, ma);
+    for (int j = 0; j < U; ++j) {
+      const int u = tile * U + j;
+      auto row_of = [&](int v) {
+        return ((v / TB) % F) * P + NR * u + v / FT;
+      };
+      float m0 = ma[0];
+      if constexpr (TC)
+        m0 = yt[tile_row<TB, F>(lane < VO ? lane : 0, NR * j, 1) * 8 +
+                lane % TB];
+      float lora = 0.f;
+      const bool with_lora = lora_on<LORA, GEMMA>(a);
+      if (with_lora)
+        lora = lora_out<VO>(
+            a.r_d,
+            [&](int v) {
+              return v % TB < nb ? a.xa_d + (size_t)(b0 + v % TB) * a.r_d
+                                 : nullptr;
+            },
+            [&](int v) {
+              return a.lb_d + ((size_t)l * H + row_of(v)) * a.r_d;
+            });
+      const int b = lane % TB;
+      if (lane >= VO || b >= nb) continue;
+      if (with_lora) m0 = __fadd_rn(m0, lora);
+      if constexpr (ARCH) {
+        if (a.dn_bias)
+          m0 = __fadd_rn(m0, a.dn_bias[(size_t)l * H + row_of(lane)]);
       }
+      if constexpr (GEMMA) {
+        if (a.pm_norm) {
+          a.sand[(size_t)(b0 + b) * H + row_of(lane)] = m0;
+          continue;
+        }
+      }
+      float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
+      *xr = __fadd_rn(*xr, m0);
     }
-    float* xr = a.xs + (size_t)(b0 + b) * H + row_of(lane);
-    *xr = __fadd_rn(*xr, ma);
   }
 }
 
@@ -1420,7 +1995,8 @@ __device__ void wphase_o(const W8A8Args& a, int l, int8_t* xs, float* sa_s,
       if (threadIdx.x < TB)
         sa_s[threadIdx.x] =
             (int)threadIdx.x < nb ? attn_scale(a, b0 + threadIdx.x) : 1.f;
-      stage_rows_ld<TB>(a.a8, K, 0, b0, nb, K, xs);
+      __syncthreads();
+      stage_quant<TB, false>(a.attn, K, nullptr, 0, b0, nb, K, sa_s, xs);
       staged = grp;
     }
     int z[8][4];
@@ -1496,11 +2072,14 @@ __device__ void wphase_down(const W8A8Args& a, int l, int8_t* xs,
 // partf [K / gs, B, N] = s_g[n] * z_g[b][n] for the K-major pair-column
 // codes pk [K, N / 2] (byte column c holds output columns c and c + N / 2,
 // the high nibble the second): a block per (group of gs rows, 1024 byte
-// columns), a thread per 4 byte columns; a8 [B, lda] int8, B <= TB. srow(g):
-// the group's bf16 scale row of N.
-template <int TB, typename Srow>
+// columns), a thread per 4 byte columns; the group's int8 activations from
+// a8 [B, lda] or, where src is given, quantized as they are staged from
+// the float32 src [B, lda] with the scale sc(b, g) (B <= TB). srow(g): the
+// group's bf16 scale row of N.
+template <int TB, typename Sc, typename Srow>
 __device__ void gphase_kmajor(const W8A8Args& a, const int8_t* pk, int K,
-                              int N, int lda, int* a8w, Srow srow) {
+                              int N, const float* src, int lda, Sc sc,
+                              int* a8w, Srow srow) {
   const int N2 = N / 2, gs = a.gs, gw = gs / 4;
   const int ngr = K / gs, nn = (N2 + kNCols - 1) / kNCols;
   for (int un = blockIdx.x; un < ngr * nn; un += gridDim.x) {
@@ -1508,9 +2087,19 @@ __device__ void gphase_kmajor(const W8A8Args& a, const int8_t* pk, int K,
     __syncthreads();
     for (int e = threadIdx.x; e < TB * gw; e += kThreads) {
       const int b = e / gw, w = e - b * gw;
-      a8w[e] = b < a.B ? *reinterpret_cast<const int*>(
-                             a.a8 + (size_t)b * lda + (size_t)g * gs + 4 * w)
-                       : 0;
+      const size_t o = (size_t)b * lda + (size_t)g * gs + 4 * w;
+      unsigned v = 0;
+      if (b < a.B && src) {
+        const float4 f = *reinterpret_cast<const float4*>(src + o);
+        const float sb = sc(b, g);
+        v = (unsigned)(quant8(f.x, sb) & 0xff) |
+            ((unsigned)(quant8(f.y, sb) & 0xff) << 8) |
+            ((unsigned)(quant8(f.z, sb) & 0xff) << 16) |
+            ((unsigned)(quant8(f.w, sb) & 0xff) << 24);
+      } else if (b < a.B) {
+        v = *reinterpret_cast<const unsigned*>(a.a8 + o);
+      }
+      a8w[e] = (int)v;
     }
     __syncthreads();
     if (c0 >= N2) continue;
@@ -1576,6 +2165,28 @@ __device__ __forceinline__ void kmajor_mlp_residual(const W8A8Args& a,
     ma = __fadd_rn(ma, __fmul_rn(y, tile_scale(a.amax, b, ng, t)));
   }
   a.xs[e] = __fadd_rn(a.xs[e], ma);
+}
+
+// Kernel 13's elementwise pass elem(e) over the B x H residual (its sums of
+// group partials), in units of (token row, kThreads columns) spread over
+// the grid; the last unit of a row to finish forms the row's norm (weight
+// nw) and int8 row (counters att_count[B Hkv + b]), so that the sums and
+// the norm share one barrier. red: kWarps floats, last_s: an int of shared
+// memory.
+template <typename Elem>
+__device__ void kmajor_rows_norm(const W8A8Args& a, Elem elem,
+                                 const float* nw, float* red, int* last_s) {
+  const int H = a.H, S = (H + kThreads - 1) / kThreads;
+  const int BG = a.B * (a.kv_dim / a.d);
+  for (int u = blockIdx.x; u < a.B * S; u += gridDim.x) {
+    const int b = u / S, k = (u - b * S) * kThreads + threadIdx.x;
+    if (k < H) elem((size_t)b * H + k);
+    if (arrive(a.att_count + BG + b, 1, S, last_s)) {
+      row_norm_quant<float>(a.xs + (size_t)b * H, H, H, nw, a.eps,
+                            a.rms_offset, a.x8 + (size_t)b * H, a.sx + b,
+                            red);
+    }
+  }
 }
 
 // ------------------------------------------------- kernel 14: the lm fold
@@ -1644,6 +2255,361 @@ __device__ void gphase_vocab(const W8A8Args& a, int8_t* xs) {
   }
 }
 
+// ------------------------------------- kernels 13 and 14: the attention
+// One (token row b, kv head g) unit of the TPU kernels walks its key
+// history in flash blocks of Tb keys from key 0 (a sliding layer's first
+// block from its window's first key to the next multiple of Tb), with a
+// running max per block. Here every block of every unit is a work item of
+// its own, so that the grid's blocks share the phase: at batch 1 and 160
+// keys, 8 kv heads give 16 items (the former walk kept 8 blocks busy, each
+// running four barrier-separated stages a key block). An item:
+//
+// * copies its block's K and V rows (at most kAttnKeys, Tb <= 128) into
+//   shared memory with cp.async, all in flight at once (K before V): keys
+//   at or past pos are never read; and beside them the unit's query heads
+//   and the current token's k and v (this step's, in the qkv row);
+// * scores them, a thread per key and head parity, each score an FMA chain
+//   over the dims in order, scaled and (gemma2) softcapped in float32;
+// * takes its block max per head and publishes it (att_part, then a flag
+//   with release semantics); the maxima are order-free, so the running max
+//   m_j of a walk from key 0 is the max of this block's and of the earlier
+//   blocks' published maxima, which the item waits for (acquire). An item
+//   waits only on items of the same unit with a smaller block index, which
+//   the grid enumerates first (index = block * B Hkv + unit) and every
+//   block walks in increasing order, all of them resident (a cooperative
+//   launch): the earliest unfinished item waits on nothing, so the waits
+//   end;
+// * forms p = exp(s - m_j), the float32 sum l_j of p and, with p rounded to
+//   bf16, pv_j = p . v (a warp per eighth of the keys in key order, the
+//   eighths added in order): the TPU kernel's rounding points, and the
+//   float order of the one-block walk that kernels 13-14 ran before, which
+//   the plain version (``flash_rows``) reproduces bit for bit at one token
+//   row (tensor-core products here moved scores by an ulp, flipped p's
+//   bf16 roundings, and a sandwich norm carried that to y);
+// * leaves pv_j, l_j in att_part and arrives at its unit's counter. The
+//   last item to arrive combines in block order, acc = acc a_j + pv_j and
+//   l = l a_j + l_j with a_j = exp(m_{j-1} - m_j) (the walk's rescale
+//   chain), folds the current token in last, writes a = acc / l and the
+//   unit's max|a| (attn_amax), and sets the unit's counter and flags back to
+//   zero for the next layer and call.
+//
+// No float is summed across blocks but in this fixed order, so nothing
+// depends on the order the blocks run in. With qwen3's qk-norm (ARCH) each
+// item first norms, ropes and stores its unit's heads (qk_norm_rope_heads:
+// every item of a unit writes the same values).
+constexpr int kAttnKeys = 128;                    // keys of an item at most
+static_assert(kThreads == 2 * kAttnKeys, "a thread per key and head parity");
+constexpr int kAttnPitch = 2 * 128 + 16;          // bytes of a K, V or q row
+constexpr int kAttnSPitch = kAttnKeys + 4;        // floats of a head's scores
+constexpr int kAttnPPitch = 2 * kAttnKeys + 16;   // bytes of a head's bf16 p
+constexpr unsigned kAttnSpins = 1u << 28;         // polls of a flag at most
+// shared memory of the attention phase: K and V rows, q (heads padded to
+// 8) and the current token's k and v, the scores, p and the item's small
+// state
+constexpr size_t kGAttnBytes =
+    2 * (size_t)kAttnKeys * kAttnPitch + (kMaxQpk + 2) * kAttnPitch +
+    sizeof(float) * kMaxQpk * kAttnSPitch + kMaxQpk * kAttnPPitch +
+    sizeof(float) * 64;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// the flash blocks of a row at position pos in layer l: j0 .. j1 - 1
+// (blocks of Tb keys from key 0; one, empty, where the row has no key to
+// read) and the first key t_lo (GEMMA: a sliding window's)
+template <bool GEMMA>
+__device__ __forceinline__ void attn_blocks(const W8A8Args& a, int l,
+                                            int pos, int& j0, int& j1,
+                                            int& t_lo) {
+  t_lo = 0;
+  if constexpr (GEMMA) {
+    if (a.windows) t_lo = max(0, pos - a.windows[l] + 1);
+  }
+  j0 = t_lo / a.Tb;
+  j1 = max(j0 + 1, (pos + a.Tb - 1) / a.Tb);
+}
+
+template <bool ARCH, bool GEMMA>
+__device__ void gphase_attention(const W8A8Args& a, int l, unsigned char* sm,
+                                 const int* pos_s) {
+  constexpr int d = 128;
+  const int Hkv = a.kv_dim / d, qpk = a.q_dim / d / Hkv, Tb = a.Tb;
+  const int Dqkv = a.q_dim + 2 * a.kv_dim, NJ = a.T / Tb, BG = a.B * Hkv;
+  const int stride = qpk * (d + 2);         // floats of an item's partials
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float cap = GEMMA ? a.softcap : 0.f;
+  const float inv_cap = cap != 0.f ? 1.f / cap : 0.f;
+  unsigned char* k_s = sm;
+  unsigned char* v_s = k_s + kAttnKeys * kAttnPitch;
+  unsigned char* q_s = v_s + kAttnKeys * kAttnPitch;
+  // the current token's k and v rows (this step's, in the qkv row)
+  const bf16* kc_s = reinterpret_cast<const bf16*>(q_s + kMaxQpk * kAttnPitch);
+  const bf16* vc_s = kc_s + kAttnPitch / 2;
+  float* s_s = reinterpret_cast<float*>(q_s + (kMaxQpk + 2) * kAttnPitch);
+  unsigned char* p_s =
+      reinterpret_cast<unsigned char*>(s_s + kMaxQpk * kAttnSPitch);
+  float* m_s = reinterpret_cast<float*>(p_s + kMaxQpk * kAttnPPitch);
+  float* mx_s = m_s + 8;       // this block's max per head
+  float* l_s = m_s + 16;       // this block's sum of p per head
+  float* pc_s = m_s + 24;      // the current token's score per head
+  float* red = m_s + 32;       // block_max
+  int* last_s = reinterpret_cast<int*>(m_s + 40);
+  int nj = 1;                  // blocks of the longest row
+  for (int b = 0; b < a.B; ++b) {
+    int j0, j1, t_lo;
+    attn_blocks<GEMMA>(a, l, pos_s[b], j0, j1, t_lo);
+    nj = max(nj, j1 - j0);
+  }
+  for (int u = blockIdx.x; u < nj * BG; u += gridDim.x) {
+    const int jj = u / BG, bg = u - jj * BG;
+    const int b = bg / Hkv, g = bg - b * Hkv;
+    int j0, j1, t_lo;
+    const int pos = pos_s[b];
+    attn_blocks<GEMMA>(a, l, pos, j0, j1, t_lo);
+    if (jj >= j1 - j0) continue;              // uniform across the block
+    const int j = j0 + jj;
+    const int ta = max(j * Tb, t_lo);
+    const int nk = max(0, min((j + 1) * Tb, pos) - ta);
+    float* part = a.att_part + ((size_t)bg * NJ + j) * stride;
+    const bf16* row = a.qkv_out + (size_t)b * Dqkv;
+    __syncthreads();                          // the last item's smem is read
+    if constexpr (ARCH) {
+      if (a.qk_nm)
+        qk_norm_rope_heads<GEMMA>(a, l, b, g, reinterpret_cast<float*>(k_s));
+    }
+    const size_t off = (size_t)l * a.cache_sl + (size_t)b * a.cache_sb +
+                       (size_t)g * a.cache_sg;
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv) {          // K, then V: a group each
+      const bf16* src = (kv ? a.v_cache : a.k_cache) + off;
+      unsigned char* dst = kv ? v_s : k_s;
+      for (int e = tid; e < nk * 16; e += kThreads) {
+        const int r = e >> 4, c = e & 15;
+        cp_async16(dst + r * kAttnPitch + c * 16,
+                   src + (size_t)(ta + r) * a.cache_st + c * 8, true);
+      }
+      cp_async_commit();
+    }
+    // the unit's query heads (padding heads zero), then the current
+    // token's k and v heads
+    for (int e = tid; e < (kMaxQpk + 2) * 16; e += kThreads) {
+      const int h = e >> 4, c = e & 15;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (h < qpk)
+        v = *reinterpret_cast<const uint4*>(row + (g * qpk + h) * d + c * 8);
+      else if (h >= kMaxQpk)
+        v = *reinterpret_cast<const uint4*>(
+            row + a.q_dim + (h - kMaxQpk) * a.kv_dim + g * d + c * 8);
+      *reinterpret_cast<uint4*>(q_s + h * kAttnPitch + c * 16) = v;
+    }
+    cp_async_wait<1>();                       // K landed
+    __syncthreads();
+    // scores: a thread per key and head parity, each (key, head) an FMA
+    // chain over the 128 dims in order, the walk's float order (a score a
+    // float ulp off flips p's bf16 rounding, and a sandwich norm carries
+    // that to every later layer)
+    {
+      const int t = tid % kAttnKeys, hp = tid / kAttnKeys;
+      if (t < nk) {
+        const unsigned char* kr = k_s + t * kAttnPitch;
+        float sc[kMaxQpk / 2];
+#pragma unroll
+        for (int i = 0; i < kMaxQpk / 2; ++i) sc[i] = 0.f;
+#pragma unroll 2
+        for (int c = 0; c < d; c += 8) {
+          const uint4 kw = *reinterpret_cast<const uint4*>(kr + 2 * c);
+          float kv[8];
+          bf16x4(make_uint2(kw.x, kw.y), kv);
+          bf16x4(make_uint2(kw.z, kw.w), kv + 4);
+#pragma unroll
+          for (int i = 0; i < kMaxQpk / 2; ++i) {
+            if (hp + 2 * i >= qpk) break;
+            const uint4 qw = *reinterpret_cast<const uint4*>(
+                q_s + (hp + 2 * i) * kAttnPitch + 2 * c);
+            float qv[8];
+            bf16x4(make_uint2(qw.x, qw.y), qv);
+            bf16x4(make_uint2(qw.z, qw.w), qv + 4);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) sc[i] = fmaf(qv[e], kv[e], sc[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxQpk / 2; ++i) {
+          if (hp + 2 * i >= qpk) break;
+          float v = sc[i] * a.scale;
+          if constexpr (GEMMA)
+            if (cap != 0.f) v = soft_cap(v, cap, inv_cap);
+          s_s[(hp + 2 * i) * kAttnSPitch + t] = v;
+        }
+      }
+    }
+    __syncthreads();
+    // the block's max per head, published; and the current token's score
+    // per head, which the unit's last item folds in last
+    for (int h = warp; h < qpk; h += kWarps) {
+      float mx = -1e30f;
+      for (int t = lane; t < nk; t += 32)
+        mx = fmaxf(mx, s_s[h * kAttnSPitch + t]);
+      mx = warp_max(mx);
+      if (lane == 0) mx_s[h] = mx;
+      const bf16* qh = reinterpret_cast<const bf16*>(q_s + h * kAttnPitch);
+      float p = 0.f;
+      for (int e = lane; e < d; e += 32)
+        p = fmaf(__bfloat162float(qh[e]), __bfloat162float(kc_s[e]), p);
+      p = warp_sum(p) * a.scale;
+      if constexpr (GEMMA)
+        if (cap != 0.f) p = soft_cap(p, cap, inv_cap);
+      if (lane == 0) pc_s[h] = p;
+    }
+    __syncthreads();
+    // (warp 1 publishes, so that warp 0 does not wait on the release)
+    if (tid == 32) {
+      for (int h = 0; h < qpk; ++h) part[qpk * d + qpk + h] = mx_s[h];
+      st_release(a.att_flag + (size_t)bg * NJ + j, 1);
+    }
+    // m_j: the max of the earlier blocks' maxima and this block's
+    if (warp == 0) {
+      float mp[kMaxQpk];
+#pragma unroll
+      for (int h = 0; h < kMaxQpk; ++h) mp[h] = -1e30f;
+      for (int jp = j0 + lane; jp < j; jp += 32) {
+        const size_t s = (size_t)bg * NJ + jp;
+        // an earlier block's max comes within microseconds; one that never
+        // came (flags or operands out of step) ends the launch with an
+        // error after seconds rather than hanging the card
+        for (unsigned spins = 0; ld_acquire(a.att_flag + s) == 0; ++spins)
+          if (spins == kAttnSpins) __trap();
+        const float* pm = a.att_part + s * stride + qpk * d + qpk;
+#pragma unroll
+        for (int h = 0; h < kMaxQpk; ++h)
+          if (h < qpk) mp[h] = fmaxf(mp[h], __ldcg(pm + h));
+      }
+#pragma unroll
+      for (int h = 0; h < kMaxQpk; ++h) {
+        const float m = warp_max(mp[h]);
+        if (lane == 0 && h < qpk) m_s[h] = fmaxf(m, mx_s[h]);
+      }
+    }
+    __syncthreads();
+    // p = exp(s - m_j) rounded to bf16 for p . v; l_j sums the unrounded p
+    for (int h = warp; h < qpk; h += kWarps) {
+      const float m = m_s[h];
+      bf16* ph = reinterpret_cast<bf16*>(p_s + h * kAttnPPitch);
+      float sum = 0.f;
+      for (int t = lane; t < nk; t += 32) {
+        const float p = expf(s_s[h * kAttnSPitch + t] - m);
+        ph[t] = __float2bfloat16(p);
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) l_s[h] = sum;
+    }
+    cp_async_wait<0>();                       // V landed
+    __syncthreads();
+    // p . v in the walk's float order: warp w takes the keys w per ..
+    // (w + 1) per - 1 (per = ceil(nk / 8)) in key order for dims 4 lane ..
+    // 4 lane + 3, and warp 0 adds the warps' sums in warp order (the K rows'
+    // shared memory holds them)
+    {
+      static_assert(kPvParts == kWarps, "a warp per key part");
+      const int per = (nk + kWarps - 1) / kWarps, lo = warp * per;
+      const int hi = min(nk, lo + per);
+      float pv[kMaxQpk][4];
+#pragma unroll
+      for (int h = 0; h < kMaxQpk; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[h][i] = 0.f;
+      for (int t = lo; t < hi; ++t) {
+        float v[4];
+        bf16x4(*reinterpret_cast<const uint2*>(v_s + t * kAttnPitch +
+                                               8 * lane), v);
+#pragma unroll
+        for (int h = 0; h < kMaxQpk; ++h)
+          if (h < qpk) {
+            const float pr = __bfloat162float(
+                reinterpret_cast<const bf16*>(p_s + h * kAttnPPitch)[t]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pv[h][i] = fmaf(pr, v[i], pv[h][i]);
+          }
+      }
+      float* pvq = reinterpret_cast<float*>(k_s);   // [warps 1..7][qpk][d]
+      if (warp) {
+#pragma unroll
+        for (int h = 0; h < kMaxQpk; ++h)
+          if (h < qpk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              pvq[((warp - 1) * kMaxQpk + h) * d + 4 * lane + i] = pv[h][i];
+      }
+      __syncthreads();
+      if (warp == 0) {
+#pragma unroll
+        for (int h = 0; h < kMaxQpk; ++h)
+          if (h < qpk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float sum = pv[h][i];
+              for (int r = 0; r < kWarps - 1; ++r)
+                sum += pvq[(r * kMaxQpk + h) * d + 4 * lane + i];
+              part[h * d + 4 * lane + i] = sum;
+            }
+      }
+    }
+    if (tid < qpk) part[qpk * d + tid] = l_s[tid];
+    // the last item of the unit to arrive combines
+    if (!arrive(a.att_count + bg, 1, j1 - j0, last_s)) continue;
+    float amax = 0.f;
+    for (int o = tid; o < qpk * d; o += kThreads) {
+      const int h = o / d, e = o - h * d;
+      float m = -1e30f, acc = 0.f, ls = 0.f;
+      // the blocks in order, four blocks' partials loaded at once
+      for (int jq = j0; jq < j1; jq += 4) {
+        float mj[4], pj[4], lj[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float* pp =
+              a.att_part + ((size_t)bg * NJ + min(jq + i, j1 - 1)) * stride;
+          mj[i] = __ldcg(pp + qpk * d + qpk + h);
+          pj[i] = __ldcg(pp + o);
+          lj[i] = __ldcg(pp + qpk * d + h);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (jq + i >= j1) break;
+          const float m_new = fmaxf(m, mj[i]);
+          const float al = expf(m - m_new);
+          acc = __fadd_rn(__fmul_rn(acc, al), pj[i]);
+          ls = __fadd_rn(__fmul_rn(ls, al), lj[i]);
+          m = m_new;
+        }
+      }
+      const float pc = pc_s[h];
+      const float m_new = fmaxf(m, pc);
+      const float al = expf(m - m_new);
+      const float pe = expf(pc - m_new);
+      ls = __fadd_rn(__fmul_rn(ls, al), pe);
+      const float out =
+          __fadd_rn(__fmul_rn(acc, al),
+                    __fmul_rn(bf16r(pe), __bfloat162float(vc_s[e]))) /
+          fmaxf(ls, 1e-30f);
+      a.attn[(size_t)b * a.q_dim + (g * qpk + h) * d + e] = out;
+      amax = fmaxf(amax, fabsf(out));
+    }
+    amax = block_max(amax, red);
+    if (tid == 0) a.attn_amax[bg] = amax;
+    for (int jp = j0 + tid; jp < j1; jp += kThreads)
+      a.att_flag[(size_t)bg * NJ + jp] = 0;   // ready for the next layer
+  }
+}
+
 // ----------------------------------------------------------------- kernel
 // LM: the instantiation with kernel 14's trailing-unembed fold (its own
 // source, megastep_lowbit_lm.cu), so that the kernels without it keep the
@@ -1654,7 +2620,7 @@ __device__ void gphase_vocab(const W8A8Args& a, int8_t* xs) {
 // (megastep_lowbit_gemma.cu), which also carries every other optional
 // operand, each run where it is set (lora_on, lm_on)
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA,
-          bool ARCH, bool GEMMA = false>
+          bool ARCH, bool GEMMA = false, bool TCK = false>
 __global__ void __launch_bounds__(kThreads, 2)
     grouped_megastep_kernel(W8A8Args a) {
   static_assert(!(LORA && KMAJ), "the EoRA epilogue is kernel 14's");
@@ -1664,7 +2630,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   float* red = reinterpret_cast<float*>(smem);
+  // a warp's own slab: the dp4a walks' group partials, or its tile's sums
+  // (warp_tile_dot, 128 floats)
   constexpr int kPf = pf_floats<TB, BITS>();
+  static_assert(TB != kGroupTB || kPf >= 128, "a tile's sums fit a slab");
   float* pf = reinterpret_cast<float*>(smem + kHeadBytes) +
               (threadIdx.x >> 5) * kPf;
   unsigned char* work = smem + kHeadBytes + kWarps * kPf * sizeof(float);
@@ -1672,33 +2641,57 @@ __global__ void __launch_bounds__(kThreads, 2)
   int8_t* xs_s = reinterpret_cast<int8_t*>(work + kSaBytes);
   // the Walsh walks' integer partials, one 1024-int slab a warp
   int* wred = reinterpret_cast<int*>(smem + kHeadBytes);
-  const int H = a.H, I = a.I, ng = I / a.ti, Hkv = a.kv_dim / a.d;
+  // an arrival's verdict (red's first kWarps floats serve block_sum/max)
+  int* last_s = reinterpret_cast<int*>(red + kWarps);
+  // the rows' positions, read once (B <= 64)
+  __shared__ int pos_s[64];
+  for (int b = threadIdx.x; b < a.B; b += kThreads) pos_s[b] = a.pos[b];
+  __syncthreads();
+  const int H = a.H, I = a.I, ng = I / a.ti;
   const size_t tid = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t nthreads = (size_t)gridDim.x * kThreads;
   const size_t BH = (size_t)a.B * H;
 
   for (int l = 0; l < a.L; ++l) {
-    // 0: layer entry (GEMMA: the previous layer's post-MLP sandwich norm
-    // into the residual, a block per row, before this phase's barrier)
-    for (size_t e = tid; e < BH; e += nthreads) {
-      if (l == 0)
-        a.xs[e] = static_cast<const float*>(a.x)[e];
-      else if (KMAJ)
-        kmajor_mlp_residual(a, e);
-    }
+    // GEMMA with the EoRA epilogue: the previous layer's post-MLP sandwich
+    // norm into the residual before a barrier (the A product of phase 1
+    // reads every row)
+    bool sand_m = false;
     if constexpr (GEMMA) {
-      if (l > 0 && a.pm_norm)
+      sand_m = l > 0 && a.pm_norm != nullptr;
+      if (sand_m && with_lora) {
         for (int b = blockIdx.x; b < a.B; b += gridDim.x)
           sandwich_row(a, b, a.pm_norm + (size_t)(l - 1) * H, nullptr, red);
+        grid.sync();
+        sand_m = false;
+      }
     }
-    grid.sync();
-    // 1: attention norm and int8 rows
-    for (int b = blockIdx.x; b < a.B; b += gridDim.x)
-      row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
-                            a.attn_norm + (size_t)l * H, a.eps, a.rms_offset,
-                            a.x8 + (size_t)b * H, a.sx + b, red);
-    if (with_lora)
-      lora_xa(a, a.xs, H, H, a.ap_q ? a.ap_q + (size_t)l * H : nullptr,
+    // 1: the layer's entry into the residual row (the input at layer 0;
+    // GEMMA the previous layer's post-MLP sandwich norm), then the
+    // attention norm and int8 rows: a block per token row; kernel 13 adds
+    // the previous layer's MLP from its group partials over the grid, the
+    // last unit of a row forming its norm (kmajor_rows_norm)
+    if (KMAJ && l > 0) {
+      kmajor_rows_norm(a, [&](size_t e) { kmajor_mlp_residual(a, e); },
+                       a.attn_norm + (size_t)l * H, red, last_s);
+    } else {
+      for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+        float* xr = a.xs + (size_t)b * H;
+        if (l == 0) {
+          for (int k = threadIdx.x; k < H; k += kThreads)
+            xr[k] = static_cast<const float*>(a.x)[(size_t)b * H + k];
+          __syncthreads();
+        } else if (sand_m) {
+          sandwich_row(a, b, a.pm_norm + (size_t)(l - 1) * H, nullptr, red);
+        }
+        row_norm_quant<float>(xr, H, H, a.attn_norm + (size_t)l * H, a.eps,
+                              a.rms_offset, a.x8 + (size_t)b * H, a.sx + b,
+                              red);
+      }
+    }
+    if (with_lora)   // at layer 0 from the input, which the rows copy
+      lora_xa(a, l == 0 ? static_cast<const float*>(a.x) : a.xs, H, H,
+              a.ap_q ? a.ap_q + (size_t)l * H : nullptr,
               a.attn_norm + (size_t)l * H, a.la_q + (size_t)l * a.r_q * H,
               a.r_q, a.xa_q, reinterpret_cast<float*>(xs_s));
     grid.sync();
@@ -1707,62 +2700,49 @@ __global__ void __launch_bounds__(kThreads, 2)
     if constexpr (BITS == kWalsh)
       wphase_qkv<LORA, ARCH, GEMMA>(a, l, xs_s, wred);
     else
-      gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
+      gphase_qkv<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA, TCK>(a, l, xs_s,
+                                                               pf);
     grid.sync();
-    // 3: attention (with qk-norm, its heads normed and roped first; GEMMA:
-    // the layer's window and the softcap)
-    for (int u = blockIdx.x; u < a.B * Hkv; u += gridDim.x) {
-      const int b = u / Hkv, g = u - b * Hkv;
-      if constexpr (ARCH) {
-        if (a.qk_nm)
-          qk_norm_rope_heads<GEMMA>(a, l, b, g,
-                                    reinterpret_cast<float*>(work));
-      }
-      const size_t off = (size_t)l * a.cache_sl + (size_t)b * a.cache_sb +
-                         (size_t)g * a.cache_sg;
-      const int pos = a.pos[b];
-      int t_lo = 0;
-      if constexpr (GEMMA) {
-        if (a.windows) t_lo = max(0, pos - a.windows[l] + 1);
-      }
-      attn_unit<GEMMA>(a, b, g, a.qkv_out, a.k_cache + off, a.v_cache + off,
-                       a.attn, a.attn_amax, reinterpret_cast<float*>(work),
-                       pos, t_lo, a.softcap);
-    }
+    // 3: attention, an item per (flash block, token row, kv head)
+    // (gphase_attention; with qk-norm each item norms and ropes its heads
+    // first; GEMMA: the layer's window and the softcap)
+    gphase_attention<ARCH, GEMMA>(a, l, smem, pos_s);
     grid.sync();
-    // 4: the attention output's int8 rows
-    for (size_t e = tid; e < (size_t)a.B * a.q_dim; e += nthreads)
-      a.a8[e] = (int8_t)quant8(a.attn[e], attn_scale(a, (int)(e / a.q_dim)));
-    if (with_lora)
+    // (o forms the attention output's int8 rows as it stages them; the
+    // EoRA epilogue's A product of the float output needs a barrier before
+    // o's rows read it)
+    if (with_lora) {
       lora_xa(a, a.attn, a.q_dim, a.q_dim,
               a.ap_o ? a.ap_o + (size_t)l * a.q_dim : nullptr, nullptr,
               a.la_o + (size_t)l * a.r_o * a.q_dim, a.r_o, a.xa_o,
               reinterpret_cast<float*>(xs_s));
-    grid.sync();
-    // 5: o
+      grid.sync();
+    }
+    // 4: o (kernel 13: group partials, summed in group order by the rows
+    // of phase 5)
     if constexpr (KMAJ) {
       const int Gq = a.q_dim / a.gs;
       const bf16* os = a.o_gs + (size_t)l * Gq * H;
+      if (threadIdx.x < TB)
+        sa_s[threadIdx.x] =
+            (int)threadIdx.x < a.B ? attn_scale(a, threadIdx.x) : 1.f;
       gphase_kmajor<TB>(a, a.o_pk + (size_t)l * a.q_dim * (H / 2), a.q_dim,
-                        H, a.q_dim, reinterpret_cast<int*>(work),
+                        H, a.attn, a.q_dim,
+                        [&](int b, int) { return sa_s[b]; },
+                        reinterpret_cast<int*>(xs_s),
                         [&](int g) { return os + (size_t)g * H; });
-      grid.sync();
-      for (size_t e = tid; e < BH; e += nthreads) {
-        const int b = (int)(e / H), n = (int)(e % H);
-        float y = 0.f;
-        for (int g = 0; g < Gq; ++g)
-          y = __fadd_rn(y, a.partf[((size_t)g * a.B + b) * H + n]);
-        a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
-      }
     } else if constexpr (BITS == kWalsh) {
       wphase_o<LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, wred);
     } else {
-      gphase_o_rows<TB, BITS, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, pf);
+      gphase_o_rows<TB, BITS, OPT, LORA, ARCH, GEMMA, TCK>(a, l, xs_s, sa_s,
+                                                           pf);
     }
     grid.sync();
-    // 6: (GEMMA) the post-attention sandwich norm into the residual, then
-    // the MLP norm and int8 rows: the block of row b does both, except with
-    // the EoRA epilogue, whose A product reads every row (a barrier between)
+    // 5: GEMMA's post-attention sandwich norm into the residual, then the
+    // MLP norm and int8 rows: a block per row, except with the EoRA
+    // epilogue, whose A product reads every row (a barrier between);
+    // kernel 13 first adds its o partials in group order over the grid,
+    // the last unit of a row forming its norm (kmajor_rows_norm)
     bool sand_a = false;
     if constexpr (GEMMA) {
       sand_a = a.pa_norm != nullptr;
@@ -1773,52 +2753,76 @@ __global__ void __launch_bounds__(kThreads, 2)
         sand_a = false;
       }
     }
-    for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-      if (sand_a) sandwich_row(a, b, a.pa_norm + (size_t)l * H, nullptr, red);
-      row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
-                            a.mlp_norm + (size_t)l * H, a.eps, a.rms_offset,
-                            a.x8 + (size_t)b * H, a.sx + b, red);
+    if constexpr (KMAJ) {
+      const int Gq = a.q_dim / a.gs;
+      kmajor_rows_norm(a, [&](size_t e) {
+        const int b = (int)(e / H), n = (int)(e % H);
+        float y = 0.f;
+        for (int g = 0; g < Gq; ++g)
+          y = __fadd_rn(y, a.partf[((size_t)g * a.B + b) * H + n]);
+        a.xs[e] = __fadd_rn(a.xs[e], __fmul_rn(y, attn_scale(a, b)));
+      }, a.mlp_norm + (size_t)l * H, red, last_s);
+    } else {
+      for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+        if (sand_a)
+          sandwich_row(a, b, a.pa_norm + (size_t)l * H, nullptr, red);
+        row_norm_quant<float>(a.xs + (size_t)b * H, H, H,
+                              a.mlp_norm + (size_t)l * H, a.eps,
+                              a.rms_offset, a.x8 + (size_t)b * H, a.sx + b,
+                              red);
+      }
     }
     if (with_lora)
       lora_xa(a, a.xs, H, H, a.ap_g ? a.ap_g + (size_t)l * H : nullptr,
               a.mlp_norm + (size_t)l * H, a.la_g + (size_t)l * a.r_g * H,
               a.r_g, a.xa_g, reinterpret_cast<float*>(xs_s));
     grid.sync();
-    // 7: gate/up
+    // 6: gate/up
     if constexpr (BITS == kWalsh)
       wphase_gateup<LORA, ARCH, GEMMA>(a, l, xs_s, wred);
     else
-      gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, pf);
+      gphase_gateup<TB, BITS, KMAJ, OPT, LORA, ARCH, GEMMA, TCK>(a, l, xs_s,
+                                                                  pf);
     grid.sync();
-    // 8: the activation's int8 rows per tile
-    for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
-      const int b = (int)(e / I), m = (int)(e % I);
-      a.a8[e] = (int8_t)quant8(a.act_a[e], tile_scale(a.amax, b, ng, m / a.ti));
+    // the activation's int8 rows per MLP tile: at one token row down forms
+    // them as it stages them; otherwise a pass with a barrier of its own,
+    // which the EoRA epilogue's A product of the float activation shares
+    if (TB > 1 || with_lora) {
+      if constexpr (TB > 1) {
+        for (size_t e = tid; e < (size_t)a.B * I; e += nthreads) {
+          const int b = (int)(e / I), m = (int)(e % I);
+          a.a8[e] = (int8_t)quant8(a.act_a[e],
+                                   tile_scale(a.amax, b, ng, m / a.ti));
+        }
+      }
+      if (with_lora)
+        lora_xa(a, a.act_a, I, a.ti, nullptr, nullptr,
+                a.la_d + (size_t)l * a.r_d * I, a.r_d, a.xa_d,
+                reinterpret_cast<float*>(xs_s));
+      grid.sync();
     }
-    if (with_lora)
-      lora_xa(a, a.act_a, I, a.ti, nullptr, nullptr,
-              a.la_d + (size_t)l * a.r_d * I, a.r_d, a.xa_d,
-              reinterpret_cast<float*>(xs_s));
-    grid.sync();
-    // 9: down
+    // 7: down
     if constexpr (KMAJ) {
       const bf16* ds = a.dn_gs + (size_t)l * ng * a.gtp * H;
       const int gti = a.ti / a.gs;
-      gphase_kmajor<TB>(a, a.dn_pk + (size_t)l * I * (H / 2), I, H, I,
-                        reinterpret_cast<int*>(work), [&](int g) {
-                          return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
-                        });
+      gphase_kmajor<TB>(
+          a, a.dn_pk + (size_t)l * I * (H / 2), I, H,
+          TB == 1 ? a.act_a : nullptr, I,
+          [&](int b, int g) { return tile_scale(a.amax, b, ng, g / gti); },
+          reinterpret_cast<int*>(xs_s), [&](int g) {
+            return ds + (size_t)((g / gti) * a.gtp + g % gti) * H;
+          });
     } else if constexpr (BITS == kWalsh) {
       wphase_down<LORA, ARCH, GEMMA>(a, l, xs_s, sa_s, wred);
     } else {
-      gphase_down_rows<TB, BITS, OPT, LORA, ARCH, GEMMA>(a, l, xs_s, sa_s,
-                                                         pf);
+      gphase_down_rows<TB, BITS, OPT, LORA, ARCH, GEMMA, TCK>(a, l, xs_s,
+                                                              sa_s, pf);
     }
     grid.sync();
   }
-  bool sand_m = false;
-  if constexpr (GEMMA) sand_m = a.pm_norm != nullptr;
-  if (sand_m) {     // the last layer's post-MLP sandwich norm, y = x
+  bool sand_last = false;
+  if constexpr (GEMMA) sand_last = a.pm_norm != nullptr;
+  if (sand_last) {  // the last layer's post-MLP sandwich norm, y = x
     for (int b = blockIdx.x; b < a.B; b += gridDim.x)
       sandwich_row(a, b, a.pm_norm + (size_t)(a.L - 1) * H,
                    static_cast<float*>(a.y), red);
@@ -1849,19 +2853,23 @@ __host__ __forceinline__ bool gemma_any(const W8A8Args* p) {
 }
 
 template <int TB, int BITS, bool KMAJ, bool OPT, bool LM, bool LORA,
-          bool ARCH, bool GEMMA = false>
+          bool ARCH, bool GEMMA = false, bool TCK = false>
 cudaError_t launch_grouped(const W8A8Args& a, cudaStream_t s) {
   if (!GEMMA && gemma_any(&a)) return cudaErrorInvalidValue;
-  auto kernel =
-      grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>;
+  auto kernel = grouped_megastep_kernel<TB, BITS, KMAJ, OPT, LM, LORA, ARCH,
+                                        GEMMA, TCK>;
+  if (a.Tb > kAttnKeys || a.T % a.Tb || !a.att_part || !a.att_flag ||
+      !a.att_count)
+    return cudaErrorInvalidValue;
   size_t kmax = (size_t)a.H;
   if (!KMAJ) kmax = (size_t)std::max(a.H, std::max(a.q_dim, a.ti));
-  size_t work = sizeof(float) * kAttnSmemFloats;
-  const size_t staged = kSaBytes + TB * ((kmax + 127) / 128) * kPad;
-  if (staged > work) work = staged;
-  if (KMAJ && (size_t)TB * a.gs > work) work = (size_t)TB * a.gs;
-  const size_t smem = kHeadBytes +
-                      kWarps * pf_floats<TB, BITS>() * sizeof(float) + work;
+  size_t work = kSaBytes + TB * ((kmax + 127) / 128) * kPad;
+  if (KMAJ && kSaBytes + (size_t)TB * a.gs > work)
+    work = kSaBytes + (size_t)TB * a.gs;
+  const size_t head =
+      kHeadBytes + kWarps * pf_floats<TB, BITS>() * sizeof(float);
+  // the attention phase takes the whole of it
+  const size_t smem = std::max(head + work, kGAttnBytes);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -1892,6 +2900,19 @@ cudaError_t launch_grouped_b(const W8A8Args& a, cudaStream_t s) {
   // the Walsh walks stage 8 token rows for the tensor-core products; the
   // other decodes stage as few as the batch needs, at most max_tb<BITS>()
   if constexpr (BITS == kWalsh) {
+    return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(
+        a, s);
+  } else if constexpr ((BITS == 4 || BITS == 8) && !KMAJ) {
+    // batches of token groups: the kernel with the tensor-core tiles
+    if (a.B > kGroupTB)
+      return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA,
+                            true>(a, s);
+    if (a.B <= 1)
+      return launch_grouped<1, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+    if (a.B <= 2)
+      return launch_grouped<2, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
+    if (a.B <= 4)
+      return launch_grouped<4, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(a, s);
     return launch_grouped<kGroupTB, BITS, KMAJ, OPT, LM, LORA, ARCH, GEMMA>(
         a, s);
   } else {

@@ -23,7 +23,9 @@
 // [L, NG * gtp, H]; k/v_cache [L, B Hkv, T, 128] bf16; pos [B] int32;
 // cos/sin_half [B, cos_ld]. Out kn/vn [L, B, kv_dim] bf16. Scratch:
 // qkv_out [B, Dqkv] bf16, x8 [B, H], sx [B], xs [B, H], act_a [B, I], amax
-// [B, I / ti], a8 [B, max(q_dim, I)], attn [B, q_dim], attn_amax [B Hkv].
+// [B, I / ti], a8 [B, max(q_dim, I)], attn [B, q_dim], attn_amax [B Hkv],
+// and the attention items' att_part, att_flag and att_count (the last two
+// zero between calls, see W8A8Args).
 // Packs with zero points or act-order take ganq_megastep_lowbit_opt
 // (megastep_lowbit_opt.cu), a step with the trailing-unembed fold
 // ganq_megastep_lowbit_lm (megastep_lowbit_lm.cu), a pack with EoRA

@@ -143,6 +143,14 @@ struct W8A8Args {
   const int* rope_sel;
   float* sand;
   float softcap;
+  // kernels 13 and 14 (megastep_grouped.cuh): float32 partials [B Hkv,
+  // T / Tb, qpk (d + 2)] of each attention flash block (p . v, the sum of
+  // p, the block max), int32 flags [B Hkv, T / Tb] of the blocks' maxima,
+  // and int32 arrival counters of the attention units [B Hkv] and the
+  // token rows [B], zero between calls (the kernel sets each back)
+  float* att_part;
+  int* att_flag;
+  int* att_count;
 };
 
 namespace {

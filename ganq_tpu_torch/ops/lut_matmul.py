@@ -7,8 +7,8 @@ int32 words (``ops/packing.py``), possibly padded past K.
 :func:`lut_matmul` launches the hand-written CUDA kernel
 (``csrc/lut_matmul.cu``) for a CUDA tensor and runs the plain version,
 :func:`lut_matmul_reference`, only for a CPU tensor. On CUDA it takes every
-shape the serving path gives it (bits 2/3/4, any M, padded K, any number of
-rows) or raises; there is no silent fallback. The C entry picks a decode,
+shape the serving path gives it (bits 2/3/4/8, any M, padded K, any number
+of rows) or raises; there is no silent fallback. The C entry picks a decode,
 tile or GEMV path by shape; a call that splits K over blocks gets one
 scratch buffer for the partial sums, sized through the library once a
 shape.
@@ -39,8 +39,9 @@ def lut_matmul_reference(x: torch.Tensor, lut: torch.Tensor,
 
 
 def _check(x, lut, idx_packed, bits):
-    if bits not in (2, 3, 4):
-        raise ValueError(f"lut_matmul kernel: bits must be 2, 3 or 4, got {bits}")
+    if bits not in (2, 3, 4, 8):
+        raise ValueError("lut_matmul kernel: bits must be 2, 3, 4 or 8, got "
+                         f"{bits}")
     if x.dtype not in _X_TYPES:
         raise TypeError(f"lut_matmul kernel: x must be bf16 or f32, got {x.dtype}")
     if idx_packed.dtype != torch.int32:

@@ -1082,10 +1082,11 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     rd = rotary_dim or 0
     if (d != 128 or Dqkv != q_dim + 2 * kv_dim or (q_dim // d) % Hkv
             or q_dim // d // Hkv > 8 or H % (128 * g_r) or gs % 128
-            or H % gs or q_dim % gs or ti % gs or I % ti or Tb > 256
+            or H % gs or q_dim % gs or ti % gs or I % ti or Tb > 128
             or T % Tb or rd % 2 or rd > d or act not in ACT_CODES):
         raise ValueError(f"{what}: head_dim 128, at most 8 query heads per kv "
-                         "head, 128-multiple groups and tiles")
+                         "head, 128-multiple groups and tiles, flash blocks "
+                         "of at most 128 keys")
     if (k_cache.shape != (L, B * Hkv, T, d) or v_cache.shape != k_cache.shape
             or k_cache.dtype != torch.bfloat16
             or v_cache.dtype != torch.bfloat16
@@ -1214,6 +1215,9 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     scratch = functools.partial(torch.empty, device=dev)
     x8 = scratch((B, H), dtype=torch.int8)
     sx = scratch((B,), dtype=torch.float32)
+    # flags of the attention items, then arrival counters of the (row, kv
+    # head) units and the token rows
+    flags = _attention_flags(dev, B * Hkv * (T // Tb + 1) + B)
     launch(library, symbol, what, dict(
         x=x.to(torch.float32).contiguous(), attn_norm=mp["attn_norm"],
         mlp_norm=mp["mlp_norm"], qkv_bias=mp["qkv_bias"], cos_half=cos_t,
@@ -1228,6 +1232,10 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
         a8=scratch((B, max(q_dim, I)), dtype=torch.int8),
         attn=scratch((B, q_dim), dtype=torch.float32),
         attn_amax=scratch((B * Hkv,), dtype=torch.float32),
+        att_part=scratch((B * Hkv, T // Tb, q_dim // kv_dim * (d + 2)),
+                         dtype=torch.float32),
+        att_flag=flags[:B * Hkv * (T // Tb)],
+        att_count=flags[B * Hkv * (T // Tb):],
         partf=(scratch((max(q_dim, I) // gs, B, H), dtype=torch.float32)
                if kmajor else None), **extra), dev,
         B=B, H=H, q_dim=q_dim, kv_dim=kv_dim, d=d, rd=rd,
@@ -1243,6 +1251,23 @@ def launch_grouped(library: str, symbol: str, what: str, x: torch.Tensor,
     if fold_rows is not None:
         fold_rows.update(x8=x8, sx=sx)
     return y.to(x.dtype), kn, vn, extra["logits"]
+
+
+_FLAGS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _attention_flags(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 flags and arrival counters of kernels 13 and
+    14 (the attention items' flags, then the counters of the attention
+    units and the token rows) on ``device``: zero when made,
+    and the kernel sets each back to zero when its phase is done with it,
+    so calls that do not overlap on the device (the port's: one stream at a
+    time) share them."""
+    buf = _FLAGS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _FLAGS[device] = buf
+    return buf
 
 
 def gemma_call(mp: Dict[str, torch.Tensor], softcap=0.0, windows=None,

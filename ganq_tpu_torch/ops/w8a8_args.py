@@ -9,8 +9,9 @@ float32 Walsh coefficient rows for "wl8"; kernel 14 alone the zero-point
 corrections, the act-order column orders, the lm fold's operands and
 vocabulary size ``V``, the EoRA epilogue's factors, scratch and ranks,
 the qk-norm rows, the o/gate-up/down biases and the qk-norm's float32
-qkv scratch, and at the end gemma's sandwich norms, windows, rope
-selector, sandwich scratch and softcap). Field order and types must
+qkv scratch, then gemma's sandwich norms, windows, rope selector,
+sandwich scratch and softcap, and at the end the attention items'
+partials, flags and arrival counters). Field order and types must
 match the header's. Pointers are tensors' ``data_ptr()`` (0 for an unused
 field); the kernels read and write them on the caller's stream, so every
 tensor named here must stay alive until the launch has been enqueued, which
@@ -46,6 +47,7 @@ _LORA_INTS = ("r_q", "r_o", "r_g", "r_d")
 _ARCH_POINTERS = ("qk_nm", "o_bias", "gu_bias", "dn_bias", "qkv_f")
 _GEMMA_POINTERS = ("pa_norm", "pm_norm", "windows", "rope_sel", "sand")
 _GEMMA_FLOATS = ("softcap",)
+_ATTN_POINTERS = ("att_part", "att_flag", "att_count")
 
 ACT_CODES = {"silu": 0, "gelu_tanh": 1, "gelu": 2}
 
@@ -60,7 +62,8 @@ class W8A8Args(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in _LORA_INTS]
                 + [(n, ctypes.c_void_p) for n in _ARCH_POINTERS]
                 + [(n, ctypes.c_void_p) for n in _GEMMA_POINTERS]
-                + [(n, ctypes.c_float) for n in _GEMMA_FLOATS])
+                + [(n, ctypes.c_float) for n in _GEMMA_FLOATS]
+                + [(n, ctypes.c_void_p) for n in _ATTN_POINTERS])
 
 
 def launch(library: str, symbol: str, what: str,

@@ -48,9 +48,8 @@ sys.path.insert(0, str(ROOT))
 PHASES = {
     "w8": ["mlp residual", "attn norm", "qkv+rope", "attention", "o product",
            "o residual", "mlp norm", "gate/up", "down"],
-    "grouped": ["layer entry", "attn norm", "qkv+rope", "attention",
-                "attn int8", "o product", "mlp norm", "gate/up", "act int8",
-                "down"]}
+    "grouped": ["attn norm", "qkv+rope", "attention", "o product",
+                "mlp norm", "gate/up", "down"]}
 _TAIL = """
 extern "C" int prof_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
@@ -123,8 +122,9 @@ def build(kind: str, max_layers: int) -> ctypes.CDLL:
     cu, so = out / f"megastep_{kind}_profile.cu", \
         out / f"libmegastep_{kind}_profile.so"
     cu.write_text(src + _TAIL)
-    res = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
-                          str(so), str(cu)], capture_output=True, text=True)
+    res = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS,
+                          f"-I{csrc}", "-o", str(so), str(cu)],
+                         capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(res.stdout + res.stderr)
     return ctypes.CDLL(str(so))

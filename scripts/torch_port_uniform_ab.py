@@ -5,14 +5,15 @@
 builds of them on one card.
 
     python3 scripts/torch_port_uniform_ab.py ROOT [--batches 1,8,128,512]
-        [--x-dtype bf16|float32] [--kernels k1,k2,k5,k6,k7,k8] [--eager]
+        [--x-dtype bf16|float32] [--kernels k1,k1w8,k2,k5,k6,k7,k8] [--eager]
         [--step] [--check] [--profile]
 
 ROOT is a checkout of the repository (``.`` or, for the parent commit, a
 ``git archive`` of it unpacked under ``build/``); its kernel sources build
 into ROOT/build. The cases are ``chip_smoke.py``'s at the Llama-3.2-1B
 linears: kernel 1 on 4-bit ``lut`` codes with a sorted random bf16
-codebook a row (``check_lut_matmul``); kernels 5-6 on symmetric codes with
+codebook a row (``check_lut_matmul``), and with ``k1w8`` on 8-bit codes
+(256-entry codebooks); kernels 5-6 on symmetric codes with
 128-column groups, kernel 5 at 4 bits and kernel 6 at 4 and 8 bits
 (``check_uniform_kernels``); kernels 7-8 on per-row int8 weights
 (``check_w8_kernels``), and kernel 7 also on the Llama-3.1-8B lm_head
@@ -81,7 +82,7 @@ def main() -> int:
         raise RuntimeError("needs a CUDA device")
     kernels = args.kernels.split(",")
     cuda_lib.build_all(
-        [src for src, ks in (("lut_matmul", ("k1",)),
+        [src for src, ks in (("lut_matmul", ("k1", "k1w8")),
                              ("flash_decode", ("k2",)),
                              ("uniform_matmul", ("k5", "k6")),
                              ("w8_matmul", ("k7", "k8")))
@@ -159,6 +160,8 @@ def main() -> int:
         for name, kernel, bits, peak, mk, dense_of, shapes, bs in (
                 ("k1", lut_matmul, 4, cs.BF16_FLOPS_PER_S, make_lut,
                  dense_lut, linears, batches),
+                ("k1w8", lut_matmul, 8, cs.BF16_FLOPS_PER_S, make_lut,
+                 dense_lut, linears, batches),
                 ("k5", uniform_matmul, 4, cs.BF16_FLOPS_PER_S, make,
                  dense_uniform, linears, batches),
                 ("k6", uniform_a8_matmul, 4, cs.INT8_OPS_PER_S, make,
@@ -188,7 +191,7 @@ def main() -> int:
                                       [(x, w) for w in dense], iters)
                     wbytes = (M * K + M * 4 if name in ("k7", "k8") else
                               M * K * bits // 8 + M * 2**bits * 2
-                              if name == "k1" else
+                              if name.startswith("k1") else
                               M * K * bits // 8 + M * (K // 128) * 4)
                     nbytes = (B * K + B * M) * x.element_size() + wbytes
                     b_ms, _ = cs.bound(nbytes, 2.0 * B * M * K, peak)

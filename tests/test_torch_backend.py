@@ -35,7 +35,7 @@ def _lut_linear(bits):
     return tql.lut_linear(lut, idx, bits)
 
 
-@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
 def test_cpu_takes_reference_and_card_takes_cuda(bits):
     model = torch.nn.ModuleList([_lut_linear(bits), tql.dense_linear(
         torch.ones(4, 4))])
@@ -46,7 +46,7 @@ def test_cpu_takes_reference_and_card_takes_cuda(bits):
 
 
 @pytest.mark.parametrize("make,match", [
-    (lambda: _lut_linear(8), "2, 3 or 4 bits"),
+    (lambda: _lut_linear(1), "2, 3, 4 or 8 bits"),
 ])
 def test_card_raises_for_a_linear_without_kernel(make, match):
     model = torch.nn.ModuleList([_lut_linear(4), make()])

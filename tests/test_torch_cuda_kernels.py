@@ -94,6 +94,35 @@ def test_lut_matmul_matches_plain(gen, bits, B, dtype, K):
         _assert_within_ulp(got, exact)
 
 
+@pytest.mark.parametrize("B", [1, 8, 17, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1100, 72, 8192])
+def test_lut_matmul_8bit_matches_plain(gen, B, dtype, K):
+    """8-bit codes (256-entry codebooks) at the tolerances of
+    test_lut_matmul_matches_plain: the GEMV up to 16 token rows and for f32
+    x, the 64-row tile beyond (K split to 2048 columns a block at K' =
+    8192). K = 1100 packs to a padded width, K = 72 to one that is no
+    multiple of 16 words (the GEMV for every x); M = 72 is no multiple of
+    the tile's 64 rows."""
+    bits, M = 8, 72
+    pf = pack_factor(bits)
+    align = 128 * pf if K > 128 * pf else pf
+    Kp = -(-K // align) * align
+    lut, packed = _lut_problem(gen, bits, M, K, Kp)
+    x = torch.randn((B, K), generator=gen, device="cuda").to(dtype)
+    before = lut_matmul.launches
+    got = lut_matmul(x, lut, packed, bits)
+    assert lut_matmul.launches == before + 1
+    plain = lut_matmul_reference(x, lut, packed, bits)
+    assert got.dtype == dtype and got.shape == (B, M)
+    exact = lut_matmul_reference(x.double(), lut, packed, bits)
+    scale = float(exact.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5 * scale)
+    else:
+        _assert_within_ulp(got, exact)
+
+
 def test_lut_matmul_f32_codebook_and_leading_dims(gen):
     M, K = 16, 256
     lut, packed = _lut_problem(gen, 4, M, K, K)
@@ -1005,6 +1034,42 @@ def test_megastep4_matches_plain(gen, L, H, q_dim, kv_dim, I, B, T, pos0):
     _close(y, py, 5e-3, what + " y")
 
 
+@pytest.mark.parametrize("kernel", ["w4p", "w8p", "k13"])
+@pytest.mark.parametrize("B", [1, 9, 16])
+@pytest.mark.parametrize("pos0", [0, 1, 127, 128, 129, 300])
+def test_megastep_attention_block_edges(gen, kernel, B, pos0):
+    """Kernels 14 ("w4p", "w8p") and 13 where the attention's flash blocks
+    (Tb = 128 over a 512-key cache) split: histories of 0, 1, Tb - 1, Tb
+    and Tb + 1 keys and one that ends inside its third block (300), slot b
+    at pos0 + b, so a batch crosses the edges too; B = 9 and 16 are the
+    first batches of two token groups (kernel 13, which takes 8 at most,
+    runs 8). Against the plain version at the tolerance of
+    test_megastep_lowbit_matches_plain; cache rows at and past each slot's
+    position hold values that would show if read."""
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    k13 = kernel == "k13"
+    B = min(B, 8) if k13 else B
+    bits = 8 if kernel == "w8p" else 4
+    mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, k13)
+    pos = [pos0 + b for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, 512, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=1.0 / math.sqrt(128))
+    if not k13:
+        kw["bits"] = bits
+    kernel_fn = megastep4_decode if k13 else megastep_lowbit_decode
+    plain_fn = megastep4_plain if k13 else megastep_lowbit_plain
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    y, kn, vn = kernel_fn(x, mp, kc, vc, pos_t, cos, sin, **kw)
+    py, pk, pv = plain_fn(x, mp, kc, vc, pos, cos, sin, **kw)
+    torch.cuda.synchronize()
+    what = f"{kernel} B={B} pos={pos0}"
+    _close(kn, pk, 5e-3, what + " k_new")
+    _close(vn, pv, 5e-3, what + " v_new")
+    _close(y, py, 5e-3, what + " y")
+
+
 # the smoke's random operands (chip_smoke.py phase 3)
 from chip_smoke import _moe_pack, _zp_ao_operands
 
@@ -1486,6 +1551,41 @@ def test_megastep_lowbit_gemma_matches_plain(gen, L, H, q_dim, kv_dim, I,
     if V:
         _close(got[3], lm_fold_plain(got[0], lm, 1e-6, 1.0), 5e-3,
                what + " logits")
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("B", [1, 9])
+def test_megastep_lowbit_gemma_window_inside_a_block(gen, bits, B):
+    """A sliding window of 100 at positions 300 + 7 b over a 512-key cache
+    (Tb = 128): the first key read, 201 + 7 b, lies inside a flash block,
+    which the kernel's first item reads from there to the block's end, so
+    that the later blocks and their running maxima are those of a walk from
+    key 0 (the plain version's); Gemma 2's softcap on, at the gemma test's
+    tolerance."""
+    L, H, q_dim, kv_dim, I = _GROUPED_SHAPES[0]
+    T, window = 512, 100
+    cfg = _gemma_cfg("g2", L, H, q_dim, kv_dim, I, window)
+    mp = _grouped_pack(gen, L, H, q_dim, kv_dim, I, bits, False)
+    gkw = _gemma_operands(gen, mp, cfg, L)
+    gkw["windows"] = torch.tensor([cfg.layer_window(i) or T
+                                   for i in range(L)], dtype=torch.int32,
+                                  device="cuda")
+    pos = [300 + 7 * b for b in range(B)]
+    x, kc, vc = _grouped_step(gen, L, H, kv_dim, B, T, pos)
+    cos, sin = _rope(gen, 128)
+    kw = dict(q_dim=q_dim, kv_dim=kv_dim, head_dim=128, rotary_dim=128,
+              scale=cfg.attn_scale, bits=bits, rms_offset=1.0,
+              act="gelu_tanh", eps=1e-6)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    got = megastep_lowbit_decode(x.float(), mp, kc, vc, pos_t, cos, sin,
+                                 **kw, **gkw)
+    py, pk, pv = megastep_lowbit_plain(x.float(), mp, kc, vc, pos, cos, sin,
+                                       **kw, **gkw)
+    torch.cuda.synchronize()
+    what = f"megastep_lowbit gemma window bits={bits} B={B}"
+    _close(got[1], pk, 3.5e-2, what + " k_new")
+    _close(got[2], pv, 3.5e-2, what + " v_new")
+    _close(got[0], py, 3.5e-2, what + " y")
 
 
 def test_megastep_lowbit_gemma_refuses_a_partial_launch(gen):

@@ -77,6 +77,27 @@ def test_f32_matches_pallas(rng, interp, bits, B):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * scale)
 
 
+def test_eight_bits_match_the_xla_reference(rng):
+    """8-bit codes: ganq_tpu's lut_matmul serves them through its XLA
+    reference; the port's plain version (its kernel's on the card) on the
+    same inputs agrees to the float32 sums' order."""
+    from ganq_tpu_torch.ops.packing import pack_int_rows as tpack
+
+    bits, B, M, K = 8, 5, 16, 4 * 128
+    x = torch.from_numpy(rng.normal(size=(B, K)).astype(np.float32))
+    lut = torch.sort(torch.from_numpy(
+        rng.normal(size=(M, 2**bits)).astype(np.float32)), dim=1).values
+    packed = tpack(torch.from_numpy(rng.integers(0, 2**bits, size=(M, K))),
+                   bits)                  # ganq_tpu's bytes (test_torch_packing)
+    want = np.array(jlm.lut_matmul(jnp.asarray(x.numpy()),
+                                  jnp.asarray(lut.numpy()),
+                                  jnp.asarray(packed.numpy()), bits))
+    got = tlm.lut_matmul(x, lut, packed, bits)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("bits", [2, 3, 4])
 def test_bf16_within_one_ulp(rng, interp, bits):
     B, M, K = 8, 16, _width_aligned_k(bits)
@@ -118,10 +139,15 @@ def test_padded_k_matches_pallas(rng, interp, bits):
 
 
 def test_leading_dims_and_dtype(rng):
-    x, lut, packed = _problem(rng, 4, 6, 8, 64)
-    x3 = torch.from_numpy(x).reshape(2, 3, 64)
-    out = tlm.lut_matmul(x3, torch.from_numpy(lut), torch.from_numpy(packed), 4)
-    assert out.shape == (2, 3, 8)
-    flat = tlm.lut_matmul_reference(torch.from_numpy(x), torch.from_numpy(lut),
-                                    torch.from_numpy(packed), 4)
+    """The port's wrapper alone (no JAX on this path): codes packed by the
+    port's packer, which ganq_tpu's equals (tests/test_torch_packing.py)."""
+    from ganq_tpu_torch.ops.packing import pack_int_rows as tpack
+
+    x = torch.from_numpy(rng.normal(size=(6, 64)).astype(np.float32))
+    lut = torch.sort(torch.from_numpy(
+        rng.normal(size=(8, 16)).astype(np.float32)), dim=1).values
+    packed = tpack(torch.from_numpy(rng.integers(0, 16, size=(8, 64))), 4)
+    out = tlm.lut_matmul(x.reshape(2, 3, 64), lut, packed, 4)
+    assert out.shape == (2, 3, 8) and out.dtype == x.dtype
+    flat = tlm.lut_matmul_reference(x, lut, packed, 4)
     np.testing.assert_array_equal(out.reshape(6, 8).numpy(), flat.numpy())
